@@ -1,0 +1,43 @@
+"""Test helpers shared by tests/test_torch_*.py: export the JAX
+reference's state to numpy (only tests may import both packages) and
+compare k-NN results of the reference and the port."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+IVF_FIELDS = ("centroids", "cnorms", "members", "pvecs", "pnorms", "alive")
+
+
+def export_ivf(state, cfg) -> tuple[dict, dict]:
+    """A reference IvfState + IvfConfig -> (numpy arrays, config dict)."""
+    arrays = {f: np.asarray(getattr(state, f)) for f in IVF_FIELDS}
+    conf = dataclasses.asdict(cfg)
+    conf["metric"] = cfg.metric.value
+    return arrays, conf
+
+
+def export_flat(index) -> tuple[np.ndarray, np.ndarray, int]:
+    """A reference FlatIndex -> (vectors [size, d], valid [size], metric value)."""
+    n = index.size
+    return (np.asarray(index._vectors)[:n], np.asarray(index._valid)[:n],
+            index.metric.value)
+
+
+def assert_knn_match(d_ref, i_ref, d_port, i_port, rtol=1e-4, atol=1e-3):
+    """Same +inf pattern; finite distances within rtol/atol; where the ids
+    differ on a finite entry, the two distances must tie within the same
+    tolerance (summation order may swap near-equal neighbours)."""
+    d_ref, d_port = np.asarray(d_ref), np.asarray(d_port)
+    i_ref, i_port = np.asarray(i_ref), np.asarray(i_port)
+    assert d_ref.shape == d_port.shape and i_ref.shape == i_port.shape
+    fin = np.isfinite(d_ref)
+    np.testing.assert_array_equal(fin, np.isfinite(d_port))
+    np.testing.assert_allclose(d_port[fin], d_ref[fin], rtol=rtol, atol=atol)
+    diff = fin & (i_ref != i_port)
+    with np.errstate(invalid="ignore"):   # inf - inf off the finite entries
+        close = np.abs(d_ref - d_port) <= atol + rtol * np.abs(d_ref)
+    assert np.all(close[diff]), "ids differ away from a tie"
+    assert diff.mean() <= 0.01, f"{diff.mean():.4f} of the ids differ"

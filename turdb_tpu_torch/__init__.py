@@ -1,0 +1,28 @@
+"""turdb_tpu_torch — the IVF-Flat vector engine of turdb_tpu on PyTorch and CUDA.
+
+A second package beside `turdb_tpu` (the JAX reference, which it never
+imports). It mirrors the reference layout:
+
+    ops/distance.py   Metric, norms, pairwise / gathered distances
+    ops/topk.py       exact k-smallest selection, dedup, membership
+    models/flat.py    FlatIndex: exact chunked k-NN (the recall oracle)
+    models/ivf.py     IvfIndex: k-means build + fused cell probe
+    kernels/          hand-written CUDA C++ kernels for sm_90a + wrappers
+    convert.py        reference state (as numpy) -> port state
+
+Every index takes an explicit `device`. On a CPU tensor each kernel
+wrapper runs its plain PyTorch version; on a CUDA tensor it launches the
+hand-written kernel or raises.
+"""
+
+import torch
+
+# The reference forces full fp32 on every distance product
+# (turdb_tpu/ops/distance.py PRECISE); TF32 keeps ~3 decimal digits and
+# would reorder near neighbours, so both TF32 switches stay off.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+from turdb_tpu_torch.ops.distance import Metric  # noqa: E402
+
+__all__ = ["Metric"]

@@ -1,0 +1,97 @@
+"""Build the hand-written CUDA kernels and load them with ctypes.
+
+`nvcc -gencode arch=compute_90a,code=sm_90a` compiles every `csrc/*.cu`
+into one shared library with a plain C interface (no PyTorch headers, so
+a build takes seconds). The library lands in `build/turdb_kernels/` under
+the repository root, named by a hash of the sources and flags, and is
+built at first use. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "turdb_kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# argtypes of each C entry point, in the order of its declaration
+SIGNATURES = {
+    # vals, B, N, rown, coln, colvalid, epilogue, clamp, k, out_d, out_i, stream
+    "topk_rows": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    # q, qn, cells, B, P, pvecs, pnorms, members, alive, allowed, L, d,
+    # metric, k, m, replicated, out_d, out_i, stream
+    "ivf_probe_f32": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I,
+                      _I, _I, _I, _I, _P, _P, _P],
+    # x, xn, n, cents, cn, C, d, r, out_i, out_d, stream
+    "kmeans_assign": [_P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P],
+}
+
+_lib: ctypes.CDLL | None = None
+build_log = ""
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.iterdir()):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libturdb_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return found
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists."""
+    global build_log
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           *map(str, _sources())]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    build_log = res.stdout + res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib

@@ -1,0 +1,145 @@
+// Exact block-wide selection of the m smallest (key, position) pairs.
+//
+// Shared by K1 (ivf_probe.cu) and K2 (topk_rows.cu). One thread block
+// selects from n candidates whose keys come from a functor, so the
+// candidates may live in shared memory (K1) or be computed on the fly from
+// global memory with a fused epilogue (K2).
+//
+// Method: radix select on order-preserving 32-bit keys, 8 bits per pass
+// (4 histogram passes find the m-th smallest key T exactly), one collect
+// pass (all keys < T, then keys == T in position order until m are taken),
+// and a bitonic sort of the <= SEL_MAX winners by (key, position). Ties
+// therefore go to the lower position, as lax.top_k does.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define SEL_MAX 256
+#define SEL_THREADS 256
+
+// float -> uint32 with the same order; -0.0 is folded into +0.0 first so
+// that the two compare equal, as they do for a float sort.
+__device__ __forceinline__ uint32_t f2key(float f) {
+    if (f == 0.0f) f = 0.0f;
+    uint32_t u = __float_as_uint(f);
+    return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float key2f(uint32_t k) {
+    uint32_t u = (k & 0x80000000u) ? (k & 0x7fffffffu) : ~k;
+    return __uint_as_float(u);
+}
+
+struct SelectScratch {
+    int hist[256];
+    int wcnt[SEL_THREADS / 32];
+    int misc[4];
+};
+
+// Sort s_key/s_pos[0, size) ascending by (key, pos); size is a power of two.
+__device__ __forceinline__ void bitonic_sort(uint32_t* s_key, int* s_pos, int size) {
+    for (int len = 2; len <= size; len <<= 1) {
+        for (int stride = len >> 1; stride > 0; stride >>= 1) {
+            for (int i = threadIdx.x; i < size; i += blockDim.x) {
+                int j = i ^ stride;
+                if (j > i) {
+                    bool up = (i & len) == 0;
+                    uint32_t ki = s_key[i], kj = s_key[j];
+                    int pi = s_pos[i], pj = s_pos[j];
+                    bool gt = ki > kj || (ki == kj && pi > pj);
+                    if (gt == up) {
+                        s_key[i] = kj; s_key[j] = ki;
+                        s_pos[i] = pj; s_pos[j] = pi;
+                    }
+                }
+            }
+            __syncthreads();
+        }
+    }
+}
+
+// Select the m smallest of n keys (1 <= m <= min(n, SEL_MAX)); on return
+// s_key/s_pos[0, m) hold them sorted by (key, position). Needs blockDim.x
+// == SEL_THREADS and s_key/s_pos of SEL_MAX entries. All threads call it.
+template <class KeyFn>
+__device__ void block_select(KeyFn key_of, int n, int m, uint32_t* s_key,
+                             int* s_pos, SelectScratch* sc) {
+    const int tid = threadIdx.x;
+    const int lane = tid & 31, warp = tid >> 5;
+    uint32_t prefix = 0, mask = 0;
+    int want = m;  // still needed among keys matching `prefix` on `mask`
+    for (int shift = 24; shift >= 0; shift -= 8) {
+        for (int i = tid; i < 256; i += blockDim.x) sc->hist[i] = 0;
+        __syncthreads();
+        for (int j = tid; j < n; j += blockDim.x) {
+            uint32_t k = key_of(j);
+            if ((k & mask) == prefix) atomicAdd(&sc->hist[(k >> shift) & 255u], 1);
+        }
+        __syncthreads();
+        if (warp == 0) {
+            int c = 0;
+            for (int i = 0; i < 8; ++i) c += sc->hist[lane * 8 + i];
+            int incl = c;
+            for (int o = 1; o < 32; o <<= 1) {
+                int v = __shfl_up_sync(0xffffffffu, incl, o);
+                if (lane >= o) incl += v;
+            }
+            unsigned hit = __ballot_sync(0xffffffffu, incl >= want);
+            int first = __ffs(hit) - 1;  // want <= total, so hit != 0
+            if (lane == first) {
+                int before = incl - c;
+                int bin = lane * 8;
+                while (before + sc->hist[bin] < want) before += sc->hist[bin++];
+                sc->misc[0] = bin;
+                sc->misc[1] = before;
+            }
+        }
+        __syncthreads();
+        want -= sc->misc[1];
+        prefix |= (uint32_t)sc->misc[0] << shift;
+        mask |= 255u << shift;
+        __syncthreads();
+    }
+    // prefix == T, the m-th smallest key; m - want keys are < T
+    const uint32_t T = prefix;
+    const int n_lt = m - want;
+    if (tid == 0) { sc->misc[2] = 0; sc->misc[3] = 0; }
+    __syncthreads();
+    for (int base = 0; base < n; base += blockDim.x) {
+        int j = base + tid;
+        uint32_t k = j < n ? key_of(j) : 0xffffffffu;
+        bool lt = j < n && k < T;
+        bool eq = j < n && k == T;
+        if (lt) {
+            int slot = atomicAdd(&sc->misc[2], 1);
+            s_key[slot] = k;
+            s_pos[slot] = j;
+        }
+        unsigned bal = __ballot_sync(0xffffffffu, eq);
+        if (lane == 0) sc->wcnt[warp] = __popc(bal);
+        __syncthreads();
+        int off = sc->misc[3];
+        for (int w = 0; w < warp; ++w) off += sc->wcnt[w];
+        int r = off + __popc(bal & ((1u << lane) - 1u));
+        if (eq && r < want) {
+            s_key[n_lt + r] = k;
+            s_pos[n_lt + r] = j;
+        }
+        __syncthreads();
+        if (tid == 0) {
+            int tot = 0;
+            for (int w = 0; w < (int)(blockDim.x >> 5); ++w) tot += sc->wcnt[w];
+            sc->misc[3] += tot;
+        }
+        __syncthreads();
+    }
+    int size = 1;
+    while (size < m) size <<= 1;
+    for (int i = m + tid; i < size; i += blockDim.x) {
+        s_key[i] = 0xffffffffu;
+        s_pos[i] = 0x7fffffff;
+    }
+    __syncthreads();
+    bitonic_sort(s_key, s_pos, size);
+}

@@ -1,0 +1,635 @@
+"""IVF-Flat vector index on PyTorch (port of turdb_tpu/models/ivf.py,
+f32 store only).
+
+Layout (block == cell):
+    centroids   [C, d] f32
+    cnorms      [C]    f32 (+inf for pad cells of an imported state)
+    members     [C, L] int32 slot ids, -1 padded
+    pvecs       [C, L, d] f32 packed vector copies
+    pnorms      [C, L] f32 (+inf padding)
+    alive       [C, L] bool (tombstones)
+
+Search: one fp32 q·Cᵀ matmul -> K2 with the `qn + cnorms − 2·dot` epilogue
+selects the top-nprobe cells -> K1 scores those cells' rows and returns the
+k nearest (deduplicating boundary replicas).
+Build: Lloyd's k-means whose assignment is K3 and whose update is a
+sorted segment sum, starved-centroid rebalance, the 2-means split cascade,
+balanced packing with spill, boundary replicas, then an `index_put_` pack.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from turdb_tpu_torch.kernels import EPI_L2, ivf_probe_f32, kmeans_assign, topk_rows
+from turdb_tpu_torch.ops.distance import Metric, normalize_rows, prep_norms
+from turdb_tpu_torch.ops.topk import topk_smallest_wide
+
+INF = float("inf")
+
+# where each unported path stands in ROADMAP.md
+_SQ8 = "the sq8 int8 probe (ROADMAP queue 1 item 7; queue 2, still to port, item 1)"
+_RERANK = "the exact rerank branch (ROADMAP queue 1 item 7; queue 2, still to port, item 2)"
+_DENSE = "dense block packing (ROADMAP queue 1 item 7; queue 2, still to port, item 3)"
+
+
+@dataclasses.dataclass(frozen=True)
+class IvfConfig:
+    dim: int
+    n_clusters: int
+    cluster_cap: int
+    metric: Metric = Metric.L2
+    nprobe: int = 8
+    sq8: bool = False
+    rerank: int = 0
+    replicated: bool = False  # boundary replicas present -> dedup at top-k
+    dense: bool = False
+    copies: int = 2           # max physical copies per slot (1 + replica_rank)
+
+
+class IvfState(NamedTuple):
+    """Packed device state of the f32 store (block == cell)."""
+
+    centroids: torch.Tensor   # [C, d]
+    cnorms: torch.Tensor      # [C]
+    members: torch.Tensor     # [C, L] int32
+    pvecs: torch.Tensor       # [C, L, d] f32
+    pnorms: torch.Tensor      # [C, L]
+    alive: torch.Tensor       # [C, L] bool
+
+
+# ---------------------------------------------------------------------------
+# k-means
+# ---------------------------------------------------------------------------
+
+def _masked_cn(cents: torch.Tensor, c_real: int) -> torch.Tensor:
+    """Centroid norms with cells past `c_real` at +inf (never assigned)."""
+    cn = prep_norms(cents)
+    if cents.shape[0] > c_real:
+        cn[c_real:] = INF
+    return cn
+
+
+def _kmeans(x: torch.Tensor, centroids: torch.Tensor, iters: int) -> torch.Tensor:
+    """Lloyd's iterations: K3 assigns every row; the update sorts the rows
+    by centroid and sums each run with `segment_reduce`, in a fixed order,
+    so a build is the same on every run (float atomics, as `index_add_`
+    uses on CUDA, sum in another order each time). An empty centroid keeps
+    its place."""
+    xn = prep_norms(x)
+    cents = centroids.clone()
+    c = cents.shape[0]
+    for _ in range(iters):
+        a = kmeans_assign(x, cents, xn, prep_norms(cents))[0][:, 0].long()
+        counts = torch.bincount(a, minlength=c)
+        sums = torch.segment_reduce(x[torch.argsort(a, stable=True)], "sum",
+                                    lengths=counts, axis=0, unsafe=True)
+        new = sums / torch.clamp_min(counts, 1)[:, None]
+        cents = torch.where((counts > 0)[:, None], new, cents)
+    return cents
+
+
+def _assign_all(x: torch.Tensor, centroids: torch.Tensor,
+                cn: torch.Tensor | None = None) -> torch.Tensor:
+    """Nearest-centroid id of every row ([n] int32). `cn` overrides the
+    centroid norms: +inf entries exclude (full) clusters."""
+    if cn is None:
+        cn = prep_norms(centroids)
+    return kmeans_assign(x, centroids, prep_norms(x), cn)[0][:, 0]
+
+
+def _assign_topk_all(x: torch.Tensor, centroids: torch.Tensor,
+                     cn: torch.Tensor | None = None, *, k: int = 2):
+    """Top-k nearest centroids of every row: ([n, k] int32 ids, [n, k] d²)."""
+    if cn is None:
+        cn = prep_norms(centroids)
+    return kmeans_assign(x, centroids, prep_norms(x), cn, k)
+
+
+# ---------------------------------------------------------------------------
+# search
+# ---------------------------------------------------------------------------
+
+def ivf_search_impl(state: IvfState, queries: torch.Tensor, allowed, *,
+                    cfg: IvfConfig, k: int, nprobe: int):
+    """Centroid matmul -> top-nprobe cells (K2) -> fused probe (K1).
+    `allowed` is a [C, L] bool visibility mask or None. Returns
+    ([B, k] dists ascending, [B, k] int32 slot ids, -1 where +inf)."""
+    if cfg.sq8:
+        raise NotImplementedError(f"not ported yet: {_SQ8}")
+    if cfg.rerank:
+        raise NotImplementedError(f"not ported yet: {_RERANK}")
+    if cfg.dense:
+        raise NotImplementedError(f"not ported yet: {_DENSE}")
+    q = queries.float().contiguous()
+    qn = prep_norms(q)
+    # cell scoring is L2 for every metric and, like the reference, unclamped
+    dots = q @ state.centroids.T
+    _, top = topk_rows(dots, nprobe, rown=qn, coln=state.cnorms, epilogue=EPI_L2)
+    m = min(max(2, cfg.copies) * k, nprobe * cfg.cluster_cap) if cfg.replicated else k
+    return ivf_probe_f32(q, qn, top, state.pvecs, state.pnorms, state.members,
+                         state.alive, allowed, metric=cfg.metric.value, k=k, m=m,
+                         replicated=cfg.replicated)
+
+
+# ---------------------------------------------------------------------------
+# host-side handle
+# ---------------------------------------------------------------------------
+
+class IvfIndex:
+    """Host orchestration: k-means training, balanced packing, incremental
+    appends, tombstones. Slot ids are dense insertion indices."""
+
+    def __init__(
+        self,
+        dim: int,
+        metric: Metric = Metric.L2,
+        n_clusters: int | None = None,
+        cluster_cap: int | None = None,
+        nprobe: int = 8,
+        sq8: bool = False,
+        rerank: int | None = None,
+        replicate: bool = True,
+        replica_rank: int = 1,
+        keep_f32: bool = True,
+        dense_pack: bool = False,
+        nblocks: int | None = None,
+        fast_build: bool = False,
+        *,
+        device,
+    ):
+        if sq8 or not keep_f32:
+            raise NotImplementedError(f"not ported yet: {_SQ8}")
+        if rerank:
+            raise NotImplementedError(f"not ported yet: {_RERANK}")
+        if dense_pack or nblocks is not None:
+            raise NotImplementedError(f"not ported yet: {_DENSE}")
+        if fast_build:
+            raise NotImplementedError(
+                "not ported yet: fast_build (ROADMAP queue 1 item 14)")
+        self.dim = dim
+        self.metric = metric
+        self.device = torch.device(device)
+        self._n_clusters = n_clusters
+        self._cluster_cap = cluster_cap
+        self.nprobe = nprobe
+        self.replicate = replicate
+        self.replica_rank = max(1, replica_rank)
+        self.cfg: IvfConfig | None = None
+        self.state: IvfState | None = None
+        self.size = 0
+        self._vectors_host: list[np.ndarray] = []   # staged until train
+        self._alive_host = np.zeros(0, bool)
+        # slot -> (cluster, lane); _slot_extras holds one pair per replica rank
+        self._slot_cluster = np.zeros(0, np.int32)
+        self._slot_lane = np.zeros(0, np.int32)
+        self._slot_extras: list[tuple[np.ndarray, np.ndarray]] = []
+        self._occupancy: np.ndarray | None = None
+
+    def __len__(self):
+        return self.size
+
+    def _dev(self, a) -> torch.Tensor:
+        return torch.as_tensor(a, device=self.device)
+
+    # -- build -------------------------------------------------------------
+
+    def add(self, vecs, row_ids=None) -> np.ndarray:
+        """Append rows; returns their slot ids (insertion indices). `row_ids`
+        is accepted for the engine interface and not stored."""
+        vecs = np.atleast_2d(np.asarray(vecs, np.float32))
+        if self.metric is Metric.COSINE:
+            vecs = normalize_rows(torch.from_numpy(vecs)).numpy()
+        n = vecs.shape[0]
+        slots = np.arange(self.size, self.size + n)
+        self._alive_host = np.concatenate([self._alive_host, np.ones(n, bool)])
+        if self.state is None:
+            self._vectors_host.append(vecs)
+            self.size += n
+            if self.size >= 4 * max(64, int(np.sqrt(self.size))):
+                self.train()
+        else:
+            self._append(vecs, slots)
+            self.size += n
+        return slots
+
+    def train(self, iters: int | None = None):
+        """K-means + packed layout build over all staged vectors."""
+        x = (np.concatenate(self._vectors_host) if self._vectors_host
+             else np.zeros((0, self.dim), np.float32))
+        n = x.shape[0]
+        if n == 0:
+            return
+        # geometry rule of the reference: n//128 cells for the f32 store at
+        # >= 500k rows and dim <= 256 (bigger contiguous blocks), else n//64
+        big_blocks = n >= 500_000 and self.dim <= 256
+        c = self._n_clusters or max(8, n // (128 if big_blocks else 64))
+        c = min(c, max(8, n // 4))
+        rng = np.random.default_rng(0)
+        seed_idx = rng.choice(n, size=c, replace=False)
+        n_train = min(n, max(c * 64, 100_000), 4_194_304)
+        if iters is None:
+            iters = 8
+        tr_idx = (rng.choice(n, size=n_train, replace=False) if n_train < n
+                  else np.arange(n))
+        xd = self._dev(x)
+        xt = xd if n_train == n else xd[self._dev(tr_idx)]
+        cents = _kmeans(xt, xd[self._dev(seed_idx)], iters)
+        assign = _assign_all(xd, cents, _masked_cn(cents, c)).cpu().numpy()
+        cap = self._cluster_cap or _pow2_at_least(max(int(2.0 * n / c), 16), floor=8)
+        # balance repair: re-seed starved centroids as perturbed copies of
+        # oversized donors, then a couple more Lloyd's iterations
+        for rnd in range(6):
+            counts = np.bincount(assign, minlength=c)
+            over = np.flatnonzero(counts > cap)
+            if len(over) == 0:
+                break
+            order = np.argsort(counts)
+            starved = order[counts[order] < max(1, cap // 4)]
+            starved = starved[starved < c]
+            if len(starved) == 0:
+                break
+            cents_np = cents.cpu().numpy().copy()
+            want = np.maximum(counts[over] // cap, 1)
+            donors = np.repeat(over, want)[: len(starved)]
+            rloc = np.random.default_rng(7 + rnd)
+            sigma = 1e-3 * (np.abs(cents_np[donors]).mean() + 1.0)
+            cents_np[starved[: len(donors)]] = cents_np[donors] + sigma * (
+                rloc.standard_normal((len(donors), self.dim)).astype(np.float32)
+            )
+            cents = _kmeans(xt, self._dev(cents_np), 2)
+            assign = _assign_all(xd, cents, _masked_cn(cents, c)).cpu().numpy()
+        # split oversized clusters (local 2-means) instead of spilling rows
+        # to far clusters, which centroid probing would never reach
+        cents_np, assign = _split_oversized(cents.cpu().numpy(), assign, xd, cap)
+        c = cents_np.shape[0]
+        # balanced packing: stable-sort by cluster, lane = rank within the
+        # run; lanes past the cap spill to the nearest cluster with room
+        members = np.full((c, cap), -1, np.int64)
+        order = np.argsort(assign, kind="stable")
+        sa = assign[order]
+        first = np.zeros(n, bool)
+        first[0] = True
+        first[1:] = sa[1:] != sa[:-1]
+        run_start = np.flatnonzero(first)
+        start_of = np.zeros(c, np.int64)
+        start_of[sa[run_start]] = run_start
+        lane = np.arange(n) - start_of[sa]
+        ok = lane < cap
+        members[sa[ok], lane[ok]] = order[ok]
+        occupancy = np.minimum(np.bincount(assign, minlength=c), cap)
+        spill = order[~ok]
+        if len(spill):
+            self._place_spill(spill, xd, cents_np, members, occupancy, cap)
+        self._occupancy = occupancy
+        # slot -> (cluster, lane), primaries first, before replicas land
+        self._slot_cluster = np.full(n, -1, np.int32)
+        self._slot_lane = np.full(n, -1, np.int32)
+        self._slot_extras = [
+            (np.full(n, -1, np.int32), np.full(n, -1, np.int32))
+            for _ in range(self.replica_rank)
+        ]
+        mc, ml = np.nonzero(members >= 0)
+        mslots = members[mc, ml]
+        self._slot_cluster[mslots] = mc
+        self._slot_lane[mslots] = ml
+        replicated = False
+        if self.replicate and n > c:
+            replicated = self._place_replicas(x, xd, cents_np, members,
+                                              occupancy, cap)
+        self.cfg = IvfConfig(
+            dim=self.dim, n_clusters=c, cluster_cap=cap, metric=self.metric,
+            nprobe=self.nprobe, replicated=replicated,
+            copies=(self.replica_rank + 1) if replicated else 2,
+        )
+        self.state = self._pack(xd, cents_np, members, cap)
+        self._vectors_host = []
+
+    def _pack(self, xd, cents_np, members, cap) -> IvfState:
+        """Scatter rows (primaries and replicas) into the packed store."""
+        c = members.shape[0]
+        mc, ml = np.nonzero(members >= 0)
+        mslots = members[mc, ml]
+        pvecs = torch.zeros((c, cap, self.dim), device=self.device)
+        pnorms = torch.full((c, cap), INF, device=self.device)
+        ch = 1 << 20   # bounds the gathered-rows temporary
+        for s in range(0, len(mslots), ch):
+            rows = xd[self._dev(mslots[s:s + ch])]
+            where = (self._dev(mc[s:s + ch]), self._dev(ml[s:s + ch]))
+            pvecs.index_put_(where, rows)
+            pnorms.index_put_(where, prep_norms(rows))
+        alive = np.zeros((c, cap), bool)
+        alive[mc, ml] = self._alive_host[mslots]
+        cents = self._dev(np.ascontiguousarray(cents_np, np.float32))
+        return IvfState(
+            centroids=cents,
+            cnorms=prep_norms(cents),
+            members=self._dev(members.astype(np.int32)),
+            pvecs=pvecs,
+            pnorms=pnorms,
+            alive=self._dev(alive),
+        )
+
+    def _place_spill(self, spill, xd, cents_np, members, occupancy, cap):
+        """Capacity-respecting spill placement in waves: each wave sends
+        every remaining row to its nearest cluster with free lanes (full
+        clusters masked by +inf norms) and accepts as many as fit."""
+        remaining = spill
+        c = len(occupancy)
+        cents_dev = self._dev(cents_np)
+        base_cn = (cents_np.astype(np.float32) ** 2).sum(1)
+        for _round in range(64):
+            if len(remaining) == 0:
+                return
+            free = cap - occupancy
+            if free.sum() < len(remaining):
+                raise RuntimeError("IVF packing overflow; raise cluster_cap")
+            cn = np.where(free > 0, base_cn, np.inf).astype(np.float32)
+            pick = _assign_all(xd[self._dev(remaining)], cents_dev,
+                               self._dev(cn)).cpu().numpy()
+            o = np.argsort(pick, kind="stable")
+            sp, pk = remaining[o], pick[o]
+            firsts = np.zeros(len(o), bool)
+            firsts[0] = True
+            firsts[1:] = pk[1:] != pk[:-1]
+            starts = np.flatnonzero(firsts)
+            start_of = np.zeros(c, np.int64)
+            start_of[pk[starts]] = starts
+            rank = np.arange(len(o)) - start_of[pk]
+            accept = rank < free[pk]
+            lanes = occupancy[pk[accept]] + rank[accept]
+            members[pk[accept], lanes] = sp[accept]
+            np.add.at(occupancy, pk[accept], 1)
+            remaining = sp[~accept]
+        raise RuntimeError("IVF spill placement did not converge")
+
+    def _place_replicas(self, x, xd, cents_np, members, occupancy, cap) -> bool:
+        """Copy boundary rows into free padding lanes of their runner-up
+        cells (every probe reads all `cap` lanes, so the copies cost no
+        probe bandwidth). Duplicates drop at top-k (cfg.replicated). One
+        acceptance wave per replica rank, nearest non-home cell first."""
+        n = x.shape[0]
+        c = len(occupancy)
+        ranks = self.replica_rank
+        # keep cap//8 lanes per cluster free for incremental appends
+        free = np.maximum(cap - occupancy - max(1, cap // 8), 0)
+        if free.sum() == 0:
+            return False
+        cents_j = self._dev(cents_np)
+        kk = min(ranks + 1, c)
+        a12, d12 = _assign_topk_all(xd, cents_j, _masked_cn(cents_j, c), k=kk)
+        a12 = a12.cpu().numpy().astype(np.int64)
+        d12 = d12.cpu().numpy()
+        placed = self._slot_cluster[:n].astype(np.int64)
+        # exact d² to the home centroid: rows living away from their argmin
+        # cell rank first through the d_tgt / d_home priority
+        d_home = np.empty(n, np.float32)
+        for s in range(0, n, 1 << 17):
+            e = min(n, s + (1 << 17))
+            diff = x[s:e] - cents_np[placed[s:e]]
+            d_home[s:e] = np.einsum("ij,ij->i", diff, diff)
+        d_home = np.maximum(d_home, 1e-12)
+        is_home = a12 == placed[:, None]
+        key = np.where(is_home, np.inf, d12)
+        order_cols = np.argsort(key, axis=1, kind="stable")
+        placed_any = False
+        for r in range(min(ranks, kk - 1)):
+            col = order_cols[:, r]
+            rows = np.arange(n)
+            tgt = a12[rows, col]
+            d_tgt = d12[rows, col]
+            ok = np.isfinite(key[rows, col])
+            prio = np.where(ok, d_tgt / d_home, np.inf)
+            order = np.argsort(prio, kind="stable")
+            order = order[ok[order]]
+            pk = tgt[order]
+            o2 = np.argsort(pk, kind="stable")
+            sp, pk = order[o2], pk[o2]
+            if len(sp) == 0:
+                break
+            firsts = np.zeros(len(sp), bool)
+            firsts[0] = True
+            firsts[1:] = pk[1:] != pk[:-1]
+            starts = np.flatnonzero(firsts)
+            start_of = np.zeros(c, np.int64)
+            start_of[pk[starts]] = starts
+            rank = np.arange(len(sp)) - start_of[pk]
+            accept = rank < free[pk]
+            if not accept.any():
+                continue
+            lanes = occupancy[pk[accept]] + rank[accept]
+            rslots = sp[accept]
+            members[pk[accept], lanes] = rslots
+            add = np.bincount(pk[accept], minlength=c)
+            occupancy += add
+            free -= add
+            sc, sl = self._slot_extras[r]
+            sc[rslots] = pk[accept]
+            sl[rslots] = lanes
+            placed_any = True
+        return placed_any
+
+    # nearest cells an appended row tries before the full host sort
+    _APPEND_TRIES = 64
+
+    def _append(self, vecs: np.ndarray, slots: np.ndarray):
+        """Incremental append: each row lands in the nearest cell with a
+        free lane; if every cell is full the index retrains."""
+        st = self.state
+        cap = self.cfg.cluster_cap
+        jv = self._dev(vecs)
+        d2c = (prep_norms(jv)[:, None] + st.cnorms[None, :]) - 2.0 * (jv @ st.centroids.T)
+        tries = min(self._APPEND_TRIES, d2c.shape[1])
+        near = topk_smallest_wide(d2c, tries)[1].cpu().numpy()
+        cs, lanes = [], []
+        for j in range(len(vecs)):
+            cand = near[j]
+            free = self._occupancy[cand] < cap
+            if not free.any():
+                cand = np.argsort(d2c[j].cpu().numpy(), kind="stable")
+                free = self._occupancy[cand] < cap
+            if not free.any():
+                # all clusters full: retrain with everything. Nothing of
+                # this batch has been written yet; train() rebuilds occupancy
+                self._retrain_with(vecs, slots)
+                return
+            a = int(cand[np.argmax(free)])
+            cs.append(a)
+            lanes.append(int(self._occupancy[a]))
+            self._occupancy[a] += 1
+        cs = np.asarray(cs)
+        lanes = np.asarray(lanes)
+        where = (self._dev(cs), self._dev(lanes))
+        st.members.index_put_(where, self._dev(slots.astype(np.int32)))
+        st.pnorms.index_put_(where, prep_norms(jv))
+        st.alive.index_put_(where, torch.ones(len(cs), dtype=torch.bool, device=self.device))
+        st.pvecs.index_put_(where, jv)
+        need = int(slots.max()) + 1
+        if need > len(self._slot_cluster):
+            pad = np.full(need - len(self._slot_cluster), -1, np.int32)
+            self._slot_cluster = np.concatenate([self._slot_cluster, pad])
+            self._slot_lane = np.concatenate([self._slot_lane, pad])
+            self._slot_extras = [
+                (np.concatenate([sc, pad]), np.concatenate([sl, pad]))
+                for sc, sl in self._slot_extras
+            ]
+        self._slot_cluster[slots] = cs
+        self._slot_lane[slots] = lanes
+
+    def _retrain_with(self, extra_vecs, extra_slots):
+        """Collect every stored vector plus the extras and retrain."""
+        flat = self.state.pvecs.reshape(-1, self.dim).cpu().numpy()
+        mem = self.state.members.reshape(-1).cpu().numpy()
+        extra_slots = np.atleast_1d(np.asarray(extra_slots, np.int64))
+        hi = int(extra_slots.max()) + 1 if len(extra_slots) else 0
+        xs = np.zeros((max(self.size, hi), self.dim), np.float32)
+        ok = mem >= 0
+        xs[mem[ok]] = flat[ok]          # replica copies rewrite the same data
+        xs[extra_slots] = extra_vecs
+        self._vectors_host = [xs]
+        self.state = None
+        self.train()
+
+    # -- query -------------------------------------------------------------
+
+    def allowed_mask(self, allowed) -> torch.Tensor:
+        """bool[size] slot visibility -> [C, L] lane mask (every copy)."""
+        allowed = np.asarray(allowed, bool)
+        am = np.zeros(tuple(self.state.members.shape), bool)
+        m = min(len(allowed), len(self._slot_cluster))
+        for sc, sl in ((self._slot_cluster, self._slot_lane), *self._slot_extras):
+            sel = np.flatnonzero(allowed[:m] & (sc[:m] >= 0))
+            am[sc[sel], sl[sel]] = True
+        return self._dev(am)
+
+    def search(self, queries, k: int, nprobe: int | None = None, allowed=None,
+               out: str = "np"):
+        """allowed: bool[size] slot-visibility mask. Returns (dists, slots);
+        a slot is -1 where its distance is +inf.
+
+        `queries` may be a tensor on the index's device (the serving path:
+        no host staging); `out="torch"` keeps the results there."""
+        if isinstance(queries, torch.Tensor):
+            q = queries.to(self.device, torch.float32)
+        else:
+            q = self._dev(np.atleast_2d(np.asarray(queries, np.float32)))
+        if self.state is None:
+            self.train()
+        if self.state is None or self.size == 0:
+            d = torch.full((q.shape[0], k), INF, device=self.device)
+            i = torch.full((q.shape[0], k), -1, dtype=torch.int32, device=self.device)
+        else:
+            if self.metric is Metric.COSINE:
+                q = normalize_rows(q)
+            p = min(nprobe or self.nprobe, self.cfg.n_clusters)
+            amask = None if allowed is None else self.allowed_mask(allowed)
+            d, i = ivf_search_impl(self.state, q, amask, cfg=self.cfg, k=k, nprobe=p)
+        if out == "torch":
+            return d, i
+        return d.cpu().numpy(), i.cpu().numpy()
+
+    def delete(self, slots):
+        slots = np.atleast_1d(np.asarray(slots)).astype(np.int64)
+        in_range = slots[slots < len(self._alive_host)]
+        self._alive_host[in_range] = False
+        if self.state is None:
+            return
+        m = in_range[in_range < len(self._slot_cluster)]
+        m = m[self._slot_cluster[m] >= 0]
+        if len(m) == 0:
+            return
+        alive = self.state.alive
+        alive[self._dev(self._slot_cluster[m]), self._dev(self._slot_lane[m])] = False
+        for sc, sl in self._slot_extras:
+            r = m[sc[m] >= 0]
+            if len(r):
+                alive[self._dev(sc[r]), self._dev(sl[r])] = False
+
+
+def _two_means_batched(pts: torch.Tensor, valid: torch.Tensor, iters: int = 6):
+    """2-means over many clusters at once: pts [O, L, d] (lane-padded),
+    valid [O, L]. Seeds = lane 0 and the member farthest from it. Returns
+    (labels [O, L] int32 in {0, 1}, c2 [O, 2, d])."""
+    pn = torch.where(valid, torch.sum(pts * pts, dim=-1), INF)       # [O, L]
+    a = pts[:, 0]                                                     # [O, d]
+    d0 = pn - 2.0 * torch.einsum("old,od->ol", pts, a)
+    far = torch.argmax(torch.where(valid, d0, -INF), dim=1)
+    b = pts[torch.arange(pts.shape[0], device=pts.device), far]
+    c2 = torch.stack([a, b], dim=1)                                   # [O, 2, d]
+    w = valid.float()
+
+    def dist(c2):
+        cn = torch.sum(c2 * c2, dim=-1)                               # [O, 2]
+        return pn[:, :, None] + cn[:, None, :] - 2.0 * torch.einsum(
+            "old,ogd->olg", pts, c2)
+
+    for _ in range(iters):
+        lab = torch.argmin(dist(c2), dim=-1)
+        w1 = w * lab.float()
+        w0 = w - w1
+        s0 = torch.einsum("ol,old->od", w0, pts)
+        s1 = torch.einsum("ol,old->od", w1, pts)
+        n0 = torch.clamp_min(w0.sum(1), 1.0)[:, None]
+        n1 = torch.clamp_min(w1.sum(1), 1.0)[:, None]
+        c2 = torch.stack([s0 / n0, s1 / n1], dim=1)
+    return torch.argmin(dist(c2), dim=-1).to(torch.int32), c2
+
+
+_SPLIT_OCHUNK = 512  # oversized clusters per batched 2-means
+
+
+def _split_oversized(cents: np.ndarray, assign: np.ndarray, xd: torch.Tensor,
+                     cap: int, max_rounds: int = 12):
+    """Split clusters whose population exceeds the lane cap in two by
+    local 2-means until everything fits (or rounds run out; leftovers
+    spill in packing). Every oversized cluster of a round runs in one
+    batched 2-means over rows gathered from `xd` (the rows on the device)."""
+    cents = np.array(cents, np.float32)
+    assign = np.array(assign)
+    for _ in range(max_rounds):
+        counts = np.bincount(assign, minlength=len(cents))
+        over = np.flatnonzero(counts > cap)
+        if len(over) == 0:
+            break
+        order = np.argsort(assign, kind="stable")
+        sa = assign[order]
+        starts = np.searchsorted(sa, over, side="left")
+        lmax = _pow2_at_least(int(counts[over].max()), floor=32)
+        new_cents = []
+        n_new = 0
+        lane = np.arange(lmax)
+        for s in range(0, len(over), _SPLIT_OCHUNK):
+            oc, ost = over[s:s + _SPLIT_OCHUNK], starts[s:s + _SPLIT_OCHUNK]
+            o = len(oc)
+            valid = lane[None, :] < counts[oc][:, None]
+            # row ids order[start + lane]; the clip keeps gathers in bounds
+            # (invalid lanes carry weight 0)
+            idx = order[np.clip(ost[:, None] + lane[None, :], 0, len(order) - 1)]
+            pts = xd[torch.as_tensor(idx, device=xd.device)]
+            lab, c2 = _two_means_batched(pts, torch.as_tensor(valid, device=xd.device))
+            lab = lab.cpu().numpy()
+            c2 = c2.cpu().numpy()
+            cents[oc] = c2[:, 0]
+            move = valid & (lab == 1)
+            # side-1 rows of each cluster move to one new cluster; an
+            # unsplittable cluster (side 1 empty) gets no new centroid
+            nz = move.any(axis=1)
+            new_ids = np.full(o, -1, np.int64)
+            new_ids[nz] = len(cents) + n_new + np.arange(int(nz.sum()))
+            assign[idx[move]] = np.repeat(new_ids, move.sum(axis=1))
+            new_cents.append(c2[nz, 1])
+            n_new += int(nz.sum())
+        if new_cents:
+            cents = np.concatenate([cents] + new_cents)
+    return cents, assign
+
+
+def _pow2_at_least(n: int, floor: int = 8) -> int:
+    p = floor
+    while p < n:
+        p *= 2
+    return p
