@@ -1,24 +1,38 @@
 #!/usr/bin/env python3
-"""Drive the port's IVF-Flat build-and-query path once on one CUDA card.
+"""Drive the port's IVF build-and-query paths once on one CUDA card.
 
     python3 chip_smoke.py
 
 1. prints the card (`nvidia-smi` name and power limit); exits non-zero at
    once without CUDA;
 2. builds the hand-written kernels (K1 ivf_probe_f32, K2 topk_rows,
-   K3 kmeans_assign) from `turdb_tpu_torch/kernels/csrc` and prints the
+   K3 kmeans_assign, K4 ivf_probe_sq8, K5 ivf_rerank) from
+   `turdb_tpu_torch/kernels/csrc`, one nvcc per source, and prints the
    build seconds;
 3. kernel phase: each kernel against its plain PyTorch version on the same
-   CUDA tensors at the headline shapes, with CUDA-event times;
-4. headline phase: the bench's 1M x 128 `make_pool`, the FlatIndex oracle,
-   `IvfIndex.add` (auto-train), a second traced build that must equal the
-   first bit for bit, a recall@10 sweep over nprobe up to the 0.95 gate,
-   and QPS at the gate on batches of 1024 held-out queries;
-5. maintenance phase on the 1M index: delete, `allowed` mask, append;
-6. checks that the main path launched every kernel; then, outside the
-   counted run, traces the search over every batch (device time per
-   kernel, device idle share);
-7. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+   CUDA tensors at the main paths' shapes (and K1 / K2 at the widths past
+   the old limits: P*L = 32768, k = 300, m = 600), with CUDA-event times,
+   the least time the card could take (bound), and the one PyTorch call
+   that computes the same function where there is one (library);
+4. the main paths, each with the launch counts set to 0 just before it
+   and read just after:
+   - f32 headline: the bench's 1M x 128 `make_pool`, the FlatIndex oracle,
+     `IvfIndex.add` (auto-train), a second traced build that must equal
+     the first bit for bit, a recall@10 sweep over nprobe up to the 0.95
+     gate, QPS at the gate on batches of 1024 held-out queries, then
+     delete / `allowed` / append on the 1M index;
+   - sq8 headline: `IvfIndex(sq8=True, rerank=40)` on the same pool and
+     oracle: build, sweep to the gate, QPS;
+   - compact store: `sq8=True, keep_f32=False, rerank=40`: memory, recall
+     at the sq8 gate, QPS, 10,000 appends found by their own queries;
+   - hard row: `hard_pool` 1M x 128 drawn after `make_pool` from the same
+     generator (the bench's order), its own oracle, `sq8=True, rerank=40`,
+     the sweep over nprobe 64-512 to the gate, QPS;
+   - probe-only store (`sq8=True, keep_f32=False, rerank=0`) at 100k
+     rows: a sweep, and an append that must raise;
+5. checks that each path launched each of its kernels; then, outside the
+   counted runs, traces the searches (device time per kernel, idle share);
+6. prints {"kernels": [...]}, the card, and, last, {"ok": true, "device": {...}}.
 
 Any failure exits non-zero without the last line. The full report goes to
 chiprun_out/chip_smoke_report.json.
@@ -39,20 +53,30 @@ N, N_QUERIES, DIM, K = 1_000_000, 16_384, 128, 10
 N_ORACLE = 256
 BATCH = 1024
 PROBES = (2, 4, 5, 6, 8, 16, 32, 64)
+HARD_PROBES = (64, 128, 192, 256, 384, 512)
 RECALL_GATE = 0.95
+RERANK = 4 * K               # the bench's sq8 rows: rerank=4*K
+N_PROBE_ONLY = 100_000
+N_APPEND = 10_000            # rows appended to the 1M f32 and compact indexes
 # headline shapes of the kernels (C after the 1M split cascade, L = cap)
 CELLS, LANES = 24_576, 256
 K1_PROBE = 5                 # the gate's nprobe in the headline: kernel timings there
 FLAT_CHUNK = 131_072
 K3_ROWS, K3_CELLS = 1_000_000, 7_812   # 1M rows, n//128 cells (Lloyd's)
-# Tolerances. K2 and the epilogues round exactly as the plain version, so
-# its values should be bit-equal; 1e-6 relative leaves room for nothing
-# else. K1 and K3 sum the d=128 products in another order than cuBLAS:
-# fp32 keeps that within 1e-5 of the distance scale (the largest |distance|
-# for K1, xn + cn for K3), and ids may differ only inside that band.
+SQ8_CELLS, SQ8_LANES = 16_384, 128      # the sq8 store: n//64 cells of L = 128
+SQ8_PROBE = 8                # the sq8 index's gate in the prediction: timings there
+HARD_PROBE = 256             # the hard row's gate in the prediction
+# Tolerances. K2, K4 and the epilogues round exactly as the plain version
+# (K4's int32 dot is exact), so their values should be bit-equal; 1e-6
+# relative leaves room for nothing else. K1, K3 and K5 sum the fp32 (or
+# bf16-rounded) products in another order than cuBLAS: fp32 keeps that
+# within 1e-5 of the distance scale, and ids may differ only inside that band.
 K2_RTOL = 1e-6
 DOT_RTOL = 1e-5
 K3_AGREE = 0.995
+# H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): HBM bytes/s, fp32
+# FMA pipes, bf16 and int8 tensor cores
+HBM_BPS, FP32_OPS, BF16_OPS, INT8_OPS = 3.35e12, 67e12, 989e12, 1979e12
 
 OUT = Path("chiprun_out")
 REPORT: dict = {}
@@ -77,6 +101,33 @@ def _median_ms(fn, reps=5):
     return cuda_median_ms(fn, reps=reps, warmup=1)
 
 
+def _bound(nbytes, ops, peak):
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the unit's peak."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / peak * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": float(nbytes), "bound_ops": float(ops)}
+
+
+def _probe_bound(cells, members, alive, allowed, lane_bytes, query_bytes, out_bytes, d, peak):
+    """Bound of a probe (K1, K4) on this run's inputs: each probed cell is
+    read once however many queries probe it (member id and flags of every
+    lane, `lane_bytes` of row and metadata of every live lane), each query
+    and cell list once, each output once; the ops are 2d per (query, live
+    lane)."""
+    b = cells.shape[0]
+    uniq = torch.unique(cells).long()
+    live = (members[uniq] >= 0) & alive[uniq]
+    per_query = (members[cells.long()] >= 0) & alive[cells.long()]
+    if allowed is not None:
+        live &= allowed[uniq]
+        per_query &= allowed[cells.long()]
+    flag_bytes = 5 + (allowed is not None)
+    nbytes = (uniq.numel() * members.shape[1] * flag_bytes + int(live.sum()) * lane_bytes
+              + b * query_bytes + cells.numel() * 4 + b * out_bytes)
+    return _bound(nbytes, 2 * d * int(per_query.sum()), peak)
+
+
 # ---------------------------------------------------------------------------
 # kernel phase
 # ---------------------------------------------------------------------------
@@ -98,6 +149,20 @@ def _selection_error(vals_k, pos_k, vals_p, pos_p, vals_at_pos, rtol, what):
     return err, float(diff.float().mean())
 
 
+def _near_equal(dk, ik, dp, ip, rtol, what):
+    """Probe / rerank outputs: same +inf entries, distances within rtol of
+    the distance scale, ids equal except inside that band. Returns the max
+    abs error and the share of ids that differ."""
+    fin = torch.isfinite(dp)
+    check(torch.equal(fin, torch.isfinite(dk)), f"{what}: +inf entries differ")
+    scale = max(float(dp[fin].abs().max()) if bool(fin.any()) else 1.0, 1.0)
+    err = float((dk[fin] - dp[fin]).abs().max()) if bool(fin.any()) else 0.0
+    check(err <= rtol * scale, f"{what}: max abs err {err}")
+    close = (dk - dp).abs() <= rtol * scale
+    check(bool(((ik == ip) | close | ~fin).all()), f"{what}: ids differ")
+    return err, float(((ik != ip) & fin).float().mean())
+
+
 def k2_phase(dev, gen, cells=CELLS, flat_chunk=FLAT_CHUNK):
     from turdb_tpu_torch.kernels import EPI_L2, _row_values, topk_rows, topk_rows_plain
 
@@ -110,8 +175,15 @@ def k2_phase(dev, gen, cells=CELLS, flat_chunk=FLAT_CHUNK):
                                 K2_RTOL, what)
 
     def timed(x, k, **kw):
+        # the library call selects on the distances the epilogue produces
+        full = _row_values(x, kw.get("rown"), kw.get("coln"), kw.get("colvalid"),
+                           kw.get("epilogue", 0), kw.get("clamp", False))
+        b, n = x.shape
+        extra = 4 * (b + n) * (kw.get("rown") is not None) + n * (kw.get("colvalid") is not None)
         return {"ms": _median_ms(lambda: topk_rows(x, k, **kw)),
-                "plain_ms": _median_ms(lambda: topk_rows_plain(x, k, **kw))}
+                "plain_ms": _median_ms(lambda: topk_rows_plain(x, k, **kw)),
+                "library_ms": _median_ms(lambda: torch.topk(full, k, largest=False)),
+                **_bound(4 * b * n + extra + 8 * b * k, 3 * b * n, FP32_OPS)}
 
     out = {}
     # cell selection: [1024, C] dot matrix, top-nprobe with the unclamped
@@ -129,14 +201,14 @@ def k2_phase(dev, gen, cells=CELLS, flat_chunk=FLAT_CHUNK):
             out[f"cell_select_k{p}"] = {"shape": [BATCH, cells], "k": p, "max_abs_err": err,
                                         "tie_id_diff": tie_frac, **timed(dots, p, **kw)}
     # flat oracle chunk: [256, 131072], clamped L2 + valid mask, at the
-    # oracle's k=10 and at k=50
+    # oracle's k=10, at k=50 and at k=300 (past the old 256 limit)
     qf = q[:N_ORACLE].contiguous()
     xf = torch.randn(flat_chunk, DIM, device=dev, generator=gen) * 4
     valid = torch.rand(flat_chunk, device=dev, generator=gen) < 0.9
     dots = qf @ xf.T
     kw = dict(rown=(qf * qf).sum(1), coln=(xf * xf).sum(1), colvalid=valid,
               epilogue=EPI_L2, clamp=True)
-    for kk in (K, 50):
+    for kk in (K, 50, 300):
         err, _ = compare(dots, kk, f"K2 flat chunk k={kk}", **kw)
         out[f"flat_chunk_k{kk}"] = {"shape": [N_ORACLE, flat_chunk], "k": kk,
                                     "max_abs_err": err, **timed(dots, kk, **kw)}
@@ -151,7 +223,7 @@ def k2_phase(dev, gen, cells=CELLS, flat_chunk=FLAT_CHUNK):
 
 
 def k1_phase(dev, gen, cells=CELLS, lanes=LANES):
-    from turdb_tpu_torch.kernels import ivf_probe_f32, ivf_probe_f32_plain
+    from turdb_tpu_torch.kernels import MODE_CAND, MODE_TOPK, ivf_probe_f32, ivf_probe_f32_plain
 
     # a synthetic packed store at the headline geometry: cells 40-100% full,
     # ids drawn from 4096 values so that copies of an id meet in one probe
@@ -168,33 +240,46 @@ def k1_phase(dev, gen, cells=CELLS, lanes=LANES):
     q = torch.randn(BATCH, DIM, device=dev, generator=gen)
     qn = (q * q).sum(1)
     out = {}
-    for p in (K1_PROBE, 64):
+    # the headline's nprobe 5; 64 (the sweep's end); 128 = 32,768 lanes,
+    # chunked, past the one-block limit of PR 1
+    for p in (K1_PROBE, 64, 128):
         top = torch.rand(BATCH, cells, device=dev, generator=gen).topk(p).indices.to(torch.int32)
         for metric in (0, 1, 2):
             for replicated, allow in ((True, None), (False, None), (True, allowed)):
                 m = min(2 * K, p * lanes) if replicated else K
                 args = (q, qn, top, pvecs, pnorms, members, alive, allow)
                 kw = dict(metric=metric, k=K, m=m, replicated=replicated)
-                dk, ik = ivf_probe_f32(*args, **kw)
-                dp, ip = ivf_probe_f32_plain(*args, **kw)
                 what = f"K1 P={p} metric={metric} replicated={replicated} allowed={allow is not None}"
-                fin = torch.isfinite(dp)
-                check(torch.equal(fin, torch.isfinite(dk)), f"{what}: +inf entries differ")
-                scale = max(float(dp[fin].abs().max()), 1.0)
-                err = float((dk[fin] - dp[fin]).abs().max())
-                check(err <= DOT_RTOL * scale, f"{what}: max abs err {err}")
-                # ids may differ only where the two distances are within
-                # the summation-order tolerance (near ties)
-                close = (dk - dp).abs() <= DOT_RTOL * scale
-                check(bool(((ik == ip) | close | ~fin).all()), f"{what}: ids differ")
+                err, id_diff = _near_equal(*ivf_probe_f32(*args, **kw),
+                                           *ivf_probe_f32_plain(*args, **kw), DOT_RTOL, what)
                 if p == K1_PROBE and metric == 0 and replicated and allow is None:
                     out.update(
                         shape={"B": BATCH, "P": p, "L": lanes, "d": DIM, "C": cells},
-                        k=K, m=m, max_abs_err=err,
-                        id_diff=float(((ik != ip) & fin).float().mean()),
+                        k=K, m=m, max_abs_err=err, id_diff=id_diff,
                         ms=_median_ms(lambda: ivf_probe_f32(*args, **kw)),
                         plain_ms=_median_ms(lambda: ivf_probe_f32_plain(*args, **kw)),
-                    )
+                        library_ms=None,
+                        **_probe_bound(top, members, alive, None, 4 * DIM + 4, 4 * DIM + 4,
+                                       8 * K, DIM, FP32_OPS))
+                if p == 128 and metric == 0 and replicated and allow is None:
+                    out["wide"] = {
+                        "P": p, "lanes": p * lanes, "max_abs_err": err,
+                        "ms": _median_ms(lambda: ivf_probe_f32(*args, **kw), reps=3),
+                        **_probe_bound(top, members, alive, None, 4 * DIM + 4, 4 * DIM + 4,
+                                       8 * K, DIM, FP32_OPS)}
+        # candidate mode (the rerank of the f32 store) and k = 300 with
+        # replicas (m = 600, past the old 256 limit)
+        if p == K1_PROBE:
+            for k, m, mode in ((RERANK, RERANK, MODE_CAND), (300, 600, MODE_TOPK)):
+                args = (q, qn, top, pvecs, pnorms, members, alive, None)
+                kw = dict(metric=0, k=k, m=m, replicated=True, mode=mode)
+                got, want = ivf_probe_f32(*args, **kw), ivf_probe_f32_plain(*args, **kw)
+                what = f"K1 P={p} k={k} m={m} mode={mode}"
+                err, _ = _near_equal(got[0], got[1], want[0], want[1], DOT_RTOL, what)
+                if mode == MODE_CAND:
+                    close = (got[0] - want[0]).abs() <= DOT_RTOL * max(float(want[0].abs().max()), 1.0)
+                    check(bool(((got[2] == want[2]) | close).all()), f"{what}: positions differ")
+                out[f"k{k}_m{m}"] = {"max_abs_err": err}
     return out
 
 
@@ -228,6 +313,10 @@ def k3_phase(dev, gen, rows=K3_ROWS, cells=K3_CELLS, cells_r2=CELLS):
             "max_abs_err": float((dk[same] - dp[same]).abs().max()),
             "ms": _median_ms(lambda: kmeans_assign(*args)),
             "plain_ms": _median_ms(lambda: kmeans_assign_plain(*args)),
+            # no one PyTorch call gives the bf16-rounded argmin / top-R
+            "library_ms": None,
+            **_bound(4 * (rows * DIM + n_cells * DIM + rows + n_cells) + 8 * rows * r,
+                     2 * rows * n_cells * DIM, BF16_OPS),
         }
 
     # Lloyd's first pass (r=1, C = 8192) and the replica placement's top-2
@@ -237,45 +326,228 @@ def k3_phase(dev, gen, rows=K3_ROWS, cells=K3_CELLS, cells_r2=CELLS):
     return out
 
 
+def synthetic_sq8_store(dev, gen, cells=SQ8_CELLS, lanes=SQ8_LANES):
+    """A synthetic sq8 store at the ivf_sq8 geometry (C = 16,384, L = 128,
+    d = 128): rows from randn, cells 50-100% full, 1% tombstones, a 50%
+    allowed mask. Replica ties are planted: lanes 0-31 of each odd cell
+    copy lanes 32-63 (id and row) of the even cell before it, and the
+    probes below take cells in such pairs. Encoded as the build encodes
+    (int8 codes, m′, scales, SQ16)."""
+    from turdb_tpu_torch.ops.quantize import sq8_store, sq16_encode
+
+    pvecs = torch.randn(cells, lanes, DIM, device=dev, generator=gen)
+    members = torch.arange(cells * lanes, device=dev, dtype=torch.int32).reshape(cells, lanes)
+    pvecs[1::2, :32] = pvecs[0::2, 32:64]
+    members[1::2, :32] = members[0::2, 32:64]
+    occ = torch.randint(lanes // 2, lanes + 1, (cells, 1), device=dev, generator=gen)
+    members = torch.where(torch.arange(lanes, device=dev)[None, :] < occ, members, -1)
+    pvecs[members < 0] = 0.0
+    flat = pvecs.reshape(-1, DIM)
+    codes, m_prime, scales, m8 = sq8_store(flat)
+    u16 = sq16_encode(flat, m8, scales)
+    shape2 = (cells, lanes)
+    return {
+        "pvecs": pvecs, "members": members.to(torch.int32),
+        "pnorms": torch.where(members >= 0, (pvecs * pvecs).sum(-1), float("inf")),
+        "alive": torch.rand(shape2, device=dev, generator=gen) < 0.99,
+        "allowed": torch.rand(shape2, device=dev, generator=gen) < 0.5,
+        "codes": codes.reshape(cells, lanes, DIM), "mins": m_prime.reshape(shape2),
+        "scales": scales.reshape(shape2), "u16": u16.reshape(cells, lanes, DIM),
+    }
+
+
+def _paired_cells(dev, gen, p, cells, b):
+    """p distinct cells per query, in (even, odd) pairs that share copies."""
+    ev = torch.rand(b, cells // 2, device=dev, generator=gen).topk(p // 2).indices * 2
+    return torch.stack([ev, ev + 1], dim=-1).reshape(b, p).to(torch.int32).contiguous()
+
+
+def _queries_near(st, cells, dev, gen):
+    """Each query next to a copied row of its first (even) cell, so the two
+    copies are its nearest lanes and tie exactly."""
+    lane = 32 + torch.randint(0, 32, (cells.shape[0],), device=dev, generator=gen)
+    q = st["pvecs"][cells[:, 0].long(), lane]
+    return (q + 0.05 * torch.randn(q.shape, device=dev, generator=gen)).contiguous()
+
+
+def k4_phase(dev, gen, st):
+    """K4 in top-k and candidate mode at the ivf_sq8 shapes (P = 8, 64:
+    one block, two chunks) and the hard row's (P = 256, 512: 8 and 16
+    chunks). K4's distance is L2 under every metric (the reference's sq8
+    probe), so it has no metric to vary. Values and ids must equal the
+    plain version's exactly."""
+    from turdb_tpu_torch.kernels import MODE_CAND, MODE_TOPK, ivf_probe_sq8, ivf_probe_sq8_plain
+    from turdb_tpu_torch.ops.quantize import quantize_queries
+
+    out = {}
+    for p in (SQ8_PROBE, 64, HARD_PROBE, 512):
+        cells = _paired_cells(dev, gen, p, st["members"].shape[0], BATCH)
+        q = _queries_near(st, cells, dev, gen)
+        qc, qs, qsum = quantize_queries(q)
+        qn = (q * q).sum(1)
+        for mode, k, m, replicated, allow in ((MODE_TOPK, K, 2 * K, True, None),
+                                              (MODE_TOPK, K, K, False, None),
+                                              (MODE_TOPK, K, 2 * K, True, st["allowed"]),
+                                              (MODE_CAND, RERANK, RERANK, True, None)):
+            args = (qc, qs, qsum, qn, cells, st["codes"], st["mins"], st["scales"],
+                    st["pnorms"], st["members"], st["alive"], allow)
+            kw = dict(k=k, m=m, replicated=replicated, mode=mode)
+            got = ivf_probe_sq8(*args, **kw)
+            want = ivf_probe_sq8_plain(*args, **kw)
+            what = f"K4 P={p} mode={mode} replicated={replicated} allowed={allow is not None}"
+            check(all(torch.equal(a, b) for a, b in zip(got, want)), f"{what}: differs from plain")
+            if mode == MODE_CAND:
+                # the copies tie at the top of the candidate list
+                ties = (got[1][:, 0] == got[1][:, 1]) & (got[0][:, 0] == got[0][:, 1])
+                check(bool(ties.any()), f"{what}: no planted replica tie reached the top")
+                if p in (SQ8_PROBE, HARD_PROBE):
+                    reps = 5 if p == SQ8_PROBE else 3
+                    out[f"cand_P{p}"] = {
+                        "shape": {"B": BATCH, "P": p, "L": st["members"].shape[1], "d": DIM,
+                                  "C": st["members"].shape[0]},
+                        "r": RERANK, "max_abs_err": 0.0, "replica_ties": float(ties.float().mean()),
+                        "ms": _median_ms(lambda: ivf_probe_sq8(*args, **kw), reps=reps),
+                        "plain_ms": _median_ms(lambda: ivf_probe_sq8_plain(*args, **kw), reps=reps),
+                        "library_ms": None,
+                        **_probe_bound(cells, st["members"], st["alive"], None, DIM + 12,
+                                       DIM + 12, 12 * RERANK, DIM, INT8_OPS)}
+                if p == SQ8_PROBE:
+                    out["cand"] = (q, qn, cells, got)
+    return out
+
+
+def k5_phase(st, cand):
+    """K5 over the f32 and the SQ16 store, at r = 40 (the sq8 rows) and
+    r = 300, on K4's candidates (which carry the planted replica ties),
+    replicas on and off."""
+    from turdb_tpu_torch.kernels import (
+        MODE_CAND, ivf_probe_sq8, ivf_rerank, ivf_rerank_plain)
+    from turdb_tpu_torch.ops.quantize import quantize_queries
+
+    q, qn, cells, (cd, ci, cpos) = cand
+    out = {}
+    for r in (RERANK, 300):
+        if r != cd.shape[1]:
+            qc, qs, qsum = quantize_queries(q)
+            cd, ci, cpos = ivf_probe_sq8(qc, qs, qsum, qn, cells, st["codes"], st["mins"],
+                                         st["scales"], st["pnorms"], st["members"],
+                                         st["alive"], k=r, m=r, replicated=True,
+                                         mode=MODE_CAND)
+        for store, meta in (("f32", ()), ("sq16", (st["mins"], st["scales"]))):
+            rows = st["pvecs"] if store == "f32" else st["u16"]
+            for replicated in (True, False):
+                args = (q, qn, cd, ci, cpos, rows, st["pnorms"], *meta)
+                plain_args = (*args, *(None, None)[len(meta):])
+                what = f"K5 r={r} store={store} replicated={replicated}"
+                err, id_diff = _near_equal(*ivf_rerank(*args, k=K, replicated=replicated),
+                                           *ivf_rerank_plain(*plain_args, K, replicated),
+                                           DOT_RTOL, what)
+                if r == RERANK and replicated:
+                    fin = torch.isfinite(cd)
+                    pos = torch.unique(cpos[fin].long())
+                    row_bytes = 4 * DIM if store == "f32" else 2 * DIM + 8
+                    nbytes = (cd.numel() * 12 + pos.numel() * (row_bytes + 4)
+                              + q.shape[0] * (4 * DIM + 4) + q.shape[0] * K * 8)
+                    out[store] = {
+                        "shape": {"B": q.shape[0], "r": r, "d": DIM}, "max_abs_err": err,
+                        "id_diff": id_diff,
+                        "ms": _median_ms(lambda: ivf_rerank(*args, k=K, replicated=True)),
+                        "plain_ms": _median_ms(lambda: ivf_rerank_plain(*plain_args, K, True)),
+                        "library_ms": None,
+                        **_bound(nbytes, 2 * DIM * int(fin.sum()), FP32_OPS)}
+    return out
+
+
 # ---------------------------------------------------------------------------
-# headline and maintenance phases
+# main paths
 # ---------------------------------------------------------------------------
 
-def headline_phase(dev, n=N, n_queries=N_QUERIES):
+def _oracle(dev, x, queries):
     from turdb_tpu_torch.models.flat import FlatIndex
-    from turdb_tpu_torch.models.ivf import IvfIndex
-    from turdb_tpu_torch.utils.datasets import make_pool, recall_of
-
-    t = time.perf_counter()
-    pool = make_pool(np.random.default_rng(0), n + n_queries, DIM)
-    x, queries = pool[:n], pool[n:]
-    out = {"pool_s": time.perf_counter() - t}
 
     t = time.perf_counter()
     flat = FlatIndex(dim=DIM, capacity=len(x), device=dev)
     flat.add(x)
     _, truth = flat.search(queries[:N_ORACLE], k=K)
-    out["oracle_s"] = time.perf_counter() - t
-    del flat
     check(bool((truth >= 0).all()), "oracle returned empty slots")
+    return truth, time.perf_counter() - t
 
+
+def _state_gib(idx):
+    return sum(t.numel() * t.element_size() for t in idx.state) / 2**30
+
+
+def build_phase(dev, x, **flags):
+    from turdb_tpu_torch.models.ivf import IvfIndex
+
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t = time.perf_counter()
-    idx = IvfIndex(dim=DIM, device=dev)
+    idx = IvfIndex(dim=DIM, device=dev, **flags)
     idx.add(x)
     torch.cuda.synchronize()
-    out["build_s"] = time.perf_counter() - t
-    out["build_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    out["C"], out["L"] = idx.cfg.n_clusters, idx.cfg.cluster_cap
-    out["replicated"] = idx.cfg.replicated
-    log(f"build: {out['build_s']:.3f} s  C={out['C']} L={out['L']}  "
-        f"peak {out['build_peak_gib']:.3f} GiB")
+    out = {"build_s": time.perf_counter() - t,
+           "build_peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "C": idx.cfg.n_clusters, "L": idx.cfg.cluster_cap,
+           "replicated": idx.cfg.replicated, "state_gib": _state_gib(idx)}
+    log(f"build {flags}: {out['build_s']:.3f} s  C={out['C']} L={out['L']}  "
+        f"peak {out['build_peak_gib']:.3f} GiB, state {out['state_gib']:.3f} GiB")
+    return out, idx
 
-    # the same seed builds the same index: a second build, traced, must
-    # equal the first bit for bit
+
+def sweep_phase(idx, queries, truth, probes, gate=True):
+    from turdb_tpu_torch.utils.datasets import recall_of
+
+    sweep, at = [], None
+    for p in probes:
+        _, ids = idx.search(queries[:N_ORACLE], K, nprobe=p)
+        r = recall_of(ids, truth)
+        sweep.append({"nprobe": p, "recall@10": r})
+        log(f"  nprobe={p:3d} recall@10={r:.4f}")
+        if r >= RECALL_GATE:
+            at = p
+            break
+    if gate:
+        check(at is not None, f"recall gate {RECALL_GATE} not reached by nprobe {probes[-1]}")
+    return sweep, at
+
+
+def qps_phase(idx, batches, nprobe):
+    d, i = idx.search(batches[0], K, nprobe=nprobe, out="torch")
+    check(tuple(d.shape) == (BATCH, K) and tuple(i.shape) == (BATCH, K), "search shape")
+    check(bool(torch.isfinite(d).all()) and bool(((i >= 0) & (i < idx.size)).all()),
+          "search returned non-finite distances or out-of-range ids")
+
+    def run():
+        for b in batches:
+            idx.search(b, K, nprobe=nprobe, out="torch")
+
+    torch.cuda.reset_peak_memory_stats()
+    ms = _median_ms(run)
+    out = {"search_ms_per_batch": ms / len(batches), "qps": len(batches) * BATCH / (ms / 1e3),
+           "search_peak_gib": torch.cuda.max_memory_allocated() / 2**30, "batches": len(batches)}
+    log(f"search at nprobe={nprobe}: {out['qps']:.1f} QPS "
+        f"({out['search_ms_per_batch']:.4f} ms / batch of {BATCH}), "
+        f"peak {out['search_peak_gib']:.3f} GiB")
+    return out
+
+
+def _batches(queries, dev, n_batches=None):
+    qd = torch.as_tensor(queries, device=dev)
+    bs = [qd[s:s + BATCH] for s in range(0, len(qd) - BATCH + 1, BATCH)]
+    return bs[:n_batches] if n_batches else bs
+
+
+def headline_phase(dev, x, queries, truth):
+    """The f32 headline: build, a traced rebuild equal bit for bit, the
+    sweep to the gate, QPS at the gate."""
+    from turdb_tpu_torch.models.ivf import IvfIndex
     from turdb_tpu_torch.utils.timing import device_profile
 
+    out, idx = build_phase(dev, x)
+    # the same seed builds the same index: a second build, traced, must
+    # equal the first bit for bit
     again = IvfIndex(dim=DIM, device=dev)
     out["build_profile"] = device_profile(lambda: again.add(x))
     same = again.cfg == idx.cfg and all(
@@ -286,43 +558,21 @@ def headline_phase(dev, n=N, n_queries=N_QUERIES):
     check(same, "a second build from the same seed differs from the first")
     del again
     torch.cuda.empty_cache()
-
-    sweep, gate = [], None
-    for p in PROBES:
-        _, ids = idx.search(queries[:N_ORACLE], K, nprobe=p)
-        r = recall_of(ids, truth)
-        sweep.append({"nprobe": p, "recall@10": r})
-        log(f"  nprobe={p:3d} recall@10={r:.4f}")
-        if r >= RECALL_GATE:
-            gate = p
-            break
-    out["sweep"] = sweep
-    check(gate is not None, f"recall gate {RECALL_GATE} not reached by nprobe {PROBES[-1]}")
-    out["gate_nprobe"] = gate
-
-    qd = torch.as_tensor(queries, device=dev)
-    batches = [qd[s:s + BATCH] for s in range(0, len(qd) - BATCH + 1, BATCH)]
-    d, i = idx.search(batches[0], K, nprobe=gate, out="torch")
-    check(tuple(d.shape) == (BATCH, K) and tuple(i.shape) == (BATCH, K), "search shape")
-    check(bool(torch.isfinite(d).all()) and bool(((i >= 0) & (i < n)).all()),
-          "search returned non-finite distances or out-of-range ids")
-
-    def run():
-        for b in batches:
-            idx.search(b, K, nprobe=gate, out="torch")
-
-    torch.cuda.reset_peak_memory_stats()
-    ms = _median_ms(run)
-    out["search_ms_per_batch"] = ms / len(batches)
-    out["qps"] = len(batches) * BATCH / (ms / 1e3)
-    out["search_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    log(f"search at nprobe={gate}: {out['qps']:.1f} QPS "
-        f"({out['search_ms_per_batch']:.4f} ms / batch of {BATCH}), "
-        f"peak {out['search_peak_gib']:.3f} GiB")
-    return out, idx, queries, batches
+    out["sweep"], out["gate_nprobe"] = sweep_phase(idx, queries, truth, PROBES)
+    batches = _batches(queries, dev)
+    out.update(qps_phase(idx, batches, out["gate_nprobe"]))
+    return out, idx, batches
 
 
-def maintenance_phase(idx, queries, gate, n=N, n_append=10_000):
+def append_check(idx, new, nprobe):
+    slots = idx.add(new)
+    _, ids = idx.search(new, K, nprobe=nprobe)
+    found = float((ids == slots[:, None]).any(1).mean())
+    check(found >= 0.999, f"only {found} of the appended rows found by their own query")
+    return {"appended": len(slots), "append_found": found}
+
+
+def maintenance_phase(idx, queries, gate, n):
     rng = np.random.default_rng(1)
     out = {}
     # delete: the top hits of 1000 held-out queries, topped up to 1000 slots
@@ -343,14 +593,70 @@ def maintenance_phase(idx, queries, gate, n=N, n_append=10_000):
     check(not np.isin(got, dele).any(), "a deleted slot came back under a mask")
     out["allowed_hits"] = int(len(got))
 
-    new = queries[-n_append:]
-    slots = idx.add(new)
-    _, ids3 = idx.search(new, K, nprobe=gate)
-    found = float((ids3 == slots[:, None]).any(1).mean())
-    out["appended"], out["append_found"] = len(slots), found
-    check(found >= 0.999, f"only {found} of the appended rows found by their own query")
+    out.update(append_check(idx, queries[-N_APPEND:], gate))
     log(f"maintenance: deleted {len(dele)} (none returned), allowed-only hits "
-        f"{len(got)}, appended {len(slots)} found {found}")
+        f"{len(got)}, appended {out['appended']} found {out['append_found']}")
+    return out
+
+
+def sq8_phase(dev, x, queries, truth):
+    """The bench's ivf_sq8 row: sq8 int8 probe + exact rerank over f32 rows."""
+    out, idx = build_phase(dev, x, sq8=True, rerank=RERANK)
+    out["sweep"], out["gate_nprobe"] = sweep_phase(idx, queries, truth, PROBES)
+    batches = _batches(queries, dev)
+    out.update(qps_phase(idx, batches, out["gate_nprobe"]))
+    return out, idx, batches
+
+
+def compact_phase(dev, x, queries, truth, gate, sq8_out):
+    """The compact store at the sq8 index's gate: less memory, the same
+    recall (within 0.005), and appends that keep the SQ16 encoding."""
+    out, idx = build_phase(dev, x, sq8=True, keep_f32=False, rerank=RERANK)
+    check(idx.state.pvecs.dtype == torch.int16, "the compact store is not SQ16")
+    out["sweep"], _ = sweep_phase(idx, queries, truth, (gate,), gate=False)
+    r, r_sq8 = out["sweep"][0]["recall@10"], sq8_out["sweep"][-1]["recall@10"]
+    check(abs(r - r_sq8) <= 0.005, f"compact recall {r} vs sq8 {r_sq8} at nprobe {gate}")
+    check(out["state_gib"] < sq8_out["state_gib"], "the compact store is not smaller")
+    batches = _batches(queries, dev)
+    out.update(qps_phase(idx, batches, gate))
+    check(out["search_peak_gib"] < sq8_out["search_peak_gib"],
+          "the compact store's search peak is not below the sq8 index's")
+    out.update(append_check(idx, queries[-N_APPEND:], gate))
+    log(f"compact: recall {r:.4f} (sq8 {r_sq8:.4f}), appended {out['appended']} "
+        f"found {out['append_found']}")
+    return out, idx, batches
+
+
+def hard_phase(dev, rng, n, n_batches=4):
+    """The bench's ivf_hard row: hard_pool drawn after make_pool from the
+    same generator, its own oracle, sq8 + rerank, the wide sweep."""
+    from turdb_tpu_torch.utils.datasets import hard_pool
+
+    t = time.perf_counter()
+    xh, qh = hard_pool(rng, n, DIM, n_queries=N_QUERIES)
+    out = {"pool_s": time.perf_counter() - t}
+    truth, out["oracle_s"] = _oracle(dev, xh, qh)
+    b, idx = build_phase(dev, xh, sq8=True, rerank=RERANK)
+    out.update(b)
+    out["sweep"], out["gate_nprobe"] = sweep_phase(idx, qh, truth, HARD_PROBES)
+    batches = _batches(qh, dev, n_batches)
+    out.update(qps_phase(idx, batches, out["gate_nprobe"]))
+    return out, idx, batches
+
+
+def probe_only_phase(dev, x, queries, n):
+    """The probe-only store (the HNSW bulk build's candidate generator):
+    int8 codes and no row copy; it searches, and an append raises."""
+    truth, _ = _oracle(dev, x[:n], queries)
+    out, idx = build_phase(dev, x[:n], sq8=True, keep_f32=False, rerank=0)
+    check(idx.state.pvecs.shape == (1, 1, 1), "the probe-only store keeps rows")
+    out["sweep"], _ = sweep_phase(idx, queries, truth, (8, 32), gate=False)
+    out.update(qps_phase(idx, _batches(queries, dev, 4), 8))
+    try:
+        idx.add(x[n:n + 2])
+    except RuntimeError as e:
+        out["append_refused"] = str(e)
+    check("append_refused" in out, "an append to the probe-only store did not raise")
     return out
 
 
@@ -363,7 +669,110 @@ KERNELS = {
                   "turdb_tpu/ops/topk.py:45"),
     "kmeans_assign": ("turdb_tpu_torch/kernels/csrc/kmeans_assign.cu",
                       "turdb_tpu/models/ivf.py:117"),
+    "ivf_probe_sq8": ("turdb_tpu_torch/kernels/csrc/ivf_probe.cu",
+                      "turdb_tpu/models/ivf.py:291"),
+    "ivf_rerank": ("turdb_tpu_torch/kernels/csrc/ivf_rerank.cu",
+                   "turdb_tpu/models/ivf.py:333"),
 }
+# the kernels each main path must launch
+PATH_KERNELS = {
+    "f32": ("ivf_probe_f32", "topk_rows", "kmeans_assign"),
+    "sq8": ("ivf_probe_sq8", "ivf_rerank", "topk_rows", "kmeans_assign"),
+    "compact": ("ivf_probe_sq8", "ivf_rerank", "topk_rows", "kmeans_assign"),
+    "hard": ("ivf_probe_sq8", "ivf_rerank", "topk_rows", "kmeans_assign"),
+    "probe_only": ("ivf_probe_sq8", "topk_rows", "kmeans_assign"),
+}
+
+
+def kernel_rows(launches):
+    """The {"kernels": [...]} rows: each kernel's timed shape from the
+    kernel phase, its launches summed over the main paths."""
+    timed = {
+        "ivf_probe_f32": REPORT["k1"],
+        "topk_rows": REPORT["k2"][f"cell_select_k{K1_PROBE}"],
+        "kmeans_assign": REPORT["k3"],
+        "ivf_probe_sq8": REPORT["k4"][f"cand_P{SQ8_PROBE}"],
+        "ivf_rerank": REPORT["k5"]["f32"],
+    }
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": sum(counts.get(name, 0) for counts in launches.values()),
+         **{k: timed[name][k] for k in keys}}
+        for name, (src, rep) in KERNELS.items()
+    ]
+
+
+def run_paths(dev, launches):
+    """The main paths, each between a reset and a read of the launch
+    counts; the traced searches run after each path's counts are read."""
+    from turdb_tpu_torch import kernels
+    from turdb_tpu_torch.utils.datasets import make_pool
+    from turdb_tpu_torch.utils.timing import device_profile
+
+    def counted(name, fn):
+        kernels.reset_launches()
+        result = fn()
+        launches[name] = dict(kernels.launches)
+        log(f"launches on the {name} path: {json.dumps(launches[name])}")
+        for k in PATH_KERNELS[name]:
+            check(launches[name][k] > 0, f"{k} never launched on the {name} path")
+        return result
+
+    def profile(name, idx, batches, nprobe):
+        REPORT[f"{name}_profile"] = device_profile(
+            lambda: [idx.search(b, K, nprobe=nprobe, out="torch") for b in batches])
+        log(f"{name} search profile: {json.dumps(REPORT[f'{name}_profile'])}")
+
+    # one generator feeds make_pool, then hard_pool: the bench's draw order
+    rng = np.random.default_rng(0)
+    t = time.perf_counter()
+    pool = make_pool(rng, N + N_QUERIES, DIM)
+    x, queries = pool[:N], pool[N:]
+    REPORT["pool_s"] = time.perf_counter() - t
+    truth, REPORT["oracle_s"] = _oracle(dev, x, queries)
+
+    def f32():
+        out, idx, batches = headline_phase(dev, x, queries, truth)
+        REPORT["headline"] = out
+        REPORT["maintenance"] = maintenance_phase(idx, queries, out["gate_nprobe"], n=len(x))
+        return idx, batches, out["gate_nprobe"]
+
+    idx, batches, gate = counted("f32", f32)
+    profile("search", idx, batches, gate)
+    del idx
+
+    def sq8():
+        REPORT["sq8"], idx, batches = sq8_phase(dev, x, queries, truth)
+        return idx, batches
+
+    idx, batches = counted("sq8", sq8)
+    sq8_gate = REPORT["sq8"]["gate_nprobe"]
+    profile("sq8", idx, batches, sq8_gate)
+    del idx
+
+    def compact():
+        REPORT["compact"], idx, batches = compact_phase(dev, x, queries, truth, sq8_gate,
+                                                         REPORT["sq8"])
+        return idx, batches
+
+    idx, batches = counted("compact", compact)
+    profile("compact", idx, batches, sq8_gate)
+    del idx
+
+    REPORT["probe_only"] = counted("probe_only",
+                                   lambda: probe_only_phase(dev, x, queries, N_PROBE_ONLY))
+    del pool, x, queries
+    torch.cuda.empty_cache()
+
+    def hard():
+        REPORT["hard"], idx, batches = hard_phase(dev, rng, N)
+        return idx, batches
+
+    idx, batches = counted("hard", hard)
+    profile("hard", idx, batches, REPORT["hard"]["gate_nprobe"])
+    del idx
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -379,7 +788,6 @@ def main() -> int:
     REPORT["card"] = card
     OUT.mkdir(exist_ok=True)
 
-    from turdb_tpu_torch import kernels
     from turdb_tpu_torch.kernels import build
 
     t = time.perf_counter()
@@ -391,49 +799,36 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    launches: dict = {}
+    t0 = time.perf_counter()
     try:
         REPORT["k2"] = k2_phase(dev, gen)
         REPORT["k1"] = k1_phase(dev, gen)
         REPORT["k3"] = k3_phase(dev, gen)
-        for name in ("k1", "k2", "k3"):
+        torch.cuda.empty_cache()
+        st = synthetic_sq8_store(dev, gen)
+        k4 = k4_phase(dev, gen, st)
+        REPORT["k5"] = k5_phase(st, k4.pop("cand"))
+        REPORT["k4"] = k4
+        del st
+        for name in ("k1", "k2", "k3", "k4", "k5"):
             log(f"{name}: {json.dumps(REPORT[name])}")
         torch.cuda.empty_cache()
-
-        kernels.reset_launches()
-        REPORT["headline"], idx, queries, batches = headline_phase(dev)
-        gate = REPORT["headline"]["gate_nprobe"]
-        REPORT["maintenance"] = maintenance_phase(idx, queries, gate)
-        launches = dict(kernels.launches)
-        REPORT["launches"] = launches
-        log(f"launches on the main path: {json.dumps(launches)}")
-        check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
-        # after the counts: the trace of a run over every search batch
-        # calls the kernels outside the main path (on the index after
-        # maintenance)
-        from turdb_tpu_torch.utils.timing import device_profile
-
-        REPORT["search_profile"] = device_profile(
-            lambda: [idx.search(b, K, nprobe=gate, out="torch") for b in batches])
-        log(f"search profile: {json.dumps(REPORT['search_profile'])}")
+        REPORT["kernel_phase_s"] = time.perf_counter() - t0
+        run_paths(dev, launches)
     except SmokeFailure as e:
         REPORT["failure"] = str(e)
+        REPORT["launches"] = launches
         (OUT / "chip_smoke_report.json").write_text(json.dumps(REPORT, indent=1))
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
+    REPORT["launches"] = launches
+    REPORT["total_s"] = time.perf_counter() - t0
     (OUT / "chip_smoke_report.json").write_text(json.dumps(REPORT, indent=1))
-    log(f"headline: {json.dumps(REPORT['headline'])}")
+    for name in ("headline", "sq8", "compact", "hard", "probe_only"):
+        log(f"{name}: {json.dumps({k: v for k, v in REPORT[name].items() if k != 'build_profile'})}")
 
-    timed = {
-        "ivf_probe_f32": REPORT["k1"],
-        "topk_rows": REPORT["k2"][f"cell_select_k{K1_PROBE}"],
-        "kmeans_assign": REPORT["k3"],
-    }
-    rows = [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": timed[name]["max_abs_err"],
-         "ms": timed[name]["ms"], "plain_ms": timed[name]["plain_ms"]}
-        for name, (src, rep) in KERNELS.items()
-    ]
+    rows = kernel_rows(launches)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

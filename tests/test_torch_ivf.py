@@ -188,20 +188,19 @@ def test_kmeans_and_two_means_track_reference():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="sq8"):
-        tivf.IvfIndex(dim=8, sq8=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="rerank"):
-        tivf.IvfIndex(dim=8, rerank=16, device="cpu")
+    """Dense block packing and fast_build are still to port: the index,
+    the search and the state loader refuse them, naming the ROADMAP item."""
     with pytest.raises(NotImplementedError, match="dense"):
         tivf.IvfIndex(dim=8, dense_pack=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="dense"):
+        tivf.IvfIndex(dim=8, nblocks=4, device="cpu")
     with pytest.raises(NotImplementedError, match="fast_build"):
         tivf.IvfIndex(dim=8, fast_build=True, device="cpu")
-    st = tivf.IvfState(*(torch.zeros(1) for _ in range(6)))
-    for field in ("sq8", "rerank", "dense"):
-        cfg = tivf.IvfConfig(dim=8, n_clusters=1, cluster_cap=1, **{field: 1})
-        with pytest.raises(NotImplementedError):
-            tivf.ivf_search_impl(st, torch.zeros((1, 8)), None, cfg=cfg, k=1, nprobe=1)
-    with pytest.raises(NotImplementedError):
+    st = tivf.IvfState(*(torch.zeros(1) for _ in range(9)))
+    cfg = tivf.IvfConfig(dim=8, n_clusters=1, cluster_cap=1, dense=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tivf.ivf_search_impl(st, torch.zeros((1, 8)), None, cfg=cfg, k=1, nprobe=1)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         ivf_state_from_numpy({}, {"dim": 8, "n_clusters": 1, "cluster_cap": 1,
-                                  "sq8": True}, "cpu")
+                                  "dense": True}, "cpu")
     assert Metric.L2.value == 0

@@ -19,6 +19,7 @@ from turdb_tpu.ops import distance as jd
 from turdb_tpu.ops import topk as jt
 from turdb_tpu_torch import kernels
 from turdb_tpu_torch.ops import distance as td
+from turdb_tpu_torch.ops import quantize as tq
 from turdb_tpu_torch.ops import topk as tt
 
 # the test workers share the machine's cores: one intra-op thread each
@@ -171,7 +172,19 @@ def test_cpu_wrappers_leave_launch_counters_at_zero():
                           torch.arange(32, dtype=torch.int32).reshape(4, 8),
                           torch.ones((4, 8), dtype=torch.bool), None,
                           metric=0, k=3, m=3, replicated=False)
-    assert kernels.launches == {"ivf_probe_f32": 0, "topk_rows": 0, "kmeans_assign": 0}
+    members = torch.arange(32, dtype=torch.int32).reshape(4, 8)
+    alive = torch.ones((4, 8), dtype=torch.bool)
+    c8, mins, scales, _ = tq.sq8_store(xt[:32])
+    qc, qs, qsum = tq.quantize_queries(qt)
+    cd, ci, cpos = kernels.ivf_probe_sq8(
+        qc, qs, qsum, td.prep_norms(qt), cells, c8.reshape(4, 8, 16),
+        mins.reshape(4, 8), scales.reshape(4, 8), td.prep_norms(pv), members, alive,
+        k=5, m=5, replicated=True, mode=kernels.MODE_CAND)
+    kernels.ivf_rerank(qt, td.prep_norms(qt), cd, ci, cpos, pv, td.prep_norms(pv),
+                       k=3, replicated=True)
+    assert set(kernels.launches) == {"ivf_probe_f32", "topk_rows", "kmeans_assign",
+                                     "ivf_probe_sq8", "ivf_rerank"}
+    assert not any(kernels.launches.values()), kernels.launches
 
 
 def test_wrappers_never_fall_back():

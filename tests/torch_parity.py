@@ -8,7 +8,8 @@ import dataclasses
 
 import numpy as np
 
-IVF_FIELDS = ("centroids", "cnorms", "members", "pvecs", "pnorms", "alive")
+IVF_FIELDS = ("centroids", "cnorms", "members", "pvecs", "pnorms", "alive",
+              "codes", "mins", "scales")
 
 
 def export_ivf(state, cfg) -> tuple[dict, dict]:

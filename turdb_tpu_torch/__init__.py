@@ -1,18 +1,21 @@
-"""turdb_tpu_torch — the IVF-Flat vector engine of turdb_tpu on PyTorch and CUDA.
+"""turdb_tpu_torch — the IVF vector engine of turdb_tpu on PyTorch and CUDA.
 
 A second package beside `turdb_tpu` (the JAX reference, which it never
 imports). It mirrors the reference layout:
 
     ops/distance.py   Metric, norms, pairwise / gathered distances
     ops/topk.py       exact k-smallest selection, dedup, membership
+    ops/quantize.py   SQ8 / SQ16 row encodings, int8 query quantization
     models/flat.py    FlatIndex: exact chunked k-NN (the recall oracle)
-    models/ivf.py     IvfIndex: k-means build + fused cell probe
+    models/ivf.py     IvfIndex: k-means build + fused cell probe over the
+                      f32 store, the SQ8 probe with exact rerank (f32 or
+                      SQ16 rows), and the probe-only int8 store
     kernels/          hand-written CUDA C++ kernels for sm_90a + wrappers
     convert.py        reference state (as numpy) -> port state
 
-Every index takes an explicit `device`. On a CPU tensor each kernel
-wrapper runs its plain PyTorch version; on a CUDA tensor it launches the
-hand-written kernel or raises.
+Every index runs on the card unless its `device` says otherwise. On a CPU
+tensor each kernel wrapper runs its plain PyTorch version; on a CUDA
+tensor it launches the hand-written kernel or raises.
 """
 
 import torch

@@ -1,10 +1,12 @@
 """Build the hand-written CUDA kernels and load them with ctypes.
 
-`nvcc -gencode arch=compute_90a,code=sm_90a` compiles every `csrc/*.cu`
-into one shared library with a plain C interface (no PyTorch headers, so
-a build takes seconds). The library lands in `build/turdb_kernels/` under
-the repository root, named by a hash of the sources and flags, and is
-built at first use. Nothing here runs at import time.
+`nvcc -gencode arch=compute_90a,code=sm_90a` compiles each `csrc/*.cu`
+into an object, one nvcc process per source, all started together, and
+links the objects into one shared library with a plain C interface (no
+PyTorch headers, so a build takes seconds). The library lands in
+`build/turdb_kernels/` under the repository root, named by a hash of the
+sources and flags, and is built at first use. Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "turdb_kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 ]
 
 _P = ctypes.c_void_p
@@ -30,9 +32,20 @@ SIGNATURES = {
     # vals, B, N, rown, coln, colvalid, epilogue, clamp, k, out_d, out_i, stream
     "topk_rows": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     # q, qn, cells, B, P, pvecs, pnorms, members, alive, allowed, L, d,
-    # metric, k, m, replicated, out_d, out_i, stream
+    # metric, k, m, replicated, mode, chunk, sc_key, sc_pos, sc_id,
+    # out_d, out_i, out_pos, stream
     "ivf_probe_f32": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I,
-                      _I, _I, _I, _I, _P, _P, _P],
+                      _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    # qc, qs, qsum, qn, cells, B, P, codes, mins, scales, pnorms, members,
+    # alive, allowed, L, d, k, m, replicated, mode, chunk, sc_key, sc_pos,
+    # sc_id, out_d, out_i, out_pos, stream
+    "ivf_probe_sq8": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
+                      _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                      _P, _P, _P, _P, _P],
+    # q, qn, cand_d, cand_i, cand_pos, B, r, rows, sq16, pnorms, mins,
+    # scales, d, k, replicated, out_d, out_i, stream
+    "ivf_rerank": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _P,
+                   _P, _I, _I, _I, _P, _P, _P],
     # x, xn, n, cents, cn, C, d, r, out_i, out_d, stream
     "kmeans_assign": [_P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P],
 }
@@ -71,13 +84,28 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs, procs = [], []
+    for src in _sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = [p.communicate()[0] for p in procs]
+    build_log = "".join(logs)
+    failed = [(src.name, p.returncode) for src, p in zip(_sources(), procs) if p.returncode]
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n{build_log}")
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *map(str, _sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = res.stdout + res.stderr
+    res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                         capture_output=True, text=True)
+    build_log += res.stdout + res.stderr
+    for obj in objs:
+        obj.unlink()
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{build_log}")
     os.replace(tmp, out)
     return out
 

@@ -1,22 +1,33 @@
 // Exact block-wide selection of the m smallest (key, position) pairs.
 //
-// Shared by K1 (ivf_probe.cu) and K2 (topk_rows.cu). One thread block
-// selects from n candidates whose keys come from a functor, so the
-// candidates may live in shared memory (K1) or be computed on the fly from
-// global memory with a fused epilogue (K2).
+// Shared by K1/K4 (ivf_probe.cu), K2 (topk_rows.cu) and K5 (ivf_rerank.cu).
+// One thread block selects from n candidates whose keys come from a
+// functor, so the candidates may live in shared memory (K1, K4, K5) or be
+// computed on the fly from global memory with a fused epilogue (K2).
 //
 // Method: radix select on order-preserving 32-bit keys, 8 bits per pass
 // (4 histogram passes find the m-th smallest key T exactly), one collect
 // pass (all keys < T, then keys == T in position order until m are taken),
 // and a bitonic sort of the <= SEL_MAX winners by (key, position). Ties
-// therefore go to the lower position, as lax.top_k does.
+// therefore go to the lower position, as lax.top_k does. The winners live
+// in shared memory arrays of sel_pow2(m) entries (16 KB for both at
+// m = SEL_MAX), which the caller sizes from m.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define SEL_MAX 256
+#define SEL_MAX 2048
 #define SEL_THREADS 256
+#define INF_KEY 0xff800000u   // f2key(+inf)
+
+// capacity of the winner arrays for a selection of m: the bitonic sort's
+// power of two
+__host__ __device__ __forceinline__ int sel_pow2(int m) {
+    int s = 1;
+    while (s < m) s <<= 1;
+    return s;
+}
 
 // float -> uint32 with the same order; -0.0 is folded into +0.0 first so
 // that the two compare equal, as they do for a float sort.
@@ -30,6 +41,12 @@ __device__ __forceinline__ float key2f(uint32_t k) {
     uint32_t u = (k & 0x80000000u) ? (k & 0x7fffffffu) : ~k;
     return __uint_as_float(u);
 }
+
+// Keys already in an array (shared or global memory).
+struct ArrayKey {
+    const uint32_t* keys;
+    __device__ __forceinline__ uint32_t operator()(int j) const { return keys[j]; }
+};
 
 struct SelectScratch {
     int hist[256];
@@ -61,7 +78,7 @@ __device__ __forceinline__ void bitonic_sort(uint32_t* s_key, int* s_pos, int si
 
 // Select the m smallest of n keys (1 <= m <= min(n, SEL_MAX)); on return
 // s_key/s_pos[0, m) hold them sorted by (key, position). Needs blockDim.x
-// == SEL_THREADS and s_key/s_pos of SEL_MAX entries. All threads call it.
+// == SEL_THREADS and s_key/s_pos of sel_pow2(m) entries. All threads call it.
 template <class KeyFn>
 __device__ void block_select(KeyFn key_of, int n, int m, uint32_t* s_key,
                              int* s_pos, SelectScratch* sc) {
@@ -134,8 +151,7 @@ __device__ void block_select(KeyFn key_of, int n, int m, uint32_t* s_key,
         }
         __syncthreads();
     }
-    int size = 1;
-    while (size < m) size <<= 1;
+    const int size = sel_pow2(m);
     for (int i = m + tid; i < size; i += blockDim.x) {
         s_key[i] = 0xffffffffu;
         s_pos[i] = 0x7fffffff;

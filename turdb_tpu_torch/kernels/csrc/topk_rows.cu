@@ -16,7 +16,9 @@
 // the column-valid mask are applied as each value is read, so the
 // distance matrix is never written. block_select (select.cuh) finds the
 // k-th smallest key exactly by radix select, collects the winners and
-// sorts them by (value, position): ties go to the lower position.
+// sorts them by (value, position): ties go to the lower position. The
+// winners sit in dynamic shared memory sized from k (k <= SEL_MAX = 2048:
+// 16 KB), so a small k keeps the block small.
 #include "select.cuh"
 
 struct RowKey {
@@ -47,12 +49,13 @@ topk_rows_kernel(const float* __restrict__ vals, int n, const float* __restrict_
                  const float* __restrict__ coln, const uint8_t* __restrict__ valid,
                  int epi, int clamp, int k, float* __restrict__ out_d,
                  int* __restrict__ out_i) {
-    __shared__ uint32_t s_key[SEL_MAX];
-    __shared__ int s_pos[SEL_MAX];
-    __shared__ SelectScratch sc;
+    extern __shared__ __align__(16) unsigned char smem[];
+    SelectScratch* sc = reinterpret_cast<SelectScratch*>(smem);
+    uint32_t* s_key = reinterpret_cast<uint32_t*>(sc + 1);
+    int* s_pos = reinterpret_cast<int*>(s_key + sel_pow2(k));
     const size_t b = blockIdx.x;
     RowKey f{vals + b * n, coln, valid, epi == 1 ? rown[b] : 0.0f, epi, clamp};
-    block_select(f, n, k, s_key, s_pos, &sc);
+    block_select(f, n, k, s_key, s_pos, sc);
     for (int i = threadIdx.x; i < k; i += blockDim.x) {
         out_d[b * k + i] = key2f(s_key[i]);
         out_i[b * k + i] = s_pos[i];
@@ -63,7 +66,9 @@ extern "C" int topk_rows(const float* vals, int B, int N, const float* rown,
                          const float* coln, const uint8_t* valid, int epi,
                          int clamp, int k, float* out_d, int* out_i, void* stream) {
     if (k < 1 || k > N || k > SEL_MAX) return (int)cudaErrorInvalidValue;
-    topk_rows_kernel<<<B, SEL_THREADS, 0, (cudaStream_t)stream>>>(
+    // at most 1 KB + 16 KB: under the 48 KB a block gets without opt-in
+    const size_t smem = sizeof(SelectScratch) + (size_t)sel_pow2(k) * 2 * sizeof(int);
+    topk_rows_kernel<<<B, SEL_THREADS, smem, (cudaStream_t)stream>>>(
         vals, N, rown, coln, valid, epi, clamp, k, out_d, out_i);
     return (int)cudaGetLastError();
 }

@@ -49,10 +49,10 @@ def flat_search(
 
 class FlatIndex:
     """Append-only store with tombstone deletes; capacity grows by
-    doubling from 1024."""
+    doubling from 1024. Runs on the card unless `device` says otherwise."""
 
     def __init__(self, dim: int, metric: Metric = Metric.L2, capacity: int = 4096,
-                 *, device):
+                 *, device="cuda"):
         self.dim = dim
         self.metric = metric
         self.device = torch.device(device)

@@ -1,20 +1,29 @@
-"""IVF-Flat vector index on PyTorch (port of turdb_tpu/models/ivf.py,
-f32 store only).
+"""IVF vector index on PyTorch (port of turdb_tpu/models/ivf.py): the
+f32 row store, the SQ8 int8 probe with an exact rerank over an f32 or
+SQ16 row store, and the probe-only int8 store.
 
 Layout (block == cell):
     centroids   [C, d] f32
     cnorms      [C]    f32 (+inf for pad cells of an imported state)
     members     [C, L] int32 slot ids, -1 padded
-    pvecs       [C, L, d] f32 packed vector copies
-    pnorms      [C, L] f32 (+inf padding)
+    pvecs       [C, L, d] f32 rows; or the SQ16 compact store, int16
+                holding the reference's uint16 bits; or a (1, 1, 1)
+                placeholder in the probe-only store
+    pnorms      [C, L] f32 exact ‖x‖² (+inf padding)
     alive       [C, L] bool (tombstones)
+    codes       [C, L, d] int8 centred SQ8 codes (sq8), else (1, 1, 1)
+    mins        [C, L] f32 m′ = min + 128·scale (sq8), else (1, 1)
+    scales      [C, L] f32 (sq8), else (1, 1)
 
 Search: one fp32 q·Cᵀ matmul -> K2 with the `qn + cnorms − 2·dot` epilogue
-selects the top-nprobe cells -> K1 scores those cells' rows and returns the
-k nearest (deduplicating boundary replicas).
+selects the top-nprobe cells -> the probe scores those cells' rows: K1
+over f32 rows, K4 over int8 codes. Without rerank the probe returns the k
+nearest (deduplicating boundary replicas); with it, the probe returns the
+r best lanes and K5 reranks them exactly from the row store.
 Build: Lloyd's k-means whose assignment is K3 and whose update is a
 sorted segment sum, starved-centroid rebalance, the 2-means split cascade,
-balanced packing with spill, boundary replicas, then an `index_put_` pack.
+balanced packing with spill, boundary replicas, then an `index_put_` pack
+(with the SQ8 / SQ16 encodings of `ops/quantize.py`).
 """
 
 from __future__ import annotations
@@ -25,16 +34,23 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from turdb_tpu_torch.kernels import EPI_L2, ivf_probe_f32, kmeans_assign, topk_rows
+from turdb_tpu_torch.kernels import (
+    EPI_L2,
+    MODE_CAND,
+    ivf_probe_f32,
+    ivf_probe_sq8,
+    ivf_rerank,
+    kmeans_assign,
+    topk_rows,
+)
 from turdb_tpu_torch.ops.distance import Metric, normalize_rows, prep_norms
+from turdb_tpu_torch.ops.quantize import quantize_queries, sq8_store, sq16_decode, sq16_encode
 from turdb_tpu_torch.ops.topk import topk_smallest_wide
 
 INF = float("inf")
 
 # where each unported path stands in ROADMAP.md
-_SQ8 = "the sq8 int8 probe (ROADMAP queue 1 item 7; queue 2, still to port, item 1)"
-_RERANK = "the exact rerank branch (ROADMAP queue 1 item 7; queue 2, still to port, item 2)"
-_DENSE = "dense block packing (ROADMAP queue 1 item 7; queue 2, still to port, item 3)"
+_DENSE = "dense block packing (ROADMAP queue 1 item 7; queue 2, still to port, item 1)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,21 +61,31 @@ class IvfConfig:
     metric: Metric = Metric.L2
     nprobe: int = 8
     sq8: bool = False
-    rerank: int = 0
+    rerank: int = 0           # exact-rerank candidate count (0 = off)
     replicated: bool = False  # boundary replicas present -> dedup at top-k
     dense: bool = False
     copies: int = 2           # max physical copies per slot (1 + replica_rank)
 
 
 class IvfState(NamedTuple):
-    """Packed device state of the f32 store (block == cell)."""
+    """Packed device state (block == cell); see the module docstring."""
 
     centroids: torch.Tensor   # [C, d]
     cnorms: torch.Tensor      # [C]
     members: torch.Tensor     # [C, L] int32
-    pvecs: torch.Tensor       # [C, L, d] f32
+    pvecs: torch.Tensor       # [C, L, d] f32 | int16 (SQ16 bits) | (1, 1, 1)
     pnorms: torch.Tensor      # [C, L]
     alive: torch.Tensor       # [C, L] bool
+    codes: torch.Tensor       # [C, L, d] int8 | (1, 1, 1)
+    mins: torch.Tensor        # [C, L] m′ | (1, 1)
+    scales: torch.Tensor      # [C, L] | (1, 1)
+
+
+def sq8_placeholders(device):
+    """The small codes / mins / scales of a state without the int8 store:
+    nothing reads them (the reference's placeholders)."""
+    return (torch.zeros((1, 1, 1), dtype=torch.int8, device=device),
+            torch.zeros((1, 1), device=device), torch.zeros((1, 1), device=device))
 
 
 # ---------------------------------------------------------------------------
@@ -116,13 +142,11 @@ def _assign_topk_all(x: torch.Tensor, centroids: torch.Tensor,
 
 def ivf_search_impl(state: IvfState, queries: torch.Tensor, allowed, *,
                     cfg: IvfConfig, k: int, nprobe: int):
-    """Centroid matmul -> top-nprobe cells (K2) -> fused probe (K1).
-    `allowed` is a [C, L] bool visibility mask or None. Returns
-    ([B, k] dists ascending, [B, k] int32 slot ids, -1 where +inf)."""
-    if cfg.sq8:
-        raise NotImplementedError(f"not ported yet: {_SQ8}")
-    if cfg.rerank:
-        raise NotImplementedError(f"not ported yet: {_RERANK}")
+    """Centroid matmul -> top-nprobe cells (K2) -> fused probe (K1 over f32
+    rows, K4 over int8 codes) -> optional exact rerank (K5). `allowed` is a
+    [C, L] bool visibility mask or None. The sq8 probe and the rerank are
+    L2 whatever `cfg.metric` is, as in the reference. Returns ([B, k]
+    dists ascending, [B, k] int32 slot ids, -1 where +inf)."""
     if cfg.dense:
         raise NotImplementedError(f"not ported yet: {_DENSE}")
     q = queries.float().contiguous()
@@ -130,10 +154,26 @@ def ivf_search_impl(state: IvfState, queries: torch.Tensor, allowed, *,
     # cell scoring is L2 for every metric and, like the reference, unclamped
     dots = q @ state.centroids.T
     _, top = topk_rows(dots, nprobe, rown=qn, coln=state.cnorms, epilogue=EPI_L2)
-    m = min(max(2, cfg.copies) * k, nprobe * cfg.cluster_cap) if cfg.replicated else k
-    return ivf_probe_f32(q, qn, top, state.pvecs, state.pnorms, state.members,
-                         state.alive, allowed, metric=cfg.metric.value, k=k, m=m,
-                         replicated=cfg.replicated)
+    lanes = nprobe * cfg.cluster_cap
+    if cfg.rerank:
+        # the probe's r best lanes by (distance, lane), before any dedup
+        r = min(cfg.rerank, lanes)
+        sel = dict(k=r, m=r, replicated=cfg.replicated, mode=MODE_CAND)
+    else:
+        m = min(max(2, cfg.copies) * k, lanes) if cfg.replicated else k
+        sel = dict(k=k, m=m, replicated=cfg.replicated)
+    if cfg.sq8:
+        qc, qs, qsum = quantize_queries(q)
+        out = ivf_probe_sq8(qc, qs, qsum, qn, top, state.codes, state.mins, state.scales,
+                            state.pnorms, state.members, state.alive, allowed, **sel)
+    else:
+        out = ivf_probe_f32(q, qn, top, state.pvecs, state.pnorms, state.members,
+                            state.alive, allowed, metric=cfg.metric.value, **sel)
+    if not cfg.rerank:
+        return out
+    cd, ci, cpos = out
+    return ivf_rerank(q, qn, cd, ci, cpos, state.pvecs, state.pnorms, state.mins,
+                      state.scales, k=k, replicated=cfg.replicated)
 
 
 # ---------------------------------------------------------------------------
@@ -142,7 +182,14 @@ def ivf_search_impl(state: IvfState, queries: torch.Tensor, allowed, *,
 
 class IvfIndex:
     """Host orchestration: k-means training, balanced packing, incremental
-    appends, tombstones. Slot ids are dense insertion indices."""
+    appends, tombstones. Slot ids are dense insertion indices.
+
+    The store follows the reference's flags: `sq8` adds the int8 probe
+    codes; `keep_f32=False` (with sq8) keeps an SQ16 row copy instead of
+    the f32 rows; `rerank` is the exact-rerank candidate count (None: 64
+    under sq8, else 0). sq8 with `keep_f32=False` and `rerank=0` is the
+    probe-only store: int8 codes and no row copy at all, which takes no
+    appends. Runs on the card unless `device` says otherwise."""
 
     def __init__(
         self,
@@ -160,12 +207,8 @@ class IvfIndex:
         nblocks: int | None = None,
         fast_build: bool = False,
         *,
-        device,
+        device="cuda",
     ):
-        if sq8 or not keep_f32:
-            raise NotImplementedError(f"not ported yet: {_SQ8}")
-        if rerank:
-            raise NotImplementedError(f"not ported yet: {_RERANK}")
         if dense_pack or nblocks is not None:
             raise NotImplementedError(f"not ported yet: {_DENSE}")
         if fast_build:
@@ -177,6 +220,9 @@ class IvfIndex:
         self._n_clusters = n_clusters
         self._cluster_cap = cluster_cap
         self.nprobe = nprobe
+        self.sq8 = sq8
+        self.keep_f32 = keep_f32 or not sq8
+        self.rerank = (64 if sq8 else 0) if rerank is None else rerank
         self.replicate = replicate
         self.replica_rank = max(1, replica_rank)
         self.cfg: IvfConfig | None = None
@@ -189,6 +235,11 @@ class IvfIndex:
         self._slot_lane = np.zeros(0, np.int32)
         self._slot_extras: list[tuple[np.ndarray, np.ndarray]] = []
         self._occupancy: np.ndarray | None = None
+
+    @property
+    def probe_only(self) -> bool:
+        """sq8 with neither an f32 copy nor a rerank: no row store."""
+        return self.sq8 and not self.keep_f32 and not self.rerank
 
     def __len__(self):
         return self.size
@@ -224,11 +275,7 @@ class IvfIndex:
         n = x.shape[0]
         if n == 0:
             return
-        # geometry rule of the reference: n//128 cells for the f32 store at
-        # >= 500k rows and dim <= 256 (bigger contiguous blocks), else n//64
-        big_blocks = n >= 500_000 and self.dim <= 256
-        c = self._n_clusters or max(8, n // (128 if big_blocks else 64))
-        c = min(c, max(8, n // 4))
+        c, cap = self._geometry(n)
         rng = np.random.default_rng(0)
         seed_idx = rng.choice(n, size=c, replace=False)
         n_train = min(n, max(c * 64, 100_000), 4_194_304)
@@ -240,7 +287,6 @@ class IvfIndex:
         xt = xd if n_train == n else xd[self._dev(tr_idx)]
         cents = _kmeans(xt, xd[self._dev(seed_idx)], iters)
         assign = _assign_all(xd, cents, _masked_cn(cents, c)).cpu().numpy()
-        cap = self._cluster_cap or _pow2_at_least(max(int(2.0 * n / c), 16), floor=8)
         # balance repair: re-seed starved centroids as perturbed copies of
         # oversized donors, then a couple more Lloyd's iterations
         for rnd in range(6):
@@ -303,25 +349,48 @@ class IvfIndex:
                                               occupancy, cap)
         self.cfg = IvfConfig(
             dim=self.dim, n_clusters=c, cluster_cap=cap, metric=self.metric,
-            nprobe=self.nprobe, replicated=replicated,
+            nprobe=self.nprobe, sq8=self.sq8, rerank=self.rerank, replicated=replicated,
             copies=(self.replica_rank + 1) if replicated else 2,
         )
         self.state = self._pack(xd, cents_np, members, cap)
         self._vectors_host = []
 
+    def _geometry(self, n: int) -> tuple[int, int]:
+        """(cells, lane cap) before the split cascade, by the reference's
+        rule: n//128 cells for the f32 store at >= 500k rows and dim <= 256
+        (bigger contiguous blocks), else n//64 (the sq8 store moves 4x
+        fewer bytes a probe and keeps the denser layout); cap is the power
+        of two at least 2n/c."""
+        big_blocks = n >= 500_000 and not self.sq8 and self.dim <= 256
+        c = self._n_clusters or max(8, n // (128 if big_blocks else 64))
+        c = min(c, max(8, n // 4))
+        return c, self._cluster_cap or _pow2_at_least(max(int(2.0 * n / c), 16), floor=8)
+
     def _pack(self, xd, cents_np, members, cap) -> IvfState:
-        """Scatter rows (primaries and replicas) into the packed store."""
+        """Scatter rows (primaries and replicas) into the packed store,
+        encoded as the flags ask (`_pack_body` of the reference)."""
         c = members.shape[0]
         mc, ml = np.nonzero(members >= 0)
         mslots = members[mc, ml]
-        pvecs = torch.zeros((c, cap, self.dim), device=self.device)
-        pnorms = torch.full((c, cap), INF, device=self.device)
+        dev = self.device
+        if self.probe_only:
+            pvecs = torch.zeros((1, 1, 1), dtype=torch.int16, device=dev)
+        else:
+            pvecs = torch.zeros((c, cap, self.dim),
+                                dtype=torch.float32 if self.keep_f32 else torch.int16,
+                                device=dev)
+        if self.sq8:
+            codes = torch.zeros((c, cap, self.dim), dtype=torch.int8, device=dev)
+            mins = torch.zeros((c, cap), device=dev)
+            scales = torch.zeros((c, cap), device=dev)
+        else:
+            codes, mins, scales = sq8_placeholders(dev)
+        pnorms = torch.full((c, cap), INF, device=dev)
         ch = 1 << 20   # bounds the gathered-rows temporary
         for s in range(0, len(mslots), ch):
             rows = xd[self._dev(mslots[s:s + ch])]
             where = (self._dev(mc[s:s + ch]), self._dev(ml[s:s + ch]))
-            pvecs.index_put_(where, rows)
-            pnorms.index_put_(where, prep_norms(rows))
+            self._write_rows(where, rows, pvecs, pnorms, codes, mins, scales)
         alive = np.zeros((c, cap), bool)
         alive[mc, ml] = self._alive_host[mslots]
         cents = self._dev(np.ascontiguousarray(cents_np, np.float32))
@@ -332,7 +401,26 @@ class IvfIndex:
             pvecs=pvecs,
             pnorms=pnorms,
             alive=self._dev(alive),
+            codes=codes,
+            mins=mins,
+            scales=scales,
         )
+
+    def _write_rows(self, where, rows, pvecs, pnorms, codes, mins, scales):
+        """Write rows [n, d] f32 into the lanes `where` of every store the
+        flags keep (in place)."""
+        pnorms.index_put_(where, prep_norms(rows))
+        if self.sq8:
+            c8, m_prime, s8, m8 = sq8_store(rows)
+            codes.index_put_(where, c8)
+            mins.index_put_(where, m_prime)
+            scales.index_put_(where, s8)
+        if self.probe_only:
+            return
+        if self.keep_f32:
+            pvecs.index_put_(where, rows)
+        else:
+            pvecs.index_put_(where, sq16_encode(rows, m8, s8))
 
     def _place_spill(self, spill, xd, cents_np, members, occupancy, cap):
         """Capacity-respecting spill placement in waves: each wave sends
@@ -440,6 +528,10 @@ class IvfIndex:
         """Incremental append: each row lands in the nearest cell with a
         free lane; if every cell is full the index retrains."""
         st = self.state
+        if self.probe_only:
+            raise RuntimeError(
+                "probe-only IVF index (sq8, rerank=0, no row store) does "
+                "not support incremental appends; rebuild with train()")
         cap = self.cfg.cluster_cap
         jv = self._dev(vecs)
         d2c = (prep_norms(jv)[:, None] + st.cnorms[None, :]) - 2.0 * (jv @ st.centroids.T)
@@ -465,9 +557,8 @@ class IvfIndex:
         lanes = np.asarray(lanes)
         where = (self._dev(cs), self._dev(lanes))
         st.members.index_put_(where, self._dev(slots.astype(np.int32)))
-        st.pnorms.index_put_(where, prep_norms(jv))
         st.alive.index_put_(where, torch.ones(len(cs), dtype=torch.bool, device=self.device))
-        st.pvecs.index_put_(where, jv)
+        self._write_rows(where, jv, st.pvecs, st.pnorms, st.codes, st.mins, st.scales)
         need = int(slots.max()) + 1
         if need > len(self._slot_cluster):
             pad = np.full(need - len(self._slot_cluster), -1, np.int32)
@@ -482,7 +573,12 @@ class IvfIndex:
 
     def _retrain_with(self, extra_vecs, extra_slots):
         """Collect every stored vector plus the extras and retrain."""
-        flat = self.state.pvecs.reshape(-1, self.dim).cpu().numpy()
+        st = self.state
+        if st.pvecs.dtype == torch.int16:
+            flat = sq16_decode(st.pvecs, st.mins, st.scales)
+        else:
+            flat = st.pvecs
+        flat = flat.reshape(-1, self.dim).cpu().numpy()
         mem = self.state.members.reshape(-1).cpu().numpy()
         extra_slots = np.atleast_1d(np.asarray(extra_slots, np.int64))
         hi = int(extra_slots.max()) + 1 if len(extra_slots) else 0

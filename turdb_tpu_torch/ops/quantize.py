@@ -1,0 +1,73 @@
+"""SQ8 / SQ16 scalar quantization of rows and queries (port of
+turdb_tpu/ops/quantize.py `sq8_encode` / `sq8_decode`, and of the query
+quantization and row encodings inside turdb_tpu/models/ivf.py).
+
+    x ≈ min + scale·u,   u ∈ [0, 255],   scale = (max − min) / 255
+
+The IVF store keeps the codes centred (c = u − 128, int8) with
+m′ = min + 128·scale, so that q·x̂ = m′·Σq + scale·(q·c), and, in the
+compact store, an SQ16 copy u16 ∈ [0, 65535] on the same (min, scale).
+Every function rounds as the reference does (`torch.round` and
+`jnp.round` both round half to even, and divisions stay divisions), so
+the codes are the reference's bit for bit.
+
+`sq8_search` (the asymmetric search over a u8 store) is not ported yet:
+ROADMAP queue 2, still to port.
+"""
+
+from __future__ import annotations
+
+import torch
+
+SQ16_RATIO = 255.0 / 65535.0   # SQ16 step per SQ8 step (ivf.py `s16`)
+
+
+def sq8_encode(x: torch.Tensor):
+    """[N, d] f32 -> (codes uint8 [N, d], mins [N], scales [N])."""
+    x = x.float()
+    mins = torch.amin(x, dim=-1)
+    maxs = torch.amax(x, dim=-1)
+    scales = (maxs - mins) / 255.0
+    safe = torch.where(scales == 0, 1.0, scales)
+    codes = torch.clamp(torch.round((x - mins[:, None]) / safe[:, None]), 0, 255)
+    return codes.to(torch.uint8), mins, scales
+
+
+def sq8_decode(codes: torch.Tensor, mins: torch.Tensor, scales: torch.Tensor):
+    return mins[:, None] + scales[:, None] * codes.float()
+
+
+def sq8_store(x: torch.Tensor):
+    """Rows -> the IVF store's (centred int8 codes, m′, scales) and the
+    row minima the SQ16 encoding shares."""
+    codes, mins, scales = sq8_encode(x)
+    centred = (codes.to(torch.int16) - 128).to(torch.int8)
+    return centred, mins + 128.0 * scales, scales, mins
+
+
+def sq16_encode(x: torch.Tensor, mins: torch.Tensor, scales: torch.Tensor):
+    """Rows on their SQ8 (min, scale) -> SQ16 codes as int16 holding the
+    uint16 bits (torch has few uint16 operators; `& 0xFFFF` widens back)."""
+    s16 = scales * SQ16_RATIO
+    safe16 = torch.where(s16 == 0, 1.0, s16)
+    u = torch.clamp(torch.round((x.float() - mins[:, None]) / safe16[:, None]), 0, 65535)
+    u = u.to(torch.int32)
+    return torch.where(u >= 32768, u - 65536, u).to(torch.int16)
+
+
+def sq16_decode(u16: torch.Tensor, mins: torch.Tensor, scales: torch.Tensor):
+    """SQ16 codes [..., d] (int16 holding uint16 bits) with the store's m′
+    and scales [...] -> f32 rows `(m′ − 128·scale) + (scale·255/65535)·u`."""
+    base = mins - 128.0 * scales
+    s16 = scales * SQ16_RATIO
+    return base[..., None] + s16[..., None] * (u16.to(torch.int32) & 0xFFFF).float()
+
+
+def quantize_queries(q: torch.Tensor):
+    """Per-row symmetric int8 query quantization of the sq8 probe:
+    qs = max(max|q|, 1e-30) / 127, qc = clip(round(q / qs), −127, 127),
+    and q_sum = Σq. Returns (qc int8 [B, d], qs [B], q_sum [B])."""
+    q = q.float()
+    qs = torch.clamp_min(torch.amax(torch.abs(q), dim=-1), 1e-30) / 127.0
+    qc = torch.clamp(torch.round(q / qs[:, None]), -127, 127).to(torch.int8)
+    return qc.contiguous(), qs, torch.sum(q, dim=-1)
