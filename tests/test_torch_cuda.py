@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain versions on the card, and
-the slice on CUDA against the slice on the CPU. Marked `cuda`: these skip
-where no GPU is present. On a GPU machine:
+the slices (IVF, HNSW) on CUDA against the same slices on the CPU. Marked
+`cuda`: these skip where no GPU is present. On a GPU machine:
 
     python -m pytest tests/test_torch_cuda.py -q
 """
@@ -238,3 +238,188 @@ def test_build_is_reproducible_on_cuda(cuda):
     assert a.cfg == b.cfg
     for x, y in zip(a.state, b.state):
         assert torch.equal(x, y)
+
+
+def _graph(g, n, d, deg, cuda):
+    """Clustered rows and a level-0 graph: each row's deg - 4 nearest plus
+    4 random rows (-1 for a few), so that beams have far hops to take."""
+    centers = torch.randn(32, d, device=cuda, generator=g) * 4
+    x = centers[torch.randint(0, 32, (n,), device=cuda, generator=g)]
+    x = (x + torch.randn(n, d, device=cuda, generator=g)).contiguous()
+    norms = (x * x).sum(1)
+    near = torch.topk(norms[:, None] + norms[None, :] - 2 * x @ x.T, deg - 3,
+                      largest=False).indices[:, 1:]
+    adj = torch.cat([near, torch.randint(0, n, (n, 4), device=cuda, generator=g)], 1)
+    adj[torch.rand(n, deg, device=cuda, generator=g) < 0.02] = -1
+    return x, norms, adj.to(torch.int32).contiguous()
+
+
+def test_hnsw_graph_beam_kernel_matches_plain(cuda):
+    """K8 in its modes (one seed, several with `active`, the filtered result
+    buffer, the expanded ids) and metrics: the same buffers as the plain
+    version but where fp32 dots summed in another order swap a near tie."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x, norms, adj = _graph(g, 6000, 64, 16, cuda)
+    q = (x[torch.randint(0, 6000, (96,), device=cuda, generator=g)]
+         + 0.5 * torch.randn(96, 64, device=cuda, generator=g)).contiguous()
+    qn = (q * q).sum(1)
+    allowed = torch.rand(6000, device=cuda, generator=g) < 0.5
+    active = torch.arange(96, device=cuda) % 7 != 0
+    # distinct seeds per query, as a beam's buffer holds them
+    seeds = torch.rand(96, 6000, device=cuda, generator=g).topk(8).indices.to(torch.int32)
+    # fp32 dots summed in another order: L2 distances err by ~1e-5 of the
+    # norms they are taken from, whatever their own size
+    atol = 1e-5 * float(qn.max() + norms.max())
+    for metric in (0, 1, 2):
+        sd = kernels._gathered_epilogue(torch.einsum("bd,bsd->bs", q, x[seeds.long()]),
+                                        metric, qn[:, None], norms[seeds.long()]).contiguous()
+        for kw in (dict(), dict(active=active), dict(allowed=allowed, k_res=16),
+                   dict(return_expanded=True)):
+            args = (adj, x, norms, q, qn, seeds[:, :1].contiguous(), sd[:, :1].contiguous())
+            if "active" in kw:
+                args = (*args[:5], seeds, sd)
+            opts = dict(ef=48, iters=72, metric=metric, expand=4, **kw)
+            before = kernels.launches["hnsw_graph_beam"]
+            got = kernels.hnsw_graph_beam(*args, **opts)
+            assert kernels.launches["hnsw_graph_beam"] == before + 1
+            want = kernels.hnsw_graph_beam_plain(*args, **opts)
+            torch.testing.assert_close(got.cand_d, want.cand_d, rtol=1e-5, atol=atol)
+            assert (got.cand_i == want.cand_i).float().mean() >= 0.99, (metric, kw)
+            if "k_res" in kw:
+                torch.testing.assert_close(got.res_d, want.res_d, rtol=1e-5, atol=atol)
+                assert bool(allowed[got.res_i[got.res_i >= 0].long()].all())
+            if kw.get("return_expanded"):
+                assert (got.exp_ids == want.exp_ids).all(1).float().mean() >= 0.95
+            if "active" in kw:
+                assert bool((got.cand_i[~active] == -1).all())
+            assert (got.stats == want.stats).all(1).float().mean() >= 0.95
+
+
+def test_hnsw_serve_beam_kernel_matches_plain(cuda):
+    """K6 on a serving pack: its int8 dots are exact and its epilogue rounds
+    as the plain expression, so the beams are the same; the rerank's fp32
+    dots differ in the last bits."""
+    from turdb_tpu_torch.models.hnsw_serve import pack_serving, serve_search_impl
+    from turdb_tpu_torch.ops.distance import Metric
+    from turdb_tpu_torch.ops.quantize import quantize_queries
+
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x, norms, adj = _graph(g, 6000, 64, 32, cuda)
+    pack = pack_serving(x, norms, adj, 6000, Metric.L2)
+    q = (x[:128] + 0.5 * torch.randn(128, 64, device=cuda, generator=g)).contiguous()
+    qn = (q * q).sum(1)
+    qc, qs, qsum = quantize_queries(q)
+    seeds = torch.rand(128, 6000, device=cuda, generator=g).topk(16).indices.to(torch.int32)
+    allowed = torch.rand(6000, device=cuda, generator=g) < 0.6
+    atol = 1e-5 * float(qn.max() + norms.max())   # as in the K8 test
+    for metric in (0, 1, 2):
+        seed_d = torch.arange(16, device=cuda, dtype=torch.float32).expand(128, 16).contiguous()
+        for ef, iters, rerank, allow in ((32, 24, 0, None), (64, 48, 40, allowed),
+                                         (96, 96, 0, None)):
+            args = (pack.nbr_codes, pack.nbr_meta, x, norms, q, qn, qc, qs, qsum, seeds, seed_d,
+                    allow)
+            opts = dict(ef=ef, iters=iters, expand=4, rerank=rerank, k=10, metric=metric)
+            dk, ik, sk = kernels.hnsw_serve_beam(*args, **opts)
+            dp, ip, sp = kernels.hnsw_serve_beam_plain(*args, **opts)
+            assert torch.equal(sk, sp)
+            torch.testing.assert_close(dk, dp, rtol=1e-5, atol=atol)
+            assert (ik == ip).float().mean() >= 0.999
+    # the whole serving search on the card against the CPU
+    d_c, i_c = serve_search_impl(pack, q, None, metric=Metric.L2, k=10, ef=64, iters=96)
+    cpu = type(pack)(*(t.cpu() for t in pack))
+    d_h, i_h = serve_search_impl(cpu, q.cpu(), None, metric=Metric.L2, k=10, ef=64, iters=96)
+    torch.testing.assert_close(d_c.cpu(), d_h, rtol=1e-4, atol=1e-3)
+    assert (i_c.cpu() == i_h).float().mean() >= 0.99
+
+
+def test_hnsw_select_kernel_matches_plain(cuda):
+    """K7 with duplicates, -1 and the target among W = 64 and 128
+    candidates, every metric, alpha 1.0 and 1.2."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x, norms, adj = _graph(g, 5000, 64, 16, cuda)
+    for w in (64, 128):
+        targets = torch.randperm(5000, device=cuda, generator=g)[:700].to(torch.int32)
+        cand = torch.randint(0, 5000, (700, w), device=cuda, generator=g, dtype=torch.int32)
+        cand[:, : adj.shape[1]] = adj[targets.long()]
+        cand[:, 20] = cand[:, 3]
+        cand[:, 30] = -1
+        cand[:, 40] = targets
+        for metric in (0, 1, 2):
+            xm = x / x.norm(dim=1, keepdim=True) if metric == 1 else x
+            nm = (xm * xm).sum(1)
+            for alpha in (1.0, 1.2):
+                before = kernels.launches["hnsw_select"]
+                ki, kd, kp = kernels.hnsw_select(xm, nm, targets, cand, deg=16, metric=metric,
+                                                 alpha=alpha)
+                assert kernels.launches["hnsw_select"] == before + 1
+                pi, pd, pp = kernels.hnsw_select_plain(xm, nm, targets, cand, deg=16,
+                                                       metric=metric, alpha=alpha)
+                same = (ki == pi).all(1)
+                assert same.float().mean() >= 0.99, (w, metric, alpha)
+                torch.testing.assert_close(kd[same], pd[same], rtol=1e-5, atol=1e-4)
+                assert (kp[same] == pp[same]).all()
+                assert not bool((ki == targets[:, None]).any())
+
+
+def test_ivf_probe_sq8_metric_epilogues_bit_equal(cuda):
+    """K4's COSINE and IP epilogues (the serving pack's seeding) equal the
+    plain version bit for bit."""
+    from turdb_tpu_torch.ops.quantize import quantize_queries
+
+    g = torch.Generator(device=cuda).manual_seed(10)
+    pvecs, pnorms, members, alive, allowed = _store(g, 300, 128, 64, 3000, cuda)
+    codes, mins, scales, _ = _sq8_store(pvecs)
+    q = torch.randn(40, 64, device=cuda, generator=g)
+    qc, qs, qsum = quantize_queries(q)
+    qn = (q * q).sum(1)
+    cells = torch.rand(40, 300, device=cuda, generator=g).topk(4).indices.to(torch.int32)
+    for metric in (1, 2):
+        for allow in (None, allowed):
+            args = (qc, qs, qsum, qn, cells, codes, mins, scales, pnorms, members, alive, allow)
+            kw = dict(k=32, m=32, replicated=False, metric=metric)
+            got = kernels.ivf_probe_sq8(*args, **kw)
+            want = kernels.ivf_probe_sq8_plain(*args, **kw, mode=kernels.MODE_TOPK)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+
+
+def test_hnsw_limits_raise(cuda):
+    x = torch.randn(2048, 32, device=cuda)
+    n = (x * x).sum(1)
+    adj = torch.zeros(2048, 16, dtype=torch.int32, device=cuda)
+    seed = torch.zeros(4, 1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        kernels.hnsw_graph_beam(adj, x, n, x[:4], n[:4], seed, n[:4, None], ef=kernels.EF_MAX + 1,
+                                iters=8, metric=0)
+    with pytest.raises(ValueError):
+        kernels.hnsw_select(x, n, seed[:, 0], torch.zeros(4, kernels.SELECT_W_MAX + 1,
+                                                          dtype=torch.int32, device=cuda),
+                            deg=16, metric=0, alpha=1.0)
+
+
+def test_hnsw_slice_on_cuda_matches_cpu(cuda):
+    """The bulk build, the graph search and the serving search on the card
+    reach the CPU run's recall (the exact route, and the self-probe route
+    with _BULK_EXACT lowered)."""
+    from turdb_tpu_torch.models import hnsw as th
+
+    pool = make_pool(np.random.default_rng(0), 20_256, 32, n_clusters=64)
+    x, q = pool[:20_000], pool[20_000:]
+    flat = FlatIndex(dim=32, capacity=20_000, device=cuda)
+    flat.add(x)
+    _, truth = flat.search(q, k=10)
+    saved = th._BULK_EXACT
+    try:
+        for exact in (saved, 8192):
+            th._BULK_EXACT = exact
+            rec = {}
+            for dev in ("cpu", cuda):
+                idx = th.HnswIndex(dim=32, capacity=20_000, device=dev)
+                idx.add(x)
+                _, ids = idx.search(q, k=10, ef=64)
+                _, ids_s = idx.search_serve(q, k=10, ef=64)
+                rec[str(dev)] = (recall_of(ids, truth), recall_of(ids_s, truth))
+            for a, b in zip(rec["cpu"], rec["cuda"]):
+                assert abs(a - b) <= 0.02 and b >= 0.95, (exact, rec)
+    finally:
+        th._BULK_EXACT = saved

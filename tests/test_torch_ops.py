@@ -182,8 +182,24 @@ def test_cpu_wrappers_leave_launch_counters_at_zero():
         k=5, m=5, replicated=True, mode=kernels.MODE_CAND)
     kernels.ivf_rerank(qt, td.prep_norms(qt), cd, ci, cpos, pv, td.prep_norms(pv),
                        k=3, replicated=True)
+    # the HNSW kernels: a ring graph over the 32 rows
+    adj = ((torch.arange(32)[:, None] + torch.tensor([1, -1, 5, -5])) % 32).to(torch.int32)
+    xn = td.prep_norms(xt[:32])
+    seed_i = torch.zeros((24, 1), dtype=torch.int32)
+    seed_d = (td.prep_norms(qt) + xn[0] - 2 * qt @ xt[0])[:, None]
+    kernels.hnsw_graph_beam(adj, xt[:32].contiguous(), xn, qt, td.prep_norms(qt), seed_i,
+                            seed_d, ef=8, iters=8, metric=0)
+    kernels.hnsw_select(xt[:32].contiguous(), xn, torch.arange(4, dtype=torch.int32),
+                        torch.arange(40, dtype=torch.int32).reshape(4, 10) % 32, deg=4,
+                        metric=0, alpha=1.2)
+    meta = torch.stack([mins, scales, xn], 1).view(torch.int32)
+    meta = torch.cat([meta, torch.arange(32, dtype=torch.int32)[:, None]], 1)
+    kernels.hnsw_serve_beam(c8[adj.long()], meta[adj.long()], xt[:32].contiguous(), xn, qt,
+                            td.prep_norms(qt), qc, qs, qsum, seed_i, seed_d, ef=8, iters=8,
+                            expand=2, rerank=0, k=3, metric=0)
     assert set(kernels.launches) == {"ivf_probe_f32", "topk_rows", "kmeans_assign",
-                                     "ivf_probe_sq8", "ivf_rerank"}
+                                     "ivf_probe_sq8", "ivf_rerank", "hnsw_serve_beam",
+                                     "hnsw_select", "hnsw_graph_beam"}
     assert not any(kernels.launches.values()), kernels.launches
 
 

@@ -42,3 +42,19 @@ def assert_knn_match(d_ref, i_ref, d_port, i_port, rtol=1e-4, atol=1e-3):
         close = np.abs(d_ref - d_port) <= atol + rtol * np.abs(d_ref)
     assert np.all(close[diff]), "ids differ away from a tie"
     assert diff.mean() <= 0.01, f"{diff.mean():.4f} of the ids differ"
+
+
+def export_hnsw(state, cfg, size) -> tuple[dict, dict]:
+    """A reference HnswState + HnswConfig -> (numpy arrays, config dict);
+    the upper levels' adjacency is stacked [levels - 1, cap, M]."""
+    arrays = {f: np.asarray(getattr(state, f))
+              for f in ("vectors", "norms", "adj0", "levels", "entry", "max_level")}
+    arrays["adj_hi"] = np.stack([np.asarray(a) for a in state.adj_hi])
+    conf = dataclasses.asdict(cfg)
+    conf["metric"] = cfg.metric.value
+    return arrays, conf
+
+
+def export_hnsw_serve(serve) -> dict:
+    """A reference HnswServeState -> its arrays as numpy."""
+    return {f: np.asarray(getattr(serve, f)) for f in serve._fields}

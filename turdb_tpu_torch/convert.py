@@ -11,7 +11,9 @@ import numpy as np
 import torch
 
 from turdb_tpu_torch.models.flat import FlatIndex
-from turdb_tpu_torch.models.ivf import IvfConfig, IvfState, sq8_placeholders
+from turdb_tpu_torch.models.hnsw import HnswIndex, HnswState
+from turdb_tpu_torch.models.hnsw_serve import HnswServeState
+from turdb_tpu_torch.models.ivf import _DENSE, IvfConfig, IvfState, sq8_placeholders
 from turdb_tpu_torch.ops.distance import Metric
 
 _IVF_FIELDS = ("centroids", "cnorms", "members", "pnorms", "alive")
@@ -47,9 +49,7 @@ def ivf_state_from_numpy(arrays: dict, cfg: dict,
     config = IvfConfig(**{f.name: cfg[f.name] for f in
                           IvfConfig.__dataclass_fields__.values() if f.name in cfg})
     if config.dense:
-        raise NotImplementedError(
-            "not ported yet: dense block packing (ROADMAP queue 1 item 7; "
-            "queue 2, still to port, item 1)")
+        raise NotImplementedError(f"not ported yet: {_DENSE}")
     tensors = {
         name: torch.as_tensor(np.array(arrays[name], dtype), device=device)
         for name, dtype in zip(_IVF_FIELDS, _IVF_TYPES)
@@ -85,3 +85,60 @@ def flat_from_numpy(vectors, valid, metric, device="cuda") -> FlatIndex:
     idx._valid[:n] = torch.as_tensor(np.array(valid, bool), device=idx.device)
     idx.size = n
     return idx
+
+
+def hnsw_index_from_numpy(arrays: dict, cfg: dict, size: int, *, alive=None,
+                          descent_ef: int = 1, device="cuda") -> HnswIndex:
+    """A reference `HnswState` as numpy (vectors, norms, adj0, adj_hi
+    stacked [levels - 1, cap, M], levels, entry, max_level), its
+    `HnswConfig` fields as a dict, and the index's size, tombstones
+    (`alive` [>= size] bool, default all alive) and descent_ef (32 after
+    a bulk build, else 1) -> a port HnswIndex holding the same graph."""
+    metric = _metric(cfg.get("metric", Metric.L2))
+    vectors = np.array(arrays["vectors"], np.float32)
+    cap, dim = vectors.shape
+    if cfg["m0"] != 2 * cfg["m"] or cap & (cap - 1) or cap < 1024:
+        raise ValueError("an HNSW state needs m0 = 2m and a power-of-two capacity >= 1024")
+    idx = HnswIndex(dim=dim, metric=metric, m=cfg["m"],
+                    ef_construction=cfg.get("ef_construction", 100),
+                    ef_search=cfg.get("ef_search", 64), capacity=cap, device=device)
+    dev = idx.device
+    adj_hi = np.asarray(arrays["adj_hi"], np.int32)
+    idx.state = HnswState(
+        vectors=torch.as_tensor(vectors, device=dev),
+        norms=torch.as_tensor(np.array(arrays["norms"], np.float32), device=dev),
+        adj0=torch.as_tensor(np.array(arrays["adj0"], np.int32), device=dev),
+        adj_hi=tuple(torch.as_tensor(np.array(a), device=dev) for a in adj_hi),
+        levels=torch.as_tensor(np.array(arrays["levels"], np.int32), device=dev),
+        entry=int(arrays["entry"]),
+        max_level=int(arrays["max_level"]),
+    )
+    idx.size = int(size)
+    idx._alive[:size] = True if alive is None else np.asarray(alive, bool)[:size]
+    idx._descent_ef = descent_ef
+    return idx
+
+
+def hnsw_serve_state_from_numpy(arrays: dict, device="cuda") -> HnswServeState:
+    """A reference `HnswServeState` as numpy -> the port's. The neighbour
+    meta keeps its [cap, M0, 4] int32 records; the cell meta is unpacked
+    into the [C, L] arrays K4 reads (base, scale, norm bits; ids)."""
+    t = {name: torch.as_tensor(np.array(arrays[name]), device=device)
+         for name in ("nbr_codes", "nbr_meta", "centroids", "cnorms", "cell_codes",
+                      "vectors", "norms")}
+    cell_meta = np.asarray(arrays["cell_meta"], np.int32)
+    fields = np.ascontiguousarray(cell_meta[..., :3]).view(np.float32)
+    return HnswServeState(
+        nbr_codes=t["nbr_codes"].to(torch.int8),
+        nbr_meta=t["nbr_meta"].to(torch.int32),
+        centroids=t["centroids"].float(),
+        cnorms=t["cnorms"].float(),
+        cell_codes=t["cell_codes"].to(torch.int8),
+        cell_mins=torch.as_tensor(np.ascontiguousarray(fields[..., 0]), device=device),
+        cell_scales=torch.as_tensor(np.ascontiguousarray(fields[..., 1]), device=device),
+        cell_norms=torch.as_tensor(np.ascontiguousarray(fields[..., 2]), device=device),
+        cell_members=torch.as_tensor(np.ascontiguousarray(cell_meta[..., 3]), device=device),
+        cell_alive=torch.ones(cell_meta.shape[:2], dtype=torch.bool, device=device),
+        vectors=t["vectors"].float(),
+        norms=t["norms"].float(),
+    )

@@ -6,17 +6,22 @@ and the launch counters.
     K3 kmeans_assign  csrc/kmeans_assign.cu  bf16 nearest-centroid argmin / top-R
     K4 ivf_probe_sq8  csrc/ivf_probe.cu      fused int8 (SQ8) IVF probe + top-k / candidates
     K5 ivf_rerank     csrc/ivf_rerank.cu     exact rerank over the f32 or SQ16 row store
+    K6 hnsw_serve_beam  csrc/hnsw_beam.cu    HNSW int8 serving beam + exact rerank
+    K7 hnsw_select      csrc/hnsw_select.cu  HNSW alpha-diversity neighbour selection
+    K8 hnsw_graph_beam  csrc/hnsw_beam.cu    HNSW f32 graph beam over one level
 
 A wrapper given CPU tensors runs the plain version below; given CUDA
 tensors it launches its kernel (built at first use) or raises. There is
 no fallback from one to the other. `launches[name]` counts kernel
-launches only. Selection widths (k, m, r) above SEL_MAX raise ValueError
-before any launch.
+launches only. Widths past a kernel's limits (SEL_MAX for selections,
+EF_MAX / SLOTS_MAX / EXP_MAX for the beams, SELECT_W_MAX for K7) raise
+ValueError before any launch.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -36,7 +41,8 @@ PROBE_CHUNK_LANES = 4096
 MODE_TOPK, MODE_CAND = 0, 1
 
 launches = {"ivf_probe_f32": 0, "topk_rows": 0, "kmeans_assign": 0,
-            "ivf_probe_sq8": 0, "ivf_rerank": 0}
+            "ivf_probe_sq8": 0, "ivf_rerank": 0, "hnsw_serve_beam": 0,
+            "hnsw_select": 0, "hnsw_graph_beam": 0}
 
 
 def reset_launches() -> None:
@@ -298,40 +304,60 @@ def ivf_probe_f32(q, qn, cells, pvecs, pnorms, members, alive, allowed=None, *,
 # K4: fused int8 (SQ8) IVF probe
 # ---------------------------------------------------------------------------
 
+def _int8_dots(qc, codes):
+    """Exact int8 · int8 dots q [B, d] x codes [B, ..., d] -> [B, ...] f32.
+    The products summed in fp32 are exact integers while every partial
+    sum stays below 2**24 (d <= 1024); wider rows sum in fp64."""
+    acc = torch.float32 if qc.shape[-1] <= 1024 else torch.float64
+    return torch.einsum("bd,b...d->b...", qc.to(acc), codes.to(acc)).float()
+
+
+def sq8_epilogue(doti, base, scale, qn, qsum, qs, norm, metric):
+    """Distance from an exact int8 dot (`_approx_dist` of the reference's
+    hnsw_serve.py): q·x̂ = base·Σq + scale·(qs·dot); L2 `(qn − 2·q·x̂) +
+    norm` (unclamped), COSINE `1 − q·x̂`, IP `−q·x̂`."""
+    q_dot_x = base * qsum + scale * (qs * doti)
+    if metric == 0:
+        return qn - 2.0 * q_dot_x + norm
+    if metric == 1:
+        return 1.0 - q_dot_x
+    return -q_dot_x
+
+
 def ivf_probe_sq8_plain(qc, qs, qsum, qn, cells, codes, mins, scales, pnorms, members,
-                        alive, allowed, k, m, replicated, mode=MODE_TOPK):
+                        alive, allowed, k, m, replicated, mode=MODE_TOPK, metric=0):
     d = codes.shape[2]
-    # int8 x int8 products summed in fp32 are exact integers while every
-    # partial sum stays below 2**24 (d <= 1024); wider rows sum in fp64
-    acc = torch.float32 if d <= 1024 else torch.float64
-    qf = qc.to(acc)
 
     def score(s, src):
         e = s + src.shape[0]
-        doti = torch.einsum("bd,bpld->bpl", qf[s:e], codes[src].to(acc)).float()
-        q_dot_x = (mins[src] * qsum[s:e, None, None]
-                   + scales[src] * (qs[s:e, None, None] * doti))
-        return qn[s:e, None, None] - 2.0 * q_dot_x + pnorms[src]
+        doti = _int8_dots(qc[s:e], codes[src])
+        return sq8_epilogue(doti, mins[src], scales[src], qn[s:e, None, None],
+                            qsum[s:e, None, None], qs[s:e, None, None], pnorms[src], metric)
 
     return _probe_plain(score, cells, members, alive, allowed, 4 * d,
                         k, m, replicated, mode)
 
 
 def ivf_probe_sq8(qc, qs, qsum, qn, cells, codes, mins, scales, pnorms, members, alive,
-                  allowed=None, *, k: int, m: int, replicated: bool, mode: int = MODE_TOPK):
+                  allowed=None, *, k: int, m: int, replicated: bool, mode: int = MODE_TOPK,
+                  metric: int = 0):
     """K1's probe over the int8 store: qc [B, d] int8, qs / qsum / qn [B]
     (`ops.quantize.quantize_queries`), codes [NB, L, d] int8 centred,
     mins [NB, L] m′ = min + 128·scale, scales [NB, L], pnorms [NB, L] the
-    exact ‖x‖². The distance is `qn − 2·(m′·qsum + scale·(qs·(qc·code))) +
-    pnorms`, L2 whatever the index's metric. Selection, modes and returns
-    as `ivf_probe_f32`."""
+    exact ‖x‖². The distance is `sq8_epilogue` of the int8 dot: for
+    `metric` 0 (the IVF index's, whatever its own metric) `qn −
+    2·(m′·qsum + scale·(qs·(qc·code))) + pnorms`; 1 and 2 are the HNSW
+    serving pack's COSINE and IP seeding. Selection, modes and returns as
+    `ivf_probe_f32`."""
     b, p = cells.shape
     nb, lcap, d = codes.shape
     _probe_checks("ivf_probe_sq8", cells, members, alive, allowed, k, m, replicated, mode)
+    if metric not in (0, 1, 2):
+        raise ValueError(f"ivf_probe_sq8: unknown metric {metric}")
     if not _on_cuda(qc, qs, qsum, qn, cells, codes, mins, scales, pnorms, members, alive,
                     allowed):
         return ivf_probe_sq8_plain(qc, qs, qsum, qn, cells, codes, mins, scales, pnorms,
-                                   members, alive, allowed, k, m, replicated, mode)
+                                   members, alive, allowed, k, m, replicated, mode, metric)
     _check(qc, "qc", torch.int8, (b, d))
     for t, name in ((qs, "qs"), (qsum, "qsum"), (qn, "qn")):
         _check(t, name, torch.float32, (b,))
@@ -346,7 +372,7 @@ def ivf_probe_sq8(qc, qs, qsum, qn, cells, codes, mins, scales, pnorms, members,
         _launch("ivf_probe_sq8", qc.data_ptr(), qs.data_ptr(), qsum.data_ptr(),
                 qn.data_ptr(), cells.data_ptr(), b, p, codes.data_ptr(), mins.data_ptr(),
                 scales.data_ptr(), pnorms.data_ptr(), members.data_ptr(),
-                _ptr(_as_u8(alive)), _ptr(_as_u8(allowed)), lcap, d, k, m,
+                _ptr(_as_u8(alive)), _ptr(_as_u8(allowed)), lcap, d, metric, k, m,
                 int(replicated), mode, PROBE_CHUNK_LANES, *map(_ptr, scratch),
                 out_d.data_ptr(), out_i.data_ptr(), _ptr(out_pos))
     return _probe_result(out_d, out_i, out_pos)
@@ -473,3 +499,423 @@ def kmeans_assign(x, cents, xn, cn, r: int = 1):
         _launch("kmeans_assign", x.data_ptr(), xn.data_ptr(), n, cents.data_ptr(),
                 cn.data_ptr(), c, d, r, out_i.data_ptr(), out_d.data_ptr())
     return out_i, out_d
+
+
+# ---------------------------------------------------------------------------
+# K6 / K8: the HNSW level-0 beam (serving pack / f32 graph)
+# ---------------------------------------------------------------------------
+
+# widest beam buffer, neighbour slots a step (expand * deg) and expanded-id
+# list a beam kernel keeps in shared memory (csrc/hnsw_beam.cu)
+EF_MAX, SLOTS_MAX, EXP_MAX = 1024, 1024, 8192
+
+
+class BeamResult(NamedTuple):
+    """A beam's sorted candidate buffer [B, ef]; the filtered result buffer
+    [B, k_res] (or None); the expanded ids [B, exp_cap] in expansion order
+    (or None); and `stats` [B, 2] int32: the nodes each query expanded and
+    the neighbours it scored (the work its bound counts)."""
+
+    cand_d: torch.Tensor
+    cand_i: torch.Tensor
+    res_d: torch.Tensor | None
+    res_i: torch.Tensor | None
+    exp_ids: torch.Tensor | None
+    stats: torch.Tensor
+
+
+def _topk_gather(d, i, k):
+    """k smallest of d with their ids (ties to the lower position)."""
+    vals, pos = topk_rows_plain(d, k)
+    return vals, torch.gather(i, 1, pos.long())
+
+
+def _member(ids, table):
+    return torch.any(ids[..., :, None] == table[..., None, :], dim=-1) & (ids != -1)
+
+
+def _beam_plain(cand_i, cand_d, done, loops, expand, deg, neighbours, allowed=None,
+                res=None, exp_cap=0):
+    """The reference beam (`_beam_level`, hnsw_serve.py `serve_search_impl`
+    stage 1b) over [B, ef] buffers; `neighbours(sel_i)` gives the raw ids
+    and distances [B, expand * deg] of the selected nodes' lists."""
+    b, ef = cand_i.shape
+    exp_ids = torch.full((b, exp_cap), -1, dtype=torch.int32, device=cand_i.device)
+    stats = torch.zeros((b, 2), dtype=torch.int32, device=cand_i.device)
+    pos = torch.arange(ef, dtype=torch.int32, device=cand_i.device).expand(b, ef)
+    res_d, res_i = res if res is not None else (None, None)
+    it = 0
+    while it < loops and not bool(done.all()):
+        is_exp = _member(cand_i, exp_ids)
+        avail = torch.where(is_exp | (cand_i < 0), INF, cand_d)
+        sel_d, sel_pos = _topk_gather(avail, pos, expand)
+        sel_i = torch.gather(cand_i, 1, sel_pos.long())
+        # the bound of the reference: a query is done when even its best
+        # unexpanded candidate is worse than its worst buffered one
+        worst = torch.amax(cand_d, dim=-1)
+        done = done | torch.isinf(sel_d[:, 0]) | (sel_d[:, 0] > worst)
+        live = ~done
+        exp_ok = live[:, None] & ~torch.isinf(sel_d) & (sel_d <= worst[:, None])
+        sel_i = torch.where(exp_ok, sel_i, -1)
+        stats[:, 0] += exp_ok.sum(1, dtype=torch.int32)
+        nbrs, nd = neighbours(sel_i)
+        ok = (nbrs >= 0) & exp_ok.repeat_interleave(deg, dim=1)
+        ok &= ~(_member(nbrs, cand_i) | _member(nbrs, exp_ids))
+        nbrs_m, _ = mask_duplicates(torch.where(ok, nbrs, -1), torch.zeros_like(nd))
+        ok &= nbrs_m >= 0
+        stats[:, 1] += ok.sum(1, dtype=torch.int32)
+        nd = torch.where(ok, nd, INF)
+        cd2, ci2 = _topk_gather(torch.cat([cand_d, nd], 1), torch.cat([cand_i, nbrs_m], 1), ef)
+        exp_ids[:, it * expand:(it + 1) * expand] = sel_i
+        if res_d is not None:
+            n_ok = ok & allowed[nbrs_m.clamp_min(0).long()]
+            rd2, ri2 = _topk_gather(torch.cat([res_d, torch.where(n_ok, nd, INF)], 1),
+                                    torch.cat([res_i, torch.where(n_ok, nbrs_m, -1)], 1),
+                                    res_d.shape[1])
+            res_d = torch.where(live[:, None], rd2, res_d)
+            res_i = torch.where(live[:, None], ri2, res_i)
+        keep = live[:, None]
+        cand_i = torch.where(keep, ci2, cand_i)
+        cand_d = torch.where(keep, cd2, cand_d)
+        it += 1
+    return cand_i, cand_d, res_d, res_i, exp_ids, stats
+
+
+def _beam_init(seed_i, seed_d, ef):
+    """[B, ef] buffers holding the seeds [B, S <= ef], then (-1, +inf)."""
+    b, s = seed_i.shape
+    cand_i = torch.full((b, ef), -1, dtype=torch.int32, device=seed_i.device)
+    cand_d = torch.full((b, ef), INF, device=seed_i.device)
+    cand_i[:, :s] = seed_i
+    cand_d[:, :s] = seed_d
+    return cand_i, cand_d
+
+
+def _loops(iters, expand):
+    loops = -(-iters // expand)
+    return loops, loops * expand
+
+
+def _gathered_epilogue(dots, metric, qn, xn):
+    """`gathered_distances`' epilogue: L2 clamped at 0, COS, IP."""
+    if metric == 0:
+        return torch.clamp_min((qn + xn) - 2.0 * dots, 0.0)
+    if metric == 1:
+        return 1.0 - dots
+    return -dots
+
+
+def hnsw_graph_beam_plain(adj, vectors, norms, q, qn, seed_i, seed_d, allowed=None, *,
+                          ef, iters, metric, expand=4, k_res=None, active=None,
+                          return_expanded=False):
+    b, s = seed_i.shape
+    deg = adj.shape[1]
+    loops, exp_cap = _loops(iters, expand)
+    if active is not None:
+        seed_i = torch.where(active[:, None], seed_i, -1)
+        seed_d = torch.where(active[:, None], seed_d, INF)
+    cand_i, cand_d = _beam_init(seed_i, seed_d, ef)
+    res = None
+    if allowed is not None:
+        kr = k_res or ef
+        sk = min(s, kr)
+        seed_ok = allowed[seed_i.clamp_min(0).long()] & (seed_i >= 0)
+        res_i, res_d = _beam_init(torch.where(seed_ok, seed_i, -1)[:, :sk],
+                                  torch.where(seed_ok, seed_d, INF)[:, :sk], kr)
+        res = (res_d, res_i)
+
+    def neighbours(sel_i):
+        nbrs = adj[sel_i.clamp_min(0).long()].reshape(b, -1)
+        safe = nbrs.clamp_min(0).long()
+        dots = torch.einsum("bd,bkd->bk", q, vectors[safe])
+        return nbrs, _gathered_epilogue(dots, metric, qn[:, None], norms[safe])
+
+    done = (seed_i < 0).all(1)
+    cand_i, cand_d, res_d, res_i, exp_ids, stats = _beam_plain(
+        cand_i, cand_d, done, loops, expand, deg, neighbours, allowed, res, exp_cap)
+    return BeamResult(cand_d, cand_i, res_d, res_i,
+                      exp_ids if return_expanded else None, stats)
+
+
+def _beam_checks(name, b, s, ef, iters, expand, deg, d, seed_i, seed_d):
+    if not 1 <= expand <= ef:
+        raise ValueError(f"{name}: need 1 <= expand <= ef, got expand={expand}, ef={ef}")
+    if not 1 <= s <= ef:
+        raise ValueError(f"{name}: need 1 <= seeds <= ef, got {s} seeds, ef={ef}")
+    if iters < 1:
+        raise ValueError(f"{name}: iters must be positive, got {iters}")
+    _check(seed_i, "seed_i", torch.int32, (b, s))
+    _check(seed_d, "seed_d", torch.float32, (b, s))
+
+
+def _beam_limits(name, ef, iters, expand, deg, d, k_res=0):
+    """Widths past what the kernel keeps in shared memory raise here."""
+    _, exp_cap = _loops(iters, expand)
+    if ef > EF_MAX or k_res > EF_MAX or expand * deg > SLOTS_MAX or exp_cap > EXP_MAX:
+        raise ValueError(f"{name}: need ef, k_res <= {EF_MAX}, expand*deg <= {SLOTS_MAX}, "
+                         f"expansions <= {EXP_MAX}; got ef={ef}, k_res={k_res}, "
+                         f"expand*deg={expand * deg}, expansions={exp_cap}")
+    if d % 4 or d > 4096:
+        raise ValueError(f"{name}: rows are read 4 elements at a time, so dim must be a "
+                         f"multiple of 4 and at most 4096 (got {d})")
+    return exp_cap
+
+
+def hnsw_graph_beam(adj, vectors, norms, q, qn, seed_i, seed_d, allowed=None, *,
+                    ef: int, iters: int, metric: int, expand: int = 4, k_res: int | None = None,
+                    active=None, return_expanded: bool = False) -> BeamResult:
+    """The f32 graph beam over one adjacency level (`_beam_level` of the
+    reference's models/hnsw.py).
+
+    adj [cap, deg] int32 (-1 padded), vectors [cap, d] f32, norms [cap],
+    q [B, d], qn [B] = ‖q‖², seeds seed_i / seed_d [B, S] (S <= ef, -1 /
+    +inf for none), `allowed` [cap] bool or None, `active` [B] bool or
+    None (inactive queries start with no seed). Each step expands the
+    `expand` nearest unexpanded candidates, scores their unseen neighbours
+    (`gathered_distances`: L2 clamped at 0, COS `1 − dot`, IP `−dot`) and
+    merges them into the ef buffer (ties to the earlier entry), for at most
+    ceil(iters / expand) steps; a query stops when nothing is left to
+    expand. With `allowed`, nodes outside it are traversed and kept out of
+    a second result buffer of width `k_res` (default ef)."""
+    b, s = seed_i.shape
+    cap, deg = adj.shape
+    d = vectors.shape[1]
+    _beam_checks("hnsw_graph_beam", b, s, ef, iters, expand, deg, d, seed_i, seed_d)
+    if metric not in (0, 1, 2):
+        raise ValueError(f"hnsw_graph_beam: unknown metric {metric}")
+    kr = (k_res or ef) if allowed is not None else 0
+    if not _on_cuda(adj, vectors, norms, q, qn, seed_i, seed_d, allowed, active):
+        return hnsw_graph_beam_plain(adj, vectors, norms, q, qn, seed_i, seed_d, allowed,
+                                     ef=ef, iters=iters, metric=metric, expand=expand,
+                                     k_res=k_res, active=active,
+                                     return_expanded=return_expanded)
+    exp_cap = _beam_limits("hnsw_graph_beam", ef, iters, expand, deg, d, kr)
+    _check(adj, "adj", torch.int32, (cap, deg))
+    _check(vectors, "vectors", torch.float32, (cap, d))
+    _check(norms, "norms", torch.float32, (cap,))
+    _check(q, "q", torch.float32, (b, d))
+    _check(qn, "qn", torch.float32, (b,))
+    if allowed is not None:
+        _check(allowed, "allowed", torch.bool, (cap,))
+    if active is not None:
+        _check(active, "active", torch.bool, (b,))
+        seed_i = torch.where(active[:, None], seed_i, -1).contiguous()
+        seed_d = torch.where(active[:, None], seed_d, INF).contiguous()
+    if vectors.data_ptr() % 16 or q.data_ptr() % 16:
+        raise ValueError("hnsw_graph_beam: vectors and q must be 16-byte aligned")
+    dev = q.device
+    out_d = torch.empty((b, ef), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, ef), dtype=torch.int32, device=dev)
+    res_d = torch.empty((b, kr), dtype=torch.float32, device=dev) if kr else None
+    res_i = torch.empty((b, kr), dtype=torch.int32, device=dev) if kr else None
+    exp_ids = (torch.empty((b, exp_cap), dtype=torch.int32, device=dev)
+               if return_expanded else None)
+    stats = torch.empty((b, 2), dtype=torch.int32, device=dev)
+    if b:
+        _launch("hnsw_graph_beam", adj.data_ptr(), vectors.data_ptr(), norms.data_ptr(),
+                q.data_ptr(), qn.data_ptr(), seed_i.data_ptr(), seed_d.data_ptr(), b, s,
+                _ptr(_as_u8(allowed)), d, deg, ef, iters, expand, kr, metric,
+                out_d.data_ptr(), out_i.data_ptr(), _ptr(res_d), _ptr(res_i),
+                _ptr(exp_ids), stats.data_ptr())
+    return BeamResult(out_d, out_i, res_d, res_i, exp_ids, stats)
+
+
+def hnsw_serve_beam_plain(nbr_codes, nbr_meta, vectors, norms, q, qn, qc, qs, qsum, seed_i,
+                          seed_d, allowed=None, *, ef, iters, expand, rerank, k, metric):
+    b, s = seed_i.shape
+    deg = nbr_codes.shape[1]
+    loops, exp_cap = _loops(iters, expand)
+    cand_i, cand_d = _beam_init(seed_i, seed_d, ef)
+
+    def neighbours(sel_i):
+        safe = sel_i.clamp_min(0).long()
+        meta = nbr_meta[safe]                                  # [B, E, deg, 4]
+        f = meta.view(torch.float32)                           # base, scale, ‖x‖² bits
+        base, scale, nnorm = f[..., 0], f[..., 1], f[..., 2]
+        doti = _int8_dots(qc, nbr_codes[safe])                 # [B, E, deg]
+        nd = sq8_epilogue(doti, base, scale, qn[:, None, None], qsum[:, None, None],
+                          qs[:, None, None], nnorm, metric)
+        return meta[..., 3].reshape(b, -1), nd.reshape(b, -1)
+
+    cand_i, cand_d, *_, stats = _beam_plain(cand_i, cand_d, (seed_i < 0).all(1), loops,
+                                            expand, deg, neighbours, exp_cap=exp_cap)
+    # exact rerank of the r best
+    r = min(rerank or ef, ef)
+    if r < ef:
+        cand_d, cand_i = _topk_gather(cand_d, cand_i, r)
+    safe = cand_i.clamp_min(0).long()
+    dots = torch.einsum("bd,brd->br", q, vectors[safe])
+    if metric == 0:
+        exact = qn[:, None] + norms[safe] - 2.0 * dots
+    else:
+        exact = 1.0 - dots if metric == 1 else -dots
+    bad = cand_i < 0
+    if allowed is not None:
+        bad |= ~allowed[safe]
+    d_out, i_out = _topk_gather(torch.where(bad, INF, exact), cand_i, k)
+    return d_out, torch.where(torch.isinf(d_out), -1, i_out), stats
+
+
+def hnsw_serve_beam(nbr_codes, nbr_meta, vectors, norms, q, qn, qc, qs, qsum, seed_i, seed_d,
+                    allowed=None, *, ef: int, iters: int, expand: int, rerank: int, k: int,
+                    metric: int):
+    """The serving beam and its exact rerank (`serve_search_impl` of the
+    reference's models/hnsw_serve.py, after the seeding).
+
+    nbr_codes [cap, deg, d] int8 (the centred SQ8 codes of each node's
+    neighbours), nbr_meta [cap, deg, 4] int32 (f32 base, scale, ‖x‖² as
+    bits, then the neighbour id), vectors [cap, d] f32 and norms [cap] (the
+    rerank store), q [B, d] f32 with qn, and its int8 quantization qc, qs,
+    qsum (`ops.quantize.quantize_queries`); seeds [B, S <= ef]. The beam
+    scores a neighbour with `sq8_epilogue` of its exact int8 dot, as
+    `hnsw_graph_beam` does otherwise; then the `rerank` best (0: all ef)
+    get their exact distance (L2 `(qn + norm) − 2·dot` unclamped, COS, IP),
+    +inf outside `allowed` [cap], and the k smallest are returned:
+    ([B, k] f32 ascending, [B, k] int32 ids, -1 where +inf, and the
+    [B, 2] int32 stats of `BeamResult`)."""
+    b, s = seed_i.shape
+    cap, deg, d = nbr_codes.shape
+    _beam_checks("hnsw_serve_beam", b, s, ef, iters, expand, deg, d, seed_i, seed_d)
+    r = min(rerank or ef, ef)
+    if not 0 < k <= r:
+        raise ValueError(f"hnsw_serve_beam: need 0 < k <= rerank width, got k={k}, r={r}")
+    if metric not in (0, 1, 2):
+        raise ValueError(f"hnsw_serve_beam: unknown metric {metric}")
+    if not _on_cuda(nbr_codes, nbr_meta, vectors, norms, q, qn, qc, qs, qsum, seed_i, seed_d,
+                    allowed):
+        return hnsw_serve_beam_plain(nbr_codes, nbr_meta, vectors, norms, q, qn, qc, qs, qsum,
+                                     seed_i, seed_d, allowed, ef=ef, iters=iters, expand=expand,
+                                     rerank=rerank, k=k, metric=metric)
+    _beam_limits("hnsw_serve_beam", ef, iters, expand, deg, d)
+    _check(nbr_codes, "nbr_codes", torch.int8, (cap, deg, d))
+    _check(nbr_meta, "nbr_meta", torch.int32, (cap, deg, 4))
+    _check(vectors, "vectors", torch.float32, (cap, d))
+    _check(norms, "norms", torch.float32, (cap,))
+    _check(q, "q", torch.float32, (b, d))
+    _check(qc, "qc", torch.int8, (b, d))
+    for t, name in ((qn, "qn"), (qs, "qs"), (qsum, "qsum")):
+        _check(t, name, torch.float32, (b,))
+    if allowed is not None:
+        _check(allowed, "allowed", torch.bool, (cap,))
+    if vectors.data_ptr() % 16 or q.data_ptr() % 16 or nbr_codes.data_ptr() % 4 \
+            or qc.data_ptr() % 4 or nbr_meta.data_ptr() % 16:
+        raise ValueError("hnsw_serve_beam: vectors, q and nbr_meta must be 16-byte and "
+                         "nbr_codes, qc 4-byte aligned")
+    out_d = torch.empty((b, k), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=q.device)
+    stats = torch.empty((b, 2), dtype=torch.int32, device=q.device)
+    if b:
+        _launch("hnsw_serve_beam", nbr_codes.data_ptr(), nbr_meta.data_ptr(),
+                vectors.data_ptr(), norms.data_ptr(), q.data_ptr(), qn.data_ptr(),
+                qc.data_ptr(), qs.data_ptr(), qsum.data_ptr(), seed_i.data_ptr(),
+                seed_d.data_ptr(), b, s, _ptr(_as_u8(allowed)), d, deg, ef, iters, expand,
+                r, k, metric, out_d.data_ptr(), out_i.data_ptr(), stats.data_ptr())
+    return out_d, out_i, stats
+
+
+# ---------------------------------------------------------------------------
+# K7: the HNSW diversity selection
+# ---------------------------------------------------------------------------
+
+SELECT_W_MAX = 256   # candidates a selection kernel holds (csrc/hnsw_select.cu)
+
+
+def select_cap(w: int, deg: int, alpha: float) -> int:
+    """Candidates the diversity scan reads after the distance sort
+    (`_select_from_candidates`, hnsw.py:591): all under alpha-relaxation,
+    else ~2.5 deg."""
+    return w if alpha != 1.0 else min(w, max(2 * deg + deg // 2, 48))
+
+
+def hnsw_select_plain(vectors, norms, targets, cand, *, deg, metric, alpha):
+    u, w = cand.shape
+    t = targets.long()
+    earlier = torch.tril(torch.ones((w, w), dtype=torch.bool, device=cand.device), -1)
+    dup = (torch.any((cand[:, :, None] == cand[:, None, :]) & earlier, dim=-1)
+           | (cand == targets[:, None]) | (cand < 0))
+    safe = cand.clamp_min(0).long()
+    dots = torch.einsum("ud,uwd->uw", vectors[t], vectors[safe])
+    d = torch.where(dup, INF, _gathered_epilogue(dots, metric, norms[t][:, None], norms[safe]))
+    order = torch.argsort(d, dim=-1, stable=True)[:, :select_cap(w, deg, alpha)]
+    cand_s = torch.gather(torch.where(dup, -1, cand), 1, order)
+    d_s = torch.gather(d, 1, order)
+    # _select_neighbors_heuristic: a candidate is taken when it is nearer
+    # to the target than alpha times its distance to every one taken before
+    vecs = vectors[cand_s.clamp_min(0).long()]
+    valid = cand_s >= 0
+    dots = torch.einsum("ucd,ukd->uck", vecs, vecs)
+    if metric == 0:
+        nrm = torch.sum(vecs * vecs, dim=-1)
+        pair = torch.clamp_min(nrm[:, :, None] + nrm[:, None, :] - 2.0 * dots, 0.0)
+    else:
+        pair = 1.0 - dots if metric == 1 else -dots
+    c = cand_s.shape[1]
+    sel = torch.zeros((u, c), dtype=torch.bool, device=cand.device)
+    min_sel = torch.full((u, c), INF, device=cand.device)
+    count = torch.zeros(u, dtype=torch.int32, device=cand.device)
+    for j in range(c):
+        take = valid[:, j] & (d_s[:, j] < alpha * min_sel[:, j]) & (count < deg)
+        sel[:, j] = take
+        min_sel = torch.where(take[:, None], torch.minimum(min_sel, pair[:, :, j]), min_sel)
+        count += take.int()
+    # selected (in distance order) first, then the rest as backfill
+    key = torch.where(valid, d_s, INF) + torch.where(sel, 0.0, 1e30)
+    order = torch.argsort(key, dim=-1, stable=True)[:, :deg]
+    sel_i = torch.gather(cand_s, 1, order)
+    sel_d = torch.gather(torch.where(valid, d_s, INF), 1, order)
+    sel_i = torch.where(torch.isinf(sel_d), -1, sel_i)
+    if sel_i.shape[1] < deg:
+        pad = deg - sel_i.shape[1]
+        sel_i = torch.nn.functional.pad(sel_i, (0, pad), value=-1)
+        sel_d = torch.nn.functional.pad(sel_d, (0, pad), value=INF)
+    # the pair columns the scan needs: one per take but the deg-th, each
+    # against the valid candidates after it
+    later = valid.flip(1).cumsum(1).flip(1) - valid.int()
+    need = sel & (sel.cumsum(1) < deg)
+    n_pairs = torch.sum(later * need, dim=1, dtype=torch.int32)
+    return sel_i.to(torch.int32), sel_d, n_pairs
+
+
+def hnsw_select(vectors, norms, targets, cand, *, deg: int, metric: int, alpha: float):
+    """Diversity-select `deg` edges for each target from its candidates
+    (`_select_from_candidates` + `_select_neighbors_heuristic` of the
+    reference's models/hnsw.py).
+
+    vectors [cap, d] f32, norms [cap], targets [U] int32 slot ids, cand
+    [U, W] int32 (duplicates, -1 and the target itself are dropped). The
+    candidates are sorted by their exact distance to the target
+    (`gathered_distances`: L2 clamped at 0, COS, IP; ties to the earlier
+    candidate), cut to `select_cap`, and scanned in that order: one is
+    taken while fewer than deg are, if its distance is below alpha times
+    its distance to every one taken before (L2 `(Σv² + Σv²) − 2·dot`
+    from the rows, clamped at 0). Returns (sel_i [U, deg] int32: the taken,
+    then the others as backfill, both in distance order, -1 padded; sel_d
+    [U, deg] their distances, +inf padded; n_pairs [U] int32, the pair
+    distances the scan needed)."""
+    u, w = cand.shape
+    cap, d = vectors.shape
+    if not 1 <= deg:
+        raise ValueError(f"hnsw_select: deg must be positive, got {deg}")
+    if metric not in (0, 1, 2):
+        raise ValueError(f"hnsw_select: unknown metric {metric}")
+    if not _on_cuda(vectors, norms, targets, cand):
+        return hnsw_select_plain(vectors, norms, targets, cand, deg=deg, metric=metric,
+                                 alpha=alpha)
+    if w > SELECT_W_MAX or d % 4 or w * d * 4 > (160 << 10):
+        raise ValueError(f"hnsw_select: need W <= {SELECT_W_MAX}, dim a multiple of 4 and "
+                         f"W*dim*4 <= 160 KB (the candidates' rows in shared memory); "
+                         f"got W={w}, dim={d}")
+    _check(vectors, "vectors", torch.float32, (cap, d))
+    _check(norms, "norms", torch.float32, (cap,))
+    _check(targets, "targets", torch.int32, (u,))
+    _check(cand, "cand", torch.int32, (u, w))
+    if vectors.data_ptr() % 16:
+        raise ValueError("hnsw_select: vectors must be 16-byte aligned")
+    out_i = torch.empty((u, deg), dtype=torch.int32, device=cand.device)
+    out_d = torch.empty((u, deg), dtype=torch.float32, device=cand.device)
+    n_pairs = torch.empty(u, dtype=torch.int32, device=cand.device)
+    if u:
+        _launch("hnsw_select", vectors.data_ptr(), norms.data_ptr(), targets.data_ptr(),
+                cand.data_ptr(), u, w, d, deg, select_cap(w, deg, alpha), float(alpha),
+                metric, out_i.data_ptr(), out_d.data_ptr(), n_pairs.data_ptr())
+    return out_i, out_d, n_pairs

@@ -37,11 +37,27 @@ SIGNATURES = {
     "ivf_probe_f32": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I,
                       _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     # qc, qs, qsum, qn, cells, B, P, codes, mins, scales, pnorms, members,
-    # alive, allowed, L, d, k, m, replicated, mode, chunk, sc_key, sc_pos,
-    # sc_id, out_d, out_i, out_pos, stream
+    # alive, allowed, L, d, metric, k, m, replicated, mode, chunk, sc_key,
+    # sc_pos, sc_id, out_d, out_i, out_pos, stream
     "ivf_probe_sq8": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
-                      _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                      _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                       _P, _P, _P, _P, _P],
+    # codes, meta, vectors, norms, q, qn, qc, qs, qsum, seed_i, seed_d, B,
+    # S, allowed, d, deg, ef, iters, expand, rerank, k, metric, out_d,
+    # out_i, out_stats, stream
+    "hnsw_serve_beam": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                        _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                        _P, _P, _P],
+    # adj, vectors, norms, q, qn, seed_i, seed_d, B, S, allowed, d, deg,
+    # ef, iters, expand, k_res, metric, out_cand_d, out_cand_i, out_res_d,
+    # out_res_i, out_exp, out_stats, stream
+    "hnsw_graph_beam": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I,
+                        _I, _I, _I, _I, _I, _P, _P, _P,
+                        _P, _P, _P, _P],
+    # vectors, norms, targets, cand, U, W, d, deg, sel_cap, alpha, metric,
+    # out_i, out_d, out_pairs, stream
+    "hnsw_select": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I,
+                    _P, _P, _P, _P],
     # q, qn, cand_d, cand_i, cand_pos, B, r, rows, sq16, pnorms, mins,
     # scales, d, k, replicated, out_d, out_i, stream
     "ivf_rerank": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _P,

@@ -4,11 +4,14 @@
 // stores. K1 is the f32 branch (the [B,P,L,d] block gather, the PRECISE
 // fp32 dot, the L2 / cosine / IP epilogue); K4 is the sq8 branch (the
 // s8 x s8 -> s32 einsum over the int8 codes and the dequantize epilogue
-// qn - 2*(m'*sum(q) + scale*(qs*dot)) + pnorms, L2 whatever the metric,
-// as the reference computes it). Both fuse the dead / unallowed mask and
-// the selection that follows: the top copies*k, mask_duplicates from
-// turdb_tpu/ops/topk.py and the final top-k ("top-k mode"), or the r best
-// lanes that the exact rerank gathers ("candidate mode").
+// qn - 2*(m'*sum(q) + scale*(qs*dot)) + pnorms, L2 whatever the index's
+// metric, as the reference computes it), and the cell-probe seeding of
+// turdb_tpu/models/hnsw_serve.py serve_search_impl, whose _approx_dist
+// epilogue is that L2, COSINE 1 - q.x or IP -q.x. Both fuse the dead /
+// unallowed mask and the selection that follows: the top copies*k,
+// mask_duplicates from turdb_tpu/ops/topk.py and the final top-k ("top-k
+// mode"), or the r best lanes that the exact rerank gathers ("candidate
+// mode").
 //
 // What bounds them on an H100: device-memory bandwidth. A query reads its
 // P probed cells of L rows (K1: 4d bytes a row, 2 flops a byte; K4: d
@@ -105,6 +108,7 @@ struct Sq8Scorer {
     const int8_t* codes;       // [NB, L, d]
     const float* mins;         // [NB, L] m'
     const float* scales;       // [NB, L]
+    int metric;                // 0 L2, 1 COSINE, 2 IP
     __host__ __device__ static size_t query_bytes(int d) { return (size_t)d + 8; }
     __device__ void load(size_t b, int d, unsigned char* s) const {
         int* sw = reinterpret_cast<int*>(s);
@@ -124,6 +128,8 @@ struct Sq8Scorer {
         // mins*q_sum + scales*(qs*dot), then (qn - 2*that) + pnorms
         const float qdx = __fadd_rn(__fmul_rn(mins[row], sf[1]),
                                     __fmul_rn(scales[row], __fmul_rn(sf[0], __int2float_rn(acc))));
+        if (metric == 1) return __fsub_rn(1.0f, qdx);
+        if (metric == 2) return -qdx;
         return __fadd_rn(__fsub_rn(qnb, __fmul_rn(2.0f, qdx)), a.pnorms[row]);
     }
 };
@@ -318,12 +324,14 @@ extern "C" int ivf_probe_sq8(const int8_t* qc, const float* qs, const float* qsu
                              const float* qn, const int* cells, int B, int P,
                              const int8_t* codes, const float* mins, const float* scales,
                              const float* pnorms, const int* members, const uint8_t* alive,
-                             const uint8_t* allowed, int L, int d, int k, int m,
+                             const uint8_t* allowed, int L, int d, int metric, int k, int m,
                              int replicated, int mode, int chunk, uint32_t* sc_key,
                              int* sc_pos, int* sc_id, float* out_d, int* out_i,
                              int* out_pos, void* stream) {
+    if (metric < 0 || metric > 2) return (int)cudaErrorInvalidValue;
     ProbeArgs a = probe_args(cells, B, P, pnorms, members, alive, allowed, L, d, qn, k, m,
                              replicated, mode, chunk, sc_key, sc_pos, sc_id, out_d, out_i,
                              out_pos);
-    return launch_probe(a, Sq8Scorer{qc, qs, qsum, codes, mins, scales}, (cudaStream_t)stream);
+    return launch_probe(a, Sq8Scorer{qc, qs, qsum, codes, mins, scales, metric},
+                        (cudaStream_t)stream);
 }

@@ -50,7 +50,7 @@ from turdb_tpu_torch.ops.topk import topk_smallest_wide
 INF = float("inf")
 
 # where each unported path stands in ROADMAP.md
-_DENSE = "dense block packing (ROADMAP queue 1 item 7; queue 2, still to port, item 1)"
+_DENSE = "dense block packing (ROADMAP queue 1 item 7; queue 2, still to port, item 3)"
 
 
 @dataclasses.dataclass(frozen=True)
