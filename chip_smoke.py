@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the port's IVF and HNSW build-and-query paths once on one CUDA card.
+"""Drive the port's IVF and HNSW build, insert and query paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -7,8 +7,9 @@
    once without CUDA;
 2. builds the hand-written kernels (K1 ivf_probe_f32, K2 topk_rows,
    K3 kmeans_assign, K4 ivf_probe_sq8, K5 ivf_rerank, K6 hnsw_serve_beam,
-   K7 hnsw_select, K8 hnsw_graph_beam) from `turdb_tpu_torch/kernels/csrc`,
-   one nvcc per source, and prints the build seconds;
+   K7 hnsw_select and its presorted mode, K8 hnsw_graph_beam and its SQ
+   reader, K9 hnsw_greedy) from `turdb_tpu_torch/kernels/csrc`, one nvcc
+   per source, and prints the build seconds;
 3. kernel phase: each kernel against its plain PyTorch version on the same
    CUDA tensors at the main paths' shapes (and K1 / K2 at the widths past
    the old limits: P*L = 32768, k = 300, m = 600; K4's COSINE and IP
@@ -37,10 +38,23 @@
      gate, QPS at the gate, the recall@50 sweep against a k = 50 oracle,
      the pack_m=16 sub-row, `search` (the graph path) at ef 64, then
      delete / `allowed` on both searches;
+   - HNSW inserts (`HnswTableIndex.insert` / `flush_pending`): a bulk graph
+     of the first N - 65,536 rows, 256 single-row `add`s (p50 / p99 ms),
+     then the last 65,280 rows in one `add` (waves of 512: seconds, rows/s,
+     a traced insert of the same rows into a copy that must equal it);
+     the index then holds the pool in slot order: recall@10 of `search` at
+     ef 64, the inserted rows as their own queries, reachability, the serve
+     sweep to the gate; then the SQ16 and SQ8 stores (recall, QPS, bytes)
+     and an `add` into the SQ8 index;
+   - HNSW waves from empty (cpu_hnsw_baseline's 65,536 rows, bench.py:498):
+     build seconds and rows/s, recall@10 at ef 64 against its own oracle,
+     reachability, then a quarter deleted and `vacuum` (the bulk route);
 5. checks that each path launched each of its kernels; then, outside the
    counted runs, traces the searches (device time per kernel, idle share),
    and holds K6, K7 and K8 against their plain versions on the built HNSW
-   index at the path's shapes;
+   index at the path's shapes, and K9 (a wave of 512 at every level, a
+   1024-query descent), K8-SQ (SQ8, SQ16) and K7's presorted mode (W = 100)
+   on the inserted and wave-built indexes;
 6. prints {"kernels": [...]}, the card, and, last, {"ok": true, "device": {...}}.
 
 Any failure exits non-zero without the last line. The full report goes to
@@ -83,6 +97,19 @@ HARD_PROBE = 256             # the hard row's gate in the prediction
 K2_RTOL = 1e-6
 DOT_RTOL = 1e-5
 K3_AGREE = 0.995
+# the HNSW insert and wave paths
+N_INSERT = 65_536            # rows inserted into the bulk graph of N - N_INSERT
+N_SINGLE = 256               # of them, one `add` each
+N_WAVE = 65_536              # the wave path's index (bench.py:498, cpu_hnsw_baseline)
+SQ_RECALL_TOL = 0.005        # the SQ16 store's recall against the f32 store's
+SELF_HIT_GATE = 0.95         # rows that find themselves first among their own queries
+# The inserted rows of the insert path: the reference's waves descend the
+# upper levels greedily, which on a bulk graph sticks (why its search
+# takes descent_ef 32), so their level-0 beam starts in the wrong region
+# for half of them: 0.4985 found themselves (41.6 % of their edges among
+# their 32 nearest) where a beam descent gives 0.9836 (87.6 %) (NVIDIA
+# H100 80GB HBM3, 700 W; PERF.md, PR 4). The gate holds that behaviour.
+INSERT_SELF_HIT_GATE = 0.45
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): HBM bytes/s, fp32
 # FMA pipes, bf16 and int8 tensor cores
 HBM_BPS, FP32_OPS, BF16_OPS, INT8_OPS = 3.35e12, 67e12, 989e12, 1979e12
@@ -779,6 +806,24 @@ def ivf_build_parts(two_means, writes, iters=6):
                             "rows": sum(c[2][0] for c in writes.calls), **_bound(bw, 0, FP32_OPS)}}
 
 
+def bulk_parts(merges, scatters, rcap=16):
+    """Row 17 of PERF.md's table, from the HNSW bulk build: the union with
+    the reverse quota (`_merge_reverse`: [n, deg] forward and [n, rcap]
+    reverse ids read, [n, deg] written; the dedup's (deg + rcap)² compares
+    a row, counted at the fp32 pipes' rate) and the row scatters
+    (`_scatter_rows`: [n, deg] rows and n slots read, [n, deg] written),
+    each beside its CUDA-event time."""
+    bm = om = 0
+    for _, _, (n, deg) in merges.calls:
+        bm += 4 * n * (2 * deg + rcap)
+        om += n * (deg + rcap) ** 2
+    bs = sum(n * (8 * deg + 8) for _, _, (n, deg) in scatters.calls)
+    return {"merge_reverse": {"calls": len(merges.calls), "ms": merges.ms(),
+                              **_bound(bm, om, FP32_OPS)},
+            "scatter_rows": {"calls": len(scatters.calls), "ms": scatters.ms(),
+                             **_bound(bs, 0, FP32_OPS)}}
+
+
 def hnsw_build_phase(dev, x):
     """The bulk build, a traced rebuild that must equal it, and the
     reachability from the entry point."""
@@ -801,16 +846,20 @@ def hnsw_build_phase(dev, x):
                             for a in (st.vectors, st.norms, st.levels, *_levels(st))) / 2**30}
     log(f"hnsw build: {out['build_s']:.3f} s, levels {out['level_sizes']}, "
         f"peak {out['build_peak_gib']:.3f} GiB")
-    from turdb_tpu_torch.models import ivf
+    from turdb_tpu_torch.models import hnsw, ivf
 
     again = _hnsw_index(dev)
     t = time.perf_counter()
     with (_Recorder(ivf, "_two_means_batched") as two_means,
-          _Recorder(ivf.IvfIndex, "_write_rows", arg=2) as writes):
+          _Recorder(ivf.IvfIndex, "_write_rows", arg=2) as writes,
+          _Recorder(hnsw, "_merge_reverse") as merges,
+          _Recorder(hnsw, "_scatter_rows", arg=2) as scatters):
         out["build_profile"] = device_profile(lambda: again.add(x), top=12)
     out["traced_build_s"] = time.perf_counter() - t
     out["ivf_build_parts"] = ivf_build_parts(two_means, writes)
-    log(f"hnsw temporary IVF build parts: {json.dumps(out['ivf_build_parts'])}")
+    out["bulk_parts"] = bulk_parts(merges, scatters)
+    log(f"hnsw temporary IVF build parts: {json.dumps(out['ivf_build_parts'])}; "
+        f"bulk build parts: {json.dumps(out['bulk_parts'])}")
     same = again.state.entry == st.entry and all(
         torch.equal(a, b) for a, b in zip(_levels(again.state), _levels(st)))
     out["rebuild_identical"] = same
@@ -828,6 +877,20 @@ def hnsw_build_phase(dev, x):
     return out, idx
 
 
+def _pack_bound(idx):
+    """Row 18 of PERF.md's table: `pack_serving` as a whole. Its inputs
+    read once (the rows, norms and level-0 lists of the index's nodes),
+    every array of the pack written once but the rows and norms it shares
+    with the graph; its k-means (K3's work: six assignment passes over the
+    training rows, one over all rows) at the bf16 rate."""
+    sv, n = idx.serve, idx.size
+    c, (m0, d) = sv.centroids.shape[0], sv.nbr_codes.shape[1:]
+    written = sum(a.numel() * a.element_size() for a in sv
+                  if a is not sv.vectors and a is not sv.norms)
+    n_train = min(n, max(c * 32, 65_536))
+    return _bound(n * (4 * d + 4 + 4 * m0) + written, 2 * d * c * (6 * n_train + n), BF16_OPS)
+
+
 def hnsw_pack_phase(idx, pack_m=None):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -842,7 +905,8 @@ def hnsw_pack_phase(idx, pack_m=None):
            "pack_gib": sum(a.numel() * a.element_size() for a in sv) / 2**30,
            "blocks_gib": sum(a.numel() * a.element_size()
                              for a in (sv.nbr_codes, sv.nbr_meta)) / 2**30,
-           "C": sv.centroids.shape[0], "L": sv.cell_members.shape[1], "M0": sv.nbr_codes.shape[1]}
+           "C": sv.centroids.shape[0], "L": sv.cell_members.shape[1], "M0": sv.nbr_codes.shape[1],
+           **_pack_bound(idx)}
     log(f"hnsw pack (pack_m={pack_m}): {out['pack_s']:.3f} s, {out['pack_gib']:.3f} GiB "
         f"(blocks {out['blocks_gib']:.3f}), C={out['C']} L={out['L']}, "
         f"peak {out['pack_peak_gib']:.3f} GiB")
@@ -1057,31 +1121,39 @@ def k8_check(idx, batch):
     return out
 
 
-def _select_margins(vectors, t, cand, deg, alpha):
+def _select_margins(vectors, t, cand, deg, alpha, cand_d=None):
     """Per row, the closest call the L2 diversity selection makes, in fp64
     from the rows: the smallest gap between two sorted candidate distances
     or between a distance and alpha times its distance to the nearest taken
     candidate. Two fp32 selections that sum in different orders can part
-    only on a row whose margin is within their rounding."""
+    only on a row whose margin is within their rounding. With `cand_d`
+    (the presorted mode) the candidates keep their order and given
+    distances, and only the scan's decisions count."""
     w = cand.shape[1]
     dev = cand.device
     inf = float("inf")
-    earlier = torch.tril(torch.ones((w, w), dtype=torch.bool, device=dev), -1)
-    dup = (torch.any((cand[:, :, None] == cand[:, None, :]) & earlier, -1)
-           | (cand == t[:, None]) | (cand < 0))
     x = vectors.double()
-    tv, cv = x[t.long()], x[cand.clamp_min(0).long()]
-    d = torch.where(dup, inf, ((cv - tv[:, None]) ** 2).sum(-1))
-    order = torch.argsort(d, dim=1, stable=True)
+    cv = x[cand.clamp_min(0).long()]
+    if cand_d is None:
+        earlier = torch.tril(torch.ones((w, w), dtype=torch.bool, device=dev), -1)
+        dup = (torch.any((cand[:, :, None] == cand[:, None, :]) & earlier, -1)
+               | (cand == t[:, None]) | (cand < 0))
+        d = torch.where(dup, inf, ((cv - x[t.long()][:, None]) ** 2).sum(-1))
+        order = torch.argsort(d, dim=1, stable=True)
+    else:
+        d = torch.where(cand >= 0, cand_d.double(), inf)
+        order = torch.arange(w, device=dev).expand(len(cand), w)
     d_s = torch.gather(d, 1, order)
     valid = torch.isfinite(d_s)
     gaps = torch.where(valid[:, 1:], (d_s[:, 1:] - d_s[:, :-1]).abs(), inf)
-    vs = cv[torch.arange(len(t), device=dev)[:, None], order]
+    vs = cv[torch.arange(len(cand), device=dev)[:, None], order]
     nrm = (vs * vs).sum(-1)
     pair = nrm[:, :, None] + nrm[:, None, :] - 2.0 * vs @ vs.transpose(1, 2)
     min_sel = torch.full(d_s.shape, inf, dtype=torch.float64, device=dev)
-    count = torch.zeros(len(t), dtype=torch.int64, device=dev)
-    margin = gaps.min(1).values
+    count = torch.zeros(len(cand), dtype=torch.int64, device=dev)
+    margin = gaps.min(1).values if cand_d is None else torch.full((len(cand),), inf,
+                                                                     dtype=torch.float64,
+                                                                     device=dev)
     for j in range(w):
         live = valid[:, j] & (count < deg)
         bound = alpha * min_sel[:, j]
@@ -1157,6 +1229,341 @@ def k7_check(idx, gen):
             **_bound(nbytes, 2 * DIM * (2 * n_valid + int(kp.sum())), FP32_OPS)}
     return out
 
+
+# ---------------------------------------------------------------------------
+# the HNSW insert paths (waves, single rows, the SQ store, vacuum) and
+# their kernels on the built indexes
+# ---------------------------------------------------------------------------
+
+def _clone_index(idx):
+    """An index over a copy of `idx`'s graph (the tensors cloned)."""
+    import copy
+
+    c = copy.copy(idx)
+    st = idx.state
+    c.state = st._replace(vectors=st.vectors.clone(), norms=st.norms.clone(),
+                          adj0=st.adj0.clone(), adj_hi=tuple(a.clone() for a in st.adj_hi),
+                          levels=st.levels.clone())
+    c._alive = idx._alive.copy()
+    return c
+
+
+def _same_graph(a, b):
+    sa, sb = a.state, b.state
+    return (sa.entry, sa.max_level) == (sb.entry, sb.max_level) and all(
+        torch.equal(u, v) for u, v in zip((sa.vectors, sa.norms, sa.levels, *_levels(sa)),
+                                          (sb.vectors, sb.norms, sb.levels, *_levels(sb))))
+
+
+def _synced(fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def _self_hits(idx, rows, slots, ef=HNSW_GRAPH_EF, chunk=16_384):
+    """Share of `rows` whose own slot comes first in a k = 1 search."""
+    hits = 0
+    for s in range(0, len(rows), chunk):
+        _, ids = idx.search(rows[s:s + chunk], 1, ef=ef)
+        hits += int((ids[:, 0] == slots[s:s + chunk]).sum())
+    return hits / len(rows)
+
+
+def _reach(idx):
+    st = idx.state
+    return _reachable([a[:idx.size].cpu().numpy() for a in _levels(st)], st.entry, idx.size)
+
+
+def hnsw_insert_phase(dev, x, queries, truth):
+    """The insert path users take, at full width: the bulk build of the
+    first N - N_INSERT rows, N_SINGLE single-row inserts (the SQL INSERT),
+    the rest in one `add` (flush_pending: waves of 512), then the checks on
+    the index, which holds `x` in slot order, and the SQ stores."""
+    from turdb_tpu_torch.utils.datasets import recall_of
+    from turdb_tpu_torch.utils.timing import device_profile
+
+    n0 = len(x) - N_INSERT
+    idx = _hnsw_index(dev)
+    _, bulk_s = _synced(lambda: idx.add(x[:n0]))
+    out = {"bulk_rows": n0, "bulk_s": bulk_s}
+    ms = []
+    for i in range(n0, n0 + N_SINGLE):
+        slot, dt = _synced(lambda: idx.add(x[i:i + 1]))
+        check(int(slot[0]) == i, f"a single-row insert took slot {slot[0]}, not {i}")
+        ms.append(dt * 1e3)
+    out["single"] = {"rows": N_SINGLE, "p50_ms": float(np.percentile(ms, 50)),
+                     "p99_ms": float(np.percentile(ms, 99)), "mean_ms": float(np.mean(ms)),
+                     "max_ms": float(np.max(ms))}
+    log(f"hnsw single-row inserts: {json.dumps(out['single'])}")
+    rest = x[n0 + N_SINGLE:]
+    again = _clone_index(idx)
+    _, dt = _synced(lambda: idx.add(rest))
+    out["waves"] = {"rows": len(rest), "waves": -(-len(rest) // idx.build_batch), "s": dt,
+                    "rows_per_s": len(rest) / dt}
+    # the same rows into a copy of the graph, traced: it must build the
+    # same graph (the waves are deterministic)
+    out["waves"]["profile"] = device_profile(lambda: again.add(rest), top=12)
+    out["waves"]["traced_identical"] = _same_graph(idx, again)
+    log(f"hnsw wave inserts: {json.dumps(out['waves'])}")
+    check(out["waves"]["traced_identical"], "a traced insert of the same rows built another graph")
+    del again
+    check(idx.size == len(x), f"the index holds {idx.size} rows, not {len(x)}")
+    out["descent_ef"] = idx._descent_ef
+    _, ids = idx.search(queries[:N_ORACLE], K, ef=HNSW_GRAPH_EF)
+    out["graph_recall"] = recall_of(ids, truth)
+    out["inserted_self_hit"] = _self_hits(idx, x[n0:], np.arange(n0, len(x)))
+    out["reach_levels"] = _reach(idx)
+    log(f"hnsw after inserts: recall@10 {out['graph_recall']:.4f} at ef {HNSW_GRAPH_EF}, "
+        f"inserted rows self-hit {out['inserted_self_hit']:.4f}, "
+        f"reachability {out['reach_levels']:.6f}")
+    check(out["inserted_self_hit"] >= INSERT_SELF_HIT_GATE,
+          f"only {out['inserted_self_hit']} of the inserted rows find themselves")
+    check(out["reach_levels"] >= REACH_GATE,
+          f"only {out['reach_levels']} of the graph is reachable from its entry")
+    out["pack"] = hnsw_pack_phase(idx)
+    out["sweep"], gate = hnsw_sweep(idx.search_serve, queries, truth, HNSW_SWEEP)
+    check(gate is not None, f"hnsw insert serve: recall gate {RECALL_GATE} not reached by ef 96")
+    out["gate"] = {"ef": gate[0], "iters": gate[1]}
+    idx.serve = None
+    torch.cuda.empty_cache()
+    # the SQ stores, each from the exact f32 rows
+    f32 = idx.state.vectors
+    batches = _batches(queries, dev, 16)
+
+    def graph(b):
+        return idx.search(b, K, ef=HNSW_GRAPH_EF, out="torch")
+
+    out["f32"] = {"recall@10": out["graph_recall"], "store_gib": f32.numel() * 4 / 2**30,
+                  **hnsw_qps(graph, batches, idx.size)}
+    for bits in (16, 8):
+        idx.state = idx.state._replace(vectors=f32)
+        (idx.quantize_sq16 if bits == 16 else idx.quantize_sq8)()
+        _, ids = idx.search(queries[:N_ORACLE], K, ef=HNSW_GRAPH_EF)
+        out[f"sq{bits}"] = {"recall@10": recall_of(ids, truth),
+                            "store_gib": idx.state.vectors.nbytes / 2**30,
+                            **hnsw_qps(graph, batches, idx.size)}
+        log(f"hnsw SQ{bits} store: {json.dumps(out[f'sq{bits}'])} (f32 {json.dumps(out['f32'])})")
+    r16 = out["sq16"]["recall@10"]
+    check(abs(r16 - out["graph_recall"]) <= SQ_RECALL_TOL,
+          f"SQ16 recall {r16} is not within {SQ_RECALL_TOL} of f32's {out['graph_recall']}")
+    # an add of 256 held-out rows into the SQ8 index: the store turns f32
+    # again (the SQ8 rows dequantized), and the rows find themselves as
+    # often as the inserted rows above
+    sq8, n = idx.state.vectors, idx.size
+    new = queries[-256:]
+    slots = idx.add(new)
+    out["sq8_add"] = {"rows": len(new), "store_f32": isinstance(idx.state.vectors, torch.Tensor),
+                      "dequantized_rows_equal": bool(torch.equal(idx.state.vectors[:n],
+                                                                 sq8.dense()[:n])),
+                      "self_hit": _self_hits(idx, new, slots)}
+    log(f"hnsw add into the SQ8 store: {json.dumps(out['sq8_add'])}")
+    check(out["sq8_add"]["store_f32"] and out["sq8_add"]["dequantized_rows_equal"]
+          and out["sq8_add"]["self_hit"] >= INSERT_SELF_HIT_GATE,
+          f"an add into the SQ8 index: {out['sq8_add']}")
+    del sq8
+    # back to the exact rows (the added rows are exact in both)
+    at = torch.as_tensor(slots.astype(np.int64), device=dev)
+    f32[at] = idx.state.vectors[at]
+    idx.state = idx.state._replace(vectors=f32)
+    return out, idx
+
+
+def hnsw_wave_phase(dev, x, queries):
+    """The insert algorithm from an empty index at cpu_hnsw_baseline's size
+    (bench.py:498-525): every row through the waves, its recall and
+    reachability; then a quarter of the rows deleted (the SQL vacuum's
+    min_dead_frac) and `vacuum`, whose survivors take the bulk route, on a
+    copy. Returns the wave-built index."""
+    from turdb_tpu_torch.models.hnsw import _BULK_MIN, HnswIndex
+    from turdb_tpu_torch.utils.datasets import recall_of
+
+    xs = x[:N_WAVE]
+    truth, _ = _oracle(dev, xs, queries)
+    idx = HnswIndex(dim=DIM, ef_construction=100, build_batch=512, capacity=N_WAVE,
+                    bulk_threshold=N_WAVE + 1, device=dev)
+    _, dt = _synced(lambda: idx.add(xs))
+    out = {"rows": N_WAVE, "build_s": dt, "rows_per_s": N_WAVE / dt,
+           "descent_ef": idx._descent_ef, "max_level": idx.state.max_level}
+    _, ids = idx.search(queries[:N_ORACLE], K, ef=HNSW_GRAPH_EF)
+    out["recall@10"] = recall_of(ids, truth)
+    out["reach_levels"] = _reach(idx)
+    log(f"hnsw waves from empty: {json.dumps(out)}")
+    check(out["recall@10"] >= RECALL_GATE,
+          f"the wave-built graph's recall {out['recall@10']} is under {RECALL_GATE} at ef 64")
+    check(out["reach_levels"] >= REACH_GATE,
+          f"only {out['reach_levels']} of the wave-built graph is reachable")
+    # the copy to vacuum keeps the default bulk_threshold (8,192) that the
+    # build above was held over to force the waves
+    vac = _clone_index(idx)
+    vac.bulk_threshold = _BULK_MIN
+    dead = np.sort(np.random.default_rng(3).choice(N_WAVE, N_WAVE // 4, replace=False))
+    vac.delete(dead)
+    mapping, dt = _synced(vac.vacuum)
+    alive = np.setdiff1d(np.arange(N_WAVE), dead)
+    check(bool((mapping[dead] == -1).all()) and np.array_equal(mapping[alive],
+                                                               np.arange(len(alive))),
+          "vacuum's old-slot -> new-slot mapping is wrong")
+    check(len(vac) == len(alive) and vac._descent_ef == 32,
+          "vacuum did not rebuild the survivors by the bulk route")
+    probe = alive[np.random.default_rng(4).choice(len(alive), 4096, replace=False)]
+    hit = _self_hits(vac, xs[probe], mapping[probe])
+    d, _ = vac.search(xs[dead[:4096]], 1, ef=HNSW_GRAPH_EF)
+    out["vacuum"] = {"deleted": len(dead), "survivors": len(alive), "s": dt,
+                     "survivor_self_hit": hit, "deleted_min_dist": float(d[:, 0].min())}
+    log(f"hnsw vacuum: {json.dumps(out['vacuum'])}")
+    check(hit >= SELF_HIT_GATE, f"only {hit} of the survivors find themselves after vacuum")
+    check(out["vacuum"]["deleted_min_dist"] > 0, "a deleted row came back after vacuum")
+    return out, idx
+
+
+def _greedy_bound(stats, b, deg, row_bytes, d):
+    """K9's bound on this run's inputs: per query, each list it read (deg
+    ids) and each neighbour it scored (its row and norm); the query, its
+    norm and start read once, the end written once; 2d ops a score."""
+    tot = stats.long().sum(0)
+    nbytes = int(tot[0]) * deg * 4 + int(tot[1]) * (row_bytes + 4) + b * (4 * d + 12) + b * 8
+    return _bound(nbytes, 2 * d * int(tot[1]), FP32_OPS)
+
+
+def _k9_case(adj, rows, norms, q, qn, cur_i, cur_d, row_bytes, what, timed):
+    from turdb_tpu_torch.kernels import hnsw_greedy, hnsw_greedy_plain
+
+    args = (adj, rows, norms, q, qn, cur_i.contiguous(), cur_d.contiguous())
+    ki, kd, ks = hnsw_greedy(*args, metric=0)
+    pi, pd, ps = hnsw_greedy_plain(*args, metric=0)
+    err, id_diff = _near_equal(kd[:, None], ki[:, None], pd[:, None], pi[:, None], DOT_RTOL, what)
+    check(id_diff <= 0.01, f"{what}: {id_diff} of the ends differ")
+    out = {"B": q.shape[0], "deg": adj.shape[1], "max_abs_err": err, "id_diff": id_diff,
+           "steps": int(ks[:, 0].sum()), "scored": int(ks[:, 1].sum()),
+           "stats_equal": float((ks == ps).all(1).float().mean())}
+    if timed:
+        out.update(ms=_median_ms(lambda: hnsw_greedy(*args, metric=0)),
+                   plain_ms=_median_ms(lambda: hnsw_greedy_plain(*args, metric=0), reps=3),
+                   library_ms=None,
+                   **_greedy_bound(ks, q.shape[0], adj.shape[1], row_bytes, q.shape[1]))
+    return out, ki, kd
+
+
+def k9_check(ins, wave, wave_q, batch):
+    """K9 against its plain version: a wave of 512 held-out rows through
+    every level of the inserted 1M graph from its entry (the
+    wave's descent; level 0 too, which the waves skip when every row
+    connects), and the 1024-query search descent of the wave-built graph
+    (descent_ef 1, levels 3..1). The timed row is the wave's descent
+    through the levels above 0 (one launch a level, summed)."""
+    from turdb_tpu_torch.models.hnsw import _seed_from_entry
+    from turdb_tpu_torch.ops.distance import Metric
+
+    out = {}
+    for name, idx, q in (("wave512", ins, wave_q), ("descent1024", wave, batch.float())):
+        st = idx.state
+        q = q.contiguous()
+        qn = (q * q).sum(1)
+        cur_i, cur_d = _seed_from_entry(st.vectors, st.norms, q, qn, st.entry, Metric.L2)
+        levels, tot = {}, None
+        for lvl in range(st.max_level, -1 if name == "wave512" else 0, -1):
+            adj = st.adj0 if lvl == 0 else st.adj_hi[lvl - 1]
+            r, cur_i, cur_d = _k9_case(adj, st.vectors, st.norms, q, qn, cur_i, cur_d, 4 * DIM,
+                                       f"K9 {name} level {lvl}", timed=lvl > 0)
+            levels[lvl] = r
+            if lvl > 0:
+                tot = r if tot is None else {
+                    k: tot[k] + r[k] if k in ("ms", "plain_ms", "bound_ms", "bound_bytes",
+                                              "bound_ops", "steps", "scored") else tot[k]
+                    for k in tot}
+        out[name] = {**tot, "max_abs_err": max(r["max_abs_err"] for r in levels.values()),
+                     "levels": levels}
+    return out
+
+
+def k8sq_check(idx, batch):
+    """K8 over the SQ8 and SQ16 stores of the inserted 1M graph at the
+    search shape (B = 1024 through level 0 from the upper levels' beams,
+    ef 64): distances within DOT_RTOL, ids apart only at ties."""
+    from turdb_tpu_torch.kernels import hnsw_graph_beam, hnsw_graph_beam_plain
+    from turdb_tpu_torch.models.hnsw import _beam_level, _seed_from_entry
+    from turdb_tpu_torch.ops.distance import Metric
+    from turdb_tpu_torch.ops.quantize import sq_rows_encode
+
+    st = idx.state
+    qb = batch.float().contiguous()
+    qbn = (qb * qb).sum(1)
+    out = {}
+    for bits in (8, 16):
+        rows = sq_rows_encode(st.vectors, bits)
+        si, sd = _seed_from_entry(rows, st.norms, qb, qbn, st.entry, Metric.L2)
+        si, sd = si[:, None], sd[:, None]
+        for lvl in range(len(st.adj_hi), 0, -1):
+            sd, si = _beam_level(st.adj_hi[lvl - 1], rows, st.norms, qb, qbn, si, sd, 32, 64,
+                                 Metric.L2, expand=2)
+        args = (st.adj0, rows, st.norms, qb, qbn, si.contiguous(), sd.contiguous())
+        kw = dict(ef=64, iters=96, metric=0, expand=4)
+        got = hnsw_graph_beam(*args, **kw)
+        want = hnsw_graph_beam_plain(*args, **kw)
+        err, id_diff = _near_equal(got.cand_d, got.cand_i, want.cand_d, want.cand_i, DOT_RTOL,
+                                   f"K8-SQ{bits}")
+        check(id_diff <= 0.01, f"K8-SQ{bits}: {id_diff} of the ids differ")
+        tot = got.stats.long().sum(0)
+        b, s = si.shape
+        deg = st.adj0.shape[1]
+        nbytes = (int(tot[0]) * deg * 4 + int(tot[1]) * (DIM * bits // 8 + 12)
+                  + b * (4 * DIM + 4) + b * s * 8 + b * 64 * 8 + b * 8)
+        out[f"sq{bits}"] = {
+            "shape": {"B": b, "S": s, "ef": 64, "iters": 96, "deg": deg, "d": DIM},
+            "expanded": int(tot[0]), "scored": int(tot[1]), "max_abs_err": err,
+            "id_diff": id_diff,
+            "ms": _median_ms(lambda: hnsw_graph_beam(*args, **kw)),
+            "plain_ms": _median_ms(lambda: hnsw_graph_beam_plain(*args, **kw), reps=3),
+            "library_ms": None,
+            **_bound(nbytes, 2 * DIM * int(tot[1]), FP32_OPS)}
+        del rows
+    return out
+
+
+def k7_sorted_check(idx, q):
+    """K7's presorted mode at the waves' level-0 shape: the ef 100 beam
+    buffers (W = 100) of 512 held-out rows through level 0 of the inserted
+    1M graph, deg 32, alpha 1. Rows equal to the plain version's
+    on >= 98 %, and every other row has a decision within 4x the fp32
+    disagreement of a tie (fp64 margins)."""
+    from turdb_tpu_torch.kernels import hnsw_select_sorted, hnsw_select_sorted_plain
+    from turdb_tpu_torch.models.hnsw import _beam_level, _seed_from_entry
+    from turdb_tpu_torch.ops.distance import Metric
+
+    st = idx.state
+    q = q.float().contiguous()
+    qn = (q * q).sum(1)
+    si, sd = _seed_from_entry(st.vectors, st.norms, q, qn, st.entry, Metric.L2)
+    cand_d, cand_i = _beam_level(st.adj0, st.vectors, st.norms, q, qn, si, sd, 100, 150,
+                                 Metric.L2)
+    kw = dict(deg=32, metric=0, alpha=1.0)
+    ki, kd, kp = hnsw_select_sorted(st.vectors, cand_i, cand_d, **kw)
+    pi, pd, pp = hnsw_select_sorted_plain(st.vectors, cand_i, cand_d, **kw)
+    same = (ki == pi).all(1)
+    frac = float(same.float().mean())
+    check(frac >= 0.98, f"K7 presorted: only {frac} of the rows equal the plain version's")
+    check(torch.equal(kd[same], pd[same]), "K7 presorted: the distances of equal rows differ")
+    rows = torch.nonzero(~same)[:, 0]
+    margins = _select_margins(st.vectors, None, cand_i[rows], 32, 1.0, cand_d=cand_d[rows])
+    tol = 4.0 * 2e-7 * float(st.norms[:idx.size].max())
+    check(bool((margins <= tol).all()),
+          f"K7 presorted: a row differs with no decision within {tol} of a tie")
+    valid = cand_i >= 0
+    u, w = cand_i.shape
+    n_rows = int(torch.unique(cand_i[valid]).numel())
+    nbytes = n_rows * 4 * DIM + u * w * 8 + u * 32 * 8 + u * 4
+    return {"shape": {"U": u, "W": w, "deg": 32, "d": DIM, "alpha": 1.0}, "rows_equal": frac,
+            "max_abs_err": 0.0, "pairs": int(kp.sum()), "tie_tol": tol,
+            "max_margin_of_differing": float(margins.max()) if len(rows) else 0.0,
+            "ms": _median_ms(lambda: hnsw_select_sorted(st.vectors, cand_i, cand_d, **kw)),
+            "plain_ms": _median_ms(lambda: hnsw_select_sorted_plain(st.vectors, cand_i, cand_d,
+                                                                    **kw), reps=3),
+            "library_ms": None,
+            **_bound(nbytes, 2 * DIM * (int(valid.sum()) + int(kp.sum())), FP32_OPS)}
+
 # ---------------------------------------------------------------------------
 
 KERNELS = {
@@ -1176,6 +1583,12 @@ KERNELS = {
                     "turdb_tpu/models/hnsw.py:568"),
     "hnsw_graph_beam": ("turdb_tpu_torch/kernels/csrc/hnsw_beam.cu",
                         "turdb_tpu/models/hnsw.py:234"),
+    "hnsw_greedy": ("turdb_tpu_torch/kernels/csrc/hnsw_greedy.cu",
+                    "turdb_tpu/models/hnsw.py:192"),
+    "hnsw_graph_beam_sq": ("turdb_tpu_torch/kernels/csrc/hnsw_beam.cu",
+                           "turdb_tpu/models/hnsw.py:130"),
+    "hnsw_select_sorted": ("turdb_tpu_torch/kernels/csrc/hnsw_select.cu",
+                           "turdb_tpu/models/hnsw.py:471"),
 }
 # the kernels each main path must launch
 PATH_KERNELS = {
@@ -1186,6 +1599,11 @@ PATH_KERNELS = {
     "probe_only": ("ivf_probe_sq8", "topk_rows", "kmeans_assign"),
     "hnsw": ("topk_rows", "kmeans_assign", "ivf_probe_sq8", "hnsw_serve_beam", "hnsw_select",
              "hnsw_graph_beam"),
+    "hnsw_insert": ("topk_rows", "kmeans_assign", "ivf_probe_sq8", "hnsw_serve_beam",
+                    "hnsw_select", "hnsw_graph_beam", "hnsw_greedy", "hnsw_select_sorted",
+                    "hnsw_graph_beam_sq"),
+    "hnsw_wave": ("topk_rows", "hnsw_select", "hnsw_graph_beam", "hnsw_greedy",
+                  "hnsw_select_sorted"),
 }
 
 
@@ -1201,6 +1619,9 @@ def kernel_rows(launches):
         "hnsw_serve_beam": REPORT["k6"][f"ef{REPORT['hnsw']['gate']['ef']}"],
         "hnsw_select": REPORT["k7"]["W64"],
         "hnsw_graph_beam": REPORT["k8"]["search"],
+        "hnsw_greedy": REPORT["k9"]["wave512"],
+        "hnsw_graph_beam_sq": REPORT["k8sq"]["sq8"],
+        "hnsw_select_sorted": REPORT["k7s"],
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return [
@@ -1293,7 +1714,29 @@ def run_paths(dev, launches):
     REPORT["k7"] = k7_check(idx, gen)
     for name in ("k6", "k7", "k8"):
         log(f"{name}: {json.dumps(REPORT[name])}")
-    del idx, batches, pool, x, queries
+    del idx, batches
+    torch.cuda.empty_cache()
+
+    def hnsw_insert():
+        REPORT["hnsw_insert"], idx = hnsw_insert_phase(dev, x, queries, truth)
+        return idx
+
+    ins = counted("hnsw_insert", hnsw_insert)
+    torch.cuda.empty_cache()
+
+    def hnsw_wave():
+        REPORT["hnsw_wave"], idx = hnsw_wave_phase(dev, x, queries)
+        return idx
+
+    wave = counted("hnsw_wave", hnsw_wave)
+    qb = torch.as_tensor(queries[:BATCH], device=dev)
+    wave_q = torch.as_tensor(queries[BATCH:BATCH + 512], device=dev)
+    REPORT["k9"] = k9_check(ins, wave, wave_q, qb)
+    REPORT["k8sq"] = k8sq_check(ins, qb)
+    REPORT["k7s"] = k7_sorted_check(ins, wave_q)
+    for name in ("k9", "k8sq", "k7s"):
+        log(f"{name}: {json.dumps(REPORT[name])}")
+    del ins, wave, pool, x, queries
     torch.cuda.empty_cache()
 
     def hard():
@@ -1356,7 +1799,8 @@ def main() -> int:
     REPORT["launches"] = launches
     REPORT["total_s"] = time.perf_counter() - t0
     (OUT / "chip_smoke_report.json").write_text(json.dumps(REPORT, indent=1))
-    for name in ("headline", "sq8", "compact", "hard", "probe_only", "hnsw"):
+    for name in ("headline", "sq8", "compact", "hard", "probe_only", "hnsw", "hnsw_insert",
+                 "hnsw_wave"):
         log(f"{name}: {json.dumps({k: v for k, v in REPORT[name].items() if k != 'build_profile'})}")
 
     rows = kernel_rows(launches)

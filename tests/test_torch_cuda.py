@@ -423,3 +423,163 @@ def test_hnsw_slice_on_cuda_matches_cpu(cuda):
                 assert abs(a - b) <= 0.02 and b >= 0.95, (exact, rec)
     finally:
         th._BULK_EXACT = saved
+
+
+def _sq_stores(x):
+    from turdb_tpu_torch.ops.quantize import sq_rows_encode
+
+    return (("f32", x), ("sq8", sq_rows_encode(x, 8)), ("sq16", sq_rows_encode(x, 16)))
+
+
+def test_hnsw_greedy_kernel_matches_plain(cuda):
+    """K9 over the f32 rows and the SQ8 / SQ16 store, every metric, from
+    random nodes and from -1 (row 0's list against +inf): the same ends but
+    where fp32 dots summed in another order swap a near tie."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x, norms, adj = _graph(g, 6000, 64, 16, cuda)
+    q = (x[torch.randint(0, 6000, (512,), device=cuda, generator=g)]
+         + 0.5 * torch.randn(512, 64, device=cuda, generator=g)).contiguous()
+    cur = torch.randint(-1, 6000, (512,), device=cuda, generator=g, dtype=torch.int32)
+    for metric in (0, 1, 2):
+        xm = x / x.norm(dim=1, keepdim=True) if metric == 1 else x
+        qm = q / q.norm(dim=1, keepdim=True) if metric == 1 else q
+        nm, qn = (xm * xm).sum(1), (qm * qm).sum(1)
+        atol = 1e-5 * float(qn.max() + nm.max())   # as in the K8 test
+        for name, store in _sq_stores(xm.contiguous()):
+            rows = store[cur.clamp_min(0).long()]
+            cur_d = kernels._gathered_epilogue(torch.einsum("bd,bd->b", qm, rows), metric, qn,
+                                               nm[cur.clamp_min(0).long()])
+            cur_d = torch.where(cur >= 0, cur_d, float("inf")).contiguous()
+            args = (adj, store, nm, qm.contiguous(), qn, cur, cur_d)
+            before = kernels.launches["hnsw_greedy"]
+            ki, kd, ks = kernels.hnsw_greedy(*args, metric=metric)
+            assert kernels.launches["hnsw_greedy"] == before + 1
+            pi, pd, ps = kernels.hnsw_greedy_plain(*args, metric=metric)
+            torch.testing.assert_close(kd, pd, rtol=1e-5, atol=atol)
+            assert (ki == pi).float().mean() >= 0.99, (metric, name)
+            assert (ks == ps).all(1).float().mean() >= 0.95, (metric, name)
+
+
+def test_hnsw_graph_beam_sq_kernel_matches_plain(cuda):
+    """K8 over u8 and u16 codes in its modes: the buffers of the plain
+    version (the same gather) but at near ties of the fp32 dots."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x, norms, adj = _graph(g, 6000, 64, 16, cuda)
+    q = (x[torch.randint(0, 6000, (96,), device=cuda, generator=g)]
+         + 0.5 * torch.randn(96, 64, device=cuda, generator=g)).contiguous()
+    qn = (q * q).sum(1)
+    allowed = torch.rand(6000, device=cuda, generator=g) < 0.5
+    active = torch.arange(96, device=cuda) % 7 != 0
+    seeds = torch.rand(96, 6000, device=cuda, generator=g).topk(8).indices.to(torch.int32)
+    atol = 1e-5 * float(qn.max() + norms.max())
+    for name, rows in _sq_stores(x)[1:]:
+        sd = kernels._gathered_epilogue(torch.einsum("bd,bsd->bs", q, rows[seeds.long()]), 0,
+                                        qn[:, None], norms[seeds.long()]).contiguous()
+        for kw in (dict(), dict(active=active), dict(allowed=allowed, k_res=16),
+                   dict(return_expanded=True)):
+            args = (adj, rows, norms, q, qn, seeds[:, :1].contiguous(), sd[:, :1].contiguous())
+            if "active" in kw:
+                args = (*args[:5], seeds, sd)
+            opts = dict(ef=64, iters=96, metric=0, expand=4, **kw)
+            before = kernels.launches["hnsw_graph_beam_sq"]
+            got = kernels.hnsw_graph_beam(*args, **opts)
+            assert kernels.launches["hnsw_graph_beam_sq"] == before + 1
+            want = kernels.hnsw_graph_beam_plain(*args, **opts)
+            torch.testing.assert_close(got.cand_d, want.cand_d, rtol=1e-5, atol=atol)
+            assert (got.cand_i == want.cand_i).float().mean() >= 0.99, (name, kw)
+            if "k_res" in kw:
+                assert bool(allowed[got.res_i[got.res_i >= 0].long()].all())
+            assert (got.stats == want.stats).all(1).float().mean() >= 0.95
+
+
+def test_hnsw_select_sorted_kernel_matches_plain(cuda):
+    """K7's presorted mode over K8's ef 100 buffers (-1 / +inf tails
+    included), every metric, alpha 1.0 and 1.2. The queries are not rows
+    of the graph, as a wave's are not: a row's own node at distance 0
+    would tie every later candidate's distance with its pair distance."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    x, _, adj = _graph(g, 6000, 64, 32, cuda)
+    q0 = (x[torch.randint(0, 6000, (400,), device=cuda, generator=g)]
+          + 0.5 * torch.randn(400, 64, device=cuda, generator=g))
+    for metric in (0, 1, 2):
+        xm = (x / x.norm(dim=1, keepdim=True) if metric == 1 else x).contiguous()
+        nm = (xm * xm).sum(1)
+        q = (q0 / q0.norm(dim=1, keepdim=True) if metric == 1 else q0).contiguous()
+        qn = (q * q).sum(1)
+        seed = torch.zeros((400, 1), dtype=torch.int32, device=cuda)
+        sd = kernels._gathered_epilogue(q @ xm[0], metric, qn, nm[0])[:, None].contiguous()
+        beam = kernels.hnsw_graph_beam(adj, xm, nm, q, qn, seed, sd, ef=100, iters=150,
+                                       metric=metric)
+        cand_i, cand_d = beam.cand_i.clone(), beam.cand_d.clone()
+        cand_i[::9, 60:], cand_d[::9, 60:] = -1, float("inf")
+        for alpha in (1.0, 1.2):
+            before = kernels.launches["hnsw_select_sorted"]
+            ki, kd, kp = kernels.hnsw_select_sorted(xm, cand_i, cand_d, deg=32, metric=metric,
+                                                    alpha=alpha)
+            assert kernels.launches["hnsw_select_sorted"] == before + 1
+            pi, pd, pp = kernels.hnsw_select_sorted_plain(xm, cand_i, cand_d, deg=32,
+                                                          metric=metric, alpha=alpha)
+            same = (ki == pi).all(1)
+            assert same.float().mean() >= 0.99, (metric, alpha)
+            assert torch.equal(kd[same], pd[same]) and torch.equal(kp[same], pp[same])
+
+
+def test_hnsw_wave_build_and_vacuum_on_cuda_match_cpu(cuda):
+    """The wave build (K9, K8, K7 in both modes) and a vacuum through the
+    waves on the card give the CPU run's graph: rows equal on >= 99 %,
+    recall within 0.02."""
+    from turdb_tpu_torch.models import hnsw as th
+
+    pool = make_pool(np.random.default_rng(0), 6_256, 32, n_clusters=64)
+    x, q = pool[:6000], pool[6000:]
+    flat = FlatIndex(dim=32, capacity=6000, device=cuda)
+    flat.add(x)
+    _, truth = flat.search(q, k=10)
+    dead = np.random.default_rng(1).choice(6000, 1500, replace=False)
+    out = {}
+    for dev in ("cpu", cuda):
+        idx = th.HnswIndex(dim=32, ef_construction=64, build_batch=256, bulk_threshold=10**9,
+                           device=dev)
+        before = dict(kernels.launches)
+        idx.add(x)
+        if dev != "cpu":
+            for k in ("hnsw_greedy", "hnsw_graph_beam", "hnsw_select_sorted", "hnsw_select"):
+                assert kernels.launches[k] > before[k], k
+        _, ids = idx.search(q, k=10, ef=64)
+        rows = [a[:6000].cpu().numpy() for a in (idx.state.adj0, *idx.state.adj_hi)]
+        idx.delete(dead)
+        mapping = idx.vacuum()
+        out[str(dev)] = (recall_of(ids, truth), rows, mapping,
+                         [a[:4500].cpu().numpy() for a in (idx.state.adj0, *idx.state.adj_hi)])
+    (rc, rows_c, map_c, vac_c), (rg, rows_g, map_g, vac_g) = out["cpu"], out["cuda"]
+    assert abs(rc - rg) <= 0.02 and rg >= 0.95, (rc, rg)
+    np.testing.assert_array_equal(map_g, map_c)
+    for a, b in (*zip(rows_g, rows_c), *zip(vac_g, vac_c)):
+        assert (a == b).all(1).mean() >= 0.99
+
+
+def test_hnsw_wave_limits_raise_and_leave_no_error_behind(cuda):
+    """K7's presorted mode past SELECT_W_MAX, K9 on rows it cannot read
+    four at a time, K8-SQ past EF_MAX: ValueError before a launch; the
+    next launches run and agree with their plain versions."""
+    from turdb_tpu_torch.ops.quantize import sq_rows_encode
+
+    x = torch.randn(2048, 32, device=cuda)
+    n = (x * x).sum(1)
+    adj = torch.randint(0, 2048, (2048, 16), dtype=torch.int32, device=cuda)
+    w = kernels.SELECT_W_MAX + 1
+    with pytest.raises(ValueError):
+        kernels.hnsw_select_sorted(x, torch.zeros(4, w, dtype=torch.int32, device=cuda),
+                                   torch.zeros(4, w, device=cuda), deg=16, metric=0, alpha=1.0)
+    cur = torch.zeros(4, dtype=torch.int32, device=cuda)
+    x30 = torch.randn(2048, 30, device=cuda)
+    with pytest.raises(ValueError):
+        kernels.hnsw_greedy(adj, x30, n, x30[:4], n[:4], cur, n[:4], metric=0)
+    rows = sq_rows_encode(x, 8)
+    with pytest.raises(ValueError):
+        kernels.hnsw_graph_beam(adj, rows, n, x[:4], n[:4], cur[:, None], n[:4, None],
+                                   ef=kernels.EF_MAX + 1, iters=8, metric=0)
+    ki, kd, _ = kernels.hnsw_greedy(adj, rows, n, x[:4], n[:4], cur, n[:4], metric=0)
+    pi, pd, _ = kernels.hnsw_greedy_plain(adj, rows, n, x[:4], n[:4], cur, n[:4], metric=0)
+    torch.testing.assert_close(kd, pd, rtol=1e-5, atol=1e-3)
+    torch.cuda.synchronize()

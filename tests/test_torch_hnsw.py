@@ -14,7 +14,7 @@
   from its entry over its levels (>= 0.99; level 0 alone is as reachable
   as the reference's) and its recall@10 is within 0.02 of the
   reference's on the same data;
-- deletes and `allowed` masks, and the paths not ported yet.
+- deletes and `allowed` masks, and the width the wave inserts refuse.
 The reference's graph is built once per module at 9000 x 32.
 """
 
@@ -29,6 +29,7 @@ from turdb_tpu.models import hnsw as jh
 from turdb_tpu.models.flat import FlatIndex as JaxFlat
 from turdb_tpu.ops.distance import Metric as JaxMetric
 from turdb_tpu_torch.convert import hnsw_index_from_numpy
+from turdb_tpu_torch.kernels import SELECT_W_MAX
 from turdb_tpu_torch.models import hnsw as th
 from turdb_tpu_torch.ops.distance import Metric
 from turdb_tpu_torch.utils.datasets import recall_of
@@ -317,22 +318,33 @@ def test_delete_and_allowed_never_return_hidden(ref, data):
 
 
 def test_unported_paths_raise(data):
-    """The wave inserts, the SQ8 / SQ16 graph store and vacuum are still to
-    port: each raises NotImplementedError naming its ROADMAP item, and a
-    refused add leaves the index as it was."""
+    """Every mutation path of the index is ported (tests/test_torch_hnsw_wave.py
+    and tests/test_torch_hnsw_sq.py hold them to the reference): an add
+    below bulk_threshold and into a non-empty index take the waves, and
+    quantize, dequantize and vacuum run. What still raises is a width the
+    kernels refuse: the waves select from the ef_construction beam, so an
+    ef_construction past SELECT_W_MAX raises ValueError before the index
+    changes, while a bulk load, which never selects from that beam, takes it."""
     base, _, _ = data
+    wide = th.HnswIndex(dim=DIM, ef_construction=SELECT_W_MAX + 1, device="cpu")
+    with pytest.raises(ValueError, match="ef_construction"):
+        wide.add(base[:100])                    # below bulk_threshold: a wave insert
+    assert len(wide) == 0 and wide.state.entry == -1
     small = th.HnswIndex(dim=DIM, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        small.add(base[:100])                   # below bulk_threshold: a wave insert
-    assert len(small) == 0
+    np.testing.assert_array_equal(small.add(base[:100]), np.arange(100))
     idx = th.HnswIndex(dim=DIM, capacity=4096, bulk_threshold=2000, device="cpu")
     idx.add(base[:3000])
-    with pytest.raises(NotImplementedError, match="wave inserts"):
-        idx.add(base[3000:6000])                # into a non-empty index
-    assert len(idx) == 3000
-    for fn in (idx.vacuum, idx.quantize_sq8, idx.quantize_sq16, idx.dequantize):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn()
+    np.testing.assert_array_equal(idx.add(base[3000:3100]), np.arange(3000, 3100))
+    assert len(idx) == 3100 and idx._descent_ef == 32
+    idx.quantize_sq16()
+    _, ids = idx.search(base[3000:3020], k=1, ef=64)
+    assert (ids[:, 0] == np.arange(3000, 3020)).mean() >= 0.9
+    idx.dequantize()
+    assert isinstance(idx.state.vectors, torch.Tensor)
+    idx.delete(np.arange(0, 3100, 2))
+    mapping = idx.vacuum()
+    assert len(idx) == 1550 and (mapping[::2] == -1).all()
+    np.testing.assert_array_equal(mapping[1::2], np.arange(1550))
     empty = th.HnswIndex(dim=DIM, device="cpu")
     d, i = empty.search(base[:3], k=4)
     assert (i == -1).all() and np.isinf(d).all()

@@ -197,9 +197,18 @@ def test_cpu_wrappers_leave_launch_counters_at_zero():
     kernels.hnsw_serve_beam(c8[adj.long()], meta[adj.long()], xt[:32].contiguous(), xn, qt,
                             td.prep_norms(qt), qc, qs, qsum, seed_i, seed_d, ef=8, iters=8,
                             expand=2, rerank=0, k=3, metric=0)
+    rows = tq.sq_rows_encode(xt[:32], 8)
+    kernels.hnsw_graph_beam(adj, rows, xn, qt, td.prep_norms(qt), seed_i, seed_d, ef=8,
+                               iters=8, metric=0)
+    kernels.hnsw_greedy(adj, rows, xn, qt, td.prep_norms(qt), seed_i[:, 0], seed_d[:, 0],
+                        metric=0)
+    cand = torch.arange(40, dtype=torch.int32).reshape(4, 10) % 32
+    kernels.hnsw_select_sorted(xt[:32].contiguous(), cand, torch.arange(40.0).reshape(4, 10),
+                               deg=4, metric=0, alpha=1.0)
     assert set(kernels.launches) == {"ivf_probe_f32", "topk_rows", "kmeans_assign",
                                      "ivf_probe_sq8", "ivf_rerank", "hnsw_serve_beam",
-                                     "hnsw_select", "hnsw_graph_beam"}
+                                     "hnsw_select", "hnsw_graph_beam", "hnsw_select_sorted",
+                                     "hnsw_graph_beam_sq", "hnsw_greedy"}
     assert not any(kernels.launches.values()), kernels.launches
 
 

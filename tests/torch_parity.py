@@ -46,9 +46,17 @@ def assert_knn_match(d_ref, i_ref, d_port, i_port, rtol=1e-4, atol=1e-3):
 
 def export_hnsw(state, cfg, size) -> tuple[dict, dict]:
     """A reference HnswState + HnswConfig -> (numpy arrays, config dict);
-    the upper levels' adjacency is stacked [levels - 1, cap, M]."""
+    the upper levels' adjacency is stacked [levels - 1, cap, M]. An SQ8 /
+    SQ16 store (`Sq8Rows`) is exported as `codes` (uint8 / uint16),
+    `mins` and `scales` in place of `vectors`."""
     arrays = {f: np.asarray(getattr(state, f))
-              for f in ("vectors", "norms", "adj0", "levels", "entry", "max_level")}
+              for f in ("norms", "adj0", "levels", "entry", "max_level")}
+    rows = state.vectors
+    if hasattr(rows, "codes"):
+        arrays.update(codes=np.asarray(rows.codes), mins=np.asarray(rows.mins),
+                      scales=np.asarray(rows.scales))
+    else:
+        arrays["vectors"] = np.asarray(rows)
     arrays["adj_hi"] = np.stack([np.asarray(a) for a in state.adj_hi])
     conf = dataclasses.asdict(cfg)
     conf["metric"] = cfg.metric.value

@@ -15,6 +15,7 @@ from turdb_tpu_torch.models.hnsw import HnswIndex, HnswState
 from turdb_tpu_torch.models.hnsw_serve import HnswServeState
 from turdb_tpu_torch.models.ivf import _DENSE, IvfConfig, IvfState, sq8_placeholders
 from turdb_tpu_torch.ops.distance import Metric
+from turdb_tpu_torch.ops.quantize import Sq8Rows
 
 _IVF_FIELDS = ("centroids", "cnorms", "members", "pnorms", "alive")
 _IVF_TYPES = (np.float32, np.float32, np.int32, np.float32, bool)
@@ -93,10 +94,19 @@ def hnsw_index_from_numpy(arrays: dict, cfg: dict, size: int, *, alive=None,
     stacked [levels - 1, cap, M], levels, entry, max_level), its
     `HnswConfig` fields as a dict, and the index's size, tombstones
     (`alive` [>= size] bool, default all alive) and descent_ef (32 after
-    a bulk build, else 1) -> a port HnswIndex holding the same graph."""
+    a bulk build, else 1) -> a port HnswIndex holding the same graph. An
+    SQ8 / SQ16 store comes as `codes` [cap, d] (uint8 or uint16), `mins`
+    and `scales` [cap] in place of `vectors`, and stays quantized."""
     metric = _metric(cfg.get("metric", Metric.L2))
-    vectors = np.array(arrays["vectors"], np.float32)
-    cap, dim = vectors.shape
+    sq = "codes" in arrays
+    if sq:
+        codes = np.asarray(arrays["codes"])
+        if codes.dtype not in (np.uint8, np.uint16):
+            raise ValueError(f"SQ codes must be uint8 or uint16, got {codes.dtype}")
+        cap, dim = codes.shape
+    else:
+        vectors = np.array(arrays["vectors"], np.float32)
+        cap, dim = vectors.shape
     if cfg["m0"] != 2 * cfg["m"] or cap & (cap - 1) or cap < 1024:
         raise ValueError("an HNSW state needs m0 = 2m and a power-of-two capacity >= 1024")
     idx = HnswIndex(dim=dim, metric=metric, m=cfg["m"],
@@ -104,8 +114,16 @@ def hnsw_index_from_numpy(arrays: dict, cfg: dict, size: int, *, alive=None,
                     ef_search=cfg.get("ef_search", 64), capacity=cap, device=device)
     dev = idx.device
     adj_hi = np.asarray(arrays["adj_hi"], np.int32)
+    if sq:
+        codes = np.array(codes)     # the uint16 codes are kept as int16 bits
+        rows = Sq8Rows(
+            torch.as_tensor(codes if codes.dtype == np.uint8 else codes.view(np.int16), device=dev),
+            torch.as_tensor(np.array(arrays["mins"], np.float32), device=dev),
+            torch.as_tensor(np.array(arrays["scales"], np.float32), device=dev))
+    else:
+        rows = torch.as_tensor(vectors, device=dev)
     idx.state = HnswState(
-        vectors=torch.as_tensor(vectors, device=dev),
+        vectors=rows,
         norms=torch.as_tensor(np.array(arrays["norms"], np.float32), device=dev),
         adj0=torch.as_tensor(np.array(arrays["adj0"], np.int32), device=dev),
         adj_hi=tuple(torch.as_tensor(np.array(a), device=dev) for a in adj_hi),

@@ -8,14 +8,17 @@ and the launch counters.
     K5 ivf_rerank     csrc/ivf_rerank.cu     exact rerank over the f32 or SQ16 row store
     K6 hnsw_serve_beam  csrc/hnsw_beam.cu    HNSW int8 serving beam + exact rerank
     K7 hnsw_select      csrc/hnsw_select.cu  HNSW alpha-diversity neighbour selection
-    K8 hnsw_graph_beam  csrc/hnsw_beam.cu    HNSW f32 graph beam over one level
+       hnsw_select_sorted                    ... its presorted mode (a beam's buffer)
+    K8 hnsw_graph_beam  csrc/hnsw_beam.cu    HNSW graph beam over one level (f32 rows;
+                                             over the SQ store, counted as hnsw_graph_beam_sq)
+    K9 hnsw_greedy      csrc/hnsw_greedy.cu  HNSW greedy descent over one level
 
 A wrapper given CPU tensors runs the plain version below; given CUDA
 tensors it launches its kernel (built at first use) or raises. There is
 no fallback from one to the other. `launches[name]` counts kernel
 launches only. Widths past a kernel's limits (SEL_MAX for selections,
-EF_MAX / SLOTS_MAX / EXP_MAX for the beams, SELECT_W_MAX for K7) raise
-ValueError before any launch.
+EF_MAX / SLOTS_MAX / EXP_MAX for the beams, SELECT_W_MAX for K7, whose
+presorted mode checks it on the CPU too) raise ValueError before any launch.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from typing import NamedTuple
 import torch
 
 from turdb_tpu_torch.kernels import build
-from turdb_tpu_torch.ops.quantize import sq16_decode
+from turdb_tpu_torch.ops.quantize import Sq8Rows, sq16_decode
 
 INF = math.inf
 
@@ -42,7 +45,8 @@ MODE_TOPK, MODE_CAND = 0, 1
 
 launches = {"ivf_probe_f32": 0, "topk_rows": 0, "kmeans_assign": 0,
             "ivf_probe_sq8": 0, "ivf_rerank": 0, "hnsw_serve_beam": 0,
-            "hnsw_select": 0, "hnsw_graph_beam": 0}
+            "hnsw_select": 0, "hnsw_graph_beam": 0, "hnsw_select_sorted": 0,
+            "hnsw_graph_beam_sq": 0, "hnsw_greedy": 0}
 
 
 def reset_launches() -> None:
@@ -608,6 +612,7 @@ def _gathered_epilogue(dots, metric, qn, xn):
 def hnsw_graph_beam_plain(adj, vectors, norms, q, qn, seed_i, seed_d, allowed=None, *,
                           ef, iters, metric, expand=4, k_res=None, active=None,
                           return_expanded=False):
+    """`vectors` is the f32 rows or an `Sq8Rows` store (its gather)."""
     b, s = seed_i.shape
     deg = adj.shape[1]
     loops, exp_cap = _loops(iters, expand)
@@ -664,10 +669,13 @@ def _beam_limits(name, ef, iters, expand, deg, d, k_res=0):
 def hnsw_graph_beam(adj, vectors, norms, q, qn, seed_i, seed_d, allowed=None, *,
                     ef: int, iters: int, metric: int, expand: int = 4, k_res: int | None = None,
                     active=None, return_expanded: bool = False) -> BeamResult:
-    """The f32 graph beam over one adjacency level (`_beam_level` of the
+    """The graph beam over one adjacency level (`_beam_level` of the
     reference's models/hnsw.py).
 
-    adj [cap, deg] int32 (-1 padded), vectors [cap, d] f32, norms [cap],
+    adj [cap, deg] int32 (-1 padded), vectors [cap, d] f32 or an `Sq8Rows`
+    store (u8 / u16 codes dequantized on the gather as one fused
+    multiply-add `min + scale·code`, as `rows[ids]` computes it; its
+    launches count as `hnsw_graph_beam_sq`), norms [cap] (exact f32),
     q [B, d], qn [B] = ‖q‖², seeds seed_i / seed_d [B, S] (S <= ef, -1 /
     +inf for none), `allowed` [cap] bool or None, `active` [B] bool or
     None (inactive queries start with no seed). Each step expands the
@@ -684,14 +692,19 @@ def hnsw_graph_beam(adj, vectors, norms, q, qn, seed_i, seed_d, allowed=None, *,
     if metric not in (0, 1, 2):
         raise ValueError(f"hnsw_graph_beam: unknown metric {metric}")
     kr = (k_res or ef) if allowed is not None else 0
-    if not _on_cuda(adj, vectors, norms, q, qn, seed_i, seed_d, allowed, active):
+    sq = isinstance(vectors, Sq8Rows)
+    store = (vectors.codes, vectors.mins, vectors.scales) if sq else (vectors,)
+    if not _on_cuda(adj, *store, norms, q, qn, seed_i, seed_d, allowed, active):
         return hnsw_graph_beam_plain(adj, vectors, norms, q, qn, seed_i, seed_d, allowed,
                                      ef=ef, iters=iters, metric=metric, expand=expand,
                                      k_res=k_res, active=active,
                                      return_expanded=return_expanded)
     exp_cap = _beam_limits("hnsw_graph_beam", ef, iters, expand, deg, d, kr)
     _check(adj, "adj", torch.int32, (cap, deg))
-    _check(vectors, "vectors", torch.float32, (cap, d))
+    if sq:
+        _check_sq_rows("hnsw_graph_beam", vectors, cap, d)
+    else:
+        _check(vectors, "vectors", torch.float32, (cap, d))
     _check(norms, "norms", torch.float32, (cap,))
     _check(q, "q", torch.float32, (b, d))
     _check(qn, "qn", torch.float32, (b,))
@@ -701,23 +714,117 @@ def hnsw_graph_beam(adj, vectors, norms, q, qn, seed_i, seed_d, allowed=None, *,
         _check(active, "active", torch.bool, (b,))
         seed_i = torch.where(active[:, None], seed_i, -1).contiguous()
         seed_d = torch.where(active[:, None], seed_d, INF).contiguous()
-    if vectors.data_ptr() % 16 or q.data_ptr() % 16:
+    if q.data_ptr() % 16 or (not sq and vectors.data_ptr() % 16):
         raise ValueError("hnsw_graph_beam: vectors and q must be 16-byte aligned")
     dev = q.device
-    out_d = torch.empty((b, ef), dtype=torch.float32, device=dev)
-    out_i = torch.empty((b, ef), dtype=torch.int32, device=dev)
-    res_d = torch.empty((b, kr), dtype=torch.float32, device=dev) if kr else None
-    res_i = torch.empty((b, kr), dtype=torch.int32, device=dev) if kr else None
-    exp_ids = (torch.empty((b, exp_cap), dtype=torch.int32, device=dev)
-               if return_expanded else None)
-    stats = torch.empty((b, 2), dtype=torch.int32, device=dev)
+    out = BeamResult(torch.empty((b, ef), dtype=torch.float32, device=dev),
+                     torch.empty((b, ef), dtype=torch.int32, device=dev),
+                     torch.empty((b, kr), dtype=torch.float32, device=dev) if kr else None,
+                     torch.empty((b, kr), dtype=torch.int32, device=dev) if kr else None,
+                     (torch.empty((b, exp_cap), dtype=torch.int32, device=dev)
+                      if return_expanded else None),
+                     torch.empty((b, 2), dtype=torch.int32, device=dev))
+    rows = ((vectors.codes.data_ptr(), vectors.bits, vectors.mins.data_ptr(),
+             vectors.scales.data_ptr()) if sq else (vectors.data_ptr(),))
     if b:
-        _launch("hnsw_graph_beam", adj.data_ptr(), vectors.data_ptr(), norms.data_ptr(),
-                q.data_ptr(), qn.data_ptr(), seed_i.data_ptr(), seed_d.data_ptr(), b, s,
-                _ptr(_as_u8(allowed)), d, deg, ef, iters, expand, kr, metric,
-                out_d.data_ptr(), out_i.data_ptr(), _ptr(res_d), _ptr(res_i),
-                _ptr(exp_ids), stats.data_ptr())
-    return BeamResult(out_d, out_i, res_d, res_i, exp_ids, stats)
+        _launch("hnsw_graph_beam_sq" if sq else "hnsw_graph_beam", adj.data_ptr(), *rows,
+                norms.data_ptr(), q.data_ptr(), qn.data_ptr(), seed_i.data_ptr(),
+                seed_d.data_ptr(), b, s, _ptr(_as_u8(allowed)), d, deg, ef, iters, expand, kr,
+                metric, *(_ptr(t) for t in out[:5]), out.stats.data_ptr())
+    return out
+
+
+def _check_sq_rows(name, rows: Sq8Rows, cap, d):
+    """The SQ store a kernel reads: codes [cap, d] uint8 or int16 (the
+    uint16 bits), read 4 codes at a time; mins and scales [cap] f32."""
+    _check(rows.codes, "codes", rows.codes.dtype, (cap, d))
+    _check(rows.mins, "mins", torch.float32, (cap,))
+    _check(rows.scales, "scales", torch.float32, (cap,))
+    if rows.codes.data_ptr() % (4 * rows.codes.element_size()):
+        raise ValueError(f"{name}: the codes must be aligned to 4 codes")
+
+
+# ---------------------------------------------------------------------------
+# K9: the HNSW greedy descent
+# ---------------------------------------------------------------------------
+
+GREEDY_CAP = 128  # steps of one descent (the reference's cap, hnsw.py:73)
+
+
+def hnsw_greedy_plain(adj, vectors, norms, q, qn, cur_i, cur_d, *, metric):
+    """The reference's batched walk (`_greedy_level`): every query steps
+    until none moves; a query's work is the steps it took while it moved
+    and the one that found no better neighbour."""
+    stats = torch.zeros((cur_i.shape[0], 2), dtype=torch.int32, device=cur_i.device)
+    live = torch.ones(cur_i.shape, dtype=torch.bool, device=cur_i.device)
+    for _ in range(GREEDY_CAP):
+        nbrs = adj[cur_i.clamp_min(0).long()]
+        safe = nbrs.clamp_min(0).long()
+        dots = torch.einsum("bd,bkd->bk", q, vectors[safe])
+        nd = torch.where(nbrs >= 0, _gathered_epilogue(dots, metric, qn[:, None], norms[safe]),
+                         INF)
+        j = torch.argmin(nd, dim=-1, keepdim=True)
+        bd = torch.gather(nd, 1, j)[:, 0]
+        bi = torch.gather(nbrs, 1, j)[:, 0]
+        moved = bd < cur_d
+        work = torch.stack([torch.ones_like(bi), (nbrs >= 0).sum(1, dtype=torch.int32)], 1)
+        stats += live[:, None].int() * work
+        live = moved
+        if not bool(moved.any()):
+            break
+        cur_i = torch.where(moved, bi, cur_i)
+        cur_d = torch.where(moved, bd, cur_d)
+    return cur_i, cur_d, stats
+
+
+def hnsw_greedy(adj, vectors, norms, q, qn, cur_i, cur_d, *, metric: int):
+    """The greedy descent through one adjacency level (`_greedy_level` of
+    the reference's models/hnsw.py).
+
+    adj [cap, deg] int32 (-1 padded), vectors [cap, d] f32 or an
+    `Sq8Rows` store, norms [cap], q [B, d], qn [B] = ‖q‖², cur_i [B]
+    int32 and cur_d [B] f32 the start and its distance. Each step scores
+    the neighbours of cur (`gathered_distances`: L2 clamped at 0, COS,
+    IP; -1 entries +inf; cur -1 reads row 0's list), takes the first of
+    the nearest and moves there only if it is strictly nearer than cur_d;
+    at most GREEDY_CAP steps. Returns (cur_i [B] int32, cur_d [B] f32,
+    stats [B, 2] int32: the lists each query read and the neighbours it
+    scored)."""
+    b = cur_i.shape[0]
+    cap, deg = adj.shape
+    d = vectors.shape[1]
+    if metric not in (0, 1, 2):
+        raise ValueError(f"hnsw_greedy: unknown metric {metric}")
+    sq = isinstance(vectors, Sq8Rows)
+    store = (vectors.codes, vectors.mins, vectors.scales) if sq else (vectors,)
+    if not _on_cuda(adj, *store, norms, q, qn, cur_i, cur_d):
+        return hnsw_greedy_plain(adj, vectors, norms, q, qn, cur_i, cur_d, metric=metric)
+    if d % 4 or d > 4096:
+        raise ValueError("hnsw_greedy: rows are read 4 elements at a time, so dim must be a "
+                         f"multiple of 4 and at most 4096 (got {d})")
+    _check(adj, "adj", torch.int32, (cap, deg))
+    if sq:
+        _check_sq_rows("hnsw_greedy", vectors, cap, d)
+    else:
+        _check(vectors, "vectors", torch.float32, (cap, d))
+    _check(norms, "norms", torch.float32, (cap,))
+    _check(q, "q", torch.float32, (b, d))
+    _check(qn, "qn", torch.float32, (b,))
+    _check(cur_i, "cur_i", torch.int32, (b,))
+    _check(cur_d, "cur_d", torch.float32, (b,))
+    if q.data_ptr() % 16 or (not sq and vectors.data_ptr() % 16):
+        raise ValueError("hnsw_greedy: vectors and q must be 16-byte aligned")
+    out_i = torch.empty(b, dtype=torch.int32, device=q.device)
+    out_d = torch.empty(b, dtype=torch.float32, device=q.device)
+    stats = torch.empty((b, 2), dtype=torch.int32, device=q.device)
+    if b:
+        _launch("hnsw_greedy", adj.data_ptr(), None if sq else vectors.data_ptr(),
+                vectors.codes.data_ptr() if sq else None, vectors.bits if sq else 0,
+                vectors.mins.data_ptr() if sq else None,
+                vectors.scales.data_ptr() if sq else None, norms.data_ptr(), q.data_ptr(),
+                qn.data_ptr(), cur_i.data_ptr(), cur_d.data_ptr(), b, d, deg, metric,
+                out_i.data_ptr(), out_d.data_ptr(), stats.data_ptr())
+    return out_i, out_d, stats
 
 
 def hnsw_serve_beam_plain(nbr_codes, nbr_meta, vectors, norms, q, qn, qc, qs, qsum, seed_i,
@@ -838,9 +945,15 @@ def hnsw_select_plain(vectors, norms, targets, cand, *, deg, metric, alpha):
     d = torch.where(dup, INF, _gathered_epilogue(dots, metric, norms[t][:, None], norms[safe]))
     order = torch.argsort(d, dim=-1, stable=True)[:, :select_cap(w, deg, alpha)]
     cand_s = torch.gather(torch.where(dup, -1, cand), 1, order)
-    d_s = torch.gather(d, 1, order)
-    # _select_neighbors_heuristic: a candidate is taken when it is nearer
-    # to the target than alpha times its distance to every one taken before
+    return _diversity_scan(vectors, cand_s, torch.gather(d, 1, order), deg=deg, metric=metric,
+                           alpha=alpha)
+
+
+def _diversity_scan(vectors, cand_s, d_s, *, deg, metric, alpha):
+    """`_select_neighbors_heuristic` over candidates in scan order: a
+    candidate is taken when it is nearer to the target than alpha times
+    its distance to every one taken before."""
+    u = cand_s.shape[0]
     vecs = vectors[cand_s.clamp_min(0).long()]
     valid = cand_s >= 0
     dots = torch.einsum("ucd,ukd->uck", vecs, vecs)
@@ -850,9 +963,9 @@ def hnsw_select_plain(vectors, norms, targets, cand, *, deg, metric, alpha):
     else:
         pair = 1.0 - dots if metric == 1 else -dots
     c = cand_s.shape[1]
-    sel = torch.zeros((u, c), dtype=torch.bool, device=cand.device)
-    min_sel = torch.full((u, c), INF, device=cand.device)
-    count = torch.zeros(u, dtype=torch.int32, device=cand.device)
+    sel = torch.zeros((u, c), dtype=torch.bool, device=cand_s.device)
+    min_sel = torch.full((u, c), INF, device=cand_s.device)
+    count = torch.zeros(u, dtype=torch.int32, device=cand_s.device)
     for j in range(c):
         take = valid[:, j] & (d_s[:, j] < alpha * min_sel[:, j]) & (count < deg)
         sel[:, j] = take
@@ -918,4 +1031,51 @@ def hnsw_select(vectors, norms, targets, cand, *, deg: int, metric: int, alpha: 
         _launch("hnsw_select", vectors.data_ptr(), norms.data_ptr(), targets.data_ptr(),
                 cand.data_ptr(), u, w, d, deg, select_cap(w, deg, alpha), float(alpha),
                 metric, out_i.data_ptr(), out_d.data_ptr(), n_pairs.data_ptr())
+    return out_i, out_d, n_pairs
+
+
+def hnsw_select_sorted_plain(vectors, cand_i, cand_d, *, deg, metric, alpha):
+    valid = cand_i >= 0
+    return _diversity_scan(vectors, cand_i, torch.where(valid, cand_d, INF), deg=deg,
+                           metric=metric, alpha=alpha)
+
+
+def hnsw_select_sorted(vectors, cand_i, cand_d, *, deg: int, metric: int, alpha: float):
+    """K7's presorted mode: `_select_neighbors_heuristic` of the reference's
+    models/hnsw.py alone, over candidates that arrive sorted with their
+    distances, as a beam's buffer does (`_wave_level_core`).
+
+    vectors [cap, d] f32, cand_i [U, W] int32 and cand_d [U, W] f32 in
+    ascending order (-1 / +inf at the end). No dedup, no re-sort, no
+    window: the scan of `hnsw_select` over all W in the given order (pair
+    distances from the rows), then the taken and the others as backfill
+    in that order. W <= SELECT_W_MAX on every device: wider raises
+    ValueError. Returns (sel_i [U, deg], sel_d [U, deg], n_pairs [U]) as
+    `hnsw_select`."""
+    u, w = cand_i.shape
+    cap, d = vectors.shape
+    if not 1 <= deg:
+        raise ValueError(f"hnsw_select_sorted: deg must be positive, got {deg}")
+    if metric not in (0, 1, 2):
+        raise ValueError(f"hnsw_select_sorted: unknown metric {metric}")
+    if w > SELECT_W_MAX:
+        raise ValueError(f"hnsw_select_sorted: need W <= {SELECT_W_MAX}, got W={w}")
+    if not _on_cuda(vectors, cand_i, cand_d):
+        return hnsw_select_sorted_plain(vectors, cand_i, cand_d, deg=deg, metric=metric,
+                                        alpha=alpha)
+    if d % 4 or w * d * 4 > (160 << 10):
+        raise ValueError("hnsw_select_sorted: need dim a multiple of 4 and W*dim*4 <= 160 KB "
+                         f"(the candidates' rows in shared memory); got W={w}, dim={d}")
+    _check(vectors, "vectors", torch.float32, (cap, d))
+    _check(cand_i, "cand_i", torch.int32, (u, w))
+    _check(cand_d, "cand_d", torch.float32, (u, w))
+    if vectors.data_ptr() % 16:
+        raise ValueError("hnsw_select_sorted: vectors must be 16-byte aligned")
+    out_i = torch.empty((u, deg), dtype=torch.int32, device=cand_i.device)
+    out_d = torch.empty((u, deg), dtype=torch.float32, device=cand_i.device)
+    n_pairs = torch.empty(u, dtype=torch.int32, device=cand_i.device)
+    if u:
+        _launch("hnsw_select_sorted", vectors.data_ptr(), cand_i.data_ptr(), cand_d.data_ptr(),
+                u, w, d, deg, float(alpha), metric, out_i.data_ptr(), out_d.data_ptr(),
+                n_pairs.data_ptr())
     return out_i, out_d, n_pairs

@@ -54,10 +54,24 @@ SIGNATURES = {
     "hnsw_graph_beam": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I,
                         _I, _I, _I, _I, _I, _P, _P, _P,
                         _P, _P, _P, _P],
+    # adj, codes, bits, mins, scales, norms, q, qn, seed_i, seed_d, B, S,
+    # allowed, d, deg, ef, iters, expand, k_res, metric, out_cand_d,
+    # out_cand_i, out_res_d, out_res_i, out_exp, out_stats, stream
+    "hnsw_graph_beam_sq": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                           _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                           _P, _P, _P, _P, _P, _P],
+    # adj, vectors, codes, bits, mins, scales, norms, q, qn, cur_i, cur_d,
+    # B, d, deg, metric, out_i, out_d, out_stats, stream
+    "hnsw_greedy": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                    _I, _I, _I, _I, _P, _P, _P, _P],
     # vectors, norms, targets, cand, U, W, d, deg, sel_cap, alpha, metric,
     # out_i, out_d, out_pairs, stream
     "hnsw_select": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I,
                     _P, _P, _P, _P],
+    # vectors, cand, cand_d, U, W, d, deg, alpha, metric, out_i, out_d,
+    # out_pairs, stream
+    "hnsw_select_sorted": [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I,
+                           _P, _P, _P, _P],
     # q, qn, cand_d, cand_i, cand_pos, B, r, rows, sq16, pnorms, mins,
     # scales, d, k, replicated, out_d, out_i, stream
     "ivf_rerank": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _P,

@@ -1,24 +1,29 @@
-// K6 hnsw_serve_beam and K8 hnsw_graph_beam: the HNSW level-0 beam.
+// K6 hnsw_serve_beam, K8 hnsw_graph_beam and K8-SQ hnsw_graph_beam_sq: the
+// HNSW beam over one level.
 //
 // Replaces: turdb_tpu/models/hnsw_serve.py serve_search_impl (stage 1b, the
 // int8 beam over the packed neighbour blocks, and stage 2, the exact
-// rerank) and turdb_tpu/models/hnsw.py _beam_level (the f32 graph beam over
-// one adjacency level, with its multi-seed, filtered-result and
-// expanded-id outputs; the refinement and hnsw_search_impl run it). Both
-// are the same loop: expand the `expand` nearest unexpanded candidates of
+// rerank) and turdb_tpu/models/hnsw.py _beam_level (the graph beam over
+// one adjacency level, with its multi-seed, `active`, filtered-result and
+// expanded-id outputs; the refinement, the wave inserts and
+// hnsw_search_impl run it), over the f32 rows or, inside the search, over
+// the SQ8 / SQ16 graph store (Sq8Rows.__getitem__, hnsw.py:130). All are
+// the same loop: expand the `expand` nearest unexpanded candidates of
 // an ef-wide sorted buffer, score their neighbours that are neither in the
 // buffer nor expanded before (the first copy of a neighbour wins), merge
 // them into the buffer by (distance, position), and stop when nothing is
 // left to expand or ceil(iters/expand) steps are spent. The neighbour
-// scorer is the template parameter: K8 reads adj[sel] and the f32 rows
-// vectors[nbr] (gathered_distances: L2 clamped at 0, COS, IP); K6 reads one
+// scorer is the template parameter: K8 and K8-SQ read adj[sel] and the
+// rows (graph_scorer.cuh: f32, or u8 / u16 codes dequantized on the
+// gather; gathered_distances' epilogue); K6 reads one
 // [deg, d] int8 code block and one [deg, 4] int32 meta block (f32 base,
 // scale, norm as bits, the neighbour id) per expanded node, takes the
 // exact int32 dot with __dp4a and rounds _approx_dist's epilogue in the
 // plain expression's order (__fmul_rn / __fadd_rn, no FMA contraction).
 //
 // What bounds it on an H100: memory latency, not bandwidth or arithmetic.
-// A step reads expand*deg scattered rows (K8, 4d bytes each) or expand
+// A step reads expand*deg scattered rows (K8, 4d bytes each; K8-SQ, d or
+// 2d bytes of codes and 8 of min and scale) or expand
 // contiguous blocks (K6, deg*(d+16) bytes each) that depend on the step
 // before, and a query takes tens of steps in sequence.
 //
@@ -41,6 +46,8 @@
 // it expanded and how many neighbours it scored.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "graph_scorer.cuh"
 
 #define BEAM_THREADS 128
 #define BEAM_WARPS (BEAM_THREADS / 32)
@@ -105,40 +112,6 @@ __device__ inline Smem carve(unsigned char* p, const BeamArgs& a, size_t qbytes)
     s.misc = reinterpret_cast<int*>(f);
     return s;
 }
-
-// K8's neighbour scorer: f32 rows, gathered_distances' epilogue.
-struct GraphScorer {
-    const int* adj;            // [cap, deg]
-    const float* vectors;      // [cap, d]
-    const float* norms;        // [cap]
-    const float* q;            // [B, d]
-    __host__ __device__ static size_t query_bytes(int d) { return (size_t)d * 4; }
-    __device__ void load(size_t b, int d, unsigned char* s) const {
-        float* sq = reinterpret_cast<float*>(s);
-        for (int i = threadIdx.x; i < d; i += blockDim.x) sq[i] = q[b * d + i];
-    }
-    __device__ int neighbour(int node, int g, int deg) const {
-        return adj[(size_t)node * deg + g];
-    }
-    // one thread: the distance of neighbour `id` (slot g of `node`'s list)
-    __device__ float score(const unsigned char* s, int node, int g, int id, int d, int deg,
-                           float qnb, int metric) const {
-        const float4* q4 = reinterpret_cast<const float4*>(s);
-        const float4* x4 = reinterpret_cast<const float4*>(vectors + (size_t)id * d);
-        float acc = 0.0f;
-        for (int j = 0; j < (d >> 2); ++j) {
-            const float4 x = x4[j], y = q4[j];
-            acc = fmaf(x.x, y.x, acc);
-            acc = fmaf(x.y, y.y, acc);
-            acc = fmaf(x.z, y.z, acc);
-            acc = fmaf(x.w, y.w, acc);
-        }
-        if (metric == 0)
-            return fmaxf(__fsub_rn(__fadd_rn(qnb, norms[id]), __fmul_rn(2.0f, acc)), 0.0f);
-        if (metric == 1) return __fsub_rn(1.0f, acc);
-        return -acc;
-    }
-};
 
 // K6's neighbour scorer: packed int8 code and meta blocks; the query row
 // is kept in f32 (for the rerank) and as int8 words.
@@ -384,11 +357,12 @@ __device__ int2 run_beam(const BeamArgs& a, const Scorer& sc, const Smem& s, siz
     return make_int2(n_exp, n_scored);
 }
 
+template <class Scorer>
 __global__ void __launch_bounds__(BEAM_THREADS)
-graph_beam_kernel(BeamArgs a, GraphScorer sc, float* out_d, int* out_i, float* out_rd,
+graph_beam_kernel(BeamArgs a, Scorer sc, float* out_d, int* out_i, float* out_rd,
                   int* out_ri, int* out_exp, int* out_stats) {
     extern __shared__ __align__(16) unsigned char smem[];
-    const Smem s = carve(smem, a, GraphScorer::query_bytes(a.d));
+    const Smem s = carve(smem, a, Scorer::query_bytes(a.d));
     const size_t b = blockIdx.x;
     sc.load(b, a.d, s.q);
     __syncthreads();
@@ -466,24 +440,53 @@ static int set_smem(K kernel, size_t smem) {
     return (int)e;
 }
 
+template <class Scorer>
+static int launch_graph_beam(const BeamArgs& a, const Scorer& sc, float* out_d, int* out_i,
+                             float* out_rd, int* out_ri, int* out_exp, int* out_stats,
+                             void* stream) {
+    if (!beam_args_ok(a) || (a.k_res && (out_rd == nullptr || out_ri == nullptr)))
+        return (int)cudaErrorInvalidValue;
+    const size_t smem = smem_bytes(a.ef, a.k_res, a.exp_cap, a.slots, a.expand,
+                                   Scorer::query_bytes(a.d));
+    int e = set_smem(graph_beam_kernel<Scorer>, smem);
+    if (e) return e;
+    graph_beam_kernel<Scorer><<<a.B, BEAM_THREADS, smem, (cudaStream_t)stream>>>(
+        a, sc, out_d, out_i, out_rd, out_ri, out_exp, out_stats);
+    return (int)cudaGetLastError();
+}
+
 extern "C" int hnsw_graph_beam(const int* adj, const float* vectors, const float* norms,
                                const float* q, const float* qn, const int* seed_i,
                                const float* seed_d, int B, int S, const uint8_t* allowed, int d,
                                int deg, int ef, int iters, int expand, int k_res, int metric,
                                float* out_d, int* out_i, float* out_rd, int* out_ri,
                                int* out_exp, int* out_stats, void* stream) {
-    BeamArgs a = beam_args(B, S, d, deg, ef, iters, expand, k_res, metric, seed_i, seed_d,
-                           allowed, qn);
-    if (!beam_args_ok(a) || (k_res && (out_rd == nullptr || out_ri == nullptr)))
-        return (int)cudaErrorInvalidValue;
-    const size_t smem = smem_bytes(a.ef, a.k_res, a.exp_cap, a.slots, a.expand,
-                                   GraphScorer::query_bytes(d));
-    int e = set_smem(graph_beam_kernel, smem);
-    if (e) return e;
-    graph_beam_kernel<<<B, BEAM_THREADS, smem, (cudaStream_t)stream>>>(
-        a, GraphScorer{adj, vectors, norms, q}, out_d, out_i, out_rd, out_ri, out_exp,
-        out_stats);
-    return (int)cudaGetLastError();
+    const BeamArgs a = beam_args(B, S, d, deg, ef, iters, expand, k_res, metric, seed_i, seed_d,
+                                 allowed, qn);
+    return launch_graph_beam(a, GraphScorer{adj, vectors, norms, q}, out_d, out_i, out_rd,
+                             out_ri, out_exp, out_stats, stream);
+}
+
+// K8 over the SQ store: `codes` [cap, d] u8 (bits 8) or u16 (bits 16)
+extern "C" int hnsw_graph_beam_sq(const int* adj, const void* codes, int bits, const float* mins,
+                                  const float* scales, const float* norms, const float* q,
+                                  const float* qn, const int* seed_i, const float* seed_d, int B,
+                                  int S, const uint8_t* allowed, int d, int deg, int ef, int iters,
+                                  int expand, int k_res, int metric, float* out_d, int* out_i,
+                                  float* out_rd, int* out_ri, int* out_exp, int* out_stats,
+                                  void* stream) {
+    const BeamArgs a = beam_args(B, S, d, deg, ef, iters, expand, k_res, metric, seed_i, seed_d,
+                                 allowed, qn);
+    if (bits == 8)
+        return launch_graph_beam(
+            a, SqScorer<uint8_t>{adj, static_cast<const uint8_t*>(codes), mins, scales, norms, q},
+            out_d, out_i, out_rd, out_ri, out_exp, out_stats, stream);
+    if (bits == 16)
+        return launch_graph_beam(
+            a, SqScorer<uint16_t>{adj, static_cast<const uint16_t*>(codes), mins, scales, norms,
+                                  q},
+            out_d, out_i, out_rd, out_ri, out_exp, out_stats, stream);
+    return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int hnsw_serve_beam(const int8_t* codes, const int* meta, const float* vectors,

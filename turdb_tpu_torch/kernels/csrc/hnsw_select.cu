@@ -2,7 +2,10 @@
 //
 // Replaces: turdb_tpu/models/hnsw.py _select_from_candidates and the
 // _select_neighbors_heuristic it calls (the bulk build's forward selection
-// at every layer, and the refinement's). For each target: drop duplicate
+// at every layer, the refinement's, and the wave inserts' re-selection of
+// the rows that take reverse edges, _prune_rows); in its presorted mode
+// (hnsw_select_sorted) _select_neighbors_heuristic alone, over a beam's
+// buffer as _wave_level_core hands it over. For each target: drop duplicate
 // candidates (the first copy wins), the target itself and -1; sort the
 // rest by their exact distance to the target (gathered_distances: L2
 // clamped at 0 over the stored norms, COS 1 - dot, IP -dot; ties to the
@@ -11,7 +14,11 @@
 // distance is below alpha times its distance to every candidate taken
 // before (L2 (sum v^2 + sum v^2) - 2 dot over the rows themselves, clamped
 // at 0; COS; IP). The output is the taken candidates, then the others as
-// backfill, both in sorted order, -1 / +inf padded to deg.
+// backfill, both in sorted order, -1 / +inf padded to deg (an entry at
+// +inf is -1, as the reference's). The presorted mode takes the candidates
+// with their distances as given (a beam buffer: ascending, -1 / +inf at the
+// end), with no dedup, no sort and no window (sel_cap = W): the same scan,
+// the same output order.
 //
 // What bounds it on an H100: the gathers of W candidate rows per target
 // (W*4d bytes, scattered) and the fp32 dots (W for the distances, one per
@@ -58,9 +65,10 @@ __host__ __device__ inline size_t select_smem(int W, int d) {
 
 __global__ void __launch_bounds__(SELECT_THREADS)
 select_kernel(const float* __restrict__ vectors, const float* __restrict__ norms,
-              const int* __restrict__ targets, const int* __restrict__ cand, int W, int d,
-              int deg, int sel_cap, float alpha, int metric, int* __restrict__ out_i,
-              float* __restrict__ out_d, int* __restrict__ out_pairs) {
+              const int* __restrict__ targets, const int* __restrict__ cand,
+              const float* __restrict__ cand_d, int W, int d, int deg, int sel_cap, float alpha,
+              int metric, int* __restrict__ out_i, float* __restrict__ out_d,
+              int* __restrict__ out_pairs) {
     extern __shared__ __align__(16) unsigned char smem[];
     float* rows = reinterpret_cast<float*>(smem);  // [W, d] candidate rows
     float* tq = rows + (size_t)W * d;               // [d] the target's row
@@ -74,20 +82,23 @@ select_kernel(const float* __restrict__ vectors, const float* __restrict__ norms
 
     const size_t u = blockIdx.x;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int t = targets[u];
+    const bool presorted = cand_d != nullptr;
+    const int t = presorted ? -1 : targets[u];
     for (int w = tid; w < W; w += blockDim.x) ids[w] = cand[u * W + w];
-    for (int i = tid; i < d; i += blockDim.x) tq[i] = vectors[(size_t)t * d + i];
-    __syncthreads();
-    // duplicates (the first copy wins), the target itself and -1 drop out
-    for (int w = tid; w < W; w += blockDim.x) {
-        const int id = ids[w];
-        bool drop = id < 0 || id == t;
-        for (int v = 0; v < w && !drop; ++v) drop = ids[v] == id;
-        taken[w] = drop;
+    if (!presorted) {
+        for (int i = tid; i < d; i += blockDim.x) tq[i] = vectors[(size_t)t * d + i];
+        __syncthreads();
+        // duplicates (the first copy wins), the target itself and -1 drop out
+        for (int w = tid; w < W; w += blockDim.x) {
+            const int id = ids[w];
+            bool drop = id < 0 || id == t;
+            for (int v = 0; v < w && !drop; ++v) drop = ids[v] == id;
+            taken[w] = drop;
+        }
+        __syncthreads();
+        for (int w = tid; w < W; w += blockDim.x)
+            if (taken[w]) ids[w] = -1;
     }
-    __syncthreads();
-    for (int w = tid; w < W; w += blockDim.x)
-        if (taken[w]) ids[w] = -1;
     __syncthreads();
     const int q4 = d >> 2;
     for (int i = tid; i < W * q4; i += blockDim.x) {
@@ -97,7 +108,7 @@ select_kernel(const float* __restrict__ vectors, const float* __restrict__ norms
                 reinterpret_cast<const float4*>(vectors + (size_t)ids[w] * d)[i - w * q4];
     }
     __syncthreads();
-    const float tn = norms[t];
+    const float tn = presorted ? 0.0f : norms[t];
     for (int w = warp; w < W; w += SELECT_WARPS) {
         const int id = ids[w];
         if (id < 0) {
@@ -105,11 +116,12 @@ select_kernel(const float* __restrict__ vectors, const float* __restrict__ norms
             continue;
         }
         const float* r = rows + (size_t)w * d;
-        const float dot = row_dot(tq, r, d, lane);
+        const float dot = presorted ? 0.0f : row_dot(tq, r, d, lane);
         const float nv = row_dot(r, r, d, lane);
         if (lane == 0) {
             float v;
-            if (metric == 0)
+            if (presorted) v = cand_d[u * W + w];
+            else if (metric == 0)
                 v = fmaxf(__fsub_rn(__fadd_rn(tn, norms[id]), __fmul_rn(2.0f, dot)), 0.0f);
             else if (metric == 1) v = __fsub_rn(1.0f, dot);
             else v = -dot;
@@ -120,9 +132,12 @@ select_kernel(const float* __restrict__ vectors, const float* __restrict__ norms
     __syncthreads();
     // stable sort by distance: rank of each candidate by (distance, position)
     for (int w = tid; w < W; w += blockDim.x) {
-        const float v = dist[w];
-        int r = 0;
-        for (int x = 0; x < W; ++x) r += dist[x] < v || (dist[x] == v && x < w);
+        int r = w;
+        if (!presorted) {
+            const float v = dist[w];
+            r = 0;
+            for (int x = 0; x < W; ++x) r += dist[x] < v || (dist[x] == v && x < w);
+        }
         order[r] = w;
         mins[w] = F_INF;
         taken[w] = 0;
@@ -172,7 +187,7 @@ select_kernel(const float* __restrict__ vectors, const float* __restrict__ norms
             for (int j = 0; j < sel_cap && o < deg; ++j) {
                 const int cj = order[j];
                 if (ids[cj] < 0 || taken[j] != (pass == 0)) continue;
-                out_i[u * deg + o] = ids[cj];
+                out_i[u * deg + o] = dist[cj] < F_INF ? ids[cj] : -1;
                 out_d[u * deg + o] = dist[cj];
                 ++o;
             }
@@ -184,10 +199,10 @@ select_kernel(const float* __restrict__ vectors, const float* __restrict__ norms
     }
 }
 
-extern "C" int hnsw_select(const float* vectors, const float* norms, const int* targets,
-                           const int* cand, int U, int W, int d, int deg, int sel_cap,
-                           float alpha, int metric, int* out_i, float* out_d, int* out_pairs,
-                           void* stream) {
+static int launch_select(const float* vectors, const float* norms, const int* targets,
+                         const int* cand, const float* cand_d, int U, int W, int d, int deg,
+                         int sel_cap, float alpha, int metric, int* out_i, float* out_d,
+                         int* out_pairs, void* stream) {
     if (U < 0 || W < 1 || d % 4 != 0 || deg < 1 || sel_cap < 1 || sel_cap > W || metric < 0 ||
         metric > 2)
         return (int)cudaErrorInvalidValue;
@@ -199,7 +214,24 @@ extern "C" int hnsw_select(const float* vectors, const float* norms, const int* 
         return (int)e;
     }
     select_kernel<<<U, SELECT_THREADS, smem, (cudaStream_t)stream>>>(
-        vectors, norms, targets, cand, W, d, deg, sel_cap, alpha, metric, out_i, out_d,
+        vectors, norms, targets, cand, cand_d, W, d, deg, sel_cap, alpha, metric, out_i, out_d,
         out_pairs);
     return (int)cudaGetLastError();
+}
+
+extern "C" int hnsw_select(const float* vectors, const float* norms, const int* targets,
+                           const int* cand, int U, int W, int d, int deg, int sel_cap,
+                           float alpha, int metric, int* out_i, float* out_d, int* out_pairs,
+                           void* stream) {
+    return launch_select(vectors, norms, targets, cand, nullptr, U, W, d, deg, sel_cap, alpha,
+                         metric, out_i, out_d, out_pairs, stream);
+}
+
+// the presorted mode: `cand` [U, W] with its distances `cand_d` [U, W]
+extern "C" int hnsw_select_sorted(const float* vectors, const int* cand, const float* cand_d,
+                                  int U, int W, int d, int deg, float alpha, int metric,
+                                  int* out_i, float* out_d, int* out_pairs, void* stream) {
+    if (cand_d == nullptr) return (int)cudaErrorInvalidValue;
+    return launch_select(vectors, nullptr, nullptr, cand, cand_d, U, W, d, deg, W, alpha, metric,
+                         out_i, out_d, out_pairs, stream);
 }

@@ -1,17 +1,29 @@
 """HNSW graph index on PyTorch (port of turdb_tpu/models/hnsw.py): the
-bulk build, the graph search and the serving pack's entry points.
+bulk build, the insert waves, the graph search, the SQ8 / SQ16 graph store,
+vacuum and the serving pack's entry points.
 
 Graph layout (the reference's, after mod.rs:125-127): MAX_LEVELS = 4
 levels, `adj0` [cap, M0 = 2M] int32 at level 0 and `adj_hi` 3 × [cap, M]
 above it, -1 padded; `vectors` [cap, d] f32 (unit rows under COSINE),
 `norms` [cap] ‖x‖² (+inf for empty slots), `levels` [cap] (-1 empty); the
-entry point and the top level are host ints.
+entry point and the top level are host ints. `quantize_sq8` / `_sq16`
+swap `vectors` for an `Sq8Rows` store (u8 / u16 codes with a per-row min
+and scale; the norms stay exact f32) that the kernels dequantize on the
+gather; `add`, `vacuum` and `pack_serving` dequantize first.
 
 Search (`hnsw_search_impl`): the entry point seeds a beam per upper level
-(K8 `hnsw_graph_beam`, ef = descent_ef, expand 2; or the greedy walk when
-descent_ef is 1) whose whole sorted buffer seeds the next level, then the
-level-0 beam (K8) with the filtered result buffer when a visibility mask
-applies, and the k best (K2).
+(K8 `hnsw_graph_beam`, ef = descent_ef, expand 2; or the greedy walk, K9
+`hnsw_greedy`, when descent_ef is 1) whose whole sorted buffer seeds the
+next level, then the level-0 beam (K8) with the filtered result buffer
+when a visibility mask applies, and the k best (K2).
+
+Insert waves (`build_wave_impl`, every `add` but the bulk load): stage
+the rows; from the top level down, the greedy descent (K9) for the rows
+passing through a level and, for the rows connecting there, the
+ef_construction beam (K8) and the diversity selection over its sorted
+buffer (K7's presorted mode), their forward rows written at once; then,
+level by level, each neighbour's reverse edges grouped by a stable sort
+and its row re-selected (K7); then the entry point.
 
 Bulk build (`HnswIndex.add` on an empty index, n >= bulk_threshold): per
 level, top-r candidates for every node, from the numpy host route
@@ -21,8 +33,7 @@ build it, K2 + K4 to probe it); the alpha-diversity selection (K7
 `hnsw_select`); the reverse edges (numpy); a union that keeps a quota of
 them; then two rounds of navigability refinement of every upper level
 (K8 beams with the expanded path as extra candidates, K7, reverse edges,
-union). The wave inserts, the SQ8 / SQ16 graph store and vacuum are not
-ported yet and raise NotImplementedError.
+union). Vacuum rebuilds over the survivors through `add`.
 """
 
 from __future__ import annotations
@@ -34,8 +45,18 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from turdb_tpu_torch.kernels import EPI_IP, EPI_L2, hnsw_graph_beam, hnsw_select, topk_rows
+from turdb_tpu_torch.kernels import (
+    EPI_IP,
+    EPI_L2,
+    SELECT_W_MAX,
+    hnsw_graph_beam,
+    hnsw_greedy,
+    hnsw_select,
+    hnsw_select_sorted,
+    topk_rows,
+)
 from turdb_tpu_torch.ops.distance import Metric, gathered_distances, normalize_rows, prep_norms
+from turdb_tpu_torch.ops.quantize import Sq8Rows, sq_rows_encode
 from turdb_tpu_torch.ops.topk import topk_smallest
 
 # the reference's graph constants (turdb_tpu/config.py HNSW_*)
@@ -48,12 +69,6 @@ HNSW_BUILD_BATCH = 512
 
 NIL = -1
 INF = float("inf")
-GREEDY_CAP = 128  # descent step cap of the greedy walk
-
-# where each unported path stands in ROADMAP.md
-_WAVE = "the HNSW wave inserts (ROADMAP queue 1 item 10; queue 2, still to port, item 1)"
-_SQ8_ROWS = ("the SQ8 / SQ16 graph store and vacuum (ROADMAP queue 1 item 10; queue 2, "
-             "still to port, item 2)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,7 +89,7 @@ class HnswConfig:
 class HnswState(NamedTuple):
     """The graph on the device; see the module docstring."""
 
-    vectors: torch.Tensor   # [cap, d] f32
+    vectors: torch.Tensor   # [cap, d] f32, or an Sq8Rows store
     norms: torch.Tensor     # [cap] f32 ‖x‖², +inf when empty
     adj0: torch.Tensor      # [cap, M0] int32, -1 padded
     adj_hi: tuple           # (max_levels - 1) × [cap, M] int32
@@ -124,33 +139,21 @@ def select_levels(row_ids: np.ndarray, cfg: HnswConfig) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 def _greedy_level(adj, vectors, norms, q, qn, cur_i, cur_d, metric: Metric):
-    """Batched best-neighbour walk until no query improves (at most
-    GREEDY_CAP steps). Only graphs whose descent_ef is 1 take it, so it
-    stays torch ops."""
-    for _ in range(GREEDY_CAP):
-        nbrs = adj[cur_i.clamp_min(0).long()]
-        ok = nbrs >= 0
-        safe = nbrs.clamp_min(0).long()
-        nd = gathered_distances(q, vectors[safe], metric, vec_norms=norms[safe], q_norms=qn)
-        nd = torch.where(ok, nd, INF)
-        j = torch.argmin(nd, dim=-1, keepdim=True)
-        bd = torch.gather(nd, 1, j)[:, 0]
-        bi = torch.gather(nbrs, 1, j)[:, 0]
-        moved = bd < cur_d
-        if not bool(moved.any()):
-            break
-        cur_i = torch.where(moved, bi, cur_i)
-        cur_d = torch.where(moved, bd, cur_d)
+    """Best-neighbour walk of each query until it stops improving, at most
+    GREEDY_CAP steps (K9)."""
+    cur_i, cur_d, _ = hnsw_greedy(adj, vectors, norms, q, qn, cur_i.contiguous(),
+                                  cur_d.contiguous(), metric=metric.value)
     return cur_i, cur_d
 
 
 def _beam_level(adj, vectors, norms, q, qn, seed_i, seed_d, ef: int, iters: int,
                 metric: Metric, active=None, allowed=None, k_res: int | None = None,
                 expand: int = 4, return_expanded: bool = False):
-    """The ef-beam over one adjacency level (K8), with the reference's
-    returns: (cand_d, cand_i), plus (res_d, res_i) under `allowed`, or
-    plus the expanded ids under `return_expanded`. Seeds are [B] or
-    [B, S]; the first min(S, ef) are used."""
+    """The ef-beam over one adjacency level (K8, over the f32 rows or an
+    Sq8Rows store), with the reference's returns: (cand_d, cand_i), plus (res_d,
+    res_i) under `allowed`, or plus the expanded ids under
+    `return_expanded`. Seeds are [B] or [B, S]; the first min(S, ef) are
+    used."""
     if seed_i.dim() == 1:
         seed_i, seed_d = seed_i[:, None], seed_d[:, None]
     s = min(seed_i.shape[1], ef)
@@ -230,6 +233,12 @@ def _union_rows(cand, deg: int):
     order = torch.argsort(key, dim=-1, stable=True)[:, :deg]
     out = torch.gather(cand, 1, order)
     return torch.where(torch.gather(key, 1, order) <= w, out, NIL).to(torch.int32)
+
+
+def _scatter_rows(adj, idx, rows):
+    """adj[idx] = rows, in place (the reference's `_scatter_rows`)."""
+    adj[idx] = rows
+    return adj
 
 
 def _merge_reverse(adj, rev, deg: int, rcap: int, chunk: int = 16384):
@@ -454,9 +463,157 @@ def _refine_layer_adj(adj_full, vectors, norms, sub_slots, deg: int, metric: Met
         rows_out = torch.cat([p[0] for p in parts])
         seld = torch.cat([p[1] for p in parts])
         rev = _bulk_reverse_lists(sub_slots, rows_out.cpu().numpy(), seld.cpu().numpy(), rcap)
-        adj_full[gslots] = _merge_reverse(rows_out, torch.as_tensor(rev, device=vectors.device),
-                                          deg, rcap)
+        _scatter_rows(adj_full, gslots, _merge_reverse(
+            rows_out, torch.as_tensor(rev, device=vectors.device), deg, rcap))
     return adj_full
+
+
+# ---------------------------------------------------------------------------
+# build: the insert waves (every add but the bulk load)
+# ---------------------------------------------------------------------------
+
+def _level_adj(state: HnswState, lvl: int):
+    return state.adj0 if lvl == 0 else state.adj_hi[lvl - 1]
+
+
+def _stage_vectors_core(vectors, norms, levels, vecs, slots, lvls):
+    """Write a wave's rows, norms and levels into the state (in place) and
+    return the rows and norms as the wave's queries."""
+    q = vecs.float()
+    qn = prep_norms(q)
+    vectors[slots] = q
+    norms[slots] = qn
+    levels[slots] = lvls
+    return q, qn
+
+
+def _wave_level_core(adj, vectors, norms, q, qn, cur_i, cur_d, connect, *, metric: Metric,
+                     efc: int, iters: int, deg_out: int):
+    """One level of an insert wave (the reference's insert descent and
+    connection phases): the greedy descent (K9) carries the rows that pass
+    through this level; for the rows that connect here (`connect`, a host
+    bool array) the ef_construction beam (K8 with `active`) and the
+    diversity selection over its whole sorted buffer (K7's presorted mode,
+    alpha 1). A stage whose result no row uses is skipped (the descent when
+    every row connects, the beam and the selection when none does), as the
+    reference's masks discard it. Returns the next level's seeds (the
+    beam's best where a row connects, else the descent's end) and the
+    selection [B, deg_out] with its distances, -1 / +inf where a row does
+    not connect."""
+    b, dev = q.shape[0], q.device
+    if connect.all():
+        gi, gd = cur_i, cur_d
+    else:
+        gi, gd = _greedy_level(adj, vectors, norms, q, qn, cur_i, cur_d, metric)
+    if not connect.any():
+        return (gi, gd, torch.full((b, deg_out), NIL, dtype=torch.int32, device=dev),
+                torch.full((b, deg_out), INF, device=dev))
+    conn = torch.as_tensor(connect, device=dev)
+    cand_d, cand_i = _beam_level(adj, vectors, norms, q, qn, cur_i, cur_d, efc, iters, metric,
+                                 active=conn)
+    sel_i, sel_d, _ = hnsw_select_sorted(vectors, cand_i, cand_d, deg=deg_out,
+                                         metric=metric.value, alpha=1.0)
+    keep = conn[:, None]
+    return (torch.where(conn, cand_i[:, 0], gi), torch.where(conn, cand_d[:, 0], gd),
+            torch.where(keep, sel_i, NIL), torch.where(keep, sel_d, INF))
+
+
+def _write_forward(adj, slots, sel):
+    """The wave's rows at one level: its selections, -1 padded to deg."""
+    row = torch.full((len(slots), adj.shape[1]), NIL, dtype=torch.int32, device=adj.device)
+    w = min(sel.shape[1], adj.shape[1])
+    row[:, :w] = sel[:, :w]
+    adj[slots] = row
+
+
+def _reverse_dense_core(adj, vectors, norms, targets, new_ids, dists, metric: Metric,
+                        rcap: int = 16):
+    """Apply a wave level's reverse edges, in place: the new node
+    `new_ids[e]` becomes a candidate edge of `targets[e]` (-1: none) at
+    distance `dists[e]`. The edges are grouped by target, nearest first,
+    by one stable sort of a packed int64 key (the target in the high 32
+    bits, the distance's f32 bits flipped to sort as unsigned in the low
+    32: the reference's lexsort on (target, distance)); each target's
+    first rcap are appended to its current row and the row is re-selected
+    (K7, `_prune_rows`: alpha 1, whose window of the deg + rcap candidates
+    never binds). The reference re-selects the targets in chunks of 2048
+    under a fori_loop; the targets are unique and a chunk reads only its
+    own rows, so one launch over all of them gives the same rows."""
+    valid = targets >= 0
+    t, n, d = targets[valid].long(), new_ids[valid], dists[valid]
+    if t.numel() == 0:
+        return adj
+    # -0.0 + 0.0 is +0.0: the two zeros tie in the lexsort, so one key
+    u = (d + 0.0).contiguous().view(torch.int32).long() & 0xFFFFFFFF
+    flip = torch.where(u >= 0x80000000, 0xFFFFFFFF, 0x80000000)
+    order = torch.sort((t << 32) | (u ^ flip), stable=True).indices
+    t_s, n_s = t[order], n[order]
+    pos = torch.arange(len(t_s), device=t.device)
+    first = torch.ones_like(t_s, dtype=torch.bool)
+    first[1:] = t_s[1:] != t_s[:-1]
+    grp = torch.cumsum(first, 0) - 1
+    rank = pos - torch.cummax(torch.where(first, pos, 0), 0).values
+    uniq = t_s[first]
+    # edges ranked past rcap (the farthest) land in a last column, dropped
+    appends = torch.full((len(uniq), rcap + 1), NIL, dtype=torch.int32, device=adj.device)
+    appends[grp, rank.clamp_max(rcap)] = n_s.to(torch.int32)
+    cand = torch.cat([adj[uniq], appends[:, :rcap]], dim=1)
+    rows, _, _ = hnsw_select(vectors, norms, uniq.to(torch.int32), cand, deg=adj.shape[1],
+                             metric=metric.value, alpha=1.0)
+    adj[uniq] = rows
+    return adj
+
+
+def _entry_update_core(entry: int, max_level: int, slots, lvls):
+    """Entry-point promotion (reference mod.rs:1079-1081) and the
+    empty-graph bootstrap, on host ints: the wave's first row of its
+    highest level becomes the entry when that level passes max_level or
+    the graph has no entry."""
+    if len(lvls) == 0:
+        return entry, max_level
+    best = int(np.argmax(lvls))
+    top = int(lvls[best])
+    if top > max_level or entry < 0:
+        entry = int(slots[best])
+    return entry, max(max_level, top)
+
+
+def build_wave_impl(state: HnswState, new_vecs, new_slots, new_levels, *, cfg: HnswConfig,
+                    efc: int, iters: int) -> HnswState:
+    """One insert wave (the reference's `build_wave_impl`): stage the rows,
+    search and select their forward edges from the top level down (each
+    level's rows written before the next level runs), apply the reverse
+    edges level by level from 0, then update the entry point.
+    `new_vecs` [B, d] on the state's device, `new_slots` / `new_levels`
+    [B] host ints. The state's tensors are updated in place; the returned
+    state carries the new entry point and top level. Every lane is a row:
+    the reference pads waves to one compiled shape with masked lanes,
+    which are no-ops in every stage, so unpadded waves build the same
+    graph (tests/test_torch_hnsw_wave.py)."""
+    dev = state.vectors.device
+    slots = np.asarray(new_slots, np.int64)
+    levels = np.asarray(new_levels, np.int32)
+    sl = torch.as_tensor(slots, device=dev)
+    q, qn = _stage_vectors_core(state.vectors, state.norms, state.levels, new_vecs, sl,
+                                torch.as_tensor(levels, device=dev))
+    cur_i, cur_d = _seed_from_entry(state.vectors, state.norms, q, qn, state.entry, cfg.metric)
+    fwd = {}
+    for lvl in range(cfg.max_levels - 1, -1, -1):
+        adj = _level_adj(state, lvl)
+        connect = (levels >= lvl) & (state.entry >= 0)
+        cur_i, cur_d, sel_i, sel_d = _wave_level_core(
+            adj, state.vectors, state.norms, q, qn, cur_i, cur_d, connect, metric=cfg.metric,
+            efc=efc, iters=iters, deg_out=cfg.m0 if lvl == 0 else cfg.m)
+        _write_forward(adj, sl, sel_i)
+        if connect.any():
+            fwd[lvl] = (sel_i, sel_d)
+    src = sl.to(torch.int32)
+    for lvl, (sel_i, sel_d) in sorted(fwd.items()):
+        _reverse_dense_core(_level_adj(state, lvl), state.vectors, state.norms, sel_i.reshape(-1),
+                            src[:, None].expand_as(sel_i).reshape(-1), sel_d.reshape(-1),
+                            cfg.metric)
+    entry, max_level = _entry_update_core(state.entry, state.max_level, slots, levels)
+    return state._replace(entry=entry, max_level=max_level)
 
 
 # ---------------------------------------------------------------------------
@@ -465,8 +622,8 @@ def _refine_layer_adj(adj_full, vectors, norms, sub_slots, deg: int, metric: Met
 
 class HnswIndex:
     """Host orchestration over the device graph: slots, tombstones, the
-    bulk build, search, and the serving pack. Runs on the card unless
-    `device` says otherwise."""
+    bulk build and the insert waves, search, vacuum, the SQ store and the
+    serving pack. Runs on the card unless `device` says otherwise."""
 
     def __init__(
         self,
@@ -499,13 +656,18 @@ class HnswIndex:
     # -- build ------------------------------------------------------------
 
     def add(self, vecs, row_ids=None) -> np.ndarray:
-        """Insert vectors into an empty index by the bulk build (at least
-        `bulk_threshold` rows); returns their slot ids. Levels follow from
-        row_ids (default: the slot ids), as in the reference."""
+        """Insert vectors; returns their slot ids. An empty index given at
+        least `bulk_threshold` rows takes the bulk build, every other add
+        the insert waves. Levels follow from row_ids (default: the slot
+        ids), as in the reference. An SQ store is dequantized first."""
         vecs = np.atleast_2d(np.asarray(vecs, np.float32))
         n = vecs.shape[0]
-        if self.size or n < self.bulk_threshold:
-            raise NotImplementedError(f"not ported yet: {_WAVE}")
+        bulk = self.size == 0 and n >= self.bulk_threshold
+        if n and not bulk and self.cfg.ef_construction > SELECT_W_MAX:
+            raise ValueError(f"the insert waves select from the ef_construction beam, which K7 "
+                             f"holds up to {SELECT_W_MAX}; got {self.cfg.ef_construction}")
+        if isinstance(self.state.vectors, Sq8Rows):
+            self.dequantize()   # writes need the f32 store
         self.serve = None   # graph mutation invalidates the serving pack
         slots = np.arange(self.size, self.size + n, dtype=np.int32)
         if row_ids is None:
@@ -514,13 +676,32 @@ class HnswIndex:
         self._ensure(self.size + n)
         if self.cfg.metric is Metric.COSINE:
             vecs = normalize_rows(torch.from_numpy(vecs)).numpy()
-        self._bulk_add(vecs, slots, levels)
+        if bulk:
+            self._bulk_add(vecs, slots, levels)
+            self._alive[slots] = True
+            self.size += n
+            # bulk graphs lack beam-path long edges: a narrow beam per upper
+            # level instead of the greedy walk
+            self._descent_ef = 32
+            return slots
+        # Wave sizes grow 1, 2, 4, ... up to build_batch, so that every wave
+        # connects into a graph at least as large as itself (wave-mates do
+        # not see each other); this schedule decides the graph, so it is
+        # the reference's letter for letter
+        jv = torch.as_tensor(vecs, device=self.device)
+        off = 0
+        while off < n:
+            w = min(self.build_batch, n - off, max(1, self.size + off))
+            self._insert_wave(jv[off:off + w], slots[off:off + w], levels[off:off + w])
+            off += w
         self._alive[slots] = True
         self.size += n
-        # bulk graphs lack beam-path long edges: a narrow beam per upper
-        # level instead of the greedy walk
-        self._descent_ef = 32
         return slots
+
+    def _insert_wave(self, vecs, slots, levels):
+        efc = self.cfg.ef_construction
+        self.state = build_wave_impl(self.state, vecs, slots, levels, cfg=self.cfg, efc=efc,
+                                     iters=efc + efc // 2)
 
     def _bulk_add(self, vecs, slots, levels):
         cfg = self.cfg
@@ -539,7 +720,7 @@ class HnswIndex:
                                    cfg.m0 if lvl == 0 else cfg.m, cfg.metric,
                                    r_mult=2 if lvl == 0 else 8, alpha=1.2)
             adj = st.adj0 if lvl == 0 else st.adj_hi[lvl - 1]
-            adj[sl[torch.as_tensor(sub, device=dev)]] = rows
+            _scatter_rows(adj, sl[torch.as_tensor(sub, device=dev)], rows)
         best = int(slots[int(np.argmax(levels))])
         # navigability refinement of the upper layers (not L0: its beam
         # recovers on its own, and the refinement's cost grows with n)
@@ -596,8 +777,29 @@ class HnswIndex:
         """Tombstone delete: the node stays as a stepping stone."""
         self._alive[np.asarray(slots)] = False
 
-    def vacuum(self, row_ids=None):
-        raise NotImplementedError(f"not ported yet: {_SQ8_ROWS}")
+    def vacuum(self, row_ids=None) -> np.ndarray:
+        """Compact the graph to its alive nodes by rebuilding it over them
+        through `add` (the bulk build for at least `bulk_threshold`
+        survivors, else the waves). Returns int32[old_size] old slot ->
+        new slot (-1: deleted). `row_ids` (per old slot) keeps the levels
+        of the rebuild deterministic; default the old slot ids."""
+        if isinstance(self.state.vectors, Sq8Rows):
+            self.dequantize()
+        old_size = self.size
+        alive = np.flatnonzero(self._alive[:old_size])
+        mapping = np.full(old_size, -1, np.int32)
+        vecs = self.state.vectors[torch.as_tensor(alive, device=self.device)].cpu().numpy()
+        rids = (np.asarray(row_ids, np.uint64)[alive] if row_ids is not None
+                else alive.astype(np.uint64))
+        self.capacity = _pow2(max(len(alive), 1024))
+        self.state = init_state(self.cfg, self.capacity, self.device)
+        self.size = 0
+        self._alive = np.zeros(self.capacity, bool)
+        self._descent_ef = 1
+        self.serve = None
+        if len(alive):
+            mapping[alive] = self.add(vecs, row_ids=rids)
+        return mapping
 
     # -- serving pack (two-stage int8 beam + exact rerank) ----------------
 
@@ -609,6 +811,8 @@ class HnswIndex:
 
         if self.size == 0:
             return
+        if isinstance(self.state.vectors, Sq8Rows):
+            self.dequantize()
         self.serve = pack_serving(self.state.vectors, self.state.norms, self.state.adj0,
                                   self.size, self.cfg.metric, n_centroids=n_centroids,
                                   pack_m=pack_m)
@@ -631,16 +835,29 @@ class HnswIndex:
                                  nprobe=nprobe, nseed=nseed, rerank=rerank)
         return (d, i) if out == "torch" else (d.cpu().numpy(), i.cpu().numpy())
 
-    # -- quantization of the graph's store (not ported yet) ---------------
+    # -- quantization of the graph's vector store --------------------------
 
     def quantize_sq8(self) -> None:
-        raise NotImplementedError(f"not ported yet: {_SQ8_ROWS}")
+        """Swap the f32 rows for u8 codes with a per-row min and scale (a
+        quarter of the bytes; see `Sq8Rows`). Search reads the codes
+        through the same kernels; the norms stay exact f32, so only the
+        q·x term carries the quantization error."""
+        self._quantize(8)
 
     def quantize_sq16(self) -> None:
-        raise NotImplementedError(f"not ported yet: {_SQ8_ROWS}")
+        """As `quantize_sq8` with u16 codes: half the bytes of f32."""
+        self._quantize(16)
+
+    def _quantize(self, bits: int) -> None:
+        s = self.state
+        if not isinstance(s.vectors, Sq8Rows):
+            self.state = s._replace(vectors=sq_rows_encode(s.vectors, bits))
 
     def dequantize(self) -> None:
-        raise NotImplementedError(f"not ported yet: {_SQ8_ROWS}")
+        """Expand the codes back to a dense f32 store (for writes)."""
+        s = self.state
+        if isinstance(s.vectors, Sq8Rows):
+            self.state = s._replace(vectors=s.vectors.dense())
 
     # -- memory -----------------------------------------------------------
 

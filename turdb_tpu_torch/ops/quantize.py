@@ -11,6 +11,9 @@ Every function rounds as the reference does (`torch.round` and
 `jnp.round` both round half to even, and divisions stay divisions), so
 the codes are the reference's bit for bit.
 
+The HNSW graph store (`Sq8Rows`) keeps u8 or u16 codes on the row's own
+(min, scale) with 255 or 65535 steps.
+
 `sq8_search` (the asymmetric search over a u8 store) is not ported yet:
 ROADMAP queue 2, still to port.
 """
@@ -22,14 +25,71 @@ import torch
 SQ16_RATIO = 255.0 / 65535.0   # SQ16 step per SQ8 step (ivf.py `s16`)
 
 
-def sq8_encode(x: torch.Tensor):
-    """[N, d] f32 -> (codes uint8 [N, d], mins [N], scales [N])."""
+class Sq8Rows:
+    """The HNSW graph's SQ8 / SQ16 vector store (port of the reference's
+    `Sq8Rows`, models/hnsw.py:105): codes [cap, d] (uint8, or the uint16
+    codes as int16 bits), per-row mins and scales [cap]. `rows[ids]` is
+    the gather, dequantized as one fused multiply-add `min + scale·code`
+    (`torch.addcmul`), which is what the reference's compiled search
+    computes; `dense()` rounds the product and the sum apart, as the
+    reference's eager `dense()` does. Both are the reference's bit for bit
+    on the CPU (tests/test_torch_hnsw_sq.py)."""
+
+    def __init__(self, codes: torch.Tensor, mins: torch.Tensor, scales: torch.Tensor):
+        if codes.dtype not in (torch.uint8, torch.int16):
+            raise TypeError(f"Sq8Rows codes must be uint8 or int16 (the uint16 bits), "
+                            f"got {codes.dtype}")
+        self.codes, self.mins, self.scales = codes, mins, scales
+
+    @property
+    def bits(self) -> int:
+        return 8 if self.codes.dtype == torch.uint8 else 16
+
+    @property
+    def shape(self):
+        return self.codes.shape
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in (self.codes, self.mins, self.scales))
+
+    def _values(self, c):
+        return c.float() if self.bits == 8 else (c.to(torch.int32) & 0xFFFF).float()
+
+    def __getitem__(self, ids):
+        return torch.addcmul(self.mins[ids][..., None], self.scales[ids][..., None],
+                             self._values(self.codes[ids]))
+
+    def dense(self) -> torch.Tensor:
+        return self.mins[:, None] + self.scales[:, None] * self._values(self.codes)
+
+
+def _encode(x: torch.Tensor, steps: int):
+    """Per-row min, scale (max − min) / steps, and the codes
+    clip(round((x − min) / scale), 0, steps) as floats."""
     x = x.float()
     mins = torch.amin(x, dim=-1)
-    maxs = torch.amax(x, dim=-1)
-    scales = (maxs - mins) / 255.0
+    scales = (torch.amax(x, dim=-1) - mins) / float(steps)
     safe = torch.where(scales == 0, 1.0, scales)
-    codes = torch.clamp(torch.round((x - mins[:, None]) / safe[:, None]), 0, 255)
+    return torch.clamp(torch.round((x - mins[:, None]) / safe[:, None]), 0, steps), mins, scales
+
+
+def _u16_bits(u: torch.Tensor) -> torch.Tensor:
+    """Codes in [0, 65535] -> int16 holding their uint16 bits."""
+    u = u.to(torch.int32)
+    return torch.where(u >= 32768, u - 65536, u).to(torch.int16)
+
+
+def sq_rows_encode(x: torch.Tensor, bits: int) -> Sq8Rows:
+    """Rows [N, d] -> their `Sq8Rows` with 2**bits − 1 steps (bits 8 or
+    16): `_quantize` of the reference's HnswIndex, whose eager ops divide."""
+    codes, mins, scales = _encode(x, (1 << bits) - 1)
+    return Sq8Rows(codes.to(torch.uint8) if bits == 8 else _u16_bits(codes), mins, scales)
+
+
+def sq8_encode(x: torch.Tensor):
+    """[N, d] f32 -> (codes uint8 [N, d], mins [N], scales [N])."""
+    codes, mins, scales = _encode(x, 255)
     return codes.to(torch.uint8), mins, scales
 
 
@@ -50,9 +110,8 @@ def sq16_encode(x: torch.Tensor, mins: torch.Tensor, scales: torch.Tensor):
     uint16 bits (torch has few uint16 operators; `& 0xFFFF` widens back)."""
     s16 = scales * SQ16_RATIO
     safe16 = torch.where(s16 == 0, 1.0, s16)
-    u = torch.clamp(torch.round((x.float() - mins[:, None]) / safe16[:, None]), 0, 65535)
-    u = u.to(torch.int32)
-    return torch.where(u >= 32768, u - 65536, u).to(torch.int16)
+    return _u16_bits(torch.clamp(torch.round((x.float() - mins[:, None]) / safe16[:, None]),
+                                 0, 65535))
 
 
 def sq16_decode(u16: torch.Tensor, mins: torch.Tensor, scales: torch.Tensor):
