@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the port's IVF and HNSW build, insert and query paths once on one CUDA card.
+"""Drive the port's IVF, HNSW and mesh build, insert and query paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -8,7 +8,8 @@
 2. builds the hand-written kernels (K1 ivf_probe_f32, K2 topk_rows,
    K3 kmeans_assign, K4 ivf_probe_sq8, K5 ivf_rerank, K6 hnsw_serve_beam,
    K7 hnsw_select and its presorted mode, K8 hnsw_graph_beam and its SQ
-   reader, K9 hnsw_greedy) from `turdb_tpu_torch/kernels/csrc`, one nvcc
+   reader, K9 hnsw_greedy, K10 dense_blocks, K11 sq8_scan) from
+   `turdb_tpu_torch/kernels/csrc`, one nvcc
    per source, and prints the build seconds;
 3. kernel phase: each kernel against its plain PyTorch version on the same
    CUDA tensors at the main paths' shapes (and K1 / K2 at the widths past
@@ -49,12 +50,26 @@
    - HNSW waves from empty (cpu_hnsw_baseline's 65,536 rows, bench.py:498):
      build seconds and rows/s, recall@10 at ef 64 against its own oracle,
      reachability, then a quarter deleted and `vacuum` (the bulk route);
+   - the mesh, IVF (`ShardedIvfIndex`, examples/vector_serving.py): the 1M
+     pool on `make_mesh(n_db=4)` over four copies of the card, the f32
+     store by the mesh build (`_train_mesh`) and the compact store by the
+     shards' own builds, each swept to the gate with QPS; the merge's
+     share of the search's device time; a 1-shard mesh against the plain
+     index on 100k rows (equal ids and distances);
+   - the mesh, HNSW (`ShardedHnswIndex`): 4 shards of 250k by the bulk
+     route, the serving packs, the serve sweep to the gate and QPS, graph
+     search at ef 64, one wave `add` of 4,096 rows found by their own query;
+   - dense IVF (`dense_pack=True`): blocks against cells, the sweep and QPS
+     at nblocks = nprobe and nblocks = nprobe / 2 (K10);
+   - `sq8_search` over the pool's u8 codes (K11 and a K2 merge): recall;
 5. checks that each path launched each of its kernels; then, outside the
    counted runs, traces the searches (device time per kernel, idle share),
    and holds K6, K7 and K8 against their plain versions on the built HNSW
    index at the path's shapes, and K9 (a wave of 512 at every level, a
    1024-query descent), K8-SQ (SQ8, SQ16) and K7's presorted mode (W = 100)
-   on the inserted and wave-built indexes;
+   on the inserted and wave-built indexes, K2 at the mesh merge's
+   [1024, 40], K10 on the dense index's cell lists (bit-equal), K11 at
+   B = 1024 over the 1M store;
 6. prints {"kernels": [...]}, the card, and, last, {"ok": true, "device": {...}}.
 
 Any failure exits non-zero without the last line. The full report goes to
@@ -524,7 +539,7 @@ def _oracle(dev, x, queries):
 
 
 def _state_gib(idx):
-    return sum(t.numel() * t.element_size() for t in idx.state) / 2**30
+    return sum(t.numel() * t.element_size() for t in idx.state if t is not None) / 2**30
 
 
 def build_phase(dev, x, **flags):
@@ -563,10 +578,15 @@ def sweep_phase(idx, queries, truth, probes, gate=True):
     return sweep, at
 
 
-def qps_phase(idx, batches, nprobe):
+def qps_phase(idx, batches, nprobe, complete=True):
+    """QPS at `nprobe` over the batches. Every answer must hold k rows,
+    unless `complete` is False: then the share of empty slots is reported
+    (ids -1 with +inf distances), and every other id must be in range."""
     d, i = idx.search(batches[0], K, nprobe=nprobe, out="torch")
     check(tuple(d.shape) == (BATCH, K) and tuple(i.shape) == (BATCH, K), "search shape")
-    check(bool(torch.isfinite(d).all()) and bool(((i >= 0) & (i < idx.size)).all()),
+    empty = (i < 0) & torch.isinf(d)
+    ok = torch.isfinite(d) & (i >= 0) & (i < idx.size)
+    check(bool((ok if complete else ok | empty).all()),
           "search returned non-finite distances or out-of-range ids")
 
     def run():
@@ -576,7 +596,8 @@ def qps_phase(idx, batches, nprobe):
     torch.cuda.reset_peak_memory_stats()
     ms = _median_ms(run)
     out = {"search_ms_per_batch": ms / len(batches), "qps": len(batches) * BATCH / (ms / 1e3),
-           "search_peak_gib": torch.cuda.max_memory_allocated() / 2**30, "batches": len(batches)}
+           "search_peak_gib": torch.cuda.max_memory_allocated() / 2**30, "batches": len(batches),
+           "empty_slot_share": float(empty.float().mean())}
     log(f"search at nprobe={nprobe}: {out['qps']:.1f} QPS "
         f"({out['search_ms_per_batch']:.4f} ms / batch of {BATCH}), "
         f"peak {out['search_peak_gib']:.3f} GiB")
@@ -601,7 +622,7 @@ def headline_phase(dev, x, queries, truth):
     again = IvfIndex(dim=DIM, device=dev)
     out["build_profile"] = device_profile(lambda: again.add(x))
     same = again.cfg == idx.cfg and all(
-        torch.equal(a, b) for a, b in zip(again.state, idx.state))
+        a is b is None or torch.equal(a, b) for a, b in zip(again.state, idx.state))
     out["rebuild_identical"] = same
     log(f"rebuild: C={again.cfg.n_clusters} identical={same}; "
         f"device profile {json.dumps(out['build_profile'])}")
@@ -1565,6 +1586,372 @@ def k7_sorted_check(idx, q):
             **_bound(nbytes, 2 * DIM * (int(valid.sum()) + int(kp.sum())), FP32_OPS)}
 
 # ---------------------------------------------------------------------------
+# the mesh (parallel/), the dense IVF store and sq8_search
+# ---------------------------------------------------------------------------
+
+N_MESH_SHARDS = 4
+N_ONE_SHARD = 100_000         # rows of the 1-shard mesh held against the plain index
+N_MESH_WAVE = 4_096           # rows of the wave `add` into the 4-shard bulk graph
+MESH_QPS_BATCHES = 16
+SQ8_SEARCH_GATE = 0.5         # a sanity floor on sq8_search's recall (reported, not a target)
+
+
+def _mesh(n_db, dev):
+    from turdb_tpu_torch.parallel import make_mesh
+
+    return make_mesh(n_db=n_db, devices=[dev] * n_db)
+
+
+def _gid_rows(gids):
+    """gid -> row lookup: (sorted gids, their rows)."""
+    o = np.argsort(gids, kind="stable")
+    return gids[o], o
+
+
+def _rows_of(lut, gi):
+    sg, rows = lut
+    pos = np.clip(np.searchsorted(sg, gi), 0, len(sg) - 1)
+    return np.where((gi >= 0) & (sg[pos] == gi), rows[pos], -1)
+
+
+def _mesh_batches(queries, n=MESH_QPS_BATCHES):
+    return [queries[s:s + BATCH] for s in range(0, n * BATCH, BATCH)]
+
+
+def _mesh_qps(search, batches, size):
+    d, gi = search(batches[0])
+    check(d.shape == (BATCH, K) and bool(np.isfinite(d).all()) and bool((gi >= 0).all()),
+          "mesh search returned non-finite distances or empty ids")
+    torch.cuda.reset_peak_memory_stats()
+    ms = _median_ms(lambda: [search(b) for b in batches])
+    return {"search_ms_per_batch": ms / len(batches), "qps": len(batches) * BATCH / (ms / 1e3),
+            "search_peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def _staged_mesh_build(idx, x):
+    """The mesh build (`ShardedIvfIndex._train_mesh`) at full size. As in
+    the reference, `IvfIndex.add` trains a shard as soon as its rows
+    suffice, so the mesh build runs where shards were filled untrained;
+    here the rows are routed by `add` with the shards' training held
+    back, then `train()` builds every shard through the mesh path."""
+    from turdb_tpu_torch.models.ivf import IvfIndex
+
+    real = IvfIndex.train
+    IvfIndex.train = lambda self, *a, **kw: None
+    try:
+        gids = idx.add(x)
+    finally:
+        IvfIndex.train = real
+    check(all(s.state is None for s in idx.shards), "a shard trained while staged")
+    idx.train()     # every shard untrained: the mesh build
+    return gids
+
+
+def _mesh_ivf_store(idx, x, queries, truth, staged):
+    from turdb_tpu_torch.utils.datasets import recall_of
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    if staged:
+        gids = _staged_mesh_build(idx, x)
+    else:
+        gids = idx.add(x)
+        idx.train()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    out = {"build_s": build_s, "build_peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "C": idx._cfg.n_clusters, "L": idx._cfg.cluster_cap,
+           "shard_sizes": [s.size for s in idx.shards],
+           "state_gib": sum(_state_gib(s) for s in idx.shards)}
+    log(f"mesh ivf build (staged={staged}): {build_s:.3f} s, C={out['C']} L={out['L']}, "
+        f"state {out['state_gib']:.3f} GiB")
+    lut = _gid_rows(gids)
+    sweep, gate = [], None
+    for p in PROBES:
+        _, gi = idx.search(queries[:N_ORACLE], K, nprobe=p)
+        r = recall_of(_rows_of(lut, gi), truth)
+        sweep.append({"nprobe": p, "recall@10": r})
+        log(f"  mesh nprobe={p:3d} recall@10={r:.4f}")
+        if r >= RECALL_GATE:
+            gate = p
+            break
+    check(gate is not None, f"mesh ivf: recall gate {RECALL_GATE} not reached by nprobe 64")
+    out["sweep"], out["gate_nprobe"] = sweep, gate
+    out.update(_mesh_qps(lambda b: idx.search(b, K, nprobe=gate), _mesh_batches(queries),
+                         len(idx)))
+    log(f"mesh ivf search at nprobe={gate}: {out['qps']:.1f} QPS")
+    return out
+
+
+def _merge_share(idx, batches, nprobe):
+    """The merge's share of the mesh search's device time: the busy time
+    of a trace of `_two_level_merge` over the shards' lists of the same
+    batches, over the busy time of a trace of the whole searches."""
+    from turdb_tpu_torch.models.ivf import ivf_search_impl
+    from turdb_tpu_torch.parallel.sharded import _two_level_merge, pack_gids
+    from turdb_tpu_torch.utils.timing import device_profile
+
+    search = device_profile(lambda: [idx.search(b, K, nprobe=nprobe) for b in batches])
+    lists = []
+    for b in batches:
+        qd = torch.as_tensor(b, device=idx.devices[0])
+        parts = [ivf_search_impl(s.state, qd, None, cfg=idx._cfg, k=K, nprobe=nprobe)
+                 for s in idx.shards]
+        lists.append(([d for d, _ in parts],
+                      [pack_gids(d, i, s, idx.id_stride) for s, (d, i) in enumerate(parts)]))
+    merge = device_profile(lambda: [_two_level_merge(ds, gis, K, 1, idx.devices[0])
+                                    for ds, gis in lists])
+    out = {"search_profile": search, "merge_profile": merge}
+    if search.get("traced") and merge.get("traced"):
+        out["merge_share"] = merge["busy_ms"] / search["busy_ms"]
+    return out, lists[0]
+
+
+def mesh_ivf_phase(dev, x, queries, truth):
+    """`ShardedIvfIndex` on a 4-shard mesh of one card: the f32 store built
+    by the mesh build, the compact store by the shards' own builds; the
+    sweep, QPS at the gate, the merge's share; then a 1-shard mesh against
+    the plain index on the same rows."""
+    from turdb_tpu_torch.models.ivf import IvfIndex
+    from turdb_tpu_torch.parallel import ShardedIvfIndex
+
+    mesh = _mesh(N_MESH_SHARDS, dev)
+    out = {}
+    idx = ShardedIvfIndex(dim=DIM, mesh=mesh)
+    out["f32"] = _mesh_ivf_store(idx, x, queries, truth, staged=True)
+    out["f32"]["merge"], merge_case = _merge_share(idx, _mesh_batches(queries, 4),
+                                                   out["f32"]["gate_nprobe"])
+    log(f"mesh merge share of the search's device time: "
+        f"{out['f32']['merge'].get('merge_share')}")
+    del idx
+    torch.cuda.empty_cache()
+    idx = ShardedIvfIndex(dim=DIM, mesh=mesh, sq8=True, keep_f32=False, rerank=RERANK)
+    out["compact"] = _mesh_ivf_store(idx, x, queries, truth, staged=False)
+    check(all(s.state.pvecs.dtype == torch.int16 for s in idx.shards), "mesh compact: not SQ16")
+    del idx
+    torch.cuda.empty_cache()
+    one = ShardedIvfIndex(dim=DIM, mesh=_mesh(1, dev))
+    gids = one.add(x[:N_ONE_SHARD])
+    plain = IvfIndex(dim=DIM, device=dev)
+    plain.add(x[:N_ONE_SHARD])
+    d1, g1 = one.search(queries[:N_ORACLE], K, nprobe=8)
+    dp, ip = plain.search(queries[:N_ORACLE], K, nprobe=8)
+    same = bool(np.array_equal(gids, np.arange(N_ONE_SHARD)) and np.array_equal(g1, ip)
+                and np.array_equal(d1, dp))
+    out["one_shard_equals_plain"] = same
+    log(f"1-shard mesh ids and distances equal to the plain index: {same}")
+    check(same, "a 1-shard mesh answers differently from the plain index")
+    return out, merge_case
+
+
+def mesh_hnsw_phase(dev, x, queries, truth):
+    """`ShardedHnswIndex` on a 4-shard mesh of one card: the bulk route per
+    shard, the serving packs, the serve sweep and QPS at its gate, graph
+    search at ef 64, then one wave `add` of new rows."""
+    from turdb_tpu_torch.parallel import ShardedHnswIndex
+    from turdb_tpu_torch.utils.datasets import recall_of
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    idx = ShardedHnswIndex(dim=DIM, mesh=_mesh(N_MESH_SHARDS, dev), ef_construction=100,
+                           build_batch=512)
+    gids = idx.add(x)
+    torch.cuda.synchronize()
+    out = {"build_s": time.perf_counter() - t, "descent_ef": idx._descent_ef,
+           "build_peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "shard_sizes": idx.sizes.tolist()}
+    check(idx._descent_ef == 32, "the mesh HNSW load did not take the bulk route")
+    log(f"mesh hnsw bulk build: {out['build_s']:.3f} s, shards {out['shard_sizes']}")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    idx.pack_serving()
+    torch.cuda.synchronize()
+    out["pack_s"] = time.perf_counter() - t
+    out["pack_gib"] = sum(a.numel() * a.element_size() for sv in idx._serve for a in sv) / 2**30
+    log(f"mesh hnsw packs: {out['pack_s']:.3f} s, {out['pack_gib']:.3f} GiB")
+    lut = _gid_rows(gids)
+
+    def serve(q, k, ef, iters):
+        d, gi = idx.search_serve(q, k, ef=ef, iters=iters)
+        return d, _rows_of(lut, gi)
+
+    out["sweep"], gate = hnsw_sweep(serve, queries, truth, HNSW_SWEEP)
+    check(gate is not None, f"mesh hnsw serve: recall gate {RECALL_GATE} not reached by ef 96")
+    out["gate"] = {"ef": gate[0], "iters": gate[1]}
+    batches = _mesh_batches(queries)
+    out["serve"] = _mesh_qps(lambda b: idx.search_serve(b, K, ef=gate[0], iters=gate[1]),
+                             batches, len(idx))
+    log(f"mesh hnsw serve at ef={gate[0]}: {out['serve']['qps']:.1f} QPS")
+    _, gi = idx.search(queries[:N_ORACLE], K, ef=HNSW_GRAPH_EF)
+    out["graph"] = {"ef": HNSW_GRAPH_EF, "recall@10": recall_of(_rows_of(lut, gi), truth),
+                    **_mesh_qps(lambda b: idx.search(b, K, ef=HNSW_GRAPH_EF), batches[:4],
+                                len(idx))}
+    log(f"mesh hnsw graph ef={HNSW_GRAPH_EF}: recall@10 {out['graph']['recall@10']:.4f}, "
+        f"{out['graph']['qps']:.1f} QPS")
+    new = queries[-N_MESH_WAVE:]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ng = idx.add(new)
+    torch.cuda.synchronize()
+    out["wave_add_s"] = time.perf_counter() - t
+    check(idx._serve is None, "a mesh add kept a stale serving pack")
+    hits = 0
+    for s in range(0, len(new), BATCH):
+        _, gi = idx.search(new[s:s + BATCH], 1, ef=HNSW_GRAPH_EF)
+        hits += int((gi[:, 0] == ng[s:s + BATCH]).sum())
+    out["wave_self_hit"] = hits / len(new)
+    log(f"mesh hnsw wave add of {len(new)}: {out['wave_add_s']:.3f} s, "
+        f"found first by their own query {out['wave_self_hit']:.4f}")
+    check(out["wave_self_hit"] >= INSERT_SELF_HIT_GATE,
+          f"only {out['wave_self_hit']} of the rows added to the mesh find themselves")
+    return out
+
+
+DENSE_SPLIT = 2               # nblocks = nprobe // DENSE_SPLIT in the compacted sweep
+
+
+def dense_ivf_phase(dev, x, queries, truth):
+    """`IvfIndex(dense_pack=True)` on the 1M pool: blocks against cells,
+    the sweep and QPS at nblocks = nprobe and at nblocks = nprobe / 2."""
+    out, idx = build_phase(dev, x, dense_pack=True)
+    check(idx.cfg.dense and idx.state.cell_block is not None, "the dense store has no map")
+    out["blocks"] = int(idx.state.members.shape[0])
+    log(f"dense: {out['blocks']} blocks for {out['C']} cells")
+    batches = _batches(queries, dev)
+    for name, split in (("nblocks_eq_nprobe", 1), ("nblocks_half", DENSE_SPLIT)):
+        sweep, gate = [], None
+        for p in PROBES:
+            idx.nblocks = max(1, p // split)
+            r = sweep_phase(idx, queries, truth, (p,), gate=False)[0][0]["recall@10"]
+            sweep.append({"nprobe": p, "nblocks": idx.nblocks, "recall@10": r})
+            if r >= RECALL_GATE:
+                gate = p
+                break
+        check(gate is not None, f"dense {name}: recall gate not reached by nprobe 64")
+        # a row with fewer than nblocks distinct blocks repeats some (the
+        # reference's `_first_unique`); a repeated block's rows then fill the
+        # pre-dedup window twice over and some answers come back short
+        out[name] = {"sweep": sweep, "gate_nprobe": gate, "nblocks": idx.nblocks,
+                     **qps_phase(idx, batches, gate, complete=split == 1)}
+    return out, idx, batches
+
+
+def k10_check(idx, batch, nprobe):
+    """K10 on the dense index's own cell lists (the queries' top-nprobe
+    cells), at u = nprobe / 2: bit-equal to its plain version."""
+    from turdb_tpu_torch.kernels import EPI_L2, dense_blocks, dense_blocks_plain, topk_rows
+    from turdb_tpu_torch.utils.timing import device_profile
+
+    st = idx.state
+    q = batch.float().contiguous()
+    _, top = topk_rows(q @ st.centroids.T, nprobe, rown=(q * q).sum(1), coln=st.cnorms,
+                       epilogue=EPI_L2)
+    u = max(1, nprobe // DENSE_SPLIT)
+    got, want = dense_blocks(st.cell_block, top, u), dense_blocks_plain(st.cell_block, top, u)
+    check(torch.equal(got, want), "K10 dense_blocks differs from its plain version")
+    full = dense_blocks(st.cell_block, top, nprobe)
+    check(torch.equal(full, st.cell_block[top.long()]), "K10 at u = P is not the gather")
+    b, p = top.shape
+    # a launch this small is timed by its device time in a trace of 50:
+    # an event pair around one call also holds the host's launch path
+    prof = device_profile(lambda: [dense_blocks(st.cell_block, top, u) for _ in range(50)])
+    kern = [t for t in prof.get("top", []) if t["name"].startswith("dense_blocks_kernel")]
+    check(len(kern) == 1, "K10 did not show in its trace")
+    return {"shape": [b, p], "u": u, "max_abs_err": 0.0,
+            "distinct_blocks_per_query": float(
+                sum(len(set(r.tolist())) for r in want.cpu()) / b),
+            "distinct_blocks_in_batch": torch.unique(want).numel(),
+            "ms": kern[0]["ms"] / kern[0]["calls"],
+            "event_ms": _median_ms(lambda: dense_blocks(st.cell_block, top, u)),
+            "plain_ms": _median_ms(lambda: dense_blocks_plain(st.cell_block, top, u)),
+            "library_ms": None,
+            # the cell lists read, one table entry per listed cell, the lists written
+            **_bound(4 * b * p + 4 * b * p + 4 * b * u, 0, FP32_OPS)}
+
+
+def sq8_search_phase(dev, x, queries, truth):
+    """`ops.quantize.sq8_search` (no index calls it; the reference's own
+    tests do) over the 1M pool's u8 codes for 1024 queries: recall@10
+    against the exact oracle."""
+    from turdb_tpu_torch.ops.quantize import sq8_encode, sq8_search
+    from turdb_tpu_torch.utils.datasets import recall_of
+
+    xd = torch.as_tensor(x, device=dev)
+    codes, mins, scales = sq8_encode(xd)
+    del xd
+    valid = torch.ones(len(x), dtype=torch.bool, device=dev)
+    q = torch.as_tensor(queries[:BATCH], device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    d, i = sq8_search(q, codes, mins, scales, valid, K)
+    torch.cuda.synchronize()
+    out = {"search_s": time.perf_counter() - t,
+           "recall@10": recall_of(i[:N_ORACLE].cpu().numpy(), truth),
+           "store_gib": sum(a.numel() * a.element_size() for a in (codes, mins, scales)) / 2**30}
+    check(tuple(i.shape) == (BATCH, K) and bool(torch.isfinite(d).all()), "sq8_search shape")
+    log(f"sq8_search over 1M u8 rows: recall@10 {out['recall@10']:.4f}")
+    check(out["recall@10"] >= SQ8_SEARCH_GATE, f"sq8_search recall {out['recall@10']}")
+    return out, (q, codes, mins, scales)
+
+
+def k11_check(store, gen, truth):
+    """K11 against its plain version at B = 1024, N = 1M, d = 128, k = 10,
+    with 1 % of the rows invalid: ids equal except at ties, distances
+    within DOT_RTOL of the distance scale (the fp32 products sum in another
+    order than cuBLAS); its recall against the exact oracle."""
+    from turdb_tpu_torch.kernels import sq8_scan, sq8_scan_plain
+    from turdb_tpu_torch.utils.datasets import recall_of
+
+    q, codes, mins, scales = store
+    n, d = codes.shape
+    b = q.shape[0]
+    valid = torch.rand(n, device=q.device, generator=gen) >= 0.01
+    qn, qsum = (q * q).sum(1), q.sum(1)
+    args = (q, qn, qsum, codes, mins, scales, valid, K)
+    dk, ik = sq8_scan(*args)
+    dp, ip = sq8_scan_plain(*args)
+    err, id_diff = _near_equal(dk, ik, dp, ip, DOT_RTOL, "K11 sq8_scan")
+    _, ik_all = sq8_scan(q, qn, qsum, codes, mins, scales, torch.ones_like(valid), K)
+
+    def library():
+        u = codes.float()
+        xn = d * mins ** 2 + 2.0 * mins * scales * u.sum(1) + scales ** 2 * (u * u).sum(1)
+        dist = qn[:, None] - 2.0 * (mins[None, :] * qsum[:, None] + scales[None, :] * (q @ u.T))
+        dist = torch.where(valid[None, :], torch.clamp_min(dist + xn[None, :], 0.0), float("inf"))
+        return torch.topk(dist, K, largest=False)
+
+    nbytes = n * d + 12 * n + n + b * (4 * d + 8) + 8 * b * K
+    return {"shape": [b, n, d], "k": K, "max_abs_err": err, "id_diff": id_diff,
+            "recall@10_all_valid": recall_of(ik_all[:N_ORACLE].cpu().numpy(), truth),
+            "ms": _median_ms(lambda: sq8_scan(*args)),
+            "plain_ms": _median_ms(lambda: sq8_scan_plain(*args), reps=3),
+            "library_ms": _median_ms(library, reps=3),
+            **_bound(nbytes, 2 * b * n * d, FP32_OPS)}
+
+
+def k2_merge_check(case):
+    """K2 at the mesh merge's shape: the 4 shards' lists of one batch,
+    [1024, 4 · 10] -> 10."""
+    from turdb_tpu_torch.kernels import topk_rows, topk_rows_plain
+
+    ds, _ = case
+    x = torch.cat(ds, dim=1).contiguous()
+    vk, pk = topk_rows(x, K)
+    vp, pp = topk_rows_plain(x, K)
+    err, tie = _selection_error(vk, pk, vp, pp, lambda p: torch.gather(x, 1, p.long()),
+                                K2_RTOL, "K2 mesh merge")
+    b, n = x.shape
+    return {"shape": [b, n], "k": K, "max_abs_err": err, "tie_id_diff": tie,
+            "ms": _median_ms(lambda: topk_rows(x, K)),
+            "plain_ms": _median_ms(lambda: topk_rows_plain(x, K)),
+            "library_ms": _median_ms(lambda: torch.topk(x, K, largest=False)),
+            **_bound(4 * b * n + 8 * b * K, b * n, FP32_OPS)}
+
+# ---------------------------------------------------------------------------
 
 KERNELS = {
     "ivf_probe_f32": ("turdb_tpu_torch/kernels/csrc/ivf_probe.cu",
@@ -1589,6 +1976,10 @@ KERNELS = {
                            "turdb_tpu/models/hnsw.py:130"),
     "hnsw_select_sorted": ("turdb_tpu_torch/kernels/csrc/hnsw_select.cu",
                            "turdb_tpu/models/hnsw.py:471"),
+    "dense_blocks": ("turdb_tpu_torch/kernels/csrc/dense_blocks.cu",
+                     "turdb_tpu/models/ivf.py:225"),
+    "sq8_scan": ("turdb_tpu_torch/kernels/csrc/sq8_scan.cu",
+                 "turdb_tpu/ops/quantize.py:42"),
 }
 # the kernels each main path must launch
 PATH_KERNELS = {
@@ -1604,6 +1995,11 @@ PATH_KERNELS = {
                     "hnsw_graph_beam_sq"),
     "hnsw_wave": ("topk_rows", "hnsw_select", "hnsw_graph_beam", "hnsw_greedy",
                   "hnsw_select_sorted"),
+    "mesh_ivf": ("ivf_probe_f32", "ivf_probe_sq8", "ivf_rerank", "topk_rows", "kmeans_assign"),
+    "mesh_hnsw": ("topk_rows", "kmeans_assign", "ivf_probe_sq8", "hnsw_serve_beam",
+                  "hnsw_select", "hnsw_graph_beam", "hnsw_greedy", "hnsw_select_sorted"),
+    "dense_ivf": ("dense_blocks", "ivf_probe_f32", "topk_rows", "kmeans_assign"),
+    "sq8_search": ("sq8_scan", "topk_rows"),
 }
 
 
@@ -1622,6 +2018,8 @@ def kernel_rows(launches):
         "hnsw_greedy": REPORT["k9"]["wave512"],
         "hnsw_graph_beam_sq": REPORT["k8sq"]["sq8"],
         "hnsw_select_sorted": REPORT["k7s"],
+        "dense_blocks": REPORT["k10"],
+        "sq8_scan": REPORT["k11"],
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return [
@@ -1736,7 +2134,43 @@ def run_paths(dev, launches):
     REPORT["k7s"] = k7_sorted_check(ins, wave_q)
     for name in ("k9", "k8sq", "k7s"):
         log(f"{name}: {json.dumps(REPORT[name])}")
-    del ins, wave, pool, x, queries
+    del ins, wave
+    torch.cuda.empty_cache()
+
+    def mesh_ivf():
+        REPORT["mesh_ivf"], merge_case = mesh_ivf_phase(dev, x, queries, truth)
+        return merge_case
+
+    merge_case = counted("mesh_ivf", mesh_ivf)
+    REPORT["k2"]["mesh_merge"] = k2_merge_check(merge_case)
+    log(f"k2 mesh merge: {json.dumps(REPORT['k2']['mesh_merge'])}")
+    del merge_case
+    torch.cuda.empty_cache()
+
+    REPORT["mesh_hnsw"] = counted("mesh_hnsw", lambda: mesh_hnsw_phase(dev, x, queries, truth))
+    torch.cuda.empty_cache()
+
+    def dense_ivf():
+        REPORT["dense_ivf"], idx, batches = dense_ivf_phase(dev, x, queries, truth)
+        return idx, batches
+
+    idx, batches = counted("dense_ivf", dense_ivf)
+    dense_gate = REPORT["dense_ivf"]["nblocks_half"]["gate_nprobe"]
+    idx.nblocks = max(1, dense_gate // DENSE_SPLIT)
+    profile("dense", idx, batches, dense_gate)
+    REPORT["k10"] = k10_check(idx, batches[0], max(dense_gate, 2 * DENSE_SPLIT))
+    log(f"k10: {json.dumps(REPORT['k10'])}")
+    del idx, batches
+    torch.cuda.empty_cache()
+
+    def sq8_search():
+        REPORT["sq8_search"], store = sq8_search_phase(dev, x, queries, truth)
+        return store
+
+    store = counted("sq8_search", sq8_search)
+    REPORT["k11"] = k11_check(store, gen, truth)
+    log(f"k11: {json.dumps(REPORT['k11'])}")
+    del store, pool, x, queries
     torch.cuda.empty_cache()
 
     def hard():
@@ -1800,7 +2234,7 @@ def main() -> int:
     REPORT["total_s"] = time.perf_counter() - t0
     (OUT / "chip_smoke_report.json").write_text(json.dumps(REPORT, indent=1))
     for name in ("headline", "sq8", "compact", "hard", "probe_only", "hnsw", "hnsw_insert",
-                 "hnsw_wave"):
+                 "hnsw_wave", "mesh_ivf", "mesh_hnsw", "dense_ivf", "sq8_search"):
         log(f"{name}: {json.dumps({k: v for k, v in REPORT[name].items() if k != 'build_profile'})}")
 
     rows = kernel_rows(launches)

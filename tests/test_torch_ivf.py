@@ -188,19 +188,11 @@ def test_kmeans_and_two_means_track_reference():
 
 
 def test_unported_paths_raise():
-    """Dense block packing and fast_build are still to port: the index,
-    the search and the state loader refuse them, naming the ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="dense"):
-        tivf.IvfIndex(dim=8, dense_pack=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="dense"):
-        tivf.IvfIndex(dim=8, nblocks=4, device="cpu")
+    """fast_build is still to port (ROADMAP queue 1 item 14): the index
+    refuses it. Dense block packing is ported (tests/test_torch_dense.py):
+    the index takes dense_pack / nblocks."""
     with pytest.raises(NotImplementedError, match="fast_build"):
         tivf.IvfIndex(dim=8, fast_build=True, device="cpu")
-    st = tivf.IvfState(*(torch.zeros(1) for _ in range(9)))
-    cfg = tivf.IvfConfig(dim=8, n_clusters=1, cluster_cap=1, dense=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tivf.ivf_search_impl(st, torch.zeros((1, 8)), None, cfg=cfg, k=1, nprobe=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ivf_state_from_numpy({}, {"dim": 8, "n_clusters": 1, "cluster_cap": 1,
-                                  "dense": True}, "cpu")
+    idx = tivf.IvfIndex(dim=8, dense_pack=True, nblocks=4, device="cpu")
+    assert idx.dense_pack and idx.nblocks == 4
     assert Metric.L2.value == 0

@@ -205,10 +205,16 @@ def test_cpu_wrappers_leave_launch_counters_at_zero():
     cand = torch.arange(40, dtype=torch.int32).reshape(4, 10) % 32
     kernels.hnsw_select_sorted(xt[:32].contiguous(), cand, torch.arange(40.0).reshape(4, 10),
                                deg=4, metric=0, alpha=1.0)
+    kernels.dense_blocks(torch.tensor([0, 0, 1, 2], dtype=torch.int32),
+                         torch.tensor([[0, 1, 2, 3]], dtype=torch.int32), 2)
+    u8, m8, s8 = tq.sq8_encode(xt[:32])
+    kernels.sq8_scan(qt, td.prep_norms(qt), qsum, u8, m8, s8,
+                     torch.ones(32, dtype=torch.bool), 3)
     assert set(kernels.launches) == {"ivf_probe_f32", "topk_rows", "kmeans_assign",
                                      "ivf_probe_sq8", "ivf_rerank", "hnsw_serve_beam",
                                      "hnsw_select", "hnsw_graph_beam", "hnsw_select_sorted",
-                                     "hnsw_graph_beam_sq", "hnsw_greedy"}
+                                     "hnsw_graph_beam_sq", "hnsw_greedy", "dense_blocks",
+                                     "sq8_scan"}
     assert not any(kernels.launches.values()), kernels.launches
 
 

@@ -10,10 +10,16 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
+from turdb_tpu.models import ivf as jivf
 from turdb_tpu.models.flat import FlatIndex as JaxFlat
 from turdb_tpu.models.ivf import IvfIndex as JaxIvf
+from turdb_tpu.ops.distance import prep_norms as jax_prep_norms
+from turdb_tpu_torch.models import ivf as tivf
 from turdb_tpu_torch.models.flat import FlatIndex
 from turdb_tpu_torch.models.ivf import IvfIndex
+from turdb_tpu_torch.ops.distance import chain_norms
 from turdb_tpu_torch.utils.datasets import make_pool, recall_of as recall
 
 # the test workers share the machine's cores: one intra-op thread each
@@ -94,3 +100,26 @@ def test_maintenance_behaves_like_reference(pair):
                         for i, t in zip(ids, live_truth)])
     assert abs(live_recall(got["port"][0]) - live_recall(got["ref"][0])) <= 0.02
     assert abs((got["port"][1] >= 0).mean() - (got["ref"][1] >= 0).mean()) <= 0.02
+
+
+def test_kmeans_norms_are_the_references(pair):
+    """Where the two builds first parted: the k-means norms. The
+    reference's jitted row norms (XLA:CPU) are a fused multiply-add chain
+    over the columns in order; a vector-blocked sum (torch.sum) differs in
+    the last bits on most rows, and `‖x‖² + ‖c‖² − 2·x·c` flips its argmin
+    at near-ties (first in the fourth Lloyd round on this pool, then in every
+    rebalance round, whose perturbed centroid copies are near-ties by
+    construction). The port's k-means takes `chain_norms`: bit-equal on the
+    pool's rows and on the centroids of a Lloyd round, and the assignment
+    that follows agrees with the reference's on the same centroids."""
+    ref, port, x, _, _, _ = pair
+    np.testing.assert_array_equal(chain_norms(torch.from_numpy(x)).numpy(),
+                                  np.asarray(jax_prep_norms(jnp.asarray(x))))
+    seeds = np.random.default_rng(0).choice(N, 312, replace=False)
+    xp = jnp.asarray(jivf._pad_rows(x, jivf._KM_CHUNK))
+    cents = np.asarray(jivf._kmeans(xp, xp[jnp.asarray(seeds)], iters=2))
+    np.testing.assert_array_equal(chain_norms(torch.from_numpy(cents)).numpy(),
+                                  np.asarray(jax_prep_norms(jnp.asarray(cents))))
+    want = np.asarray(jivf._assign_all(xp, jnp.asarray(cents)))[:N]
+    got = tivf._assign_all(torch.from_numpy(x), torch.from_numpy(cents)).numpy()
+    assert np.mean(got == want) >= 0.999

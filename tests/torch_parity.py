@@ -13,8 +13,11 @@ IVF_FIELDS = ("centroids", "cnorms", "members", "pvecs", "pnorms", "alive",
 
 
 def export_ivf(state, cfg) -> tuple[dict, dict]:
-    """A reference IvfState + IvfConfig -> (numpy arrays, config dict)."""
+    """A reference IvfState + IvfConfig -> (numpy arrays, config dict); a
+    dense state also exports its `cell_block`."""
     arrays = {f: np.asarray(getattr(state, f)) for f in IVF_FIELDS}
+    if getattr(state, "cell_block", None) is not None:
+        arrays["cell_block"] = np.asarray(state.cell_block)
     conf = dataclasses.asdict(cfg)
     conf["metric"] = cfg.metric.value
     return arrays, conf
@@ -66,3 +69,28 @@ def export_hnsw(state, cfg, size) -> tuple[dict, dict]:
 def export_hnsw_serve(serve) -> dict:
     """A reference HnswServeState -> its arrays as numpy."""
     return {f: np.asarray(getattr(serve, f)) for f in serve._fields}
+
+
+def export_sharded_ivf(index) -> tuple[dict, dict, np.ndarray]:
+    """A trained reference ShardedIvfIndex -> (its stacked [S, ...] state
+    as numpy, the shared config dict, the shard sizes)."""
+    if index._stacked is None:
+        index.train()
+    arrays = {f: np.asarray(getattr(index._stacked, f)) for f in IVF_FIELDS}
+    conf = dataclasses.asdict(index._cfg)
+    conf["metric"] = index._cfg.metric.value
+    return arrays, conf, np.asarray([s.size for s in index.shards])
+
+
+def export_sharded_hnsw(index) -> tuple[dict, dict, dict | None]:
+    """A reference ShardedHnswIndex -> (its stacked graph as numpy with
+    `adj_hi` [S, levels - 1, cap, M], the config dict, its stacked serving
+    pack as numpy or None)."""
+    st = index.state
+    arrays = {f: np.asarray(getattr(st, f))
+              for f in ("vectors", "norms", "adj0", "levels", "entry", "max_level")}
+    arrays["adj_hi"] = np.stack([np.asarray(a) for a in st.adj_hi], axis=1)
+    conf = dataclasses.asdict(index.cfg)
+    conf["metric"] = index.cfg.metric.value
+    serve = None if index._serve is None else export_hnsw_serve(index._serve)
+    return arrays, conf, serve

@@ -5,11 +5,15 @@ imports). It mirrors the reference layout:
 
     ops/distance.py   Metric, norms, pairwise / gathered distances
     ops/topk.py       exact k-smallest selection, dedup, membership
-    ops/quantize.py   SQ8 / SQ16 row encodings, int8 query quantization
+    ops/quantize.py   SQ8 / SQ16 row encodings, int8 query quantization,
+                      sq8_search over a u8 store
     models/flat.py    FlatIndex: exact chunked k-NN (the recall oracle)
     models/ivf.py     IvfIndex: k-means build + fused cell probe over the
                       f32 store, the SQ8 probe with exact rerank (f32 or
-                      SQ16 rows), and the probe-only int8 store
+                      SQ16 rows), the probe-only int8 store, dense blocks
+    models/hnsw.py    HnswIndex: bulk build, insert waves, graph search
+    models/hnsw_serve.py  the HNSW serving pack and its search
+    parallel/         the mesh: ShardedIvfIndex, ShardedHnswIndex
     kernels/          hand-written CUDA C++ kernels for sm_90a + wrappers
     convert.py        reference state (as numpy) -> port state
 

@@ -13,7 +13,7 @@ import torch
 from turdb_tpu_torch.models.flat import FlatIndex
 from turdb_tpu_torch.models.hnsw import HnswIndex, HnswState
 from turdb_tpu_torch.models.hnsw_serve import HnswServeState
-from turdb_tpu_torch.models.ivf import _DENSE, IvfConfig, IvfState, sq8_placeholders
+from turdb_tpu_torch.models.ivf import IvfConfig, IvfState, sq8_placeholders
 from turdb_tpu_torch.ops.distance import Metric
 from turdb_tpu_torch.ops.quantize import Sq8Rows
 
@@ -39,18 +39,18 @@ def _pvecs(a) -> np.ndarray:
 
 def ivf_state_from_numpy(arrays: dict, cfg: dict,
                          device="cuda") -> tuple[IvfState, IvfConfig]:
-    """A reference `IvfState` (block == cell) and its `IvfConfig` as numpy
-    arrays and a dict of fields -> the port's (IvfState, IvfConfig). The
-    row store may be f32, SQ16 (uint16) or the probe-only (1, 1, 1)
-    placeholder; `codes`, `mins`, `scales` may be absent for a state
-    without sq8 (small placeholders are made). Pad cells (cnorms +inf,
-    members all -1) are kept as they are. Dense block packing is refused."""
+    """A reference `IvfState` and its `IvfConfig` as numpy arrays and a
+    dict of fields -> the port's (IvfState, IvfConfig). The row store may
+    be f32, SQ16 (uint16) or the probe-only (1, 1, 1) placeholder; `codes`,
+    `mins`, `scales` may be absent for a state without sq8 (small
+    placeholders are made). Pad cells (cnorms +inf, members all -1; under
+    dense packing mapped to block 0) and pad blocks are kept as they are.
+    A dense state (`cfg["dense"]`) brings `cell_block` [C]; its storage
+    arrays are [NB, L, ...] blocks."""
     cfg = dict(cfg)
     cfg["metric"] = _metric(cfg.get("metric", Metric.L2))
     config = IvfConfig(**{f.name: cfg[f.name] for f in
                           IvfConfig.__dataclass_fields__.values() if f.name in cfg})
-    if config.dense:
-        raise NotImplementedError(f"not ported yet: {_DENSE}")
     tensors = {
         name: torch.as_tensor(np.array(arrays[name], dtype), device=device)
         for name, dtype in zip(_IVF_FIELDS, _IVF_TYPES)
@@ -61,11 +61,18 @@ def ivf_state_from_numpy(arrays: dict, cfg: dict,
                         for name, dtype in zip(_SQ8_FIELDS, _SQ8_TYPES)})
     else:
         tensors.update(zip(_SQ8_FIELDS, sq8_placeholders(device)))
+    if config.dense:
+        tensors["cell_block"] = torch.as_tensor(np.array(arrays["cell_block"], np.int32),
+                                                device=device)
     state = IvfState(**tensors)
     c, cap = state.members.shape
     block = (c, cap, config.dim)
     probe_only = config.sq8 and not config.rerank
-    if state.centroids.shape != (c, config.dim) or not (
+    n_cells = state.centroids.shape[0] if config.dense else c
+    if config.dense and (state.cell_block.shape != (n_cells,)
+                         or int(state.cell_block.max()) >= c):
+        raise ValueError("a dense IVF state needs cell_block [C] of block ids < NB")
+    if state.centroids.shape != (n_cells, config.dim) or not (
             state.pvecs.shape == block or probe_only and state.pvecs.shape == (1, 1, 1)):
         raise ValueError("IVF arrays do not match the config's dim / block shape")
     if config.sq8 and (state.codes.shape != block or state.mins.shape != (c, cap)
@@ -160,3 +167,56 @@ def hnsw_serve_state_from_numpy(arrays: dict, device="cuda") -> HnswServeState:
         vectors=t["vectors"].float(),
         norms=t["norms"].float(),
     )
+
+
+def _shard(arrays: dict, s: int) -> dict:
+    """Shard s of a stacked [S, ...] state."""
+    return {name: np.asarray(a)[s] for name, a in arrays.items()}
+
+
+def sharded_ivf_from_numpy(arrays: dict, cfg: dict, mesh, sizes=None):
+    """A reference `ShardedIvfIndex`'s stacked state (`_stack_states`: every
+    `IvfState` field as one [S, ...] array; `cell_block` unused) and its
+    shared `IvfConfig` -> a port `ShardedIvfIndex` on `mesh` whose shard s
+    holds slice s on its device. `sizes` [S] (rows per shard) sets each
+    shard's size; the loaded index searches and does not train."""
+    from turdb_tpu_torch.parallel.sharded_ivf import ShardedIvfIndex
+
+    conf = dict(cfg)
+    idx = ShardedIvfIndex(dim=conf["dim"], mesh=mesh, metric=_metric(conf.get("metric", 0)),
+                          nprobe=conf.get("nprobe", 8), sq8=conf.get("sq8", False),
+                          rerank=conf.get("rerank", 0))
+    for s, (shard, dev) in enumerate(zip(idx.shards, idx.devices)):
+        shard.state, shard.cfg = ivf_state_from_numpy(_shard(arrays, s), conf, device=dev)
+        shard.size = 0 if sizes is None else int(sizes[s])
+    idx._cfg = idx.shards[0].cfg
+    return idx
+
+
+def sharded_hnsw_from_numpy(arrays: dict, cfg: dict, sizes, mesh, *, alive=None,
+                            descent_ef: int = 1, serve: dict | None = None):
+    """A reference `ShardedHnswIndex`'s stacked graph (`_init_stacked`:
+    every `HnswState` field [S, ...], the upper levels' adjacency as
+    `adj_hi` [S, levels - 1, cap, M], `entry` / `max_level` [S]), its
+    `HnswConfig` as a dict, the shard sizes [S], the tombstones `alive`
+    [S, cap] and its descent_ef -> a port `ShardedHnswIndex` on `mesh`
+    whose shard s holds graph s on its device. `serve`, a stacked
+    `HnswServeState` as numpy, becomes the per-shard serving packs."""
+    from turdb_tpu_torch.parallel.sharded import ShardedHnswIndex
+
+    idx = ShardedHnswIndex(dim=np.asarray(arrays["vectors"]).shape[-1], mesh=mesh,
+                           metric=_metric(cfg.get("metric", 0)), m=cfg["m"],
+                           ef_construction=cfg.get("ef_construction", 100),
+                           ef_search=cfg.get("ef_search", 64))
+    idx.shards = [
+        hnsw_index_from_numpy(_shard(arrays, s), cfg, int(sizes[s]),
+                              alive=None if alive is None else np.asarray(alive)[s],
+                              descent_ef=descent_ef, device=dev)
+        for s, dev in enumerate(idx.devices)
+    ]
+    idx.capacity = idx.shards[0].capacity
+    idx._descent_ef = descent_ef
+    if serve is not None:
+        idx._serve = [hnsw_serve_state_from_numpy(_shard(serve, s), device=dev)
+                      for s, dev in enumerate(idx.devices)]
+    return idx

@@ -12,6 +12,8 @@ and the launch counters.
     K8 hnsw_graph_beam  csrc/hnsw_beam.cu    HNSW graph beam over one level (f32 rows;
                                              over the SQ store, counted as hnsw_graph_beam_sq)
     K9 hnsw_greedy      csrc/hnsw_greedy.cu  HNSW greedy descent over one level
+    K10 dense_blocks    csrc/dense_blocks.cu dense IVF: probed cells -> first-u distinct blocks
+    K11 sq8_scan        csrc/sq8_scan.cu     asymmetric L2 k-NN over a u8 store (+ a K2 merge)
 
 A wrapper given CPU tensors runs the plain version below; given CUDA
 tensors it launches its kernel (built at first use) or raises. There is
@@ -46,7 +48,8 @@ MODE_TOPK, MODE_CAND = 0, 1
 launches = {"ivf_probe_f32": 0, "topk_rows": 0, "kmeans_assign": 0,
             "ivf_probe_sq8": 0, "ivf_rerank": 0, "hnsw_serve_beam": 0,
             "hnsw_select": 0, "hnsw_graph_beam": 0, "hnsw_select_sorted": 0,
-            "hnsw_graph_beam_sq": 0, "hnsw_greedy": 0}
+            "hnsw_graph_beam_sq": 0, "hnsw_greedy": 0, "dense_blocks": 0,
+            "sq8_scan": 0}
 
 
 def reset_launches() -> None:
@@ -56,12 +59,13 @@ def reset_launches() -> None:
 
 def _on_cuda(*tensors) -> bool:
     """True when every tensor is on CUDA, False when all are on the CPU."""
-    devs = {t.device.type for t in tensors if t is not None}
-    if devs == {"cuda"}:
+    devs = {t.device for t in tensors if t is not None}
+    kinds = {d.type for d in devs}
+    if kinds == {"cuda"} and len(devs) == 1:
         return True
-    if devs == {"cpu"}:
+    if kinds == {"cpu"}:
         return False
-    raise ValueError(f"kernel inputs must all be on cuda or all on cpu, got {devs}")
+    raise ValueError(f"kernel inputs must all be on one cuda device or all on cpu, got {devs}")
 
 
 def _check(t, name, dtype, shape):
@@ -77,9 +81,13 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch(name, *args):
+def _launch(name, device, *args):
+    """Launch kernel `name` on `device`, the device of its tensors, on that
+    device's current stream, whatever device is current: a mesh keeps
+    shards on several cards and a kernel must run where its pointers live."""
     lib = build.library()
-    err = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(device):
+        err = getattr(lib, name)(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         # an argument past a kernel's limits (selection width, shared
         # memory) comes back as a CUDA error: the limits live in csrc/
@@ -142,7 +150,7 @@ def topk_rows(x: torch.Tensor, k: int, *, rown=None, coln=None, colvalid=None,
     out_d = torch.empty((b, k), dtype=torch.float32, device=x.device)
     out_i = torch.empty((b, k), dtype=torch.int32, device=x.device)
     if b:
-        _launch("topk_rows", x.data_ptr(), b, n,
+        _launch("topk_rows", x.device, x.data_ptr(), b, n,
                 _ptr(rown) if epilogue == EPI_L2 else None,
                 _ptr(coln) if epilogue == EPI_L2 else None,
                 _ptr(_as_u8(colvalid)), epilogue, int(clamp), k,
@@ -296,7 +304,7 @@ def ivf_probe_f32(q, qn, cells, pvecs, pnorms, members, alive, allowed=None, *,
                          f"multiple of 4 (got {d}) and pvecs 16-byte aligned")
     out_d, out_i, out_pos, scratch = _probe_buffers(b, p, lcap, k, m, mode, q.device)
     if b:
-        _launch("ivf_probe_f32", q.data_ptr(), qn.data_ptr(), cells.data_ptr(),
+        _launch("ivf_probe_f32", q.device, q.data_ptr(), qn.data_ptr(), cells.data_ptr(),
                 b, p, pvecs.data_ptr(), pnorms.data_ptr(), members.data_ptr(),
                 _ptr(_as_u8(alive)), _ptr(_as_u8(allowed)), lcap, d, metric,
                 k, m, int(replicated), mode, PROBE_CHUNK_LANES, *map(_ptr, scratch),
@@ -373,7 +381,7 @@ def ivf_probe_sq8(qc, qs, qsum, qn, cells, codes, mins, scales, pnorms, members,
                          f"multiple of 4 (got {d}) and codes / qc 4-byte aligned")
     out_d, out_i, out_pos, scratch = _probe_buffers(b, p, lcap, k, m, mode, qc.device)
     if b:
-        _launch("ivf_probe_sq8", qc.data_ptr(), qs.data_ptr(), qsum.data_ptr(),
+        _launch("ivf_probe_sq8", qc.device, qc.data_ptr(), qs.data_ptr(), qsum.data_ptr(),
                 qn.data_ptr(), cells.data_ptr(), b, p, codes.data_ptr(), mins.data_ptr(),
                 scales.data_ptr(), pnorms.data_ptr(), members.data_ptr(),
                 _ptr(_as_u8(alive)), _ptr(_as_u8(allowed)), lcap, d, metric, k, m,
@@ -443,7 +451,7 @@ def ivf_rerank(q, qn, cand_d, cand_i, cand_pos, pvecs, pnorms, mins=None, scales
     out_d = torch.empty((b, k), dtype=torch.float32, device=q.device)
     out_i = torch.empty((b, k), dtype=torch.int32, device=q.device)
     if b:
-        _launch("ivf_rerank", q.data_ptr(), qn.data_ptr(), cand_d.data_ptr(),
+        _launch("ivf_rerank", q.device, q.data_ptr(), qn.data_ptr(), cand_d.data_ptr(),
                 cand_i.data_ptr(), cand_pos.data_ptr(), b, r, pvecs.data_ptr(), int(sq16),
                 pnorms.data_ptr(), _ptr(mins if sq16 else None),
                 _ptr(scales if sq16 else None), d, k, int(replicated),
@@ -500,7 +508,7 @@ def kmeans_assign(x, cents, xn, cn, r: int = 1):
     out_i = torch.empty((n, r), dtype=torch.int32, device=x.device)
     out_d = torch.empty((n, r), dtype=torch.float32, device=x.device)
     if n:
-        _launch("kmeans_assign", x.data_ptr(), xn.data_ptr(), n, cents.data_ptr(),
+        _launch("kmeans_assign", x.device, x.data_ptr(), xn.data_ptr(), n, cents.data_ptr(),
                 cn.data_ptr(), c, d, r, out_i.data_ptr(), out_d.data_ptr())
     return out_i, out_d
 
@@ -727,7 +735,7 @@ def hnsw_graph_beam(adj, vectors, norms, q, qn, seed_i, seed_d, allowed=None, *,
     rows = ((vectors.codes.data_ptr(), vectors.bits, vectors.mins.data_ptr(),
              vectors.scales.data_ptr()) if sq else (vectors.data_ptr(),))
     if b:
-        _launch("hnsw_graph_beam_sq" if sq else "hnsw_graph_beam", adj.data_ptr(), *rows,
+        _launch("hnsw_graph_beam_sq" if sq else "hnsw_graph_beam", adj.device, adj.data_ptr(), *rows,
                 norms.data_ptr(), q.data_ptr(), qn.data_ptr(), seed_i.data_ptr(),
                 seed_d.data_ptr(), b, s, _ptr(_as_u8(allowed)), d, deg, ef, iters, expand, kr,
                 metric, *(_ptr(t) for t in out[:5]), out.stats.data_ptr())
@@ -818,7 +826,7 @@ def hnsw_greedy(adj, vectors, norms, q, qn, cur_i, cur_d, *, metric: int):
     out_d = torch.empty(b, dtype=torch.float32, device=q.device)
     stats = torch.empty((b, 2), dtype=torch.int32, device=q.device)
     if b:
-        _launch("hnsw_greedy", adj.data_ptr(), None if sq else vectors.data_ptr(),
+        _launch("hnsw_greedy", adj.device, adj.data_ptr(), None if sq else vectors.data_ptr(),
                 vectors.codes.data_ptr() if sq else None, vectors.bits if sq else 0,
                 vectors.mins.data_ptr() if sq else None,
                 vectors.scales.data_ptr() if sq else None, norms.data_ptr(), q.data_ptr(),
@@ -912,7 +920,7 @@ def hnsw_serve_beam(nbr_codes, nbr_meta, vectors, norms, q, qn, qc, qs, qsum, se
     out_i = torch.empty((b, k), dtype=torch.int32, device=q.device)
     stats = torch.empty((b, 2), dtype=torch.int32, device=q.device)
     if b:
-        _launch("hnsw_serve_beam", nbr_codes.data_ptr(), nbr_meta.data_ptr(),
+        _launch("hnsw_serve_beam", nbr_codes.device, nbr_codes.data_ptr(), nbr_meta.data_ptr(),
                 vectors.data_ptr(), norms.data_ptr(), q.data_ptr(), qn.data_ptr(),
                 qc.data_ptr(), qs.data_ptr(), qsum.data_ptr(), seed_i.data_ptr(),
                 seed_d.data_ptr(), b, s, _ptr(_as_u8(allowed)), d, deg, ef, iters, expand,
@@ -1028,7 +1036,7 @@ def hnsw_select(vectors, norms, targets, cand, *, deg: int, metric: int, alpha: 
     out_d = torch.empty((u, deg), dtype=torch.float32, device=cand.device)
     n_pairs = torch.empty(u, dtype=torch.int32, device=cand.device)
     if u:
-        _launch("hnsw_select", vectors.data_ptr(), norms.data_ptr(), targets.data_ptr(),
+        _launch("hnsw_select", vectors.device, vectors.data_ptr(), norms.data_ptr(), targets.data_ptr(),
                 cand.data_ptr(), u, w, d, deg, select_cap(w, deg, alpha), float(alpha),
                 metric, out_i.data_ptr(), out_d.data_ptr(), n_pairs.data_ptr())
     return out_i, out_d, n_pairs
@@ -1075,7 +1083,138 @@ def hnsw_select_sorted(vectors, cand_i, cand_d, *, deg: int, metric: int, alpha:
     out_d = torch.empty((u, deg), dtype=torch.float32, device=cand_i.device)
     n_pairs = torch.empty(u, dtype=torch.int32, device=cand_i.device)
     if u:
-        _launch("hnsw_select_sorted", vectors.data_ptr(), cand_i.data_ptr(), cand_d.data_ptr(),
+        _launch("hnsw_select_sorted", vectors.device, vectors.data_ptr(), cand_i.data_ptr(), cand_d.data_ptr(),
                 u, w, d, deg, float(alpha), metric, out_i.data_ptr(), out_d.data_ptr(),
                 n_pairs.data_ptr())
     return out_i, out_d, n_pairs
+
+
+# ---------------------------------------------------------------------------
+# K10: dense IVF block list
+# ---------------------------------------------------------------------------
+
+# widest probe list K10 takes (csrc/dense_blocks.cu DB_PMAX)
+DENSE_P_MAX = 4096
+
+
+def dense_blocks_plain(cell_block, top, u):
+    blk = cell_block[top.long()]
+    p = blk.shape[1]
+    if u >= p:
+        return blk.to(torch.int32).contiguous()
+    earlier = torch.tril(torch.ones((p, p), dtype=torch.bool, device=blk.device), -1)
+    pos = torch.arange(p, device=blk.device)
+    step = max(1, (1 << 26) // (p * p))     # bounds the [b, P, P] comparison
+    outs = []
+    for s in range(0, blk.shape[0], step):
+        part = blk[s:s + step]
+        dup = torch.any((part[:, :, None] == part[:, None, :]) & earlier, dim=-1)
+        order = torch.argsort(torch.where(dup, p + 1, pos), dim=-1, stable=True)[:, :u]
+        outs.append(torch.gather(part, 1, order))
+    if not outs:
+        return torch.empty((0, u), dtype=torch.int32, device=blk.device)
+    return torch.cat(outs).to(torch.int32)
+
+
+def dense_blocks(cell_block: torch.Tensor, top: torch.Tensor, u: int) -> torch.Tensor:
+    """The physical blocks a dense IVF probe gathers (`_first_unique` of
+    `cell_block[top]`, the reference's ivf.py:225-237, :277-284).
+
+    cell_block [C] int32 maps each cell to its block, top [B, P] int32 the
+    probed cells. With u >= P returns `cell_block[top]` [B, P]; with u < P
+    the first u distinct blocks of each row [B, u], in first-occurrence
+    order, followed, where a row has fewer than u, by its repeats in their
+    own order (the reference's stable argsort)."""
+    b, p = top.shape
+    if u < 1 or p > DENSE_P_MAX:
+        raise ValueError(f"dense_blocks: need u >= 1 and P <= {DENSE_P_MAX}, got u={u}, P={p}")
+    if not _on_cuda(cell_block, top):
+        return dense_blocks_plain(cell_block, top, u)
+    _check(cell_block, "cell_block", torch.int32, cell_block.shape[:1])
+    _check(top, "top", torch.int32, (b, p))
+    width = min(u, p)
+    out = torch.empty((b, width), dtype=torch.int32, device=top.device)
+    if b:
+        _launch("dense_blocks", top.device, cell_block.data_ptr(), top.data_ptr(), b, p,
+                width, out.data_ptr())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K11: asymmetric L2 over a u8 store
+# ---------------------------------------------------------------------------
+
+# widest k K11 keeps (a list per query over one warp's lanes), and the
+# rows a block scans (a multiple of the kernel's 64-row tile)
+SQ8_K_MAX, SQ8_CHUNK = 32, 8192
+# the plain version's [B, rows] distance block, in elements
+_SQ8_PLAIN_ELEMS = 1 << 26
+
+
+def _sq8_dist_plain(q, qn, qsum, codes, mins, scales, valid):
+    """[B, n] asymmetric L2² of queries over u8 rows, as the reference's
+    `sq8_search` writes it: the row norm of x̂ = min + scale·u from Σu and
+    Σu², the cross term from one f32 product, clamped at 0, +inf where
+    `valid` is False."""
+    u = codes.float()
+    d = codes.shape[1]
+    q_dot_u = q @ u.T
+    u_sum, u_sq = torch.sum(u, dim=-1), torch.sum(u * u, dim=-1)
+    xn = d * mins ** 2 + 2.0 * mins * scales * u_sum + scales ** 2 * u_sq
+    q_dot_x = mins[None, :] * qsum[:, None] + scales[None, :] * q_dot_u
+    dist = qn[:, None] - 2.0 * q_dot_x + xn[None, :]
+    return torch.where(valid[None, :], torch.clamp_min(dist, 0.0), INF)
+
+
+def sq8_scan_plain(q, qn, qsum, codes, mins, scales, valid, k):
+    n = codes.shape[0]
+    step = max(k, _SQ8_PLAIN_ELEMS // max(q.shape[0], 1))
+    ds, ids = [], []
+    for s in range(0, n, step):
+        e = min(n, s + step)
+        dist = _sq8_dist_plain(q, qn, qsum, codes[s:e], mins[s:e], scales[s:e], valid[s:e])
+        dk, pos = topk_rows_plain(dist, min(k, e - s))
+        ds.append(dk)
+        ids.append(pos + s)
+    dk, pos = topk_rows_plain(torch.cat(ds, dim=1), k)
+    ik = torch.gather(torch.cat(ids, dim=1), 1, pos.long())
+    return dk, torch.where(torch.isinf(dk), -1, ik).to(torch.int32)
+
+
+def sq8_scan(q, qn, qsum, codes, mins, scales, valid, k: int):
+    """Asymmetric L2² k-NN of f32 queries over a u8 store (the reference's
+    `sq8_search`, ops/quantize.py:42-76).
+
+    q [B, d] f32 with qn = ‖q‖² and qsum = Σq [B]; codes [N, d] uint8,
+    mins / scales [N] f32 (x̂ = min + scale·u); valid [N] bool. Distance
+    `qn − 2·(min·qsum + scale·(q·u)) + (d·min² + 2·min·scale·Σu +
+    scale²·Σu²)` clamped at 0, +inf where not valid. Returns the k
+    smallest by (distance, row): ([B, k] f32 ascending, [B, k] int32 row
+    ids, -1 where +inf). On CUDA: one K11 launch (a [B, k] list per chunk
+    of SQ8_CHUNK rows) and one K2 launch merging the chunks."""
+    b, d = q.shape
+    n = codes.shape[0]
+    if not 0 < k <= min(n, SQ8_K_MAX):
+        raise ValueError(f"sq8_scan: need 0 < k <= min(N, {SQ8_K_MAX}), got k={k}, N={n}")
+    if not _on_cuda(q, qn, qsum, codes, mins, scales, valid):
+        return sq8_scan_plain(q, qn, qsum, codes, mins, scales, valid, k)
+    _check(q, "q", torch.float32, (b, d))
+    _check(qn, "qn", torch.float32, (b,))
+    _check(qsum, "qsum", torch.float32, (b,))
+    _check(codes, "codes", torch.uint8, (n, d))
+    _check(mins, "mins", torch.float32, (n,))
+    _check(scales, "scales", torch.float32, (n,))
+    _check(valid, "valid", torch.bool, (n,))
+    if b == 0:
+        return (torch.empty((0, k), device=q.device),
+                torch.empty((0, k), dtype=torch.int32, device=q.device))
+    chunk = min(SQ8_CHUNK, -(-n // 64) * 64)
+    nch = -(-n // chunk)
+    part_d = torch.empty((b, nch * k), dtype=torch.float32, device=q.device)
+    part_i = torch.empty((b, nch * k), dtype=torch.int32, device=q.device)
+    _launch("sq8_scan", q.device, q.data_ptr(), qn.data_ptr(), qsum.data_ptr(), b,
+            codes.data_ptr(), mins.data_ptr(), scales.data_ptr(), _ptr(_as_u8(valid)), n, d,
+            chunk, k, part_d.data_ptr(), part_i.data_ptr())
+    dk, pos = topk_rows(part_d, k)
+    ik = torch.gather(part_i, 1, pos.long())
+    return dk, torch.where(torch.isinf(dk), -1, ik)

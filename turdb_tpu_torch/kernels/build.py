@@ -78,6 +78,12 @@ SIGNATURES = {
                    _P, _I, _I, _I, _P, _P, _P],
     # x, xn, n, cents, cn, C, d, r, out_i, out_d, stream
     "kmeans_assign": [_P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P],
+    # cell_block, top, B, P, u, out, stream
+    "dense_blocks": [_P, _P, _I, _I, _I, _P, _P],
+    # q, qn, qsum, B, codes, mins, scales, valid, N, d, chunk, k, out_d,
+    # out_i, stream
+    "sq8_scan": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+                 _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,8 +1,10 @@
 """IVF vector index on PyTorch (port of turdb_tpu/models/ivf.py): the
 f32 row store, the SQ8 int8 probe with an exact rerank over an f32 or
-SQ16 row store, and the probe-only int8 store.
+SQ16 row store, the probe-only int8 store, and dense block packing.
 
-Layout (block == cell):
+Layout (block == cell, unless dense; then the [C, L] arrays below are
+[NB, L] physical blocks and `cell_block` [C] int32 maps each cell to the
+block that holds its rows):
     centroids   [C, d] f32
     cnorms      [C]    f32 (+inf for pad cells of an imported state)
     members     [C, L] int32 slot ids, -1 padded
@@ -16,14 +18,16 @@ Layout (block == cell):
     scales      [C, L] f32 (sq8), else (1, 1)
 
 Search: one fp32 q·Cᵀ matmul -> K2 with the `qn + cnorms − 2·dot` epilogue
-selects the top-nprobe cells -> the probe scores those cells' rows: K1
+selects the top-nprobe cells -> (dense: K10 maps them to the first
+`nblocks` distinct blocks) -> the probe scores those blocks' rows: K1
 over f32 rows, K4 over int8 codes. Without rerank the probe returns the k
 nearest (deduplicating boundary replicas); with it, the probe returns the
 r best lanes and K5 reranks them exactly from the row store.
 Build: Lloyd's k-means whose assignment is K3 and whose update is a
 sorted segment sum, starved-centroid rebalance, the 2-means split cascade,
 balanced packing with spill, boundary replicas, then an `index_put_` pack
-(with the SQ8 / SQ16 encodings of `ops/quantize.py`).
+(with the SQ8 / SQ16 encodings of `ops/quantize.py`); `dense_pack`
+bin-packs whole cells into ~full blocks after the replicas land.
 """
 
 from __future__ import annotations
@@ -37,20 +41,18 @@ import torch
 from turdb_tpu_torch.kernels import (
     EPI_L2,
     MODE_CAND,
+    dense_blocks,
     ivf_probe_f32,
     ivf_probe_sq8,
     ivf_rerank,
     kmeans_assign,
     topk_rows,
 )
-from turdb_tpu_torch.ops.distance import Metric, normalize_rows, prep_norms
+from turdb_tpu_torch.ops.distance import Metric, chain_norms, normalize_rows, prep_norms
 from turdb_tpu_torch.ops.quantize import quantize_queries, sq8_store, sq16_decode, sq16_encode
 from turdb_tpu_torch.ops.topk import topk_smallest_wide
 
 INF = float("inf")
-
-# where each unported path stands in ROADMAP.md
-_DENSE = "dense block packing (ROADMAP queue 1 item 7; queue 2, still to port, item 3)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,7 +65,7 @@ class IvfConfig:
     sq8: bool = False
     rerank: int = 0           # exact-rerank candidate count (0 = off)
     replicated: bool = False  # boundary replicas present -> dedup at top-k
-    dense: bool = False
+    dense: bool = False       # cells bin-packed into physical blocks (cell_block)
     copies: int = 2           # max physical copies per slot (1 + replica_rank)
 
 
@@ -79,6 +81,7 @@ class IvfState(NamedTuple):
     codes: torch.Tensor       # [C, L, d] int8 | (1, 1, 1)
     mins: torch.Tensor        # [C, L] m′ | (1, 1)
     scales: torch.Tensor      # [C, L] | (1, 1)
+    cell_block: torch.Tensor | None = None   # [C] int32 (dense only)
 
 
 def sq8_placeholders(device):
@@ -94,7 +97,7 @@ def sq8_placeholders(device):
 
 def _masked_cn(cents: torch.Tensor, c_real: int) -> torch.Tensor:
     """Centroid norms with cells past `c_real` at +inf (never assigned)."""
-    cn = prep_norms(cents)
+    cn = chain_norms(cents)
     if cents.shape[0] > c_real:
         cn[c_real:] = INF
     return cn
@@ -105,12 +108,12 @@ def _kmeans(x: torch.Tensor, centroids: torch.Tensor, iters: int) -> torch.Tenso
     by centroid and sums each run with `segment_reduce`, in a fixed order,
     so a build is the same on every run (float atomics, as `index_add_`
     uses on CUDA, sum in another order each time). An empty centroid keeps
-    its place."""
-    xn = prep_norms(x)
+    its place. The norms are `chain_norms`, the reference's own order."""
+    xn = chain_norms(x)
     cents = centroids.clone()
     c = cents.shape[0]
     for _ in range(iters):
-        a = kmeans_assign(x, cents, xn, prep_norms(cents))[0][:, 0].long()
+        a = kmeans_assign(x, cents, xn, chain_norms(cents))[0][:, 0].long()
         counts = torch.bincount(a, minlength=c)
         sums = torch.segment_reduce(x[torch.argsort(a, stable=True)], "sum",
                                     lengths=counts, axis=0, unsafe=True)
@@ -124,16 +127,16 @@ def _assign_all(x: torch.Tensor, centroids: torch.Tensor,
     """Nearest-centroid id of every row ([n] int32). `cn` overrides the
     centroid norms: +inf entries exclude (full) clusters."""
     if cn is None:
-        cn = prep_norms(centroids)
-    return kmeans_assign(x, centroids, prep_norms(x), cn)[0][:, 0]
+        cn = chain_norms(centroids)
+    return kmeans_assign(x, centroids, chain_norms(x), cn)[0][:, 0]
 
 
 def _assign_topk_all(x: torch.Tensor, centroids: torch.Tensor,
                      cn: torch.Tensor | None = None, *, k: int = 2):
     """Top-k nearest centroids of every row: ([n, k] int32 ids, [n, k] d²)."""
     if cn is None:
-        cn = prep_norms(centroids)
-    return kmeans_assign(x, centroids, prep_norms(x), cn, k)
+        cn = chain_norms(centroids)
+    return kmeans_assign(x, centroids, chain_norms(x), cn, k)
 
 
 # ---------------------------------------------------------------------------
@@ -141,39 +144,43 @@ def _assign_topk_all(x: torch.Tensor, centroids: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def ivf_search_impl(state: IvfState, queries: torch.Tensor, allowed, *,
-                    cfg: IvfConfig, k: int, nprobe: int):
-    """Centroid matmul -> top-nprobe cells (K2) -> fused probe (K1 over f32
-    rows, K4 over int8 codes) -> optional exact rerank (K5). `allowed` is a
-    [C, L] bool visibility mask or None. The sq8 probe and the rerank are
-    L2 whatever `cfg.metric` is, as in the reference. Returns ([B, k]
-    dists ascending, [B, k] int32 slot ids, -1 where +inf)."""
-    if cfg.dense:
-        raise NotImplementedError(f"not ported yet: {_DENSE}")
+                    cfg: IvfConfig, k: int, nprobe: int, nblocks: int | None = None):
+    """Centroid matmul -> top-nprobe cells (K2) -> under `cfg.dense` the
+    physical blocks of those cells, cut to the first `nblocks` distinct
+    ones (K10) -> fused probe (K1 over f32 rows, K4 over int8 codes) ->
+    optional exact rerank (K5). `allowed` is a bool visibility mask over
+    the store's [blocks, L] lanes, or None. A slot may sit in several
+    probed lanes (boundary replicas, blocks shared by cells): those
+    indexes drop later copies. The sq8 probe and the rerank are L2
+    whatever `cfg.metric` is, as in the reference. Returns ([B, k] dists
+    ascending, [B, k] int32 slot ids, -1 where +inf)."""
     q = queries.float().contiguous()
     qn = prep_norms(q)
     # cell scoring is L2 for every metric and, like the reference, unclamped
     dots = q @ state.centroids.T
     _, top = topk_rows(dots, nprobe, rown=qn, coln=state.cnorms, epilogue=EPI_L2)
-    lanes = nprobe * cfg.cluster_cap
+    src = dense_blocks(state.cell_block, top, nblocks or nprobe) if cfg.dense else top
+    dedup = cfg.replicated or cfg.dense
+    lanes = src.shape[1] * cfg.cluster_cap
     if cfg.rerank:
         # the probe's r best lanes by (distance, lane), before any dedup
         r = min(cfg.rerank, lanes)
-        sel = dict(k=r, m=r, replicated=cfg.replicated, mode=MODE_CAND)
+        sel = dict(k=r, m=r, replicated=dedup, mode=MODE_CAND)
     else:
-        m = min(max(2, cfg.copies) * k, lanes) if cfg.replicated else k
-        sel = dict(k=k, m=m, replicated=cfg.replicated)
+        m = min(max(2, cfg.copies) * k, lanes) if dedup else k
+        sel = dict(k=k, m=m, replicated=dedup)
     if cfg.sq8:
         qc, qs, qsum = quantize_queries(q)
-        out = ivf_probe_sq8(qc, qs, qsum, qn, top, state.codes, state.mins, state.scales,
+        out = ivf_probe_sq8(qc, qs, qsum, qn, src, state.codes, state.mins, state.scales,
                             state.pnorms, state.members, state.alive, allowed, **sel)
     else:
-        out = ivf_probe_f32(q, qn, top, state.pvecs, state.pnorms, state.members,
+        out = ivf_probe_f32(q, qn, src, state.pvecs, state.pnorms, state.members,
                             state.alive, allowed, metric=cfg.metric.value, **sel)
     if not cfg.rerank:
         return out
     cd, ci, cpos = out
     return ivf_rerank(q, qn, cd, ci, cpos, state.pvecs, state.pnorms, state.mins,
-                      state.scales, k=k, replicated=cfg.replicated)
+                      state.scales, k=k, replicated=dedup)
 
 
 # ---------------------------------------------------------------------------
@@ -189,7 +196,10 @@ class IvfIndex:
     the f32 rows; `rerank` is the exact-rerank candidate count (None: 64
     under sq8, else 0). sq8 with `keep_f32=False` and `rerank=0` is the
     probe-only store: int8 codes and no row copy at all, which takes no
-    appends. Runs on the card unless `device` says otherwise."""
+    appends. `dense_pack` bin-packs whole cells into ~full physical blocks
+    at train(); `nblocks` caps the distinct blocks a query gathers out of
+    its top-nprobe cells (None: one block per probed cell). Runs on the
+    card unless `device` says otherwise."""
 
     def __init__(
         self,
@@ -209,8 +219,6 @@ class IvfIndex:
         *,
         device="cuda",
     ):
-        if dense_pack or nblocks is not None:
-            raise NotImplementedError(f"not ported yet: {_DENSE}")
         if fast_build:
             raise NotImplementedError(
                 "not ported yet: fast_build (ROADMAP queue 1 item 14)")
@@ -225,6 +233,8 @@ class IvfIndex:
         self.rerank = (64 if sq8 else 0) if rerank is None else rerank
         self.replicate = replicate
         self.replica_rank = max(1, replica_rank)
+        self.dense_pack = dense_pack
+        self.nblocks = nblocks
         self.cfg: IvfConfig | None = None
         self.state: IvfState | None = None
         self.size = 0
@@ -235,6 +245,7 @@ class IvfIndex:
         self._slot_lane = np.zeros(0, np.int32)
         self._slot_extras: list[tuple[np.ndarray, np.ndarray]] = []
         self._occupancy: np.ndarray | None = None
+        self._cell_block_host: np.ndarray | None = None
 
     @property
     def probe_only(self) -> bool:
@@ -268,8 +279,13 @@ class IvfIndex:
             self.size += n
         return slots
 
-    def train(self, iters: int | None = None):
-        """K-means + packed layout build over all staged vectors."""
+    def train(self, iters: int | None = None, _pre=None):
+        """K-means + packed layout build over all staged vectors.
+
+        `_pre` (the mesh build, parallel/sharded_ivf.py): a (centroids,
+        assignment, rows on the device or None) triple from the mesh's
+        k-means of this shard; the rest of the build (rebalance, split,
+        packing, replicas) then runs here from it."""
         x = (np.concatenate(self._vectors_host) if self._vectors_host
              else np.zeros((0, self.dim), np.float32))
         n = x.shape[0]
@@ -283,10 +299,17 @@ class IvfIndex:
             iters = 8
         tr_idx = (rng.choice(n, size=n_train, replace=False) if n_train < n
                   else np.arange(n))
-        xd = self._dev(x)
-        xt = xd if n_train == n else xd[self._dev(tr_idx)]
-        cents = _kmeans(xt, xd[self._dev(seed_idx)], iters)
-        assign = _assign_all(xd, cents, _masked_cn(cents, c)).cpu().numpy()
+        if _pre is None:
+            xd = self._dev(x)
+            xt = xd if n_train == n else xd[self._dev(tr_idx)]
+            cents = _kmeans(xt, xd[self._dev(seed_idx)], iters)
+            assign = _assign_all(xd, cents, _masked_cn(cents, c)).cpu().numpy()
+        else:
+            cents, assign, xd = _pre
+            cents = self._dev(cents)
+            assign = np.asarray(assign)[:n]
+            xd = self._dev(x) if xd is None else xd[:n]
+            xt = xd if n_train == n else xd[self._dev(tr_idx)]
         # balance repair: re-seed starved centroids as perturbed copies of
         # oversized donors, then a couple more Lloyd's iterations
         for rnd in range(6):
@@ -311,7 +334,7 @@ class IvfIndex:
             assign = _assign_all(xd, cents, _masked_cn(cents, c)).cpu().numpy()
         # split oversized clusters (local 2-means) instead of spilling rows
         # to far clusters, which centroid probing would never reach
-        cents_np, assign = _split_oversized(cents.cpu().numpy(), assign, xd, cap)
+        cents_np, assign = _split_oversized(cents.cpu().numpy()[:c], assign, xd, cap)
         c = cents_np.shape[0]
         # balanced packing: stable-sort by cluster, lane = rank within the
         # run; lanes past the cap spill to the nearest cluster with room
@@ -347,12 +370,16 @@ class IvfIndex:
         if self.replicate and n > c:
             replicated = self._place_replicas(x, xd, cents_np, members,
                                               occupancy, cap)
+        cell_block = None
+        if self.dense_pack:
+            members, cell_block = self._dense_remap(cents_np, members, occupancy, cap)
         self.cfg = IvfConfig(
             dim=self.dim, n_clusters=c, cluster_cap=cap, metric=self.metric,
-            nprobe=self.nprobe, sq8=self.sq8, rerank=self.rerank, replicated=replicated,
+            nprobe=self.nprobe, sq8=self.sq8, rerank=self.rerank,
+            replicated=replicated or self.dense_pack, dense=self.dense_pack,
             copies=(self.replica_rank + 1) if replicated else 2,
         )
-        self.state = self._pack(xd, cents_np, members, cap)
+        self.state = self._pack(xd, cents_np, members, cap, cell_block)
         self._vectors_host = []
 
     def _geometry(self, n: int) -> tuple[int, int]:
@@ -366,9 +393,51 @@ class IvfIndex:
         c = min(c, max(8, n // 4))
         return c, self._cluster_cap or _pow2_at_least(max(int(2.0 * n / c), 16), floor=8)
 
-    def _pack(self, xd, cents_np, members, cap) -> IvfState:
+    def _dense_remap(self, cents_np, members, occupancy, cap):
+        """Bin-pack whole cells into dense physical blocks (`cfg.dense`, the
+        reference's `_dense_remap`). Cells stay the probe's selection unit,
+        blocks become its gather unit at ~full occupancy. Cells are grouped
+        by one nearest-centre assignment over the centroids (K3; the group
+        centres drawn with `default_rng(11)`), then packed first-fit in
+        order of (group, occupancy descending), so a block holds a
+        neighbourhood and nearby cells share blocks. Remaps the slot
+        bookkeeping and the occupancy to block coordinates. Returns
+        (members [NB, L], cell_block [C] int32)."""
+        c = len(occupancy)
+        occ = np.asarray(occupancy, np.int64)
+        ng = _pow2_at_least(max(1, int(occ.sum()) // (8 * cap)), floor=1)
+        if ng > 1 and c > ng:
+            pick = np.random.default_rng(11).choice(c, size=ng, replace=False)
+            ga = _assign_all(self._dev(np.asarray(cents_np, np.float32)),
+                             self._dev(np.asarray(cents_np[pick], np.float32))).cpu().numpy()
+        else:
+            ga = np.zeros(c, np.int64)
+        blk = np.zeros(c, np.int32)
+        off = np.zeros(c, np.int64)
+        cur, fill, fills = 0, 0, [0]
+        for cell in np.lexsort((-occ, ga)):   # group ascending, occupancy descending
+            o = int(occ[cell])
+            if fill + o > cap:
+                cur, fill = cur + 1, 0
+                fills.append(0)
+            blk[cell], off[cell] = cur, fill
+            fill += o
+            fills[cur] = fill
+        bm = np.full((cur + 1, cap), -1, np.int64)
+        mc0, ml0 = np.nonzero(members >= 0)   # a cell's lanes are contiguous
+        bm[blk[mc0], off[mc0] + ml0] = members[mc0, ml0]
+        for sc, sl in ((self._slot_cluster, self._slot_lane), *self._slot_extras):
+            mk = sc >= 0
+            sl[mk] = (off[sc[mk]] + sl[mk]).astype(np.int32)
+            sc[mk] = blk[sc[mk]]
+        self._occupancy = np.asarray(fills, np.int64)
+        self._cell_block_host = blk
+        return bm, blk
+
+    def _pack(self, xd, cents_np, members, cap, cell_block=None) -> IvfState:
         """Scatter rows (primaries and replicas) into the packed store,
-        encoded as the flags ask (`_pack_body` of the reference)."""
+        encoded as the flags ask (`_pack_body` of the reference); `members`
+        is [blocks, L], `cell_block` the dense map or None."""
         c = members.shape[0]
         mc, ml = np.nonzero(members >= 0)
         mslots = members[mc, ml]
@@ -404,6 +473,7 @@ class IvfIndex:
             codes=codes,
             mins=mins,
             scales=scales,
+            cell_block=None if cell_block is None else self._dev(cell_block),
         )
 
     def _write_rows(self, where, rows, pvecs, pnorms, codes, mins, scales):
@@ -526,7 +596,8 @@ class IvfIndex:
 
     def _append(self, vecs: np.ndarray, slots: np.ndarray):
         """Incremental append: each row lands in the nearest cell with a
-        free lane; if every cell is full the index retrains."""
+        free lane (dense: in any free lane of that cell's block, which is
+        gathered whole); if every cell is full the index retrains."""
         st = self.state
         if self.probe_only:
             raise RuntimeError(
@@ -537,12 +608,15 @@ class IvfIndex:
         d2c = (prep_norms(jv)[:, None] + st.cnorms[None, :]) - 2.0 * (jv @ st.centroids.T)
         tries = min(self._APPEND_TRIES, d2c.shape[1])
         near = topk_smallest_wide(d2c, tries)[1].cpu().numpy()
+        cb = self._cell_block_host if self.cfg.dense else None
         cs, lanes = [], []
         for j in range(len(vecs)):
-            cand = near[j]
+            cand = near[j] if cb is None else cb[near[j]]
             free = self._occupancy[cand] < cap
             if not free.any():
                 cand = np.argsort(d2c[j].cpu().numpy(), kind="stable")
+                if cb is not None:
+                    cand = cb[cand]
                 free = self._occupancy[cand] < cap
             if not free.any():
                 # all clusters full: retrain with everything. Nothing of
@@ -593,7 +667,8 @@ class IvfIndex:
     # -- query -------------------------------------------------------------
 
     def allowed_mask(self, allowed) -> torch.Tensor:
-        """bool[size] slot visibility -> [C, L] lane mask (every copy)."""
+        """bool[size] slot visibility -> [blocks, L] lane mask (every copy;
+        blocks are the cells unless dense)."""
         allowed = np.asarray(allowed, bool)
         am = np.zeros(tuple(self.state.members.shape), bool)
         m = min(len(allowed), len(self._slot_cluster))
@@ -623,7 +698,10 @@ class IvfIndex:
                 q = normalize_rows(q)
             p = min(nprobe or self.nprobe, self.cfg.n_clusters)
             amask = None if allowed is None else self.allowed_mask(allowed)
-            d, i = ivf_search_impl(self.state, q, amask, cfg=self.cfg, k=k, nprobe=p)
+            # the plain probe bounds its gather by the min(p, nblocks) blocks
+            # it reads, as the reference's batch cap does (p_eff)
+            d, i = ivf_search_impl(self.state, q, amask, cfg=self.cfg, k=k, nprobe=p,
+                                   nblocks=self.nblocks if self.cfg.dense else None)
         if out == "torch":
             return d, i
         return d.cpu().numpy(), i.cpu().numpy()

@@ -1,5 +1,6 @@
 from turdb_tpu_torch.ops.distance import (
     Metric,
+    chain_norms,
     gathered_distances,
     normalize_rows,
     pairwise_distances,
@@ -15,7 +16,7 @@ from turdb_tpu_torch.ops.topk import (
 )
 
 __all__ = [
-    "Metric", "gathered_distances", "normalize_rows", "pairwise_distances",
+    "Metric", "chain_norms", "gathered_distances", "normalize_rows", "pairwise_distances",
     "prep_norms", "self_distances", "mask_duplicates", "member_mask",
     "merge_topk", "topk_smallest", "topk_smallest_wide",
 ]

@@ -41,6 +41,22 @@ def prep_norms(x: torch.Tensor) -> torch.Tensor:
     return torch.sum(x * x, dim=-1)
 
 
+def chain_norms(x: torch.Tensor) -> torch.Tensor:
+    """‖x‖² per row as a fused multiply-add chain over the columns in
+    order, one fp32 rounding a step: the order of the reference's jitted
+    row norms (XLA:CPU, d = 32). `prep_norms` sums in the order of the
+    device's vector kernels, which differs from one CPU to another. Each
+    step is computed in float64 and rounded once, so the result is the
+    same on every device. The k-means norms use it: a build's cells hang on
+    near-ties of `‖x‖² + ‖c‖² − 2·x·c`, which a last-bit norm flips."""
+    x = x.float()
+    acc = torch.zeros(x.shape[:-1], dtype=torch.float64, device=x.device)
+    for j in range(x.shape[-1]):
+        col = x[..., j].double()
+        acc = (acc + col * col).float().double()
+    return acc.float()
+
+
 def normalize_rows(x: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:
     n = torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
     return x / torch.clamp_min(n, eps)

@@ -14,8 +14,8 @@ the codes are the reference's bit for bit.
 The HNSW graph store (`Sq8Rows`) keeps u8 or u16 codes on the row's own
 (min, scale) with 255 or 65535 steps.
 
-`sq8_search` (the asymmetric search over a u8 store) is not ported yet:
-ROADMAP queue 2, still to port.
+`sq8_search` is the asymmetric k-NN of f32 queries over a u8 store
+(K11 `sq8_scan` and a K2 merge on the card).
 """
 
 from __future__ import annotations
@@ -130,3 +130,19 @@ def quantize_queries(q: torch.Tensor):
     qs = torch.clamp_min(torch.amax(torch.abs(q), dim=-1), 1e-30) / 127.0
     qc = torch.clamp(torch.round(q / qs[:, None]), -127, 127).to(torch.int8)
     return qc.contiguous(), qs, torch.sum(q, dim=-1)
+
+
+def sq8_search(queries: torch.Tensor, codes: torch.Tensor, mins: torch.Tensor,
+               scales: torch.Tensor, valid: torch.Tensor, k: int):
+    """Asymmetric L2² k-NN over the quantized store (the reference's
+    `sq8_search`, ops/quantize.py:42-76): queries [B, d] f32, codes
+    [N, d] uint8, mins / scales [N], valid [N] bool. With x̂ = min +
+    scale·u, `‖q‖² − 2·q·x̂ + ‖x̂‖²` clamped at 0 and +inf where not valid.
+    Returns ([B, k] distances ascending, [B, k] int32 row ids, -1 where
+    +inf); ties go to the lower row."""
+    from turdb_tpu_torch.kernels import sq8_scan   # kernels imports this module
+
+    q = queries.float().contiguous()
+    return sq8_scan(q, torch.sum(q * q, dim=-1), torch.sum(q, dim=-1), codes.contiguous(),
+                    mins.float().contiguous(), scales.float().contiguous(),
+                    valid.to(torch.bool).contiguous(), k)
