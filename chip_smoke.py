@@ -16,7 +16,12 @@
    the old limits: P*L = 32768, k = 300, m = 600; K4's COSINE and IP
    epilogues), with CUDA-event times, the least time the card could take
    (bound), and the one PyTorch call that computes the same function
-   where there is one (library);
+   where there is one (library). K2 is bit-equal at every case: ties
+   planted across its segment boundaries, a width that is no multiple of
+   the segment, the short-row path at n = 2, 20, 40, 2048 up to k = n, the
+   merge timed by its device time in a trace beside `torch.topk`'s; K3 on
+   its tensor cores at d = 32, 128, 384, r = 1..4, with all-+inf rows, and
+   the bf16 product alone (`gemm_ms`) beside it;
 4. the main paths, each with the launch counts set to 0 just before it
    and read just after:
    - f32 headline: the bench's 1M x 128 `make_pool`, the FlatIndex oracle,
@@ -68,8 +73,8 @@
    index at the path's shapes, and K9 (a wave of 512 at every level, a
    1024-query descent), K8-SQ (SQ8, SQ16) and K7's presorted mode (W = 100)
    on the inserted and wave-built indexes, K2 at the mesh merge's
-   [1024, 40], K10 on the dense index's cell lists (bit-equal), K11 at
-   B = 1024 over the 1M store;
+   [1024, 40] and at the sq8 index's own cell-selection width, K10 on the
+   dense index's cell lists (bit-equal), K11 at B = 1024 over the 1M store;
 6. prints {"kernels": [...]}, the card, and, last, {"ok": true, "device": {...}}.
 
 Any failure exits non-zero without the last line. The full report goes to
@@ -216,6 +221,36 @@ def _near_equal(dk, ik, dp, ip, rtol, what):
     return err, float(((ik != ip) & fin).float().mean())
 
 
+def _plant_segment_ties(rows, n):
+    """Exact ties across K2's segment boundaries: the first 64 entries of
+    each segment of a width-n row copy the last 64 of the segment before
+    (rows: a [n, ...] tensor whose entries make the columns)."""
+    from turdb_tpu_torch.kernels import topk_segments
+
+    w = -(-n // topk_segments(n))
+    for s in range(w, n, w):
+        rows[s:s + 64] = rows[s - 64:s]
+
+
+def _trace_ms(fn, kernel=None, calls=50):
+    """Device ms of one call of fn, from a trace of `calls` calls: the
+    time of the kernel whose name holds `kernel`, or (None) all of the
+    call's device time. An event pair around one small call also holds
+    the host's launch path."""
+    from turdb_tpu_torch.utils.timing import device_profile
+
+    prof = device_profile(lambda: [fn() for _ in range(calls)])
+    check(bool(prof.get("traced")), "the trace saw no device activity")
+    if kernel is None:
+        return prof["busy_ms"] / calls
+    kern = [t for t in prof["top"] if kernel in t["name"]]
+    check(len(kern) == 1 and kern[0]["calls"] > 0,
+          f"{kernel} did not show in its trace: {json.dumps(prof['top'])}")
+    if kern[0]["calls"] != calls:
+        log(f"the trace kept {kern[0]['calls']} of {calls} calls of {kernel}")
+    return kern[0]["ms"] / kern[0]["calls"]
+
+
 def k2_phase(dev, gen, cells=CELLS, flat_chunk=FLAT_CHUNK):
     from turdb_tpu_torch.kernels import EPI_L2, _row_values, topk_rows, topk_rows_plain
 
@@ -224,6 +259,7 @@ def k2_phase(dev, gen, cells=CELLS, flat_chunk=FLAT_CHUNK):
         vp, pp = topk_rows_plain(x, k, **kw)
         full = _row_values(x, kw.get("rown"), kw.get("coln"), kw.get("colvalid"),
                            kw.get("epilogue", 0), kw.get("clamp", False))
+        check(torch.equal(vk, vp) and torch.equal(pk, pp), f"{what}: not bit-equal")
         return _selection_error(vk, pk, vp, pp, lambda p: torch.gather(full, 1, p.long()),
                                 K2_RTOL, what)
 
@@ -243,8 +279,10 @@ def k2_phase(dev, gen, cells=CELLS, flat_chunk=FLAT_CHUNK):
     # L2 epilogue, at every nprobe of the sweep
     q = torch.randn(BATCH, DIM, device=dev, generator=gen) * 4
     c = torch.randn(cells, DIM, device=dev, generator=gen) * 4
-    # a few exact duplicate centroids plant exact ties
+    # a few exact duplicate centroids plant exact ties, some of them across
+    # K2's segment boundaries
     c[1::97] = c[0::97][: c[1::97].shape[0]]
+    _plant_segment_ties(c, cells)
     qn, cn = (q * q).sum(1), (c * c).sum(1)
     dots = q @ c.T
     kw = dict(rown=qn, coln=cn, epilogue=EPI_L2)
@@ -253,11 +291,17 @@ def k2_phase(dev, gen, cells=CELLS, flat_chunk=FLAT_CHUNK):
         if p in (K1_PROBE, PROBES[-1]):
             out[f"cell_select_k{p}"] = {"shape": [BATCH, cells], "k": p, "max_abs_err": err,
                                         "tie_id_diff": tie_frac, **timed(dots, p, **kw)}
+    # a width that is no multiple of the segment (three uneven segments)
+    odd = cells - 1000
+    compare(dots[:, :odd].contiguous(), PROBES[-1], f"K2 width {odd}",
+            rown=qn, coln=cn[:odd].contiguous(), epilogue=EPI_L2)
     # flat oracle chunk: [256, 131072], clamped L2 + valid mask, at the
     # oracle's k=10, at k=50 and at k=300 (past the old 256 limit)
     qf = q[:N_ORACLE].contiguous()
     xf = torch.randn(flat_chunk, DIM, device=dev, generator=gen) * 4
     valid = torch.rand(flat_chunk, device=dev, generator=gen) < 0.9
+    _plant_segment_ties(xf, flat_chunk)
+    _plant_segment_ties(valid, flat_chunk)
     dots = qf @ xf.T
     kw = dict(rown=(qf * qf).sum(1), coln=(xf * xf).sum(1), colvalid=valid,
               epilogue=EPI_L2, clamp=True)
@@ -271,7 +315,19 @@ def k2_phase(dev, gen, cells=CELLS, flat_chunk=FLAT_CHUNK):
     merged = torch.cat([best, best], dim=1)
     err, tie_frac = compare(merged, K, "K2 merge")
     out["merge"] = {"shape": [N_ORACLE, 2 * K], "k": K, "max_abs_err": err,
-                    "tie_id_diff": tie_frac, **timed(merged, K)}
+                    "tie_id_diff": tie_frac, **timed(merged, K),
+                    "device_ms": _trace_ms(lambda: topk_rows(merged, K), "topk_short_kernel"),
+                    "library_device_ms": _trace_ms(lambda: torch.topk(merged, K, largest=False))}
+    # the short-row path at n = 2, 20, 40 and 2048, k = min(10, n) and k = n,
+    # each row two copies of one half (exact ties)
+    short = {}
+    for n in (2, 20, 40, 2048):
+        half = dots[:BATCH, : n // 2]
+        x = torch.cat([half, half], 1).contiguous()
+        for kk in sorted({min(K, n), n}):
+            compare(x, kk, f"K2 short n={n} k={kk}")
+        short[str(n)] = {"k": [min(K, n), n], "ms": _median_ms(lambda: topk_rows(x, n))}
+    out["short"] = short
     return out
 
 
@@ -336,46 +392,85 @@ def k1_phase(dev, gen, cells=CELLS, lanes=LANES):
     return out
 
 
-def k3_phase(dev, gen, rows=K3_ROWS, cells=K3_CELLS, cells_r2=CELLS):
+def _gemm_ms(xb, cb, chunk=1 << 17):
+    """The yardstick beside K3: a bf16 `torch.mm` of the same operands with
+    fp32 output (the product alone, no argmin), over row chunks of x (the
+    whole [n, C] matrix does not fit), as one timed call."""
+    def run():
+        for s in range(0, xb.shape[0], chunk):
+            torch.mm(xb[s:s + chunk], cb.T, out_dtype=torch.float32)
+
+    return _median_ms(run, reps=3)
+
+
+def k3_phase(dev, gen, rows=K3_ROWS, cells=K3_CELLS, cells_r2=CELLS, small=(100_000, 4096)):
     from turdb_tpu_torch.kernels import kmeans_assign, kmeans_assign_plain
 
-    centers = torch.randn(1024, DIM, device=dev, generator=gen) * 4
-    pick = torch.randint(0, 1024, (rows,), device=dev, generator=gen)
-    x = centers[pick] + torch.randn(rows, DIM, device=dev, generator=gen)
-    xn = (x * x).sum(1)
+    def pool(n, d):
+        centers = torch.randn(1024, d, device=dev, generator=gen) * 4
+        pick = torch.randint(0, 1024, (n,), device=dev, generator=gen)
+        x = centers[pick] + torch.randn(n, d, device=dev, generator=gen)
+        return x, (x * x).sum(1)
 
-    def agree(n_cells, r):
-        cents = x[torch.randperm(rows, device=dev, generator=gen)[:n_cells]].contiguous()
+    def agree(x, xn, n_cells, r, timed=True, inf_rows=None):
+        n, d = x.shape
+        cents = x[torch.randperm(n, device=dev, generator=gen)[:n_cells]].contiguous()
         cn = (cents * cents).sum(1)
-        args = (x, cents, xn, cn, r)
+        xb = x.bfloat16()          # rounded once, as a k-means run rounds its rows
+        args = (xb, cents, xn, cn, r)
         ik, dk = kmeans_assign(*args)
         ip, dp = kmeans_assign_plain(*args)
+        fin = torch.isfinite(dp)
+        check(torch.equal(fin, torch.isfinite(dk)), f"K3 r={r} d={d}: +inf entries differ")
         same = (ik == ip).all(1)
         frac = float(same.float().mean())
-        check(frac >= K3_AGREE, f"K3 r={r} C={n_cells}: agreement {frac}")
+        check(frac >= K3_AGREE, f"K3 r={r} C={n_cells} d={d}: agreement {frac}")
         # every disagreement is a near tie: the plain distance of the
         # kernel's pick is within tolerance of the plain best
-        xb, cb = x.bfloat16().float(), cents.bfloat16().float()
+        xf, cb = xb.float(), cents.bfloat16().float()
         at = (xn[:, None] + cn[ik.long()]) - 2.0 * torch.einsum(
-            "nd,nrd->nr", xb, cb[ik.long()])
+            "nd,nrd->nr", xf, cb[ik.long()])
         tol = DOT_RTOL * (xn[:, None] + cn[ip.long()]).abs()
-        check(bool(((at - dp).abs() <= tol).all()), f"K3 r={r}: a disagreement is no near tie")
-        del at, xb, cb
-        return {
-            "shape": {"n": rows, "C": n_cells, "d": DIM, "r": r}, "agreement": frac,
-            "max_abs_err": float((dk[same] - dp[same]).abs().max()),
-            "ms": _median_ms(lambda: kmeans_assign(*args)),
-            "plain_ms": _median_ms(lambda: kmeans_assign_plain(*args)),
-            # no one PyTorch call gives the bf16-rounded argmin / top-R
-            "library_ms": None,
-            **_bound(4 * (rows * DIM + n_cells * DIM + rows + n_cells) + 8 * rows * r,
-                     2 * rows * n_cells * DIM, BF16_OPS),
-        }
+        check(bool((((at - dp).abs() <= tol) | ~fin).all()),
+              f"K3 r={r} d={d}: a disagreement is no near tie")
+        check(bool((((dk - dp).abs() <= tol) | ~fin).all()), f"K3 r={r} d={d}: distances differ")
+        if inf_rows is not None:
+            want = torch.arange(r, device=dev, dtype=torch.int32).expand(len(inf_rows), r)
+            check(torch.equal(ik[inf_rows], want), f"K3 r={r} d={d}: an all-+inf row")
+        del at, xf, cb
+        both = same & fin.all(1)
+        out = {"shape": {"n": n, "C": n_cells, "d": d, "r": r}, "agreement": frac,
+               "max_abs_err": float((dk[both] - dp[both]).abs().max()) if bool(both.any())
+               else 0.0}
+        if timed:
+            out.update(
+                ms=_median_ms(lambda: kmeans_assign(*args)),
+                plain_ms=_median_ms(lambda: kmeans_assign_plain(*args), reps=3),
+                # no one PyTorch call gives the bf16-rounded argmin / top-R
+                library_ms=None,
+                **_bound(4 * (n * d + n_cells * d + n + n_cells) + 8 * n * r,
+                         2 * n * n_cells * d, BF16_OPS))
+            out["gemm_ms"] = _gemm_ms(xb, cents.bfloat16())
+        return out
 
-    # Lloyd's first pass (r=1, C = 8192) and the replica placement's top-2
+    # Lloyd's first pass (r=1, C = n//128) and the replica placement's top-2
     # over every row at the post-split cell count
-    out = agree(cells, 1)
-    out["top2"] = agree(cells_r2, 2)
+    x, xn = pool(rows, DIM)
+    out = agree(x, xn, cells, 1)
+    out["top2"] = agree(x, xn, cells_r2, 2)
+    del x, xn
+    # the widths of the tests (32) and of the emb384 cell, r = 1..4, with a
+    # few rows whose every distance is +inf (ids 0..r-1)
+    n, c = small
+    out["cases"] = []
+    for d in (32, DIM, 384):
+        x, xn = pool(n, d)
+        inf_rows = torch.arange(0, n, n // 7, device=dev)
+        xn[inf_rows] = float("inf")
+        for r in (1, 2, 3, 4):
+            case = agree(x, xn, c, r, timed=(r == 1), inf_rows=inf_rows)
+            out["cases"].append(case)
+        del x, xn
     return out
 
 
@@ -1743,7 +1838,28 @@ def mesh_ivf_phase(dev, x, queries, truth):
     out["one_shard_equals_plain"] = same
     log(f"1-shard mesh ids and distances equal to the plain index: {same}")
     check(same, "a 1-shard mesh answers differently from the plain index")
+    out["data_axis"] = _data_axis_check(dev, x[:N_ONE_SHARD], queries[:BATCH])
     return out, merge_case
+
+
+def _data_axis_check(dev, x, queries):
+    """A (data 2, db 2) mesh of the card (each data row serves half of the
+    batch) against a (data 1, db 2) mesh over the same shards: the share of
+    equal ids and the largest distance difference (the cell selection's
+    cuBLAS product may sum in another order at another batch size)."""
+    from turdb_tpu_torch.parallel import ShardedIvfIndex, make_mesh
+
+    two = ShardedIvfIndex(dim=DIM, mesh=make_mesh(n_db=2, n_data=2, devices=[dev] * 4))
+    two.add(x)
+    two.train()
+    one = ShardedIvfIndex(dim=DIM, mesh=make_mesh(n_db=2, devices=[dev] * 2))
+    one.shards, one._cfg = two.shards, two._cfg
+    d2, g2 = two.search(queries, K, nprobe=8)
+    d1, g1 = one.search(queries, K, nprobe=8)
+    out = {"same_ids": float((g2 == g1).mean()), "max_abs_err": float(np.abs(d2 - d1).max())}
+    log(f"(data 2, db 2) against (data 1, db 2): {json.dumps(out)}")
+    check(out["same_ids"] >= 0.999, f"the data axis changed the answers: {out}")
+    return out
 
 
 def mesh_hnsw_phase(dev, x, queries, truth):
@@ -1935,21 +2051,46 @@ def k11_check(store, gen, truth):
 
 def k2_merge_check(case):
     """K2 at the mesh merge's shape: the 4 shards' lists of one batch,
-    [1024, 4 · 10] -> 10."""
+    [1024, 4 · 10] -> 10, bit-equal; its time between events and its
+    device time in a trace, beside `torch.topk`'s."""
     from turdb_tpu_torch.kernels import topk_rows, topk_rows_plain
 
     ds, _ = case
     x = torch.cat(ds, dim=1).contiguous()
     vk, pk = topk_rows(x, K)
     vp, pp = topk_rows_plain(x, K)
+    check(torch.equal(vk, vp) and torch.equal(pk, pp), "K2 mesh merge: not bit-equal")
     err, tie = _selection_error(vk, pk, vp, pp, lambda p: torch.gather(x, 1, p.long()),
                                 K2_RTOL, "K2 mesh merge")
     b, n = x.shape
     return {"shape": [b, n], "k": K, "max_abs_err": err, "tie_id_diff": tie,
             "ms": _median_ms(lambda: topk_rows(x, K)),
+            "device_ms": _trace_ms(lambda: topk_rows(x, K), "topk_short_kernel"),
             "plain_ms": _median_ms(lambda: topk_rows_plain(x, K)),
             "library_ms": _median_ms(lambda: torch.topk(x, K, largest=False)),
+            "library_device_ms": _trace_ms(lambda: torch.topk(x, K, largest=False)),
             **_bound(4 * b * n + 8 * b * K, b * n, FP32_OPS)}
+
+
+def k2_width_check(idx, batch, nprobe):
+    """K2 at the sq8 headline's own cell selection: [1024, C] with C read
+    from the built index (no multiple of the segment), k = its gate's
+    nprobe; bit-equal, timed beside `torch.topk`."""
+    from turdb_tpu_torch.kernels import EPI_L2, _row_values, topk_rows, topk_rows_plain
+
+    st = idx.state
+    q = batch.float().contiguous()
+    dots = q @ st.centroids.T
+    kw = dict(rown=(q * q).sum(1), coln=st.cnorms, epilogue=EPI_L2)
+    vk, pk = topk_rows(dots, nprobe, **kw)
+    vp, pp = topk_rows_plain(dots, nprobe, **kw)
+    check(torch.equal(vk, vp) and torch.equal(pk, pp), "K2 at the sq8 cell width: not bit-equal")
+    full = _row_values(dots, kw["rown"], kw["coln"], None, EPI_L2, False)
+    b, n = dots.shape
+    return {"shape": [b, n], "k": nprobe, "max_abs_err": 0.0,
+            "ms": _median_ms(lambda: topk_rows(dots, nprobe, **kw)),
+            "library_ms": _median_ms(lambda: torch.topk(full, nprobe, largest=False)),
+            **_bound(4 * b * n + 4 * (b + n) + 8 * b * nprobe, 3 * b * n, FP32_OPS)}
 
 # ---------------------------------------------------------------------------
 
@@ -2025,7 +2166,9 @@ def kernel_rows(launches):
     return [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(counts.get(name, 0) for counts in launches.values()),
-         **{k: timed[name][k] for k in keys}}
+         **{k: timed[name][k] for k in keys},
+         # K3's yardstick: the bf16 product of its operands alone
+         **({"gemm_ms": timed[name]["gemm_ms"]} if "gemm_ms" in timed[name] else {})}
         for name, (src, rep) in KERNELS.items()
     ]
 
@@ -2076,6 +2219,8 @@ def run_paths(dev, launches):
     idx, batches = counted("sq8", sq8)
     sq8_gate = REPORT["sq8"]["gate_nprobe"]
     profile("sq8", idx, batches, sq8_gate)
+    REPORT["k2"]["sq8_cell_width"] = k2_width_check(idx, batches[0], sq8_gate)
+    log(f"k2 at the sq8 cell width: {json.dumps(REPORT['k2']['sq8_cell_width'])}")
     del idx
 
     def compact():

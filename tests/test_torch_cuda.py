@@ -152,6 +152,110 @@ def test_wide_selections_match_plain(cuda):
             assert (got[1] == want[1]).float().mean() >= 0.99
 
 
+def _tie_row_matrix(g, b, n, cuda):
+    """[b, n] with exact ties planted across K2's segment boundaries: each
+    segment's first 64 columns copy the previous segment's last 64, and
+    every 7th column of the first segment repeats in the last."""
+    x = torch.randn(b, n, device=cuda, generator=g)
+    w = -(-n // kernels.topk_segments(n))
+    for s in range(w, n, w):
+        x[:, s:s + 64] = x[:, s - 64:s]
+    m = w // 7
+    x[:, n - m:] = x[:, 0:7 * m:7]
+    return x
+
+
+@pytest.mark.parametrize("n", [8192, 24576, 31078, 131072])
+def test_topk_rows_segments_match_plain_at_boundary_ties(cuda, n):
+    """K2's long rows (segments + the last block's merge): bit-equal to
+    the plain version with ties across segment boundaries, widths that are
+    not a multiple of the segment, every epilogue, clamp and colvalid,
+    one launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = _tie_row_matrix(g, 48, n, cuda)
+    rown = torch.rand(48, device=cuda, generator=g)
+    coln = torch.rand(n, device=cuda, generator=g)
+    valid = torch.rand(n, device=cuda, generator=g) < 0.8
+    for epi in (kernels.EPI_NONE, kernels.EPI_L2, kernels.EPI_COS, kernels.EPI_IP):
+        for k in (1, 5, 64, 300, 2048):
+            for clamp, colvalid in ((False, None), (True, valid)):
+                kw = dict(rown=rown, coln=coln, colvalid=colvalid, epilogue=epi, clamp=clamp)
+                before = kernels.launches["topk_rows"]
+                vk, pk = kernels.topk_rows(x, k, **kw)
+                assert kernels.launches["topk_rows"] == before + 1
+                vp, pp = kernels.topk_rows_plain(x, k, **kw)
+                assert torch.equal(vk, vp) and torch.equal(pk, pp), (epi, k, clamp)
+    # rows with fewer than k finite lanes, and rows of one value
+    few = torch.zeros(n, dtype=torch.bool, device=cuda)
+    few[::n // 5] = True
+    flat = torch.full((4, n), 3.0, device=cuda)
+    for xx, colvalid in ((x[:8].contiguous(), few), (flat, None), (flat, few)):
+        vk, pk = kernels.topk_rows(xx, 64, colvalid=colvalid)
+        vp, pp = kernels.topk_rows_plain(xx, 64, colvalid=colvalid)
+        assert torch.equal(vk, vp) and torch.equal(pk, pp)
+
+
+@pytest.mark.parametrize("n", [2, 20, 40, 33, 1230, 2048])
+def test_topk_rows_short_path_matches_plain(cuda, n):
+    """K2's warp path (n <= 2048): bit-equal at k = 1, a middle k and k = n,
+    with exact ties (a row merged with itself), every epilogue."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    half = torch.randn(70, -(-n // 2), device=cuda, generator=g)
+    x = torch.cat([half, half], 1)[:, :n].contiguous()
+    rown = torch.rand(70, device=cuda, generator=g)
+    coln = torch.rand(n, device=cuda, generator=g)
+    valid = torch.rand(n, device=cuda, generator=g) < 0.7
+    for epi in (kernels.EPI_NONE, kernels.EPI_L2, kernels.EPI_COS, kernels.EPI_IP):
+        for k in sorted({1, max(1, n // 3), n}):
+            kw = dict(rown=rown, coln=coln, colvalid=valid, epilogue=epi, clamp=True)
+            vk, pk = kernels.topk_rows(x, k, **kw)
+            vp, pp = kernels.topk_rows_plain(x, k, **kw)
+            assert torch.equal(vk, vp) and torch.equal(pk, pp), (epi, k)
+
+
+def _near_tie_agreement(x, cents, xn, cn, r, ik, dk, ip, dp, rtol=1e-5):
+    """K3 against its plain version: the share of rows whose ids agree, and
+    whether every disagreement is a near tie (the plain distance of the
+    kernel's pick within rtol of the plain best) and every distance is
+    within rtol of the distance scale."""
+    fin = torch.isfinite(dp)
+    assert torch.equal(fin, torch.isfinite(dk))
+    xb, cb = x.bfloat16().float(), cents.bfloat16().float()
+    at = (xn[:, None] + cn[ik.long()]) - 2.0 * torch.einsum("nd,nrd->nr", xb, cb[ik.long()])
+    tol = rtol * (xn[:, None] + cn[ip.long()]).abs()
+    near = ((at - dp).abs() <= tol) | ~fin
+    close = ((dk - dp).abs() <= tol) | ~fin
+    return float((ik == ip).all(1).float().mean()), bool(near.all() and close.all())
+
+
+@pytest.mark.parametrize("d", [32, 40, 128, 384, 512])
+def test_kmeans_assign_tensor_cores_agree_with_plain(cuda, d):
+    """K3 on bf16 tensor cores at d = 32, 128, 384 (resident row tile), 40
+    (zero-padded to 48) and 512 (streamed k-chunks), r = 1..4, pad
+    centroids at +inf and a few rows whose every distance is +inf: ids
+    agree on >= 99.5 % of rows, every disagreement is a near tie, and the
+    all-+inf rows return ids 0..r-1. A bf16 x gives the same answer."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    centers = torch.randn(64, d, device=cuda, generator=g) * 4
+    x = centers[torch.randint(0, 64, (5000,), device=cuda, generator=g)]
+    x = x + torch.randn(5000, d, device=cuda, generator=g)
+    cents = torch.randn(700, d, device=cuda, generator=g) * 4
+    xn = (x * x).sum(1)
+    xn[::997] = float("inf")
+    cn = (cents * cents).sum(1)
+    cn[650:] = float("inf")
+    for r in (1, 2, 3, 4):
+        ik, dk = kernels.kmeans_assign(x, cents, xn, cn, r)
+        ip, dp = kernels.kmeans_assign_plain(x, cents, xn, cn, r)
+        agree, near = _near_tie_agreement(x, cents, xn, cn, r, ik, dk, ip, dp)
+        assert agree >= 0.995 and near, (d, r, agree)
+        assert bool((ik[xn.isfinite()] < 650).all())
+        assert torch.equal(ik[::997], torch.arange(r, device=cuda, dtype=torch.int32).expand(
+            ik[::997].shape))
+        ib, db = kernels.kmeans_assign(x.bfloat16(), cents, xn, cn, r)
+        assert torch.equal(ib, ik) and torch.equal(db, dk)
+
+
 def _sq8_store(pvecs):
     from turdb_tpu_torch.ops.quantize import sq8_store, sq16_encode
 
@@ -649,7 +753,7 @@ def test_mesh_on_one_card_answers_as_the_plain_index(cuda):
     gids = four.add(x)
     before = kernels.launches["topk_rows"]
     _, g4 = four.search(q, 10, nprobe=8)
-    assert kernels.launches["topk_rows"] >= before + 5     # 4 cell selections + the merge
+    assert kernels.launches["topk_rows"] == before + 5     # 4 cell selections + the merge
     lut = {int(v): r for r, v in enumerate(gids)}
     rows = np.array([[lut.get(int(v), -1) for v in row] for row in g4])
     assert recall_of(rows, truth) >= recall_of(ip, truth) - 0.02

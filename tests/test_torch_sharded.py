@@ -334,38 +334,130 @@ def test_mesh_needs_a_cuda_device_unless_given_devices(monkeypatch):
 def test_launch_runs_on_the_device_of_its_tensors(monkeypatch):
     """A kernel launch selects its tensors' device and that device's
     stream, not whichever device is current (a mesh keeps shards on
-    several cards)."""
-    seen = []
+    several cards); it makes the device current only when it is not, and
+    looks the C entry point up once."""
+    seen, lookups = [], []
 
     class FakeLib:
-        def topk_rows(self, *args):
-            seen.append(("launch", args[-1]))
-            return 0
-
-    class Stream:
-        def __init__(self, dev):
-            self.cuda_stream = f"stream-of-{dev}"
+        def __getattr__(self, name):
+            lookups.append(name)
+            return lambda *args: seen.append(("launch", args[-1])) or 0
 
     class DeviceGuard:
         def __init__(self, dev):
             self.dev = dev
 
         def __enter__(self):
-            seen.append(("enter", str(self.dev)))
+            seen.append(("enter", self.dev))
 
         def __exit__(self, *exc):
-            seen.append(("exit", str(self.dev)))
+            seen.append(("exit", self.dev))
 
     monkeypatch.setattr(kernels.build, "library", lambda: FakeLib())
+    monkeypatch.setattr(kernels, "_entry", {})
     monkeypatch.setattr(kernels.torch.cuda, "device", DeviceGuard)
-    monkeypatch.setattr(kernels.torch.cuda, "current_stream", lambda dev=None: Stream(dev))
+    monkeypatch.setattr(kernels.torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(kernels.torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: f"stream-of-cuda:{index}", raising=False)
     before = kernels.launches["topk_rows"]
     kernels._launch("topk_rows", torch.device("cuda", 3), 1, 2)
-    assert seen == [("enter", "cuda:3"), ("launch", "stream-of-cuda:3"), ("exit", "cuda:3")]
-    assert kernels.launches["topk_rows"] == before + 1
+    assert seen == [("enter", 3), ("launch", "stream-of-cuda:3"), ("exit", 3)]
+    seen.clear()
+    kernels._launch("topk_rows", torch.device("cuda", 0), 1, 2)
+    kernels._launch("topk_rows", torch.device("cuda"), 1, 2)
+    assert seen == [("launch", "stream-of-cuda:0")] * 2
+    assert lookups == ["topk_rows"]
+    assert kernels.launches["topk_rows"] == before + 3
     kernels.launches["topk_rows"] = before
     with pytest.raises(ValueError, match="one cuda device"):
         kernels._on_cuda(FakeCuda(0), FakeCuda(1))
+
+
+# --- the data axis -----------------------------------------------------------
+
+def _spy(monkeypatch, module, name):
+    """Record (state, queries) of each call of module.name."""
+    calls, real = [], getattr(module, name)
+
+    def spy(state, q, *a, **kw):
+        calls.append((state, q.clone()))
+        return real(state, q, *a, **kw)
+
+    monkeypatch.setattr(module, name, spy)
+    return calls
+
+
+def _one_row_twin(idx, cls, **kw):
+    """The same shards behind a (data 1) mesh of the same db devices."""
+    twin = cls(dim=32, mesh=make_mesh(n_db=idx.n_db, n_data=1, devices=CPUS), **kw)
+    twin.shards = idx.shards
+    for attr in ("_cfg", "cfg", "capacity", "_descent_ef", "_serve"):
+        if hasattr(idx, attr):
+            setattr(twin, attr, getattr(idx, attr))
+    return twin
+
+
+@pytest.mark.parametrize("copies", ["shared", "real"])
+def test_data_axis_splits_the_batch_over_row_copies(data, monkeypatch, copies):
+    """A (data 2, db 2) mesh: each data row holds a copy of every shard
+    (the same tensors where the row's device is row 0's, as on this CPU
+    list; real copies when the devices differ, forced here), row r's
+    copies get slice r of the padded batch, and the answers equal those of
+    the (data 1, db 2) mesh over the same shards, bit for bit. After an
+    add or a delete, row 1's copies answer with the new rows."""
+    from turdb_tpu_torch.parallel import sharded, sharded_ivf
+
+    if copies == "real":
+        monkeypatch.setattr(sharded, "_same_memory", lambda a, b: False)
+    x, q, _ = data
+    q = q[:31]                                     # odd: the data axis pads it
+    two = ShardedIvfIndex(dim=32, mesh=make_mesh(n_db=2, n_data=2, devices=CPUS), nprobe=16)
+    two.add(x[:2000])
+    two.train()
+    one = _one_row_twin(two, ShardedIvfIndex, nprobe=16)
+    calls = _spy(monkeypatch, sharded_ivf, "ivf_search_impl")
+    d2, g2 = two.search(q, k=10)
+    padded = np.concatenate([q, np.zeros((1, 32), np.float32)])
+    assert len(calls) == 4
+    for c, (state, qs) in enumerate(calls):
+        r, s = divmod(c, 2)
+        np.testing.assert_array_equal(qs.numpy(), padded[r * 16:(r + 1) * 16])
+        own = two.shards[s].state
+        assert (state is own) == (r == 0 or copies == "shared")
+        assert torch.equal(state.pvecs, own.pvecs)
+        if copies == "real" and r == 1:
+            assert state.pvecs.data_ptr() != own.pvecs.data_ptr()
+    d1, g1 = one.search(q, k=10)
+    np.testing.assert_array_equal(g2, g1)
+    np.testing.assert_array_equal(d2, d1)
+    # an append lands on row 0; row 1's copies see it before the next search
+    new = two.add(q[16:31] + 1e-3)
+    _, gn = two.search(q, k=1)
+    np.testing.assert_array_equal(gn[16:31, 0], new)
+
+    hn = ShardedHnswIndex(dim=32, mesh=make_mesh(n_db=2, n_data=2, devices=CPUS),
+                          ef_construction=32)
+    gids = hn.add(x[:1200])
+    hn_one = _one_row_twin(hn, ShardedHnswIndex, ef_construction=32)
+    hcalls = _spy(monkeypatch, sharded, "hnsw_search_impl")
+    d2, g2 = hn.search(q, k=10, ef=48)
+    assert [qs.shape[0] for _, qs in hcalls] == [16] * 4
+    np.testing.assert_array_equal(hcalls[2][1].numpy(), padded[16:])
+    d1, g1 = hn_one.search(q, k=10, ef=48)
+    np.testing.assert_array_equal(g2, g1)
+    np.testing.assert_array_equal(d2, d1)
+    hn.pack_serving()
+    hn_one._serve = hn._serve
+    np.testing.assert_array_equal(hn.search_serve(q, k=10, ef=48)[1],
+                                  hn_one.search_serve(q, k=10, ef=48)[1])
+    # a delete: the deleted rows leave row 1's answers too
+    _, first = hn.search(x[:32], k=1, ef=48)
+    hn.delete(first[16:, 0])
+    _, after = hn.search(x[:32], k=1, ef=48)
+    assert not np.isin(after[16:, 0], first[16:, 0]).any()
+    assert hn.add(x[1200:1210]).shape == (10,)
+    _, found = hn.search(x[1200:1210], k=1, ef=48)
+    assert (found[:, 0] >= 0).all()
 
 
 class FakeCuda:

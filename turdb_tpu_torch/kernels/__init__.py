@@ -4,6 +4,7 @@ and the launch counters.
     K1 ivf_probe_f32  csrc/ivf_probe.cu      fused f32 IVF probe + top-k / candidates
     K2 topk_rows      csrc/topk_rows.cu      exact per-row k-smallest
     K3 kmeans_assign  csrc/kmeans_assign.cu  bf16 nearest-centroid argmin / top-R
+                                             (tensor cores)
     K4 ivf_probe_sq8  csrc/ivf_probe.cu      fused int8 (SQ8) IVF probe + top-k / candidates
     K5 ivf_rerank     csrc/ivf_rerank.cu     exact rerank over the f32 or SQ16 row store
     K6 hnsw_serve_beam  csrc/hnsw_beam.cu    HNSW int8 serving beam + exact rerank
@@ -81,17 +82,31 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+# the C entry points, looked up in the library once each
+_entry: dict = {}
+
+
 def _launch(name, device, *args):
     """Launch kernel `name` on `device`, the device of its tensors, on that
     device's current stream, whatever device is current: a mesh keeps
-    shards on several cards and a kernel must run where its pointers live."""
-    lib = build.library()
-    with torch.cuda.device(device):
-        err = getattr(lib, name)(*args, torch.cuda.current_stream(device).cuda_stream)
+    shards on several cards and a kernel must run where its pointers live.
+    The device is made current only for the launch, and only when it is
+    not already."""
+    fn = _entry.get(name)
+    if fn is None:
+        fn = _entry[name] = getattr(build.library(), name)
+    cur = torch.cuda.current_device()
+    index = cur if device.index is None else device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == cur:
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, stream)
     if err != 0:
         # an argument past a kernel's limits (selection width, shared
         # memory) comes back as a CUDA error: the limits live in csrc/
-        msg = lib.kernel_error_string(err).decode()
+        msg = build.library().kernel_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: {msg} ({err})")
     launches[name] += 1
 
@@ -127,13 +142,44 @@ def topk_rows_plain(x, k, rown=None, coln=None, colvalid=None,
     return vals[:, :k].contiguous(), pos[:, :k].to(torch.int32)
 
 
+# K2 selects a row longer than TOPK_SHORT_MAX in segments of at most
+# TOPK_SEG_W columns, merged by the row's last block; shorter rows take the
+# warp path (csrc/topk_rows.cu)
+TOPK_SEG_W, TOPK_SHORT_MAX = 8192, 2048
+# per-device row counters of the segment merge: zero between launches (the
+# kernel resets what it counts), so launches that share them run in one
+# stream's order
+_row_counters: dict = {}
+
+
+def topk_segments(n: int) -> int:
+    """The segments K2 cuts a row of n columns into (1: no merge); they
+    are of equal width, ceil(n / segments)."""
+    return -(-n // TOPK_SEG_W) if n > TOPK_SHORT_MAX else 1
+
+
+def _topk_scratch(b, n, k, device):
+    """(candidate keys, candidate positions, row counters) of a segmented
+    launch, or Nones."""
+    nseg = topk_segments(n)
+    if nseg == 1:
+        return None, None, None
+    cand = torch.empty((2, b * nseg * k), dtype=torch.int32, device=device)
+    counters = _row_counters.get(device)
+    if counters is None or counters.numel() < b:
+        counters = _row_counters[device] = torch.zeros(max(b, 1024), dtype=torch.int32,
+                                                       device=device)
+    return cand[0], cand[1], counters
+
+
 def topk_rows(x: torch.Tensor, k: int, *, rown=None, coln=None, colvalid=None,
               epilogue: int = EPI_NONE, clamp: bool = False):
     """Exact k smallest of each row of `x` [B, N] f32, after an optional
     epilogue: L2 `(rown[b] + coln[j]) − 2·x[b, j]` (clamped at 0 if
     `clamp`), COS `1 − x`, IP `−x`; lanes where `colvalid` [N] is False
     become +inf. Returns ([B, k] values ascending, [B, k] int32 column
-    positions); ties go to the lower position, as `lax.top_k` does."""
+    positions); ties go to the lower position, as `lax.top_k` does. On
+    CUDA one launch a call."""
     b, n = x.shape
     if not 0 < k <= min(n, SEL_MAX):
         raise ValueError(f"topk_rows: need 0 < k <= min(N, {SEL_MAX}), got k={k}, N={n}")
@@ -154,7 +200,8 @@ def topk_rows(x: torch.Tensor, k: int, *, rown=None, coln=None, colvalid=None,
                 _ptr(rown) if epilogue == EPI_L2 else None,
                 _ptr(coln) if epilogue == EPI_L2 else None,
                 _ptr(_as_u8(colvalid)), epilogue, int(clamp), k,
-                out_d.data_ptr(), out_i.data_ptr())
+                out_d.data_ptr(), out_i.data_ptr(),
+                *map(_ptr, _topk_scratch(b, n, k, x.device)))
     return out_d, out_i
 
 
@@ -489,27 +536,42 @@ def kmeans_assign_plain(x, cents, xn, cn, r):
     return torch.cat(ids), torch.cat(ds)
 
 
+def _bf16_operand(t, d16):
+    """t rounded to bf16 (a no-op for bf16), its columns zero-padded to d16:
+    K3's operand layout. Zero columns leave every dot unchanged."""
+    t = t.to(torch.bfloat16)
+    if t.shape[1] != d16:
+        t = torch.nn.functional.pad(t, (0, d16 - t.shape[1]))
+    return t.contiguous()
+
+
 def kmeans_assign(x, cents, xn, cn, r: int = 1):
     """Nearest centroids of each row: x [n, d] and cents [C, d] are rounded
     to bf16, their products summed in fp32, and `(xn + cn) − 2·dot` ranked.
-    Returns ([n, r] int32 ids, [n, r] f32 distances) ascending, lowest id
-    on ties (as `jnp.argmin` / `lax.top_k`). cn = +inf never wins; a row of
-    all +inf returns ids 0..r-1."""
+    `x` may come rounded already (bf16): a k-means run rounds its rows once
+    for all its rounds; the centroids are rounded once a call. Returns
+    ([n, r] int32 ids, [n, r] f32 distances) ascending, lowest id on ties
+    (as `jnp.argmin` / `lax.top_k`). cn = +inf never wins; a row of all
+    +inf returns ids 0..r-1."""
     n, d = x.shape
     c = cents.shape[0]
     if not 1 <= r <= min(R_MAX, c):
         raise ValueError(f"kmeans_assign: need 1 <= r <= min({R_MAX}, C), got r={r}, C={c}")
     if not _on_cuda(x, cents, xn, cn):
         return kmeans_assign_plain(x, cents, xn, cn, r)
-    _check(x, "x", torch.float32, (n, d))
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x: expected float32 or bfloat16, got {x.dtype}")
+    _check(x, "x", x.dtype, (n, d))
     _check(cents, "cents", torch.float32, (c, d))
     _check(xn, "xn", torch.float32, (n,))
     _check(cn, "cn", torch.float32, (c,))
+    d16 = -(-d // 16) * 16
+    xb, cb = _bf16_operand(x, d16), _bf16_operand(cents, d16)
     out_i = torch.empty((n, r), dtype=torch.int32, device=x.device)
     out_d = torch.empty((n, r), dtype=torch.float32, device=x.device)
     if n:
-        _launch("kmeans_assign", x.device, x.data_ptr(), xn.data_ptr(), n, cents.data_ptr(),
-                cn.data_ptr(), c, d, r, out_i.data_ptr(), out_d.data_ptr())
+        _launch("kmeans_assign", x.device, xb.data_ptr(), xn.data_ptr(), n, cb.data_ptr(),
+                cn.data_ptr(), c, d16, r, out_i.data_ptr(), out_d.data_ptr())
     return out_i, out_d
 
 

@@ -29,8 +29,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # argtypes of each C entry point, in the order of its declaration
 SIGNATURES = {
-    # vals, B, N, rown, coln, colvalid, epilogue, clamp, k, out_d, out_i, stream
-    "topk_rows": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    # vals, B, N, rown, coln, colvalid, epilogue, clamp, k, out_d, out_i,
+    # cand_key, cand_pos, counters, stream
+    "topk_rows": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     # q, qn, cells, B, P, pvecs, pnorms, members, alive, allowed, L, d,
     # metric, k, m, replicated, mode, chunk, sc_key, sc_pos, sc_id,
     # out_d, out_i, out_pos, stream
@@ -76,7 +77,8 @@ SIGNATURES = {
     # scales, d, k, replicated, out_d, out_i, stream
     "ivf_rerank": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _P,
                    _P, _I, _I, _I, _P, _P, _P],
-    # x, xn, n, cents, cn, C, d, r, out_i, out_d, stream
+    # x (bf16), xn, n, cents (bf16), cn, C, d (a multiple of 16), r, out_i,
+    # out_d, stream
     "kmeans_assign": [_P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P],
     # cell_block, top, B, P, u, out, stream
     "dense_blocks": [_P, _P, _I, _I, _I, _P, _P],

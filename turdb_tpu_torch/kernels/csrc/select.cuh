@@ -1,9 +1,9 @@
 // Exact block-wide selection of the m smallest (key, position) pairs.
 //
-// Shared by K1/K4 (ivf_probe.cu), K2 (topk_rows.cu) and K5 (ivf_rerank.cu).
-// One thread block selects from n candidates whose keys come from a
-// functor, so the candidates may live in shared memory (K1, K4, K5) or be
-// computed on the fly from global memory with a fused epilogue (K2).
+// Shared by K1/K4 (ivf_probe.cu) and K5 (ivf_rerank.cu); K2 (topk_rows.cu)
+// takes only its keys (f2key / key2f) and limits. One thread block selects
+// from n candidates whose keys come from a functor (`ArrayKey`: an array
+// in shared or global memory).
 //
 // Method: radix select on order-preserving 32-bit keys, 8 bits per pass
 // (4 histogram passes find the m-th smallest key T exactly), one collect

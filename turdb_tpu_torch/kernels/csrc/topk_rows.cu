@@ -2,74 +2,514 @@
 //
 // Replaces: turdb_tpu/ops/topk.py topk_smallest / topk_smallest_wide /
 // merge_topk, which serve the IVF cell selection
-// (turdb_tpu/models/ivf.py ivf_search_impl, the q·Cᵀ top-nprobe) and the
-// flat oracle's per-chunk selection (turdb_tpu/models/flat.py flat_search).
+// (turdb_tpu/models/ivf.py ivf_search_impl, the q·Cᵀ top-nprobe), the flat
+// oracle's per-chunk selection (turdb_tpu/models/flat.py flat_search) and
+// the merges of top-k lists (the oracle's running merge, the mesh's
+// cross-shard merge, sq8_search's chunk merge).
 //
 // What bounds it on an H100: device-memory bandwidth. The dot matrix comes
 // from a cuBLAS fp32 product ([1024, ~24.6k] at the cell selection,
-// [256, 131072] per flat chunk), and each block re-reads its row once per
-// radix pass. Four 8-bit passes plus one collect pass read a row five
-// times; the passes of a block run back to back, so a cell-selection row
-// (96 KB) is still in L2 for the later ones.
+// [256, 131072] per flat chunk) and is read once; the selection itself is
+// a few integer operations per value.
 //
-// Design: one 256-thread block per row. The L2 / cosine / IP epilogue and
-// the column-valid mask are applied as each value is read, so the
-// distance matrix is never written. block_select (select.cuh) finds the
-// k-th smallest key exactly by radix select, collects the winners and
-// sorts them by (value, position): ties go to the lower position. The
-// winners sit in dynamic shared memory sized from k (k <= SEL_MAX = 2048:
-// 16 KB), so a small k keeps the block small.
+// Design. Each value is read from device memory once; every later pass
+// runs on chip.
+// - Long rows (N > SHORT_MAX): the grid is rows x segments of up to SEG_W
+//   = 8192 columns. A 256-thread block reads its segment once (32 values a
+//   thread, all loads issued before any is used, streamed past L1),
+//   applies the L2 / cosine / IP epilogue and the column-valid mask as the
+//   values arrive, and keeps the order-preserving 32-bit keys in shared
+//   memory (32 KB), where every later pass reads them; registers stay few,
+//   so several blocks share an SM and one block's loads overlap another's
+//   passes. It finds its k smallest (key, position) pairs by radix select:
+//   one pass counts the keys below +inf and takes their range, and when k
+//   of them exist the +inf keys (masked lanes) stay out of every count;
+//   8-bit digits of key - min then start at the top bit of the range, so
+//   the first digit spreads the keys over the histogram instead of piling
+//   them on one bin, and the passes stop as soon as the threshold's bin
+//   holds exactly the keys still wanted. Only where more keys equal the
+//   threshold than are wanted does a second select run, on their
+//   positions, so the lower positions win. The segment's k winners go to
+//   a scratch buffer; the last block of a row to finish (a per-row counter
+//   after __threadfence, reset by that block) selects the k smallest of
+//   the row's segments x k candidates the same way, reading them from L2,
+//   and sorts them. One launch a call.
+// - Short rows (N <= SHORT_MAX = 2048: the merges of [B, 2k], [B, S·k]):
+//   a warp takes a row, several rows share a block, the (key, position)
+//   pairs sit in registers (N rounded up to a power of two, at most 64 a
+//   lane) and a warp bitonic sort orders them, with no radix passes.
+// Ties go to the lower position, as lax.top_k does; the winners of a long
+// row are sorted in shared memory (k <= SEL_MAX = 2048: 16 KB).
+// Shared memory of a long-row block: 1.1 KB + 32 KB of keys + 8·pow2(k),
+// past the 48 KB default from k = 2048 (the entry point opts in).
 #include "select.cuh"
 
-struct RowKey {
-    const float* row;
-    const float* coln;
-    const uint8_t* valid;
-    float rn;
-    int epi;
-    int clamp;
-    __device__ __forceinline__ uint32_t operator()(int j) const {
-        float v = row[j];
-        if (epi == 1) {
-            // (rown + coln) - 2*dot, rounded as the reference rounds it
-            v = __fsub_rn(__fadd_rn(rn, coln[j]), __fmul_rn(2.0f, v));
-            if (clamp) v = fmaxf(v, 0.0f);
-        } else if (epi == 2) {
-            v = __fsub_rn(1.0f, v);
-        } else if (epi == 3) {
-            v = -v;
+typedef unsigned long long u64;
+
+#define SEG_THREADS 256
+#define SEG_ITEMS 32
+#define SEG_W (SEG_THREADS * SEG_ITEMS)   // columns of one segment
+#define SHORT_MAX 2048
+#define SHORT_WARPS 4                     // rows of one short-row block
+
+// The distance the epilogue makes of x[row, j], as its order-preserving key:
+// rounded as the reference (and the plain version) round it.
+__device__ __forceinline__ uint32_t epi_key(float v, float rn, const float* __restrict__ coln,
+                                            const uint8_t* __restrict__ valid, int j,
+                                            int epi, int clamp) {
+    if (epi == 1) {
+        // (rown + coln) - 2*dot
+        v = __fsub_rn(__fadd_rn(rn, __ldg(coln + j)), __fmul_rn(2.0f, v));
+        if (clamp) v = fmaxf(v, 0.0f);
+    } else if (epi == 2) {
+        v = __fsub_rn(1.0f, v);
+    } else if (epi == 3) {
+        v = -v;
+    }
+    if (valid != nullptr && __ldg(valid + j) == 0) v = __int_as_float(0x7f800000);
+    return f2key(v);
+}
+
+// 16-byte aligned: the keys and the u64 winners follow it in shared memory
+struct __align__(16) TopkShared {
+    int hist[256];
+    uint32_t st[5][SEG_THREADS / 32];   // per-warp partial statistics
+    int misc[4];
+    int count;
+};
+
+__device__ __forceinline__ uint32_t shr(uint32_t v, int s) { return s >= 32 ? 0u : v >> s; }
+
+// The block's sum / min / max of each v[j] (op[j] = 0, 1, 2), in every thread.
+template <int NV>
+__device__ __forceinline__ void block_combine(uint32_t (&v)[NV], const int (&op)[NV],
+                                              TopkShared* sh) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+        v[j] = op[j] == 0 ? __reduce_add_sync(0xffffffffu, v[j])
+             : op[j] == 1 ? __reduce_min_sync(0xffffffffu, v[j])
+                          : __reduce_max_sync(0xffffffffu, v[j]);
+        if (lane == 0) sh->st[j][warp] = v[j];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+        uint32_t r = sh->st[j][0];
+        for (int w = 1; w < (int)(blockDim.x >> 5); ++w) {
+            const uint32_t x = sh->st[j][w];
+            r = op[j] == 0 ? r + x : op[j] == 1 ? min(r, x) : max(r, x);
         }
-        if (valid != nullptr && valid[j] == 0) v = __int_as_float(0x7f800000);
-        return f2key(v);
+        v[j] = r;
+    }
+    __syncthreads();
+}
+
+// Radix select over 32-bit values: `val(key, pos, v)` says whether an item
+// belongs to the set and gives its value v in [0, span]; `want` >= 1 of
+// the set's smallest are wanted. 8-bit digits from the top bit of `span`
+// down narrow (prefix, rem) until the bin of the want-th value holds
+// exactly the values still wanted (returns true: every value v with
+// v >> rem <= prefix wins) or every bit is fixed (returns false: the
+// want-th value is `prefix` and more than `want` items hold it). All
+// threads call it; `want` ends as the number still wanted from the last bin.
+template <class Items, class Val>
+__device__ bool radix_narrow(const Items& items, Val val, uint32_t span, int& want,
+                             uint32_t& prefix, int& rem, TopkShared* sh) {
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    rem = 32 - __clz(span);
+    prefix = 0;
+    while (rem > 0) {
+        const int w = rem < 8 ? rem : 8;
+        const int shift = rem - w;
+        const uint32_t dmask = (1u << w) - 1u;
+        for (int i = tid; i < 256; i += blockDim.x) sh->hist[i] = 0;
+        __syncthreads();
+        items.each([&](uint32_t key, uint32_t pos, bool ok) {
+            uint32_t v;
+            if (ok && val(key, pos, v) && shr(v, rem) == prefix)
+                atomicAdd(&sh->hist[(v >> shift) & dmask], 1);
+        });
+        __syncthreads();
+        if (warp == 0) {
+            int cnt = 0;
+#pragma unroll
+            for (int i = 0; i < 8; ++i) cnt += sh->hist[lane * 8 + i];
+            int incl = cnt;
+#pragma unroll
+            for (int o = 1; o < 32; o <<= 1) {
+                const int x = __shfl_up_sync(0xffffffffu, incl, o);
+                if (lane >= o) incl += x;
+            }
+            const unsigned hit = __ballot_sync(0xffffffffu, incl >= want);
+            if (lane == __ffs(hit) - 1) {   // want <= the set's size: hit != 0
+                int before = incl - cnt;
+                int bin = lane * 8;
+                while (before + sh->hist[bin] < want) before += sh->hist[bin++];
+                sh->misc[0] = bin;
+                sh->misc[1] = before;
+                sh->misc[2] = sh->hist[bin];
+            }
+        }
+        __syncthreads();
+        // every thread reads misc before warp 0 can write it again (two
+        // barriers into the next pass)
+        want -= sh->misc[1];
+        prefix = (prefix << w) | (uint32_t)sh->misc[0];
+        rem = shift;
+        if (sh->misc[2] == want) return true;   // the whole bin wins
+    }
+    return false;
+}
+
+// The m smallest (key, position) pairs of a block's items are those for
+// which win() holds (see radix_select).
+struct Threshold {
+    bool finite_set;     // the select ran on the keys below +inf
+    uint32_t lo, span;   // the set: keys with key - lo <= span
+    uint32_t prefix;     // on (key - lo) >> rem
+    int rem;
+    bool by_pos;         // the last key ties: its lowest positions win
+    uint32_t plo, pprefix;
+    int prem;
+    __device__ __forceinline__ bool win(uint32_t key, uint32_t pos) const {
+        if (!finite_set && key < INF_KEY) return true;
+        const uint32_t rel = key - lo;
+        if (rel > span) return false;
+        const uint32_t r = shr(rel, rem);
+        if (r != prefix) return r < prefix;
+        return !by_pos || shr(pos - plo, prem) <= pprefix;
     }
 };
 
-__global__ void __launch_bounds__(SEL_THREADS)
-topk_rows_kernel(const float* __restrict__ vals, int n, const float* __restrict__ rown,
-                 const float* __restrict__ coln, const uint8_t* __restrict__ valid,
-                 int epi, int clamp, int k, float* __restrict__ out_d,
-                 int* __restrict__ out_i) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    SelectScratch* sc = reinterpret_cast<SelectScratch*>(smem);
-    uint32_t* s_key = reinterpret_cast<uint32_t*>(sc + 1);
-    int* s_pos = reinterpret_cast<int*>(s_key + sel_pow2(k));
-    const size_t b = blockIdx.x;
-    RowKey f{vals + b * n, coln, valid, epi == 1 ? rown[b] : 0.0f, epi, clamp};
-    block_select(f, n, k, s_key, s_pos, sc);
-    for (int i = threadIdx.x; i < k; i += blockDim.x) {
-        out_d[b * k + i] = key2f(s_key[i]);
-        out_i[b * k + i] = s_pos[i];
+// Exact select of the `want` smallest (key, position) pairs among the
+// items of the block, by key and then, only where the last key ties, by
+// position; positions are distinct. `items.each(f)` calls f(key, pos, ok)
+// for every item slot of this thread (ok false for a padding slot), the
+// same number of times in every thread of a warp. Whenever at least
+// `want` keys lie below +inf only those are counted (so a masked lane
+// never crowds the histogram); otherwise all of them win and the select
+// runs on the +inf (and NaN) keys for the rest. The key range is taken
+// from the set's smallest and largest key, so the first digit spreads the
+// set over the histogram. All threads call it.
+template <class Items>
+__device__ Threshold radix_select(const Items& items, int want, TopkShared* sh) {
+    uint32_t st[5] = {0u, ~0u, 0u, ~0u, 0u};   // finite: count, min, max; others: min, max
+    items.each([&](uint32_t key, uint32_t, bool ok) {
+        if (!ok) return;
+        if (key < INF_KEY) {
+            ++st[0];
+            st[1] = min(st[1], key);
+            st[2] = max(st[2], key);
+        } else {
+            st[3] = min(st[3], key);
+            st[4] = max(st[4], key);
+        }
+    });
+    const int ops5[5] = {0, 1, 2, 1, 2};
+    block_combine(st, ops5, sh);
+    Threshold t;
+    t.finite_set = (int)st[0] >= want;
+    if (!t.finite_set) want -= (int)st[0];
+    t.lo = t.finite_set ? st[1] : st[3];
+    t.span = (t.finite_set ? st[2] : st[4]) - t.lo;
+    t.by_pos = false;
+    t.plo = t.pprefix = 0;
+    t.prem = 0;
+    const uint32_t lo = t.lo, span = t.span;
+    t.by_pos = !radix_narrow(
+        items, [=](uint32_t key, uint32_t, uint32_t& v) { v = key - lo; return v <= span; },
+        span, want, t.prefix, t.rem, sh);
+    if (t.by_pos) {
+        // more keys equal T than are wanted: the lowest positions of them
+        const uint32_t T = lo + t.prefix;
+        uint32_t ps[2] = {~0u, 0u};
+        items.each([&](uint32_t key, uint32_t pos, bool ok) {
+            if (ok && key == T) {
+                ps[0] = min(ps[0], pos);
+                ps[1] = max(ps[1], pos);
+            }
+        });
+        const int ops2[2] = {1, 2};
+        block_combine(ps, ops2, sh);
+        const uint32_t plo = ps[0];
+        t.plo = plo;
+        radix_narrow(
+            items, [=](uint32_t key, uint32_t pos, uint32_t& v) { v = pos - plo; return key == T; },
+            ps[1] - plo, want, t.pprefix, t.prem, sh);
+    }
+    return t;
+}
+
+// Append the winners to `out` (warp-aggregated slots from sh->count, which
+// the caller zeroed): out(slot, key, pos) for each.
+template <class Items, class Out>
+__device__ __forceinline__ void collect(const Items& items, const Threshold& t, TopkShared* sh,
+                                        Out out) {
+    const int lane = threadIdx.x & 31;
+    items.each([&](uint32_t key, uint32_t pos, bool ok) {
+        const bool w = ok && t.win(key, pos);
+        const unsigned bal = __ballot_sync(0xffffffffu, w);
+        if (bal) {
+            int base = 0;
+            if (lane == 0) base = atomicAdd(&sh->count, __popc(bal));
+            base = __shfl_sync(0xffffffffu, base, 0);
+            if (w) out(base + __popc(bal & ((1u << lane) - 1u)), key, pos);
+        }
+    });
+}
+
+// Sort s[0, size) ascending; size is a power of two.
+__device__ void bitonic_sort64(u64* s, int size) {
+    for (int len = 2; len <= size; len <<= 1) {
+        for (int stride = len >> 1; stride > 0; stride >>= 1) {
+            for (int i = threadIdx.x; i < size; i += blockDim.x) {
+                const int j = i ^ stride;
+                if (j > i) {
+                    const u64 a = s[i], b = s[j];
+                    if ((a > b) == ((i & len) == 0)) {
+                        s[i] = b;
+                        s[j] = a;
+                    }
+                }
+            }
+            __syncthreads();
+        }
     }
 }
 
+// A segment's keys in shared memory: slot j of thread t is column
+// j*256 + t (consecutive threads on consecutive banks).
+struct SegItems {
+    const uint32_t* keys;   // [SEG_W], shared
+    int sn;
+    template <class F>
+    __device__ __forceinline__ void each(F f) const {
+#pragma unroll 8
+        for (int j = 0; j < SEG_ITEMS; ++j) {
+            const int i = j * SEG_THREADS + (int)threadIdx.x;
+            f(keys[i], (uint32_t)i, i < sn);
+        }
+    }
+};
+
+// A row's candidates (key, global position) in the scratch buffer, read
+// from L2: other blocks wrote them.
+struct CandItems {
+    const uint32_t* key;
+    const int* pos;
+    int n;
+    template <class F>
+    __device__ __forceinline__ void each(F f) const {
+        for (int base = 0; base < n; base += blockDim.x) {
+            const int i = base + (int)threadIdx.x;
+            const bool ok = i < n;
+            uint32_t k = 0, p = 0;
+            if (ok) {
+                k = __ldcg(key + i);
+                p = (uint32_t)__ldcg(pos + i);
+            }
+            f(k, p, ok);
+        }
+    }
+};
+
+// Sort the m collected (key << 32 | position) winners and write row b.
+__device__ __forceinline__ void sort_and_write(u64* win, int m, size_t b, float* out_d,
+                                               int* out_i) {
+    const int size = sel_pow2(m);
+    for (int i = m + threadIdx.x; i < size; i += blockDim.x) win[i] = ~0ull;
+    __syncthreads();
+    bitonic_sort64(win, size);
+    for (int i = threadIdx.x; i < m; i += blockDim.x) {
+        out_d[b * m + i] = key2f((uint32_t)(win[i] >> 32));
+        out_i[b * m + i] = (int)(uint32_t)win[i];
+    }
+}
+
+__global__ void __launch_bounds__(SEG_THREADS)
+topk_seg_kernel(const float* __restrict__ vals, int n, const float* __restrict__ rown,
+                const float* __restrict__ coln, const uint8_t* __restrict__ valid, int epi,
+                int clamp, int k, int nseg, int segw, float* __restrict__ out_d,
+                int* __restrict__ out_i, uint32_t* __restrict__ cand_key,
+                int* __restrict__ cand_pos, int* __restrict__ counters) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    TopkShared* sh = reinterpret_cast<TopkShared*>(smem);
+    uint32_t* s_key = reinterpret_cast<uint32_t*>(sh + 1);   // [SEG_W]
+    u64* win = reinterpret_cast<u64*>(s_key + SEG_W);
+    const int tid = threadIdx.x;
+    const size_t row = blockIdx.x / nseg;
+    const int seg = blockIdx.x % nseg;
+    const int c0 = seg * segw;
+    const int sn = min(segw, n - c0);
+    const float* rp = vals + row * (size_t)n + c0;
+    const float rn = epi == 1 ? rown[row] : 0.0f;
+
+    // the one read of the segment: every load in flight before any is used
+    float v[SEG_ITEMS];
+#pragma unroll
+    for (int j = 0; j < SEG_ITEMS; ++j) {
+        const int i = j * SEG_THREADS + tid;
+        v[j] = i < sn ? __ldcs(rp + i) : 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < SEG_ITEMS; ++j) {
+        const int i = j * SEG_THREADS + tid;
+        s_key[i] = i < sn ? epi_key(v[j], rn, coln, valid, c0 + i, epi, clamp) : 0xffffffffu;
+    }
+    __syncthreads();
+    const SegItems items{s_key, sn};
+    const int kp = min(k, sn);
+    const Threshold t = radix_select(items, kp, sh);
+    if (tid == 0) sh->count = 0;
+    __syncthreads();
+    if (nseg == 1) {
+        collect(items, t, sh, [&](int slot, uint32_t key, uint32_t pos) {
+            win[slot] = ((u64)key << 32) | pos;
+        });
+        __syncthreads();
+        sort_and_write(win, kp, row, out_d, out_i);
+        return;
+    }
+    // k <= SHORT_MAX < segw: every segment sends exactly k candidates
+    const size_t cbase = row * (size_t)nseg * k;
+    collect(items, t, sh, [&](int slot, uint32_t key, uint32_t pos) {
+        const size_t o = cbase + (size_t)seg * k + slot;
+        cand_key[o] = key;
+        cand_pos[o] = c0 + (int)pos;
+    });
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) sh->misc[3] = atomicAdd(counters + row, 1) == nseg - 1;
+    __syncthreads();
+    if (!sh->misc[3]) return;
+    // the row's last block: merge its segments' candidates
+    __threadfence();
+    if (tid == 0) {
+        counters[row] = 0;   // ready for the next launch
+        sh->count = 0;
+    }
+    const CandItems cand{cand_key + cbase, cand_pos + cbase, nseg * k};
+    const Threshold t2 = radix_select(cand, k, sh);
+    collect(cand, t2, sh, [&](int slot, uint32_t key, uint32_t pos) {
+        win[slot] = ((u64)key << 32) | pos;
+    });
+    __syncthreads();
+    sort_and_write(win, k, row, out_d, out_i);
+}
+
+// Bitonic sort of a warp's 32*J (key << 32 | position) values: element e
+// = j*32 + lane sits in v[j] of that lane.
+template <int J>
+__device__ __forceinline__ void warp_bitonic(u64 (&v)[J], int lane) {
+    constexpr int N = 32 * J;
+#pragma unroll
+    for (int len = 2; len <= N; len <<= 1) {
+#pragma unroll
+        for (int s = len >> 1; s > 0; s >>= 1) {
+            if (s >= 32) {
+                // partner in the same lane, register j ^ (s / 32)
+#pragma unroll
+                for (int j = 0; j < J; ++j) {
+                    const int p = j ^ (s >> 5);
+                    if (p > j) {
+                        const bool up = ((j * 32) & len) == 0;
+                        const u64 a = v[j], b = v[p];
+                        if ((a > b) == up) {
+                            v[j] = b;
+                            v[p] = a;
+                        }
+                    }
+                }
+            } else {
+#pragma unroll
+                for (int j = 0; j < J; ++j) {
+                    const u64 o = __shfl_xor_sync(0xffffffffu, v[j], s);
+                    const bool up = ((j * 32 + lane) & len) == 0;
+                    const bool lower = (lane & s) == 0;
+                    const u64 mn = v[j] < o ? v[j] : o;
+                    const u64 mx = v[j] < o ? o : v[j];
+                    v[j] = lower == up ? mn : mx;
+                }
+            }
+        }
+    }
+}
+
+template <int J>
+__global__ void __launch_bounds__(SHORT_WARPS * 32)
+topk_short_kernel(const float* __restrict__ vals, int B, int n, const float* __restrict__ rown,
+                  const float* __restrict__ coln, const uint8_t* __restrict__ valid, int epi,
+                  int clamp, int k, float* __restrict__ out_d, int* __restrict__ out_i) {
+    const int lane = threadIdx.x & 31;
+    const size_t row = (size_t)blockIdx.x * SHORT_WARPS + (threadIdx.x >> 5);
+    if (row >= (size_t)B) return;   // the whole warp
+    const float* rp = vals + row * (size_t)n;
+    const float rn = epi == 1 ? rown[row] : 0.0f;
+    float x[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+        const int e = j * 32 + lane;
+        x[j] = e < n ? __ldcs(rp + e) : 0.0f;
+    }
+    u64 v[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+        const int e = j * 32 + lane;
+        v[j] = e < n ? ((u64)epi_key(x[j], rn, coln, valid, e, epi, clamp) << 32) | (u64)e
+                     : ~0ull;
+    }
+    warp_bitonic<J>(v, lane);
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+        const int e = j * 32 + lane;
+        if (e < k) {
+            out_d[row * k + e] = key2f((uint32_t)(v[j] >> 32));
+            out_i[row * k + e] = (int)(uint32_t)v[j];
+        }
+    }
+}
+
+// The segments of a long row: as many as SEG_W needs, of equal width.
+static inline int seg_count(int n) { return (n + SEG_W - 1) / SEG_W; }
+
 extern "C" int topk_rows(const float* vals, int B, int N, const float* rown,
                          const float* coln, const uint8_t* valid, int epi,
-                         int clamp, int k, float* out_d, int* out_i, void* stream) {
+                         int clamp, int k, float* out_d, int* out_i, uint32_t* cand_key,
+                         int* cand_pos, int* counters, void* stream) {
     if (k < 1 || k > N || k > SEL_MAX) return (int)cudaErrorInvalidValue;
-    // at most 1 KB + 16 KB: under the 48 KB a block gets without opt-in
-    const size_t smem = sizeof(SelectScratch) + (size_t)sel_pow2(k) * 2 * sizeof(int);
-    topk_rows_kernel<<<B, SEL_THREADS, smem, (cudaStream_t)stream>>>(
-        vals, N, rown, coln, valid, epi, clamp, k, out_d, out_i);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (N <= SHORT_MAX) {
+        const dim3 grid((B + SHORT_WARPS - 1) / SHORT_WARPS);
+        const int J = sel_pow2((N + 31) / 32);
+#define SHORT_CASE(JJ)                                                                        \
+    case JJ:                                                                                  \
+        topk_short_kernel<JJ><<<grid, SHORT_WARPS * 32, 0, s>>>(vals, B, N, rown, coln, valid, \
+                                                                epi, clamp, k, out_d, out_i); \
+        break;
+        switch (J) {
+            SHORT_CASE(1) SHORT_CASE(2) SHORT_CASE(4) SHORT_CASE(8) SHORT_CASE(16)
+            SHORT_CASE(32) SHORT_CASE(64)
+            default: return (int)cudaErrorInvalidValue;
+        }
+#undef SHORT_CASE
+        return (int)cudaGetLastError();
+    }
+    const int nseg = seg_count(N);
+    if (nseg > 1 && (cand_key == nullptr || cand_pos == nullptr || counters == nullptr))
+        return (int)cudaErrorInvalidValue;
+    const int segw = (N + nseg - 1) / nseg;
+    if ((long long)(nseg - 1) * segw + k > N) return (int)cudaErrorInvalidValue;
+    const size_t smem = sizeof(TopkShared) + SEG_W * sizeof(uint32_t) +
+                        (size_t)sel_pow2(k) * sizeof(u64);
+    if (smem > (48 << 10)) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            topk_seg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    topk_seg_kernel<<<(unsigned)((size_t)B * nseg), SEG_THREADS, smem, s>>>(
+        vals, N, rown, coln, valid, epi, clamp, k, nseg, segw, out_d, out_i, cand_key,
+        cand_pos, counters);
     return (int)cudaGetLastError();
 }
 

@@ -103,17 +103,21 @@ def _masked_cn(cents: torch.Tensor, c_real: int) -> torch.Tensor:
     return cn
 
 
-def _kmeans(x: torch.Tensor, centroids: torch.Tensor, iters: int) -> torch.Tensor:
+def _kmeans(x: torch.Tensor, centroids: torch.Tensor, iters: int,
+            xb: torch.Tensor | None = None) -> torch.Tensor:
     """Lloyd's iterations: K3 assigns every row; the update sorts the rows
     by centroid and sums each run with `segment_reduce`, in a fixed order,
     so a build is the same on every run (float atomics, as `index_add_`
     uses on CUDA, sum in another order each time). An empty centroid keeps
-    its place. The norms are `chain_norms`, the reference's own order."""
+    its place. The norms are `chain_norms`, the reference's own order. The
+    rows are rounded to bf16 once for every round (`xb`, if the caller has
+    them already)."""
     xn = chain_norms(x)
+    xb = x.to(torch.bfloat16) if xb is None else xb
     cents = centroids.clone()
     c = cents.shape[0]
     for _ in range(iters):
-        a = kmeans_assign(x, cents, xn, chain_norms(cents))[0][:, 0].long()
+        a = kmeans_assign(xb, cents, xn, chain_norms(cents))[0][:, 0].long()
         counts = torch.bincount(a, minlength=c)
         sums = torch.segment_reduce(x[torch.argsort(a, stable=True)], "sum",
                                     lengths=counts, axis=0, unsafe=True)
@@ -123,20 +127,22 @@ def _kmeans(x: torch.Tensor, centroids: torch.Tensor, iters: int) -> torch.Tenso
 
 
 def _assign_all(x: torch.Tensor, centroids: torch.Tensor,
-                cn: torch.Tensor | None = None) -> torch.Tensor:
+                cn: torch.Tensor | None = None, xb: torch.Tensor | None = None) -> torch.Tensor:
     """Nearest-centroid id of every row ([n] int32). `cn` overrides the
-    centroid norms: +inf entries exclude (full) clusters."""
+    centroid norms: +inf entries exclude (full) clusters. `xb`: the rows
+    already rounded to bf16."""
     if cn is None:
         cn = chain_norms(centroids)
-    return kmeans_assign(x, centroids, chain_norms(x), cn)[0][:, 0]
+    return kmeans_assign(x if xb is None else xb, centroids, chain_norms(x), cn)[0][:, 0]
 
 
 def _assign_topk_all(x: torch.Tensor, centroids: torch.Tensor,
-                     cn: torch.Tensor | None = None, *, k: int = 2):
+                     cn: torch.Tensor | None = None, *, k: int = 2,
+                     xb: torch.Tensor | None = None):
     """Top-k nearest centroids of every row: ([n, k] int32 ids, [n, k] d²)."""
     if cn is None:
         cn = chain_norms(centroids)
-    return kmeans_assign(x, centroids, chain_norms(x), cn, k)
+    return kmeans_assign(x if xb is None else xb, centroids, chain_norms(x), cn, k)
 
 
 # ---------------------------------------------------------------------------
@@ -301,15 +307,18 @@ class IvfIndex:
                   else np.arange(n))
         if _pre is None:
             xd = self._dev(x)
-            xt = xd if n_train == n else xd[self._dev(tr_idx)]
-            cents = _kmeans(xt, xd[self._dev(seed_idx)], iters)
-            assign = _assign_all(xd, cents, _masked_cn(cents, c)).cpu().numpy()
         else:
             cents, assign, xd = _pre
             cents = self._dev(cents)
             assign = np.asarray(assign)[:n]
             xd = self._dev(x) if xd is None else xd[:n]
-            xt = xd if n_train == n else xd[self._dev(tr_idx)]
+        # the rows rounded to bf16 once for every k-means round below
+        xdb = xd.to(torch.bfloat16)
+        xt, xtb = ((xd, xdb) if n_train == n else
+                   (xd[self._dev(tr_idx)], xdb[self._dev(tr_idx)]))
+        if _pre is None:
+            cents = _kmeans(xt, xd[self._dev(seed_idx)], iters, xb=xtb)
+            assign = _assign_all(xd, cents, _masked_cn(cents, c), xb=xdb).cpu().numpy()
         # balance repair: re-seed starved centroids as perturbed copies of
         # oversized donors, then a couple more Lloyd's iterations
         for rnd in range(6):
@@ -330,8 +339,8 @@ class IvfIndex:
             cents_np[starved[: len(donors)]] = cents_np[donors] + sigma * (
                 rloc.standard_normal((len(donors), self.dim)).astype(np.float32)
             )
-            cents = _kmeans(xt, self._dev(cents_np), 2)
-            assign = _assign_all(xd, cents, _masked_cn(cents, c)).cpu().numpy()
+            cents = _kmeans(xt, self._dev(cents_np), 2, xb=xtb)
+            assign = _assign_all(xd, cents, _masked_cn(cents, c), xb=xdb).cpu().numpy()
         # split oversized clusters (local 2-means) instead of spilling rows
         # to far clusters, which centroid probing would never reach
         cents_np, assign = _split_oversized(cents.cpu().numpy()[:c], assign, xd, cap)

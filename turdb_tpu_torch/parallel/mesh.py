@@ -2,12 +2,14 @@
 
 The reference is single-controller: one process drives every device of a
 `jax.sharding.Mesh`. The port is too: a `Mesh` is a numpy grid of
-`torch.device`s with the reference's axis names, and the sharded indexes
-(parallel/sharded.py, parallel/sharded_ivf.py) keep one state per shard
-on its device and merge the shards' top-k on the first device. A device
-may appear more than once: `[torch.device("cpu")] * 8` stands in for the
-reference tests' eight virtual CPU devices, `[cuda:0] * 4` for a 4-shard
-mesh on one card.
+`torch.device`s with the reference's axis names. The sharded indexes
+(parallel/sharded.py, parallel/sharded_ivf.py) keep each shard's state on
+its device of the first row of the `data` axis, where writes land, and a
+copy of it on every other row; a query batch is split over the rows, and
+each row's shards answer its slice and merge their top-k on that row's
+first device. A device may appear more than once: `[torch.device("cpu")]
+* 8` stands in for the reference tests' eight virtual CPU devices,
+`[cuda:0] * 4` for a 4-shard mesh on one card.
 """
 
 from __future__ import annotations
@@ -34,14 +36,19 @@ class Mesh:
         """Axis name -> size, as `jax.sharding.Mesh.shape`."""
         return dict(zip(self.axis_names, self.devices.shape))
 
-    def shard_devices(self) -> list[torch.device]:
-        """The device of each store shard, in shard order (host-major, then
-        db): the shard's device on the first row of the data axis. The
-        data axis splits query batches; a shard's state lives once."""
+    def data_rows(self) -> list[list[torch.device]]:
+        """[r][s]: the device of store shard s (host-major, then db) on row
+        r of the data axis, `grid[host, r, db]`. Each row holds a copy of
+        every shard and answers its slice of a query batch."""
         shape = self.shape
         grid = self.devices.reshape(shape.get(MESH_AXIS_HOST, 1), shape.get(MESH_AXIS_DATA, 1),
                                     shape[MESH_AXIS_DB])
-        return list(grid[:, 0, :].reshape(-1))
+        return [list(grid[:, r, :].reshape(-1)) for r in range(grid.shape[1])]
+
+    def shard_devices(self) -> list[torch.device]:
+        """The device of each store shard on the first row of the data axis,
+        where the shard's state is written."""
+        return self.data_rows()[0]
 
 
 def _devices(devices) -> list[torch.device]:

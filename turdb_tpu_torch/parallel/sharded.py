@@ -3,14 +3,19 @@ turdb_tpu/parallel/sharded.py).
 
 Each db-axis shard (host x db on a multi-host mesh) holds an independent
 HNSW graph over its part of the rows, kept as a per-shard `HnswIndex` on
-the shard's device: a list of states, one per mesh position, where the
-reference stacks them into [S, ...] arrays laid out over the mesh. One
-process drives every shard in turn, as the reference's single controller
-does. A query batch runs the local search on every shard; each shard's
-[B, k] slot ids become global ids `shard · id_stride + slot`, and the
-shards' lists merge on the first device by one K2 `topk_rows` over the
+the shard's device of the first data row: a list of states, one per mesh
+position, where the reference stacks them into [S, ...] arrays laid out
+over the mesh. Every other row of the data axis serves from its own copy
+of each shard's state (`RowCopies`), as the reference replicates the
+store over `data`. One process drives every shard in turn, as the
+reference's single controller does. A query batch is padded to a
+multiple of the data axis and split into one slice per row; each row
+runs the local search of its slice on every shard, each shard's [B, k]
+slot ids become global ids `shard · id_stride + slot`, and the shards'
+lists merge on the row's first device by one K2 `topk_rows` over the
 gathered [B, S·k] (`_two_level_merge`; on a multi-host mesh once within
-each host and once across hosts).
+each host and once across hosts). The rows' answers are concatenated in
+order.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch
 from turdb_tpu_torch.kernels import topk_rows
 from turdb_tpu_torch.models.hnsw import HNSW_BUILD_BATCH, HnswIndex, hnsw_search_impl
 from turdb_tpu_torch.ops.distance import Metric, normalize_rows
+from turdb_tpu_torch.ops.quantize import Sq8Rows
 from turdb_tpu_torch.parallel.mesh import MESH_AXIS_DATA, MESH_AXIS_DB, MESH_AXIS_HOST, Mesh
 
 INF = float("inf")
@@ -74,6 +80,76 @@ def pad_batch(q: np.ndarray, n_data: int) -> np.ndarray:
     return np.concatenate([q, np.zeros((bpad - b0, q.shape[1]), np.float32)])
 
 
+def _same_memory(a: torch.device, b: torch.device) -> bool:
+    """Whether a state on device `a` serves device `b` as it is."""
+    return a == b
+
+
+def _to_device(obj, dev):
+    """A copy of a search state (NamedTuples and tuples of tensors, an
+    `Sq8Rows` store, plain ints) with every tensor copied to `dev`."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(dev, copy=True)
+    if isinstance(obj, Sq8Rows):
+        return Sq8Rows(*(_to_device(t, dev) for t in (obj.codes, obj.mins, obj.scales)))
+    if isinstance(obj, tuple):
+        items = [_to_device(v, dev) for v in obj]
+        return type(obj)(*items) if hasattr(obj, "_fields") else tuple(items)
+    return obj
+
+
+class RowCopies:
+    """Each data row's copy of every shard's search state. Row 0 holds the
+    shards' own states, where every write lands; row r > 0 serves from
+    copies on its devices, made at first use and again after the shard
+    changed (a version counter per shard, bumped by every write) or its
+    state was replaced. Where row r's device is row 0's, the copy is row
+    0's state itself, not a second allocation."""
+
+    def __init__(self, rows: list[list[torch.device]]):
+        self.rows = rows
+        self.version = [0] * len(rows[0])
+        self._copies: dict = {}
+
+    def changed(self, shards=None) -> None:
+        """A write touched these shards (default: all): their copies are
+        stale."""
+        for s in range(len(self.version)) if shards is None else shards:
+            self.version[int(s)] += 1
+
+    def get(self, r: int, s: int, kind: str, state):
+        """Row r's copy of shard s's `state` (`kind` names which one)."""
+        dev = self.rows[r][s]
+        if r == 0 or _same_memory(self.rows[0][s], dev):
+            return state
+        hit = self._copies.get((r, s, kind))
+        if hit is None or hit[0] != self.version[s] or hit[1] is not state:
+            hit = self._copies[(r, s, kind)] = (self.version[s], state, _to_device(state, dev))
+        return hit[2]
+
+
+def search_by_rows(copies: RowCopies, q: torch.Tensor, kind: str, states, search, k: int,
+                   n_host: int, stride: int):
+    """The data axis at work: the padded batch `q` (a multiple of the rows)
+    is cut into one equal slice per row of `copies`; row r runs
+    `search(state, q_r, s, device)` of its slice on its copy of each
+    shard's state, packs the shards' slot ids into global ids and merges
+    them on its first device (`_two_level_merge`). Returns numpy ([B, k]
+    distances, [B, k] int64 global ids), the rows' answers in order."""
+    bs = q.shape[0] // len(copies.rows)
+    ds, gis = [], []
+    for r, devs in enumerate(copies.rows):
+        qr = q[r * bs:(r + 1) * bs]
+        parts = [search(copies.get(r, s, kind, st), qr.to(dev), s, dev)
+                 for s, (st, dev) in enumerate(zip(states, devs))]
+        d, gi = _two_level_merge([d for d, _ in parts],
+                                 [pack_gids(d, i, s, stride) for s, (d, i) in enumerate(parts)],
+                                 k, n_host, devs[0])
+        ds.append(d.cpu().numpy())
+        gis.append(gi.cpu().numpy())
+    return np.concatenate(ds), np.concatenate(gis)
+
+
 def mesh_geometry(mesh: Mesh) -> tuple[int, int, int]:
     """(n_host, n_data, n_db) of a mesh."""
     shape = mesh.shape
@@ -95,6 +171,7 @@ class ShardedHnswIndex:
         self.n_host, self.n_data, self.n_db = mesh_geometry(mesh)
         self.n_shards = self.n_host * self.n_db
         self.devices = mesh.shard_devices()
+        self.copies = RowCopies(mesh.data_rows())
         self.id_stride = id_stride(self.n_shards)
         self.shards = [
             HnswIndex(dim=dim, metric=metric, m=m, ef_construction=ef_construction,
@@ -132,6 +209,7 @@ class ShardedHnswIndex:
         other add runs each shard's insert waves. Levels follow the global
         row ids (default: insertion order)."""
         self._serve = None     # graph mutation invalidates the packs
+        self.copies.changed()
         vecs = np.atleast_2d(np.asarray(vecs, np.float32))
         n = vecs.shape[0]
         if row_ids is None:
@@ -191,24 +269,18 @@ class ShardedHnswIndex:
         return normalize_rows(q) if self.cfg.metric is Metric.COSINE else q
 
     def _masks(self, allowed):
-        """Per-shard [cap] visibility masks (alive, and `allowed` [S, cap]
-        where given), or None when every row is visible: then no shard
-        filters, else every shard does, as in the reference."""
+        """[S, cap] visibility (alive, and `allowed` where given), or None
+        when every row is visible: then no shard filters, else every shard
+        does, as in the reference."""
         if allowed is None and self._all_alive():
             return None
         m = np.stack([s._alive for s in self.shards])
         if allowed is not None:
             m &= np.asarray(allowed, bool)
-        return [torch.as_tensor(m[s], device=dev) for s, dev in enumerate(self.devices)]
+        return m
 
     def _empty(self, b, k):
         return np.full((b, k), INF, np.float32), np.full((b, k), -1, np.int64)
-
-    def _merged(self, parts, k, b0):
-        ds = [d for d, _ in parts]
-        gis = [pack_gids(d, i, s, self.id_stride) for s, (d, i) in enumerate(parts)]
-        d, gi = _two_level_merge(ds, gis, k, self.n_host, self.devices[0])
-        return d.cpu().numpy()[:b0], gi.cpu().numpy()[:b0]
 
     def search(self, queries, k: int, ef: int | None = None, allowed=None):
         """Batched k-NN over all shards. `allowed`: bool [n_shards,
@@ -217,16 +289,19 @@ class ShardedHnswIndex:
         b0 = np.atleast_2d(np.asarray(queries)).shape[0]
         if len(self) == 0:
             return self._empty(b0, k)
-        q = self._queries(queries)
         ef = max(ef or max(self.cfg.ef_search, k), k)
         masks = self._masks(allowed)
-        parts = [
-            hnsw_search_impl(shard.state, q.to(dev), None if masks is None else masks[s],
-                             cfg=self.cfg, k=k, ef=ef, iters=ef + ef // 2,
-                             filtered=masks is not None, descent_ef=self._descent_ef)
-            for s, (shard, dev) in enumerate(zip(self.shards, self.devices))
-        ]
-        return self._merged(parts, k, b0)
+
+        def run(state, q, s, dev):
+            mask = None if masks is None else torch.as_tensor(masks[s], device=dev)
+            return hnsw_search_impl(state, q, mask, cfg=self.cfg, k=k, ef=ef,
+                                    iters=ef + ef // 2, filtered=masks is not None,
+                                    descent_ef=self._descent_ef)
+
+        d, gi = search_by_rows(self.copies, self._queries(queries), "state",
+                               [s.state for s in self.shards], run, k, self.n_host,
+                               self.id_stride)
+        return d[:b0], gi[:b0]
 
     # -- serving pack -----------------------------------------------------
 
@@ -236,6 +311,7 @@ class ShardedHnswIndex:
         pack has one geometry although sizes differ by one."""
         from turdb_tpu_torch.models.hnsw_serve import _pow2_at_least, pack_serving
 
+        self.copies.changed()
         if len(self) == 0:
             self._serve = None
             return
@@ -262,21 +338,23 @@ class ShardedHnswIndex:
             return self._empty(b0, k)
         if self._serve is None:
             self.pack_serving()
-        q = self._queries(queries)
         ef = max(ef or max(self.cfg.ef_search, k), k)
         iters = iters or (ef + ef // 2)
         masks = self._masks(allowed)
-        parts = [
-            serve_search_impl(sv, q.to(dev), None if masks is None else masks[s],
-                              metric=self.cfg.metric, k=k, ef=ef, iters=iters, expand=expand,
-                              nprobe=nprobe, nseed=nseed)
-            for s, (sv, dev) in enumerate(zip(self._serve, self.devices))
-        ]
-        return self._merged(parts, k, b0)
+
+        def run(pack, q, s, dev):
+            mask = None if masks is None else torch.as_tensor(masks[s], device=dev)
+            return serve_search_impl(pack, q, mask, metric=self.cfg.metric, k=k, ef=ef,
+                                     iters=iters, expand=expand, nprobe=nprobe, nseed=nseed)
+
+        d, gi = search_by_rows(self.copies, self._queries(queries), "serve", self._serve, run,
+                               k, self.n_host, self.id_stride)
+        return d[:b0], gi[:b0]
 
     def delete(self, gids) -> None:
         """Tombstones: the nodes stay as stepping stones."""
         sh, sl = self.unpack_ids(np.atleast_1d(np.asarray(gids, np.int64)))
+        self.copies.changed(np.unique(sh))
         for s in np.unique(sh):
             self.shards[int(s)].delete(sl[sh == s])
 

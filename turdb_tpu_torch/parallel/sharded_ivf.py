@@ -2,9 +2,11 @@
 (port of turdb_tpu/parallel/sharded_ivf.py).
 
 Each db-axis shard owns an independent `IvfIndex` over its part of the
-rows, on its own device; one process drives them in turn. A query batch
-probes every shard (K2 / K1 or K4 / K5 as the store asks), and the
-shards' [B, k] lists merge as in parallel/sharded.py: global ids
+rows, on its device of the first data row; every other data row serves
+from its own copy (parallel/sharded.py `RowCopies`). One process drives
+them in turn. A query batch is split over the data rows; each row probes
+every shard with its slice (K2 / K1 or K4 / K5 as the store asks), and
+the shards' [B, k] lists merge as in parallel/sharded.py: global ids
 `shard · id_stride + slot`, one K2 over the gathered [B, S·k].
 """
 
@@ -24,11 +26,11 @@ from turdb_tpu_torch.models.ivf import (
 from turdb_tpu_torch.ops.distance import Metric, normalize_rows
 from turdb_tpu_torch.parallel.mesh import Mesh
 from turdb_tpu_torch.parallel.sharded import (
-    _two_level_merge,
+    RowCopies,
     id_stride,
     mesh_geometry,
-    pack_gids,
     pad_batch,
+    search_by_rows,
 )
 
 # the reference's pad centroid: far from any row, finite (no inf·0 in the
@@ -50,6 +52,7 @@ class ShardedIvfIndex:
         self.n_host, self.n_data, self.n_db = mesh_geometry(mesh)
         self.n_shards = self.n_host * self.n_db
         self.devices = mesh.shard_devices()
+        self.copies = RowCopies(mesh.data_rows())
         self.dim = dim
         self.metric = metric
         self.nprobe = nprobe
@@ -71,6 +74,7 @@ class ShardedIvfIndex:
         global ids."""
         vecs = np.atleast_2d(np.asarray(vecs, np.float32))
         n = len(vecs)
+        self.copies.changed()
         sizes = np.asarray([s.size for s in self.shards])
         order = np.argsort(sizes, kind="stable")
         gids = np.empty(n, np.int64)
@@ -90,6 +94,7 @@ class ShardedIvfIndex:
         """Train every untrained shard (all of them at once through the mesh
         path when none is trained), then bring every shard to the largest
         geometry, so that one search config serves them all."""
+        self.copies.changed()
         if all(s.state is None for s in self.shards) and self.n_shards > 1:
             self._train_mesh()
         for s in self.shards:
@@ -135,8 +140,9 @@ class ShardedIvfIndex:
             if len(x) == 0:
                 continue
             xd = torch.as_tensor(x, device=dev)
-            cents = _kmeans(xd, torch.as_tensor(init, device=dev), 8)
-            assign = _assign_all(xd, cents, _masked_cn(cents, c)).cpu().numpy()
+            xdb = xd.to(torch.bfloat16)
+            cents = _kmeans(xd, torch.as_tensor(init, device=dev), 8, xb=xdb)
+            assign = _assign_all(xd, cents, _masked_cn(cents, c), xb=xdb).cpu().numpy()
             s._n_clusters = c
             s.train(_pre=(cents, assign, xd))
 
@@ -150,13 +156,13 @@ class ShardedIvfIndex:
         if self.metric is Metric.COSINE:
             q = normalize_rows(q)
         p = min(nprobe or self.nprobe, self._cfg.n_clusters)
-        ds, gis = [], []
-        for sh, (s, dev) in enumerate(zip(self.shards, self.devices)):
-            d, i = ivf_search_impl(s.state, q.to(dev), None, cfg=self._cfg, k=k, nprobe=p)
-            ds.append(d)
-            gis.append(pack_gids(d, i, sh, self.id_stride))
-        d, gi = _two_level_merge(ds, gis, k, self.n_host, self.devices[0])
-        return d.cpu().numpy()[:b0], gi.cpu().numpy()[:b0]
+
+        def run(state, qr, s, dev):
+            return ivf_search_impl(state, qr, None, cfg=self._cfg, k=k, nprobe=p)
+
+        d, gi = search_by_rows(self.copies, q, "state", [s.state for s in self.shards], run, k,
+                               self.n_host, self.id_stride)
+        return d[:b0], gi[:b0]
 
     def unpack(self, gids):
         gids = np.asarray(gids)
