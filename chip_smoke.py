@@ -157,6 +157,13 @@ def _median_ms(fn, reps=5):
     return cuda_median_ms(fn, reps=reps, warmup=1)
 
 
+def _loop_ms(fn, n=10):
+    """Milliseconds a call with n calls back to back between the events: the
+    host's launch path (the wrapper's checks and allocations) then overlaps
+    the device's work, which `_median_ms` of one call does not hide."""
+    return _median_ms(lambda: [fn() for _ in range(n)], reps=3) / n
+
+
 def _bound(nbytes, ops, peak=None):
     """The least time the card could take: the larger of the bytes over
     the memory rate and the operations over the unit's peak. `ops` may
@@ -215,6 +222,14 @@ def _near_equal(dk, ik, dp, ip, rtol, what):
     check(torch.equal(fin, torch.isfinite(dk)), f"{what}: +inf entries differ")
     scale = max(float(dp[fin].abs().max()) if bool(fin.any()) else 1.0, 1.0)
     err = float((dk[fin] - dp[fin]).abs().max()) if bool(fin.any()) else 0.0
+    if err > rtol * scale and dk.dim() == 2:
+        # the first row that parts, both versions, for the report
+        over = ((dk - dp).abs() > rtol * scale) & fin
+        bad = int(torch.nonzero(over)[0, 0])
+        REPORT.setdefault("parted", {})[what] = {
+            "row": bad, "rows_parted": int(over.any(1).sum()),
+            "kernel": [dk[bad].tolist(), ik[bad].tolist()],
+            "plain": [dp[bad].tolist(), ip[bad].tolist()]}
     check(err <= rtol * scale, f"{what}: max abs err {err}")
     close = (dk - dp).abs() <= rtol * scale
     check(bool(((ik == ip) | close | ~fin).all()), f"{what}: ids differ")
@@ -1172,6 +1187,7 @@ def k6_check(idx, batch, gate):
             "expanded": int(tot[0]), "scored": int(tot[1]), "max_abs_err": err,
             "id_diff": id_diff,
             "ms": _median_ms(lambda: hnsw_serve_beam(*args, **kw)),
+            "loop_ms": _loop_ms(lambda: hnsw_serve_beam(*args, **kw)),
             "plain_ms": _median_ms(lambda: hnsw_serve_beam_plain(*args, **kw), reps=3),
             # no PyTorch call runs a graph beam
             "library_ms": None,
@@ -1182,10 +1198,11 @@ def k6_check(idx, batch, gate):
 
 def k8_check(idx, batch):
     """K8 at the refinement shape (4096 level-1 nodes through level 1,
-    deg 16, ef 32, with the expanded ids) and the search shape (B = 1024
-    through level 0 from the upper levels' beams, deg 32, ef 64, with and
-    without a 50 % `allowed` mask): distances within DOT_RTOL, ids apart
-    only at ties, on <= 1 % of entries."""
+    deg 16, ef 32, with the expanded ids), the descent shape (B = 1024
+    through level 1 from level 2's beam, deg 16, ef 32, expand 2) and the
+    search shape (B = 1024 through level 0 from the upper levels' beams,
+    deg 32, ef 64, with and without a 50 % `allowed` mask): distances
+    within DOT_RTOL, ids apart only at ties, on <= 1 % of entries."""
     from turdb_tpu_torch.kernels import hnsw_graph_beam, hnsw_graph_beam_plain
     from turdb_tpu_torch.models.hnsw import _beam_level, _seed_from_entry
     from turdb_tpu_torch.ops.distance import Metric
@@ -1199,18 +1216,21 @@ def k8_check(idx, batch):
     si, sd = _seed_from_entry(st.vectors, st.norms, qb, qbn, st.entry, Metric.L2)
     si, sd = si[:, None], sd[:, None]
     for lvl in range(len(st.adj_hi), 0, -1):
+        if lvl == 1:
+            d_si, d_sd = si, sd
         sd, si = _beam_level(st.adj_hi[lvl - 1], st.vectors, st.norms, qb, qbn, si, sd, 32, 64,
                              Metric.L2, expand=2)
     allowed = torch.rand(st.vectors.shape[0], device=qb.device) < 0.5
     cases = (("refine", st.adj_hi[0], q1, q1n, s1[:, None], d1[:, None],
               dict(ef=32, iters=48, return_expanded=True)),
+             ("descent", st.adj_hi[0], qb, qbn, d_si, d_sd, dict(ef=32, iters=64, expand=2)),
              ("search", st.adj0, qb, qbn, si, sd, dict(ef=64, iters=96)),
              ("search_allowed", st.adj0, qb, qbn, si, sd,
               dict(ef=64, iters=96, allowed=allowed, k_res=16)))
     out = {}
     for name, adj, q, qn, s_i, s_d, kw in cases:
         args = (adj, st.vectors, st.norms, q, qn, s_i.contiguous(), s_d.contiguous())
-        kw = dict(metric=0, expand=4, **kw)
+        kw = {"metric": 0, "expand": 4, **kw}
         got = hnsw_graph_beam(*args, **kw)
         want = hnsw_graph_beam_plain(*args, **kw)
         err, id_diff = _near_equal(got.cand_d, got.cand_i, want.cand_d, want.cand_i, DOT_RTOL,
@@ -1227,10 +1247,12 @@ def k8_check(idx, batch):
         nbytes = (int(tot[0]) * deg * 4 + int(tot[1]) * (4 * DIM + 4) + b * (4 * DIM + 4)
                   + b * s * 8 + out_bytes)
         out[name] = {
-            "shape": {"B": b, "S": s, "ef": kw["ef"], "iters": kw["iters"], "deg": deg, "d": DIM},
+            "shape": {"B": b, "S": s, "ef": kw["ef"], "iters": kw["iters"],
+                      "expand": kw["expand"], "deg": deg, "d": DIM},
             "expanded": int(tot[0]), "scored": int(tot[1]), "max_abs_err": err,
             "id_diff": id_diff,
             "ms": _median_ms(lambda: hnsw_graph_beam(*args, **kw)),
+            "loop_ms": _loop_ms(lambda: hnsw_graph_beam(*args, **kw)),
             "plain_ms": _median_ms(lambda: hnsw_graph_beam_plain(*args, **kw), reps=3),
             "library_ms": None,
             **_bound(nbytes, 2 * DIM * int(tot[1]), FP32_OPS)}
@@ -1286,9 +1308,10 @@ def k7_check(idx, gen):
     (a node's 32 edges and its nearest edge's 32: duplicates and the
     target itself occur, as in the self-probe's lists) and W = 128 at level
     1 (its 16 edges and those of 7 of its neighbours), alpha 1.2. Rows
-    equal to the plain version's on >= 98 %, and every row that differs
-    has a decision within 4x the two versions' largest distance error of
-    a tie (fp64 margins): the two sum their fp32 dots in different orders."""
+    equal to the plain version's on >= 98 %, and every row that differs in
+    its ids or its n_pairs has a decision within 4x the two versions'
+    largest distance error of a tie (fp64 margins): the two sum their fp32
+    dots in different orders."""
     from turdb_tpu_torch.kernels import hnsw_select, hnsw_select_plain
 
     st = idx.state
@@ -1313,11 +1336,15 @@ def k7_check(idx, gen):
         same = (ki == pi).all(1)
         frac = float(same.float().mean())
         check(frac >= 0.98, f"K7 {name}: only {frac} of the rows equal the plain version's")
+        # n_pairs follows the takes: an equal row may still take another
+        # candidate and backfill it in the same place, at a tie
+        pairs_equal = float((kp[same] == pp[same]).float().mean())
         fin = torch.isfinite(pd[same])
         err = float((kd[same][fin] - pd[same][fin]).abs().max()) if bool(fin.any()) else 0.0
-        # a row may part only where the fp64 selection comes within a few
-        # times the two versions' own fp32 disagreement of a tie
-        rows = torch.nonzero(~same)[:, 0]
+        # a row (its ids or its n_pairs) may part only where the fp64
+        # selection comes within a few times the two versions' own fp32
+        # disagreement of a tie
+        rows = torch.nonzero(~(same & (kp == pp)))[:, 0]
         margins = _select_margins(st.vectors, t[rows], cand[rows], deg, 1.2)
         tol = 4.0 * max(err, 2e-7 * float(st.norms[:idx.size].max()))
         check(bool((margins <= tol).all()),
@@ -1335,9 +1362,11 @@ def k7_check(idx, gen):
         nbytes = n_rows * (4 * DIM + 4) + u * 4 + cand.numel() * 4 + u * deg * 8 + u * 4
         out[name] = {
             "shape": {"U": u, "W": w, "deg": deg, "d": DIM, "alpha": 1.2},
-            "rows_equal": frac, "max_abs_err": err, "pairs": int(kp.sum()),
+            "rows_equal": frac, "pairs_equal": pairs_equal, "max_abs_err": err,
+            "pairs": int(kp.sum()),
             "tie_tol": tol, "max_margin_of_differing": float(margins.max()) if len(rows) else 0.0,
             "ms": _median_ms(lambda: hnsw_select(st.vectors, st.norms, t, cand, **kw)),
+            "loop_ms": _loop_ms(lambda: hnsw_select(st.vectors, st.norms, t, cand, **kw)),
             "plain_ms": _median_ms(lambda: hnsw_select_plain(st.vectors, st.norms, t, cand, **kw),
                                    reps=3),
             # no PyTorch call runs the sequential diversity scan
@@ -1632,6 +1661,7 @@ def k8sq_check(idx, batch):
             "expanded": int(tot[0]), "scored": int(tot[1]), "max_abs_err": err,
             "id_diff": id_diff,
             "ms": _median_ms(lambda: hnsw_graph_beam(*args, **kw)),
+            "loop_ms": _loop_ms(lambda: hnsw_graph_beam(*args, **kw)),
             "plain_ms": _median_ms(lambda: hnsw_graph_beam_plain(*args, **kw), reps=3),
             "library_ms": None,
             **_bound(nbytes, 2 * DIM * int(tot[1]), FP32_OPS)}
@@ -1643,8 +1673,8 @@ def k7_sorted_check(idx, q):
     """K7's presorted mode at the waves' level-0 shape: the ef 100 beam
     buffers (W = 100) of 512 held-out rows through level 0 of the inserted
     1M graph, deg 32, alpha 1. Rows equal to the plain version's
-    on >= 98 %, and every other row has a decision within 4x the fp32
-    disagreement of a tie (fp64 margins)."""
+    on >= 98 %, and every row that differs in its ids or its n_pairs has
+    a decision within 4x the fp32 disagreement of a tie (fp64 margins)."""
     from turdb_tpu_torch.kernels import hnsw_select_sorted, hnsw_select_sorted_plain
     from turdb_tpu_torch.models.hnsw import _beam_level, _seed_from_entry
     from turdb_tpu_torch.ops.distance import Metric
@@ -1662,7 +1692,8 @@ def k7_sorted_check(idx, q):
     frac = float(same.float().mean())
     check(frac >= 0.98, f"K7 presorted: only {frac} of the rows equal the plain version's")
     check(torch.equal(kd[same], pd[same]), "K7 presorted: the distances of equal rows differ")
-    rows = torch.nonzero(~same)[:, 0]
+    pairs_equal = float((kp[same] == pp[same]).float().mean())
+    rows = torch.nonzero(~(same & (kp == pp)))[:, 0]
     margins = _select_margins(st.vectors, None, cand_i[rows], 32, 1.0, cand_d=cand_d[rows])
     tol = 4.0 * 2e-7 * float(st.norms[:idx.size].max())
     check(bool((margins <= tol).all()),
@@ -1672,9 +1703,11 @@ def k7_sorted_check(idx, q):
     n_rows = int(torch.unique(cand_i[valid]).numel())
     nbytes = n_rows * 4 * DIM + u * w * 8 + u * 32 * 8 + u * 4
     return {"shape": {"U": u, "W": w, "deg": 32, "d": DIM, "alpha": 1.0}, "rows_equal": frac,
+            "pairs_equal": pairs_equal,
             "max_abs_err": 0.0, "pairs": int(kp.sum()), "tie_tol": tol,
             "max_margin_of_differing": float(margins.max()) if len(rows) else 0.0,
             "ms": _median_ms(lambda: hnsw_select_sorted(st.vectors, cand_i, cand_d, **kw)),
+            "loop_ms": _loop_ms(lambda: hnsw_select_sorted(st.vectors, cand_i, cand_d, **kw)),
             "plain_ms": _median_ms(lambda: hnsw_select_sorted_plain(st.vectors, cand_i, cand_d,
                                                                     **kw), reps=3),
             "library_ms": None,

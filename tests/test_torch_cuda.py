@@ -465,6 +465,89 @@ def test_hnsw_select_kernel_matches_plain(cuda):
                 assert not bool((ki == targets[:, None]).any())
 
 
+def test_hnsw_graph_beam_at_its_limits(cuda):
+    """K8 where its hash table is largest: ef = EF_MAX, expand * deg =
+    SLOTS_MAX and an expansion list of EXP_MAX ids, with and without the
+    filtered result buffer, every metric; one launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    x, norms, adj = _graph(g, 8000, 32, 32, cuda)
+    q = (x[torch.randint(0, 8000, (24,), device=cuda, generator=g)]
+         + 0.5 * torch.randn(24, 32, device=cuda, generator=g)).contiguous()
+    qn = (q * q).sum(1)
+    allowed = torch.rand(8000, device=cuda, generator=g) < 0.5
+    seeds = torch.rand(24, 8000, device=cuda, generator=g).topk(16).indices.to(torch.int32)
+    atol = 1e-5 * float(qn.max() + norms.max())
+    expand = kernels.SLOTS_MAX // 32
+    for metric in (0, 1, 2):
+        sd = kernels._gathered_epilogue(torch.einsum("bd,bsd->bs", q, x[seeds.long()]),
+                                        metric, qn[:, None], norms[seeds.long()]).contiguous()
+        for kw in (dict(return_expanded=True),
+                   dict(allowed=allowed, k_res=kernels.EF_MAX)):
+            opts = dict(ef=kernels.EF_MAX, iters=kernels.EXP_MAX, metric=metric, expand=expand,
+                        **kw)
+            before = kernels.launches["hnsw_graph_beam"]
+            got = kernels.hnsw_graph_beam(adj, x, norms, q, qn, seeds, sd, **opts)
+            assert kernels.launches["hnsw_graph_beam"] == before + 1
+            want = kernels.hnsw_graph_beam_plain(adj, x, norms, q, qn, seeds, sd, **opts)
+            torch.testing.assert_close(got.cand_d, want.cand_d, rtol=1e-5, atol=atol)
+            assert (got.cand_i == want.cand_i).float().mean() >= 0.99, (metric, kw)
+            assert (got.stats == want.stats).all(1).float().mean() >= 0.9
+            if "k_res" in kw:
+                torch.testing.assert_close(got.res_d, want.res_d, rtol=1e-5, atol=atol)
+                assert bool(allowed[got.res_i[got.res_i >= 0].long()].all())
+            else:
+                assert (got.exp_ids == want.exp_ids).float().mean() >= 0.95
+    with pytest.raises(ValueError):
+        kernels.hnsw_graph_beam(adj, x, norms, q, qn, seeds, sd, ef=kernels.EF_MAX,
+                                iters=kernels.EXP_MAX + expand, metric=0, expand=expand)
+
+
+def test_hnsw_select_at_select_w_max(cuda):
+    """K7 at W = SELECT_W_MAX, d = 128 (its largest shared memory), both
+    modes, every metric, alpha 1.0 and 1.2: rows equal the plain version's
+    on >= 99 %, and equal rows have equal n_pairs but on <= 1 % of them
+    (an equal row can take another candidate at a tie and backfill it in
+    the same place); one launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+    w = kernels.SELECT_W_MAX
+    x, _, adj = _graph(g, 6000, 128, 32, cuda)
+    targets = torch.randperm(6000, device=cuda, generator=g)[:500].to(torch.int32)
+    cand = torch.randint(0, 6000, (500, w), device=cuda, generator=g, dtype=torch.int32)
+    cand[:, :32] = adj[targets.long()]
+    cand[:, 100] = cand[:, 7]
+    cand[:, 200] = targets
+    cand[::5, 150:] = -1
+    for metric in (0, 1, 2):
+        xm = (x / x.norm(dim=1, keepdim=True) if metric == 1 else x).contiguous()
+        nm = (xm * xm).sum(1)
+        sd = kernels._gathered_epilogue(torch.einsum("ud,uwd->uw", xm[targets.long()],
+                                                     xm[cand.clamp_min(0).long()]),
+                                        metric, nm[targets.long()][:, None],
+                                        nm[cand.clamp_min(0).long()])
+        # the presorted mode's input: the distinct candidates but the
+        # target, ascending, -1 / +inf at the end (as a beam buffer holds them)
+        earlier = torch.tril(torch.ones((w, w), dtype=torch.bool, device=cuda), -1)
+        drop = (torch.any((cand[:, :, None] == cand[:, None, :]) & earlier, -1)
+                | (cand == targets[:, None]) | (cand < 0))
+        sd, order = torch.where(drop, float("inf"), sd).sort(dim=1, stable=True)
+        cand_s = torch.where(drop, -1, cand)
+        cs = torch.gather(cand_s, 1, order).contiguous()
+        for alpha in (1.0, 1.2):
+            for name, fn, plain, args in (
+                    ("hnsw_select", kernels.hnsw_select, kernels.hnsw_select_plain,
+                     (xm, nm, targets, cand)),
+                    ("hnsw_select_sorted", kernels.hnsw_select_sorted,
+                     kernels.hnsw_select_sorted_plain, (xm, cs, sd.contiguous()))):
+                before = kernels.launches[name]
+                ki, kd, kp = fn(*args, deg=32, metric=metric, alpha=alpha)
+                assert kernels.launches[name] == before + 1
+                pi, pd, pp = plain(*args, deg=32, metric=metric, alpha=alpha)
+                same = (ki == pi).all(1)
+                assert same.float().mean() >= 0.99, (name, metric, alpha)
+                torch.testing.assert_close(kd[same], pd[same], rtol=1e-5, atol=1e-4)
+                assert (kp[same] == pp[same]).float().mean() >= 0.99, (name, metric, alpha)
+
+
 def test_ivf_probe_sq8_metric_epilogues_bit_equal(cuda):
     """K4's COSINE and IP epilogues (the serving pack's seeding) equal the
     plain version bit for bit."""

@@ -580,8 +580,10 @@ def kmeans_assign(x, cents, xn, cn, r: int = 1):
 # ---------------------------------------------------------------------------
 
 # widest beam buffer, neighbour slots a step (expand * deg) and expanded-id
-# list a beam kernel keeps in shared memory (csrc/hnsw_beam.cu)
-EF_MAX, SLOTS_MAX, EXP_MAX = 1024, 1024, 8192
+# list a beam kernel keeps in shared memory (csrc/hnsw_beam.cu), with a hash
+# table of at least twice their sum; the callers' iters = ef + ef // 2
+# stays within EXP_MAX at every ef up to EF_MAX
+EF_MAX, SLOTS_MAX, EXP_MAX = 1024, 1024, 2048
 
 
 class BeamResult(NamedTuple):
@@ -1084,9 +1086,9 @@ def hnsw_select(vectors, norms, targets, cand, *, deg: int, metric: int, alpha: 
     if not _on_cuda(vectors, norms, targets, cand):
         return hnsw_select_plain(vectors, norms, targets, cand, deg=deg, metric=metric,
                                  alpha=alpha)
-    if w > SELECT_W_MAX or d % 4 or w * d * 4 > (160 << 10):
-        raise ValueError(f"hnsw_select: need W <= {SELECT_W_MAX}, dim a multiple of 4 and "
-                         f"W*dim*4 <= 160 KB (the candidates' rows in shared memory); "
+    if w > SELECT_W_MAX or d % 4 or d > 4096 or w * d * 4 > (160 << 10):
+        raise ValueError(f"hnsw_select: need W <= {SELECT_W_MAX}, dim a multiple of 4 up to "
+                         f"4096 and W*dim*4 <= 160 KB (the candidates' rows in shared memory); "
                          f"got W={w}, dim={d}")
     _check(vectors, "vectors", torch.float32, (cap, d))
     _check(norms, "norms", torch.float32, (cap,))
@@ -1133,9 +1135,9 @@ def hnsw_select_sorted(vectors, cand_i, cand_d, *, deg: int, metric: int, alpha:
     if not _on_cuda(vectors, cand_i, cand_d):
         return hnsw_select_sorted_plain(vectors, cand_i, cand_d, deg=deg, metric=metric,
                                         alpha=alpha)
-    if d % 4 or w * d * 4 > (160 << 10):
-        raise ValueError("hnsw_select_sorted: need dim a multiple of 4 and W*dim*4 <= 160 KB "
-                         f"(the candidates' rows in shared memory); got W={w}, dim={d}")
+    if d % 4 or d > 4096 or w * d * 4 > (160 << 10):
+        raise ValueError("hnsw_select_sorted: need dim a multiple of 4 up to 4096 and W*dim*4 "
+                         f"<= 160 KB (the candidates' rows in shared memory); got W={w}, dim={d}")
     _check(vectors, "vectors", torch.float32, (cap, d))
     _check(cand_i, "cand_i", torch.int32, (u, w))
     _check(cand_d, "cand_d", torch.float32, (u, w))

@@ -1,10 +1,16 @@
 // The neighbour scorers of the HNSW graph kernels: K8 hnsw_graph_beam and
 // K8-SQ hnsw_graph_beam_sq (hnsw_beam.cu) and K9 hnsw_greedy
 // (hnsw_greedy.cu). A scorer names the neighbour in slot g of a node's list
-// (adj[node, g]) and scores it against the query row held in shared memory:
-// one thread reads the whole row and sums its fp32 products in order, then
-// applies gathered_distances' epilogue (L2 clamped at 0, COS 1 - dot, IP
-// -dot) with the row's stored norm.
+// (adj[node, g]) and scores it against the query row held in shared memory,
+// then applies gathered_distances' epilogue (L2 clamped at 0, COS 1 - dot,
+// IP -dot) with the row's stored norm. Two ways: `score`, one thread reads
+// the whole row and sums its fp32 products in order (K9, a lane a
+// neighbour); `group_scores`, a group of GROUP lanes takes R rows at once
+// (K6 / K8: up to 4 groups x R rows in flight a warp). GraphScorer's group
+// reads each row together, each lane 16 bytes in turn (128 contiguous bytes
+// of the row a load, so the loads use whole lines), every load of the R rows
+// issued before their sums, then a 3-step shuffle sum; SqScorer's lanes
+// each score a row of the group's R alone.
 //
 // GraphScorer reads the f32 rows. SqScorer reads the SQ8 / SQ16 graph store
 // (the reference's Sq8Rows: u8 or u16 codes and a per-row min and scale) and
@@ -14,6 +20,18 @@
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#define GROUP 8   // lanes that read one row in group_scores
+
+// the sums of a lane group (aligned groups of GROUP lanes; all 32 lanes call)
+__device__ __forceinline__ float group_sum(float v) {
+    for (int o = GROUP >> 1; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    return v;
+}
+__device__ __forceinline__ int group_sum(int v) {
+    for (int o = GROUP >> 1; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    return v;
+}
 
 __device__ __forceinline__ float gathered_epilogue(float acc, float qnb, float xn, int metric) {
     if (metric == 0) return fmaxf(__fsub_rn(__fadd_rn(qnb, xn), __fmul_rn(2.0f, acc)), 0.0f);
@@ -48,6 +66,41 @@ struct GraphScorer {
             acc = fmaf(x.w, y.w, acc);
         }
         return gathered_epilogue(acc, qnb, norms[id], metric);
+    }
+    // lane `sub` of a group: rows id[0, R) (-1: none; every lane of a group
+    // has the same rows), the distances in out[] on every lane of the group
+    template <int R>
+    __device__ __forceinline__ void group_scores(const unsigned char* s, const int* node,
+                                                 const int* g, const int* id, int d, int deg,
+                                                 int sub, float qnb, int metric,
+                                                 float* out) const {
+        const float4* q4 = reinterpret_cast<const float4*>(s);
+        float acc[R], xn[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+            acc[r] = 0.0f;
+            xn[r] = id[r] >= 0 ? __ldg(norms + id[r]) : 0.0f;
+        }
+#pragma unroll 4
+        for (int c = sub; c < (d >> 2); c += GROUP) {
+            float4 x[R];
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+                x[r] = id[r] >= 0
+                           ? __ldg(reinterpret_cast<const float4*>(vectors + (size_t)id[r] * d) + c)
+                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            const float4 y = q4[c];
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+                acc[r] = fmaf(x[r].x, y.x, acc[r]);
+                acc[r] = fmaf(x[r].y, y.y, acc[r]);
+                acc[r] = fmaf(x[r].z, y.z, acc[r]);
+                acc[r] = fmaf(x[r].w, y.w, acc[r]);
+            }
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+            out[r] = gathered_epilogue(group_sum(acc[r]), qnb, xn[r], metric);
     }
 };
 
@@ -91,5 +144,24 @@ struct SqScorer {
             acc = fmaf(fmaf(sc, u.w, m), y.w, acc);
         }
         return gathered_epilogue(acc, qnb, norms[id], metric);
+    }
+    // a lane group's R rows: lane r of the group scores row r alone, in
+    // `score`'s order, and the group shares the results. The SQ store keeps
+    // that per-row sum: summed by lane groups, one SQ16 query of
+    // chip_smoke's 1M check parted from the plain beam beyond the tie band
+    // (its expansions split at a near tie, PERF.md).
+    template <int R>
+    __device__ __forceinline__ void group_scores(const unsigned char* s, const int* node,
+                                                 const int* g, const int* id, int d, int deg,
+                                                 int sub, float qnb, int metric,
+                                                 float* out) const {
+        int mine = -1;
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+            if (sub == r) mine = id[r];
+        const float v = mine >= 0 ? score(s, 0, 0, mine, d, deg, qnb, metric) : 0.0f;
+        const int base = (threadIdx.x & 31) & ~(GROUP - 1);
+#pragma unroll
+        for (int r = 0; r < R; ++r) out[r] = __shfl_sync(0xffffffffu, v, base + r);
     }
 };

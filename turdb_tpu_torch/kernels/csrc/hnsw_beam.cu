@@ -25,36 +25,88 @@
 // A step reads expand*deg scattered rows (K8, 4d bytes each; K8-SQ, d or
 // 2d bytes of codes and 8 of min and scale) or expand
 // contiguous blocks (K6, deg*(d+16) bytes each) that depend on the step
-// before, and a query takes tens of steps in sequence.
+// before, and a query takes tens of steps in sequence. What a step costs
+// beyond that latency is its serial shared-memory work and its barriers.
 //
 // Design: one 128-thread block per query, a persistent loop, and every
-// buffer in shared memory (the sorted candidates with an expanded flag,
-// the expanded ids, the step's neighbour slots, the filtered results).
-// Each query stops on its own: a finished query of the reference is frozen
-// too, so the result is the same. The seeds are sorted by (distance,
-// position) on entry, which keeps the reference's tie order; from then on
-// the buffer stays sorted, so the nearest unexpanded candidates are its
-// first unflagged entries (a warp ballot scan), the reference's bound
-// reduces to "nothing left to expand", and a merge ranks each old
-// entry by the new ones below it and each new one by a binary search of
-// the old plus a count of the new, so that no sort runs in the loop. A
-// thread scores one neighbour at a time (the whole row from its own
-// loads), so a step keeps up to 128 rows in flight. K6 ends with its
-// rerank: the r best of the buffer, their f32 rows, an fp32 dot, the
-// metric's exact distance (unclamped L2), +inf outside `allowed`, and the
-// k smallest by (distance, position). Each query reports how many nodes
-// it expanded and how many neighbours it scored.
+// buffer in shared memory. Each query stops on its own: a finished query
+// of the reference is frozen too, so the result is the same. The seeds are
+// sorted by (distance, position) on entry, which keeps the reference's tie
+// order; from then on the buffer stays sorted, so the nearest unexpanded
+// candidates are its first unflagged entries (a warp ballot scan), and the
+// reference's bound reduces to "nothing left to expand". A step is four
+// phases and four barriers:
+//  1. warp 0 selects the nodes to expand and reads their neighbour lists
+//     while the other warps insert the buffer's ids and every id expanded
+//     before into a hash table (graph_util.cuh, cleared in phase 4);
+//  2. each neighbour slot claims its id in the table (atomicMin of its slot
+//     index): a member is dropped, and of several slots with one id the
+//     lowest wins. That is the reference's member_mask of the buffer and of
+//     the expanded ids, then mask_duplicates, in O(1) a slot. A node that
+//     left the buffer unexpanded is scored again, as in the reference;
+//  3. each warp compacts its kept slots (ballot), scores them by lane
+//     groups (graph_scorer.cuh group_scores: 8 lanes a row, 16 rows a warp
+//     in flight), keeps those below the buffer's worst (a new entry at or
+//     above it cannot enter: a tie goes to the old entry) and, with
+//     `allowed`, the allowed ones below the result buffer's worst, and
+//     sorts them in runs of 32 (a bitonic network of shuffles);
+//  4. the merge: each old entry moves by the new entries below it, each new
+//     one to its rank among the new plus the old entries at or below it
+//     (binary searches of the runs and of the buffer), into the other half
+//     of a double buffer. The filtered result buffer merges the same way.
+// K6 ends with its rerank: the r best of the buffer, their f32 rows, an fp32
+// dot, the metric's exact distance (unclamped L2), +inf outside `allowed`,
+// and the k smallest by (distance, position). Each query reports how many
+// nodes it expanded and how many neighbours it scored.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "graph_scorer.cuh"
+#include "graph_util.cuh"
 
 #define BEAM_THREADS 128
 #define BEAM_WARPS (BEAM_THREADS / 32)
+static_assert(BEAM_WARPS == 4, "merge_into splits the new entries among 4 warps");
+#define SLOTS_MAX 1024                                   // kernels.SLOTS_MAX
+#define SLOT_REG ((SLOTS_MAX + BEAM_THREADS - 1) / BEAM_THREADS)
+#define GROUP_ROWS 4                                     // rows a lane group scores at once
 #define F_INF __int_as_float(0x7f800000)
+
+// Built with -DBEAM_PHASE_CLOCKS (scripts/exp_torch_beam_phases.py), thread
+// 0 of every block adds the cycles of each phase of run_beam to
+// beam_clocks: 0 the seeds, 1 the selection and the members, 2 the claims
+// (with the lists' reads), 3 the scoring and the runs, 4 the merge; 5
+// counts the steps. hnsw_beam_clocks reads and clears them.
+#ifdef BEAM_PHASE_CLOCKS
+__device__ unsigned long long beam_clocks[8];
+#define BEAM_MARK(i)                                                                  \
+    do {                                                                              \
+        if (threadIdx.x == 0) {                                                       \
+            const long long now = clock64();                                          \
+            atomicAdd(beam_clocks + (i), (unsigned long long)(now - mark));           \
+            if ((i) == 4) atomicAdd(beam_clocks + 5, 1ull);                           \
+            mark = now;                                                               \
+        }                                                                             \
+    } while (0)
+
+extern "C" int hnsw_beam_clocks(unsigned long long* out) {
+    cudaError_t e = cudaMemcpyFromSymbol(out, beam_clocks, sizeof(beam_clocks));
+    if (e == cudaSuccess) {
+        const unsigned long long zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+        e = cudaMemcpyToSymbol(beam_clocks, zero, sizeof(zero));
+    }
+    return (int)e;
+}
+#else
+#define BEAM_MARK(i) \
+    do {             \
+    } while (0)
+#endif
 
 struct BeamArgs {
     int B, S, d, deg, ef, loops, expand, exp_cap, slots, k_res, metric;
+    int hbits;                 // the hash table holds 1 << hbits entries
+    int wcap;                  // a warp's share of the per-warp lists
     const int* seed_i;         // [B, S]
     const float* seed_d;       // [B, S]
     const uint8_t* allowed;    // [cap] or null
@@ -63,52 +115,60 @@ struct BeamArgs {
 
 // Shared-memory buffers of one query.
 struct Smem {
-    float* cd; int* ci; int* cx;   // candidate buffer [ef]: distance, id, expanded
-    float* td; int* ti; int* tx;   // merge output [max(ef, k_res)]
-    float* rd; int* ri;            // filtered results [k_res]
-    int* exp;                      // expanded ids [exp_cap]
-    int* nb;                       // [slots] neighbour id of each slot (-1: none)
-    int* keep;                     // [slots] the slot holds a new neighbour
-    int* ni; float* nd; int* ns;   // [slots] new neighbours compacted: id, distance, slot
-    int* nu;                       // [slots] the new neighbour is allowed
+    float* cd[2]; int* ci[2]; int* cx[2];   // candidate buffer [ef] x 2: distance, id, expanded
+    float* rd[2]; int* ri[2];               // filtered results [k_res] x 2
+    unsigned* hid; unsigned* htag; // [1 << hbits] the step's table: ids, tags
+    u64* kc;                       // [BEAM_WARPS * wcap] a warp's runs of survivors (buffer)
+    u64* kr;                       // [BEAM_WARPS * wcap] ... of allowed survivors (results)
+    int* wt; int* wi;              // [BEAM_WARPS * wcap] a warp's kept slots: slot, id
+    int* nid; float* nd;           // [slots] the scored neighbour of each slot: id, distance
     int* selp;                     // [expand] buffer positions selected this step
     int* sel;                      // [expand] ids expanded this step (-1: none)
-    int* misc;                     // [8 + BEAM_WARPS]
+    int* exp;                      // [exp_cap] expanded ids
+    int* misc;                     // [16]: 0 selected; 1-4 / 5-8 a warp's survivors
+                                   // (buffer / results); 9-12 a warp's kept slots
     unsigned char* q;              // the scorer's query bytes
 };
+
+// one half of a double buffer (a select, so that Smem stays in registers)
+template <class T>
+__device__ __forceinline__ T* half(T* const (&p)[2], int h) {
+    return h ? p[1] : p[0];
+}
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~(size_t)15; }
 
 // Bytes of Smem for these widths; `carve` lays it out in the same order.
-__host__ __device__ inline size_t smem_bytes(int ef, int k_res, int exp_cap, int slots,
-                                             int expand, size_t qbytes) {
-    const int wide = ef > k_res ? ef : k_res;
-    return align16(qbytes) + (size_t)4 * (3 * ef + 3 * wide + 2 * k_res + exp_cap + 6 * slots +
-                                          2 * expand + 8 + BEAM_WARPS);
+__host__ __device__ inline size_t smem_bytes(const BeamArgs& a, size_t qbytes) {
+    return align16(qbytes) + (size_t)8 * ((1 << a.hbits) + 2 * BEAM_WARPS * a.wcap) +
+           (size_t)4 * (6 * a.ef + 4 * a.k_res + 2 * BEAM_WARPS * a.wcap + 2 * a.slots +
+                        2 * a.expand + a.exp_cap + 16);
 }
 
 __device__ inline Smem carve(unsigned char* p, const BeamArgs& a, size_t qbytes) {
     Smem s;
-    const int wide = a.ef > a.k_res ? a.ef : a.k_res;
     s.q = p;
-    float* f = reinterpret_cast<float*>(p + align16(qbytes));
-    s.cd = f; f += a.ef;
-    s.ci = reinterpret_cast<int*>(f); f += a.ef;
-    s.cx = reinterpret_cast<int*>(f); f += a.ef;
-    s.td = f; f += wide;
-    s.ti = reinterpret_cast<int*>(f); f += wide;
-    s.tx = reinterpret_cast<int*>(f); f += wide;
-    s.rd = f; f += a.k_res;
-    s.ri = reinterpret_cast<int*>(f); f += a.k_res;
-    s.exp = reinterpret_cast<int*>(f); f += a.exp_cap;
-    s.nb = reinterpret_cast<int*>(f); f += a.slots;
-    s.keep = reinterpret_cast<int*>(f); f += a.slots;
-    s.ni = reinterpret_cast<int*>(f); f += a.slots;
+    u64* w = reinterpret_cast<u64*>(p + align16(qbytes));
+    s.hid = reinterpret_cast<unsigned*>(w);
+    s.htag = s.hid + (1 << a.hbits);
+    w += 1 << a.hbits;
+    s.kc = w; w += BEAM_WARPS * a.wcap;
+    s.kr = w; w += BEAM_WARPS * a.wcap;
+    float* f = reinterpret_cast<float*>(w);
+    for (int h = 0; h < 2; ++h) {
+        s.cd[h] = f; f += a.ef;
+        s.ci[h] = reinterpret_cast<int*>(f); f += a.ef;
+        s.cx[h] = reinterpret_cast<int*>(f); f += a.ef;
+        s.rd[h] = f; f += a.k_res;
+        s.ri[h] = reinterpret_cast<int*>(f); f += a.k_res;
+    }
+    s.wt = reinterpret_cast<int*>(f); f += BEAM_WARPS * a.wcap;
+    s.wi = reinterpret_cast<int*>(f); f += BEAM_WARPS * a.wcap;
+    s.nid = reinterpret_cast<int*>(f); f += a.slots;
     s.nd = f; f += a.slots;
-    s.ns = reinterpret_cast<int*>(f); f += a.slots;
-    s.nu = reinterpret_cast<int*>(f); f += a.slots;
     s.selp = reinterpret_cast<int*>(f); f += a.expand;
     s.sel = reinterpret_cast<int*>(f); f += a.expand;
+    s.exp = reinterpret_cast<int*>(f); f += a.exp_cap;
     s.misc = reinterpret_cast<int*>(f);
     return s;
 }
@@ -137,22 +197,47 @@ struct ServeScorer {
     __device__ int neighbour(int node, int g, int deg) const {
         return meta[(size_t)node * deg + g].w;
     }
-    __device__ float score(const unsigned char* s, int node, int g, int id, int d, int deg,
-                           float qnb, int metric) const {
-        const size_t blk = (size_t)node * deg + g;
-        const int* cw = reinterpret_cast<const int*>(codes + blk * d);
+    // a lane group's int8 dots of R neighbours' code blocks (exact int32
+    // sums, so the lanes' order does not change them), then _approx_dist's
+    // epilogue as the plain expression rounds it
+    template <int R>
+    __device__ __forceinline__ void group_scores(const unsigned char* s, const int* node,
+                                                 const int* g, const int* id, int d, int deg,
+                                                 int sub, float qnb, int metric,
+                                                 float* out) const {
         const int* qw = reinterpret_cast<const int*>(s + (size_t)d * 4);
         const float* sf = reinterpret_cast<const float*>(s + (size_t)d * 5);
-        int acc = 0;
-        for (int j = 0; j < (d >> 2); ++j) acc = __dp4a(cw[j], qw[j], acc);
-        const int4 m = meta[blk];
-        // base*q_sum + scale*(qs*dot), as _approx_dist rounds it
-        const float qdx = __fadd_rn(__fmul_rn(__int_as_float(m.x), sf[1]),
-                                    __fmul_rn(__int_as_float(m.y),
-                                              __fmul_rn(sf[0], __int2float_rn(acc))));
-        if (metric == 0) return __fadd_rn(__fsub_rn(qnb, __fmul_rn(2.0f, qdx)), __int_as_float(m.z));
-        if (metric == 1) return __fsub_rn(1.0f, qdx);
-        return -qdx;
+        int acc[R];
+        size_t blk[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+            acc[r] = 0;
+            blk[r] = id[r] >= 0 ? (size_t)node[r] * deg + g[r] : 0;
+        }
+#pragma unroll 4
+        for (int c = sub; c < (d >> 2); c += GROUP) {
+            int cw[R];
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+                cw[r] = id[r] >= 0 ? __ldg(reinterpret_cast<const int*>(codes + blk[r] * d) + c)
+                                   : 0;
+            const int qv = qw[c];
+#pragma unroll
+            for (int r = 0; r < R; ++r) acc[r] = __dp4a(cw[r], qv, acc[r]);
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+            const int dot = group_sum(acc[r]);
+            const int4 m = id[r] >= 0 ? meta[blk[r]] : make_int4(0, 0, 0, 0);
+            // base*q_sum + scale*(qs*dot), as _approx_dist rounds it
+            const float qdx = __fadd_rn(__fmul_rn(__int_as_float(m.x), sf[1]),
+                                        __fmul_rn(__int_as_float(m.y),
+                                                  __fmul_rn(sf[0], __int2float_rn(dot))));
+            if (metric == 0)
+                out[r] = __fadd_rn(__fsub_rn(qnb, __fmul_rn(2.0f, qdx)), __int_as_float(m.z));
+            else if (metric == 1) out[r] = __fsub_rn(1.0f, qdx);
+            else out[r] = -qdx;
+        }
     }
     // the exact distance of row `id` for the rerank (no clamp)
     __device__ float exact(const unsigned char* s, int id, int d, float qnb, int metric) const {
@@ -184,116 +269,111 @@ __device__ void sorted_seeds(const float* d, const int* id, int n, float* od, in
     }
 }
 
-// Merge the new neighbours (nd, ni)[n_new], where `use` allows (null: all),
-// into the sorted buffer (od, oi, ox)[n_old], keeping its n_old smallest by
-// (distance, position) with every old entry before every new one: the
-// reference's top-k over [old || new]. ox may be null; new entries get 0.
-__device__ void merge(float* od, int* oi, int* ox, int n_old, const float* nd, const int* ni,
-                      const int* use, int n_new, float* td, int* ti, int* tx) {
-    for (int i = threadIdx.x; i < n_old; i += blockDim.x) {
-        const float v = od[i];
+// Merge the new entries, runs of 32 keys (distance, slot) sorted by warps
+// (warp w's keys[w * wcap, + counts[w])), into the sorted buffer (od, oi,
+// ox)[n], keeping its n smallest by (distance, position) with every old
+// entry before every new one: the reference's top-k over [old || new].
+// Writes the result to (td, ti, tx); ox / tx may be null, new entries get
+// 0. The caller has dropped new entries at or above od[n - 1].
+__device__ void merge_into(const float* od, const int* oi, const int* ox, int n, const u64* keys,
+                           const int* counts, int wcap, const int* nid, const float* nd,
+                           float* td, int* ti, int* tx) {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        // below every new key of the same distance
+        const u64 x = (u64)f2key(od[i]) << 32;
         int r = i;
-        for (int j = 0; j < n_new; ++j) r += (use == nullptr || use[j]) && nd[j] < v;
-        if (r < n_old) {
-            td[r] = v;
+        for (int w = 0; w < BEAM_WARPS && r < n; ++w)
+            r += count_below_runs(keys + w * wcap, counts[w], x);
+        if (r < n) {
+            td[r] = od[i];
             ti[r] = oi[i];
-            if (ox) tx[r] = ox[i];
+            if (tx) tx[r] = ox[i];
         }
     }
-    for (int j = threadIdx.x; j < n_new; j += blockDim.x) {
-        if (use != nullptr && !use[j]) continue;
-        const float v = nd[j];
-        int lo = 0, hi = n_old;  // old entries <= v
+    // the new entries, warp w's after warp w - 1's
+    const int o1 = counts[0], o2 = o1 + counts[1], o3 = o2 + counts[2], total = o3 + counts[3];
+    for (int e = threadIdx.x; e < total; e += blockDim.x) {
+        const int w = (e >= o1) + (e >= o2) + (e >= o3);
+        const int j = e - (w == 0 ? 0 : w == 1 ? o1 : w == 2 ? o2 : o3);
+        const u64 key = keys[w * wcap + j];
+        int r = j & 31;  // its place in its own run
+        for (int w2 = 0; w2 < BEAM_WARPS && r < n; ++w2) {
+            const u64* k2 = keys + w2 * wcap;
+            for (int base = 0; base < counts[w2]; base += 32)
+                if (w2 != w || base != (j & ~31))
+                    r += count_below(k2 + base, min(32, counts[w2] - base), key);
+        }
+        if (r >= n) continue;
+        const int t = (int)(key & 0xffffffffu);
+        const float v = nd[t];
+        int lo = 0, hi = n;  // old entries <= v
         while (lo < hi) {
             const int mid = (lo + hi) >> 1;
             if (od[mid] <= v) lo = mid + 1; else hi = mid;
         }
-        int r = lo;
-        for (int i = 0; i < n_new && r < n_old; ++i)
-            r += (use == nullptr || use[i]) && (nd[i] < v || (nd[i] == v && i < j));
-        if (r < n_old) {
+        r += lo;
+        if (r < n) {
             td[r] = v;
-            ti[r] = ni[j];
-            if (ox) tx[r] = 0;
+            ti[r] = nid[t];
+            if (tx) tx[r] = 0;
         }
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < n_old; i += blockDim.x) {
-        od[i] = td[i];
-        oi[i] = ti[i];
-        if (ox) ox[i] = tx[i];
-    }
-    __syncthreads();
-}
-
-// Compact the kept slots, in slot order, into s.ni / s.ns; returns the count.
-__device__ int compact(const Smem& s, int slots) {
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    int total = 0;
-    for (int base = 0; base < slots; base += blockDim.x) {
-        const int t = base + tid;
-        const bool k = t < slots && s.keep[t];
-        const unsigned bal = __ballot_sync(0xffffffffu, k);
-        if (lane == 0) s.misc[8 + warp] = __popc(bal);
-        __syncthreads();
-        int off = total;
-        for (int w = 0; w < warp; ++w) off += s.misc[8 + w];
-        off += __popc(bal & ((1u << lane) - 1u));
-        if (k) {
-            s.ni[off] = s.nb[t];
-            s.ns[off] = t;
-        }
-        for (int w = 0; w < BEAM_WARPS; ++w) total += s.misc[8 + w];
-        __syncthreads();
-    }
-    return total;
 }
 
 // The beam of query b: seeds, then the loop. Leaves the sorted buffer in
-// s.cd / s.ci and the filtered results in s.rd / s.ri; returns the numbers
-// of expanded nodes and scored neighbours (valid in thread 0).
+// s.cd[0] / s.ci[0] and the filtered results in s.rd[0] / s.ri[0]; returns
+// the numbers of expanded nodes and scored neighbours (valid in thread 0).
 template <class Scorer>
 __device__ int2 run_beam(const BeamArgs& a, const Scorer& sc, const Smem& s, size_t b) {
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    for (int j = tid; j < a.ef; j += blockDim.x) { s.cd[j] = F_INF; s.ci[j] = -1; s.cx[j] = 0; }
-    for (int j = tid; j < a.k_res; j += blockDim.x) { s.rd[j] = F_INF; s.ri[j] = -1; }
-    for (int j = tid; j < a.exp_cap; j += blockDim.x) s.exp[j] = -1;
+#ifdef BEAM_PHASE_CLOCKS
+    long long mark = clock64();
+#endif
+    table_clear(s.hid, s.htag, a.hbits);
+    for (int j = tid; j < a.ef; j += BEAM_THREADS) {
+        s.cd[0][j] = F_INF; s.ci[0][j] = -1; s.cx[0][j] = 0;
+    }
+    for (int j = tid; j < a.k_res; j += BEAM_THREADS) { s.rd[0][j] = F_INF; s.ri[0][j] = -1; }
+    for (int j = tid; j < a.exp_cap; j += BEAM_THREADS) s.exp[j] = -1;
     __syncthreads();
     const int* si = a.seed_i + b * a.S;
     const float* sd = a.seed_d + b * a.S;
-    sorted_seeds(sd, si, a.S, s.cd, s.ci);
+    sorted_seeds(sd, si, a.S, s.cd[0], s.ci[0]);
     if (a.k_res) {
         // the result buffer starts from the first min(S, k_res) seeds that
         // are allowed, sorted as the buffer is
         const int sk = a.S < a.k_res ? a.S : a.k_res;
-        for (int j = tid; j < sk; j += blockDim.x) {
+        float* td = s.rd[1];
+        int* ti = s.ri[1];
+        for (int j = tid; j < sk; j += BEAM_THREADS) {
             const bool ok = si[j] >= 0 && a.allowed[si[j]];
-            s.td[j] = ok ? sd[j] : F_INF;
-            s.ti[j] = ok ? si[j] : -1;
+            td[j] = ok ? sd[j] : F_INF;
+            ti[j] = ok ? si[j] : -1;
         }
         __syncthreads();
-        for (int j = tid; j < sk; j += blockDim.x) {
-            const float v = s.td[j];
-            int r = 0;
-            for (int i = 0; i < sk; ++i) r += s.td[i] < v || (s.td[i] == v && i < j);
-            s.rd[r] = v;
-            s.ri[r] = s.ti[j];
-        }
+        sorted_seeds(td, ti, sk, s.rd[0], s.ri[0]);
     }
     bool any_seed = false;
-    for (int j = tid; j < a.S; j += blockDim.x) any_seed |= si[j] >= 0;
+    for (int j = tid; j < a.S; j += BEAM_THREADS) any_seed |= si[j] >= 0;
     if (!__syncthreads_or(any_seed)) return make_int2(0, 0);
+    BEAM_MARK(0);
 
     const float qnb = a.qn[b];
-    int n_exp = 0, n_scored = 0;
+    const int grp = lane / GROUP, sub = lane % GROUP;
+    int n_exp = 0, n_kept = 0, cur = 0;
     for (int it = 0; it < a.loops; ++it) {
-        // the `expand` nearest unexpanded candidates: the buffer is sorted,
-        // so they are its first unflagged finite entries
+        const float* cd = half(s.cd, cur);
+        const int* ci = half(s.ci, cur);
+        int* cx = half(s.cx, cur);
+        // 1. warp 0: the `expand` nearest unexpanded candidates (the buffer
+        // is sorted, so they are its first unflagged finite entries) and
+        // their neighbour lists; the other warps: the buffer's ids and the
+        // ids expanded before into the table (this step's are in the buffer)
         if (warp == 0) {
             int found = 0;
             for (int base = 0; base < a.ef && found < a.expand; base += 32) {
                 const int j = base + lane;
-                const bool c = j < a.ef && s.ci[j] >= 0 && !s.cx[j] && s.cd[j] < F_INF;
+                const bool c = j < a.ef && ci[j] >= 0 && !cx[j] && cd[j] < F_INF;
                 unsigned m = __ballot_sync(0xffffffffu, c);
                 while (m && found < a.expand) {
                     const int l = __ffs(m) - 1;
@@ -302,58 +382,147 @@ __device__ int2 run_beam(const BeamArgs& a, const Scorer& sc, const Smem& s, siz
                     ++found;
                 }
             }
+            __syncwarp();
+            for (int e = lane; e < a.expand; e += 32) {
+                int id = -1;
+                if (e < found) {
+                    const int p = s.selp[e];
+                    id = ci[p];
+                    cx[p] = 1;
+                }
+                s.sel[e] = id;
+                s.exp[it * a.expand + e] = id;
+            }
             if (lane == 0) s.misc[0] = found;
+            n_exp += found;
+            __syncwarp();
+            // the lists' reads all issued before their stores
+            for (int t0 = 0; t0 < a.slots; t0 += 4 * 32) {
+                int nb[4];
+#pragma unroll
+                for (int k = 0; k < 4; ++k) {
+                    const int t = t0 + k * 32 + lane;
+                    const int node = t < a.slots ? s.sel[t / a.deg] : -1;
+                    nb[k] = node >= 0 ? sc.neighbour(node, t % a.deg, a.deg) : -1;
+                }
+#pragma unroll
+                for (int k = 0; k < 4; ++k)
+                    if (t0 + k * 32 + lane < a.slots) s.nid[t0 + k * 32 + lane] = nb[k];
+            }
+        } else {
+            const int n_mem = a.ef + it * a.expand;
+            for (int j = tid - 32; j < n_mem; j += BEAM_THREADS - 32) {
+                const int id = j < a.ef ? ci[j] : s.exp[j - a.ef];
+                if (id >= 0) table_member(s.hid, s.htag, a.hbits, id);
+            }
         }
         __syncthreads();
+        BEAM_MARK(1);
         // the reference's bound (a query is done when its best unexpanded
         // candidate is worse than its worst buffered one, and expands only
         // candidates no worse than that) never binds on a sorted buffer
         // that holds them: a query is done when nothing is left to expand
-        const int nsel = s.misc[0];
-        if (nsel == 0) break;
-        for (int e = tid; e < a.expand; e += blockDim.x) {
-            int id = -1;
-            if (e < nsel) {
-                const int p = s.selp[e];
-                id = s.ci[p];
-                s.cx[p] = 1;
+        if (s.misc[0] == 0) break;
+        // 2. each slot claims its neighbour: not in the buffer, not expanded
+        // before, and the lowest slot of its id
+        int pid[SLOT_REG], ppos[SLOT_REG];
+#pragma unroll
+        for (int k = 0; k < SLOT_REG; ++k) {
+            const int t = tid + k * BEAM_THREADS;
+            pid[k] = t < a.slots ? s.nid[t] : -1;
+            ppos[k] = pid[k] >= 0 ? table_claim(s.hid, s.htag, a.hbits, pid[k], t) : -1;
+        }
+        __syncthreads();
+        BEAM_MARK(2);
+        // 3. a warp's kept slots (its lanes' slots of phase 2), compacted in
+        // slot order, scored by lane groups
+        const float worst_c = cd[a.ef - 1];
+        const float worst_r = a.k_res ? half(s.rd, cur)[a.k_res - 1] : 0.0f;
+        int* wt = s.wt + warp * a.wcap;
+        int* wi = s.wi + warp * a.wcap;
+        u64* kc = s.kc + warp * a.wcap;
+        u64* kr = s.kr + warp * a.wcap;
+        int nw = 0;
+#pragma unroll
+        for (int k = 0; k < SLOT_REG; ++k) {
+            const int t = tid + k * BEAM_THREADS;
+            if (t - lane >= a.slots) break;  // the warp's slots end here
+            const bool keep = ppos[k] >= 0 && s.htag[ppos[k]] == (unsigned)(t + 1);
+            const unsigned bal = __ballot_sync(0xffffffffu, keep);
+            if (keep) {
+                const int o = nw + __popc(bal & ((1u << lane) - 1u));
+                wt[o] = t;
+                wi[o] = pid[k];
             }
-            s.sel[e] = id;
-            s.exp[it * a.expand + e] = id;
+            nw += __popc(bal);
         }
-        __syncthreads();
-        if (tid == 0)
-            for (int e = 0; e < a.expand; ++e) n_exp += s.sel[e] >= 0;
-        // neighbour slots: not in the buffer and not expanded before
-        const int n_listed = (it + 1) * a.expand;
-        for (int t = tid; t < a.slots; t += blockDim.x) {
-            const int node = s.sel[t / a.deg];
-            int id = node >= 0 ? sc.neighbour(node, t % a.deg, a.deg) : -1;
-            for (int j = 0; j < a.ef && id >= 0; ++j) if (s.ci[j] == id) id = -1;
-            for (int j = 0; j < n_listed && id >= 0; ++j) if (s.exp[j] == id) id = -1;
-            s.nb[t] = id;
+        n_kept += nw;
+        __syncwarp();
+        int nc = 0, nr = 0;   // the warp's survivors, appended in a fixed order
+        for (int base = 0; base < nw; base += (32 / GROUP) * GROUP_ROWS) {
+            int t[GROUP_ROWS], id[GROUP_ROWS], node[GROUP_ROWS], g[GROUP_ROWS];
+            float v[GROUP_ROWS];
+#pragma unroll
+            for (int r = 0; r < GROUP_ROWS; ++r) {
+                const int row = base + r * (32 / GROUP) + grp;
+                t[r] = row < nw ? wt[row] : 0;
+                id[r] = row < nw ? wi[row] : -1;
+                node[r] = row < nw ? s.sel[t[r] / a.deg] : 0;
+                g[r] = t[r] % a.deg;
+            }
+            sc.template group_scores<GROUP_ROWS>(s.q, node, g, id, a.d, a.deg, sub, qnb,
+                                                 a.metric, v);
+            // the group leaders (sub 0) hold the distances; ballots place
+            // the survivors
+#pragma unroll
+            for (int r = 0; r < GROUP_ROWS; ++r) {
+                const bool lead = sub == 0 && id[r] >= 0;
+                if (lead) s.nd[t[r]] = v[r];
+                const u64 key = ((u64)f2key(v[r]) << 32) | (unsigned)t[r];
+                const bool in_c = lead && v[r] < worst_c;
+                const bool in_r = lead && a.k_res && v[r] < worst_r && a.allowed[id[r]];
+                const unsigned bc = __ballot_sync(0xffffffffu, in_c);
+                const unsigned br = __ballot_sync(0xffffffffu, in_r);
+                const unsigned below = (1u << lane) - 1u;
+                if (in_c) kc[nc + __popc(bc & below)] = key;
+                if (in_r) kr[nr + __popc(br & below)] = key;
+                nc += __popc(bc);
+                nr += __popc(br);
+            }
         }
+        if (lane == 0) { s.misc[1 + warp] = nc; s.misc[5 + warp] = nr; }
+        __syncwarp();
+        for (int base = 0; base < nc; base += 32)
+            warp_sort_run(kc + base, min(32, nc - base), lane);
+        for (int base = 0; base < nr; base += 32)
+            warp_sort_run(kr + base, min(32, nr - base), lane);
         __syncthreads();
-        // lists of different expanded nodes overlap: the first copy wins
-        for (int t = tid; t < a.slots; t += blockDim.x) {
-            const int id = s.nb[t];
-            bool k = id >= 0;
-            for (int u = 0; u < t && k; ++u) k = s.nb[u] != id;
-            s.keep[t] = k;
-        }
+        BEAM_MARK(3);
+        // 4. merge into the other half of the double buffers
+        const int nxt = cur ^ 1;
+        merge_into(cd, ci, cx, a.ef, s.kc, s.misc + 1, a.wcap, s.nid, s.nd, half(s.cd, nxt),
+                   half(s.ci, nxt), half(s.cx, nxt));
+        if (a.k_res)
+            merge_into(half(s.rd, cur), half(s.ri, cur), nullptr, a.k_res, s.kr, s.misc + 5,
+                       a.wcap, s.nid, s.nd, half(s.rd, nxt), half(s.ri, nxt), nullptr);
+        table_clear(s.hid, s.htag, a.hbits);  // for the next step
         __syncthreads();
-        const int n_new = compact(s, a.slots);
-        n_scored += n_new;
-        for (int j = tid; j < n_new; j += blockDim.x) {
-            const int t = s.ns[j];
-            s.nd[j] = sc.score(s.q, s.sel[t / a.deg], t % a.deg, s.ni[j], a.d, a.deg, qnb,
-                               a.metric);
-            if (a.k_res) s.nu[j] = a.allowed[s.ni[j]] != 0;
-        }
-        __syncthreads();
-        merge(s.cd, s.ci, s.cx, a.ef, s.nd, s.ni, nullptr, n_new, s.td, s.ti, s.tx);
-        if (a.k_res) merge(s.rd, s.ri, nullptr, a.k_res, s.nd, s.ni, s.nu, n_new, s.td, s.ti, s.tx);
+        BEAM_MARK(4);
+        cur = nxt;
     }
+    if (lane == 0) s.misc[9 + warp] = n_kept;
+    if (cur == 1) {
+        for (int j = tid; j < a.ef; j += BEAM_THREADS) {
+            s.cd[0][j] = s.cd[1][j]; s.ci[0][j] = s.ci[1][j]; s.cx[0][j] = s.cx[1][j];
+        }
+        for (int j = tid; j < a.k_res; j += BEAM_THREADS) {
+            s.rd[0][j] = s.rd[1][j];
+            s.ri[0][j] = s.ri[1][j];
+        }
+    }
+    __syncthreads();
+    int n_scored = 0;
+    for (int w = 0; w < BEAM_WARPS; ++w) n_scored += s.misc[9 + w];
     return make_int2(n_exp, n_scored);
 }
 
@@ -369,12 +538,12 @@ graph_beam_kernel(BeamArgs a, Scorer sc, float* out_d, int* out_i, float* out_rd
     const int2 stats = run_beam(a, sc, s, b);
     __syncthreads();
     for (int j = threadIdx.x; j < a.ef; j += blockDim.x) {
-        out_d[b * a.ef + j] = s.cd[j];
-        out_i[b * a.ef + j] = s.ci[j];
+        out_d[b * a.ef + j] = s.cd[0][j];
+        out_i[b * a.ef + j] = s.ci[0][j];
     }
     for (int j = threadIdx.x; j < a.k_res; j += blockDim.x) {
-        out_rd[b * a.k_res + j] = s.rd[j];
-        out_ri[b * a.k_res + j] = s.ri[j];
+        out_rd[b * a.k_res + j] = s.rd[0][j];
+        out_ri[b * a.k_res + j] = s.ri[0][j];
     }
     if (out_exp)
         for (int j = threadIdx.x; j < a.exp_cap; j += blockDim.x)
@@ -392,22 +561,25 @@ serve_beam_kernel(BeamArgs a, ServeScorer sc, const uint8_t* allowed, int r, int
     __syncthreads();
     const int2 stats = run_beam(a, sc, s, b);
     __syncthreads();
-    // exact rerank of the r best (the buffer is sorted: its first r)
+    // exact rerank of the r best (the buffer is sorted: its first r), in
+    // the other half of the double buffer
     const float qnb = a.qn[b];
+    float* td = s.cd[1];
+    int* ti = s.ci[1];
     for (int j = threadIdx.x; j < r; j += blockDim.x) {
-        const int id = s.ci[j];
+        const int id = s.ci[0][j];
         const bool bad = id < 0 || (allowed != nullptr && !allowed[id]);
-        s.td[j] = bad ? F_INF : sc.exact(s.q, id, a.d, qnb, a.metric);
-        s.ti[j] = id;
+        td[j] = bad ? F_INF : sc.exact(s.q, id, a.d, qnb, a.metric);
+        ti[j] = id;
     }
     __syncthreads();
     for (int j = threadIdx.x; j < r; j += blockDim.x) {
-        const float v = s.td[j];
+        const float v = td[j];
         int rank = 0;
-        for (int i = 0; i < r && rank < k; ++i) rank += s.td[i] < v || (s.td[i] == v && i < j);
+        for (int i = 0; i < r && rank < k; ++i) rank += td[i] < v || (td[i] == v && i < j);
         if (rank < k) {
             out_d[b * k + rank] = v;
-            out_i[b * k + rank] = v < F_INF ? s.ti[j] : -1;
+            out_i[b * k + rank] = v < F_INF ? ti[j] : -1;
         }
     }
     if (threadIdx.x == 0) reinterpret_cast<int2*>(out_stats)[b] = stats;
@@ -422,13 +594,17 @@ static BeamArgs beam_args(int B, int S, int d, int deg, int ef, int iters, int e
     a.exp_cap = a.loops * expand;
     a.slots = expand * deg;
     a.k_res = k_res; a.metric = metric;
+    // members (the buffer, every expanded id) and claims (the slots) of a step
+    a.hbits = table_bits(ef + a.exp_cap + a.slots);
+    a.wcap = 32 * ((a.slots + BEAM_THREADS - 1) / BEAM_THREADS);
     a.seed_i = seed_i; a.seed_d = seed_d; a.allowed = allowed; a.qn = qn;
     return a;
 }
 
 static bool beam_args_ok(const BeamArgs& a) {
     return a.B >= 0 && a.S >= 1 && a.S <= a.ef && a.expand >= 1 && a.expand <= a.ef &&
-           a.loops >= 1 && a.d % 4 == 0 && a.deg >= 1 && a.k_res >= 0 &&
+           a.loops >= 1 && a.slots <= SLOTS_MAX && a.d % 4 == 0 &&
+           a.deg >= 1 && a.k_res >= 0 &&
            (a.k_res == 0 || a.allowed != nullptr) && a.metric >= 0 && a.metric <= 2;
 }
 
@@ -446,8 +622,7 @@ static int launch_graph_beam(const BeamArgs& a, const Scorer& sc, float* out_d, 
                              void* stream) {
     if (!beam_args_ok(a) || (a.k_res && (out_rd == nullptr || out_ri == nullptr)))
         return (int)cudaErrorInvalidValue;
-    const size_t smem = smem_bytes(a.ef, a.k_res, a.exp_cap, a.slots, a.expand,
-                                   Scorer::query_bytes(a.d));
+    const size_t smem = smem_bytes(a, Scorer::query_bytes(a.d));
     int e = set_smem(graph_beam_kernel<Scorer>, smem);
     if (e) return e;
     graph_beam_kernel<Scorer><<<a.B, BEAM_THREADS, smem, (cudaStream_t)stream>>>(
@@ -500,8 +675,7 @@ extern "C" int hnsw_serve_beam(const int8_t* codes, const int* meta, const float
                            qn);
     if (!beam_args_ok(a) || rerank < 1 || rerank > ef || k < 1 || k > rerank)
         return (int)cudaErrorInvalidValue;
-    const size_t smem = smem_bytes(a.ef, 0, a.exp_cap, a.slots, a.expand,
-                                   ServeScorer::query_bytes(d));
+    const size_t smem = smem_bytes(a, ServeScorer::query_bytes(d));
     int e = set_smem(serve_beam_kernel, smem);
     if (e) return e;
     serve_beam_kernel<<<B, BEAM_THREADS, smem, (cudaStream_t)stream>>>(
