@@ -14,7 +14,11 @@
 3. kernel phase: each kernel against its plain PyTorch version on the same
    CUDA tensors at the main paths' shapes (and K1 / K2 at the widths past
    the old limits: P*L = 32768, k = 300, m = 600; K4's COSINE and IP
-   epilogues), with CUDA-event times, the least time the card could take
+   epilogues; K4 in its query-major order at P = 8 and its cell-major
+   order at P = 64, 256, 512, the order reported under "paths"), with
+   CUDA-event times (K1 and K4 also ten calls back to back, `loop_ms`, a
+   trace's `device_ms`, and `stream_ms`, the bytes their order streams at
+   the memory rate), the least time the card could take
    (bound), and the one PyTorch call that computes the same function
    where there is one (library). K2 is bit-equal at every case: ties
    planted across its segment boundaries, a width that is no multiple of
@@ -193,6 +197,44 @@ def _probe_bound(cells, members, alive, allowed, lane_bytes, query_bytes, out_by
     return _bound(nbytes, 2 * d * int(per_query.sum()), peak)
 
 
+def _stream_ms(route, cells, members, alive, allowed, row_bytes, meta_bytes, query_bytes,
+               out_bytes):
+    """Milliseconds at the memory rate for the bytes a probe's order
+    streams when none of its reads hits a cache. Query-major ("query"):
+    each query reads every probed lane's member and metadata (`meta_bytes`)
+    and flags, and every live lane's row. Cell-major
+    ("cell"): each probed cell once (its lanes' metadata, its rows up to
+    the last live lane), each (query, probe) pair its query row, and the
+    [B, P*L] distances written once and read once by the selection."""
+    b, p = cells.shape
+    lanes = members.shape[1]
+    flags = 1 + (allowed is not None)
+
+    def live_of(src):
+        live = (members[src] >= 0) & alive[src]
+        return live & allowed[src] if allowed is not None else live
+
+    if route == "query":
+        nbytes = (cells.numel() * lanes * (meta_bytes + flags)
+                  + int(live_of(cells.long()).sum()) * row_bytes + b * query_bytes)
+    else:
+        uniq = torch.unique(cells).long()
+        pos = torch.arange(1, lanes + 1, device=cells.device)
+        extent = torch.where(live_of(uniq), pos, 0).amax(1)
+        nbytes = (uniq.numel() * lanes * (meta_bytes + flags) + int(extent.sum()) * row_bytes
+                  + cells.numel() * (query_bytes + 2 * 4 * lanes))
+    return (nbytes + cells.numel() * 4 + b * out_bytes) / HBM_BPS * 1e3
+
+
+def _device_parts(fn, calls=20):
+    """Device ms of one call of fn and its share in each kernel, from a
+    trace of `calls` calls (each kernel's time over the calls the trace
+    kept of it: the profiler drops a few)."""
+    prof = _traced(fn, calls, top=16)
+    parts = {t["name"]: t["ms"] / t["calls"] for t in prof["top"]}
+    return sum(parts.values()), parts
+
+
 # ---------------------------------------------------------------------------
 # kernel phase
 # ---------------------------------------------------------------------------
@@ -247,15 +289,26 @@ def _plant_segment_ties(rows, n):
         rows[s:s + 64] = rows[s - 64:s]
 
 
+def _traced(fn, calls, tries=3, **kw):
+    """A device trace of `calls` calls of fn. The profiler on the H100 now
+    and then keeps no device span of a trace of small calls at all: such a
+    trace is taken again, up to `tries` times."""
+    from turdb_tpu_torch.utils.timing import device_profile
+
+    for _ in range(tries):
+        prof = device_profile(lambda: [fn() for _ in range(calls)], **kw)
+        if prof.get("traced"):
+            return prof
+        log(f"a trace of {calls} calls saw no device activity; tracing again")
+    check(False, "the trace saw no device activity")
+
+
 def _trace_ms(fn, kernel=None, calls=50):
     """Device ms of one call of fn, from a trace of `calls` calls: the
     time of the kernel whose name holds `kernel`, or (None) all of the
     call's device time. An event pair around one small call also holds
     the host's launch path."""
-    from turdb_tpu_torch.utils.timing import device_profile
-
-    prof = device_profile(lambda: [fn() for _ in range(calls)])
-    check(bool(prof.get("traced")), "the trace saw no device activity")
+    prof = _traced(fn, calls)
     if kernel is None:
         return prof["busy_ms"] / calls
     kern = [t for t in prof["top"] if kernel in t["name"]]
@@ -346,12 +399,13 @@ def k2_phase(dev, gen, cells=CELLS, flat_chunk=FLAT_CHUNK):
     return out
 
 
-def k1_phase(dev, gen, cells=CELLS, lanes=LANES):
-    from turdb_tpu_torch.kernels import MODE_CAND, MODE_TOPK, ivf_probe_f32, ivf_probe_f32_plain
+K1_PROBES = (K1_PROBE, 64, 128)
 
-    # a synthetic packed store at the headline geometry: cells 40-100% full,
-    # ids drawn from 4096 values so that copies of an id meet in one probe
-    # (as replicas do), 1% tombstones, a 50% allowed mask
+
+def synthetic_f32_store(dev, gen, cells=CELLS, lanes=LANES):
+    """A synthetic packed store at the headline geometry: cells 40-100%
+    full, ids drawn from 4096 values so that copies of an id meet in one
+    probe (as replicas do), 1% tombstones, a 50% allowed mask; 1024 queries."""
     pvecs = torch.randn(cells, lanes, DIM, device=dev, generator=gen)
     occ = torch.randint(lanes * 2 // 5, lanes + 1, (cells, 1), device=dev, generator=gen)
     lane = torch.arange(lanes, device=dev)[None, :]
@@ -362,35 +416,56 @@ def k1_phase(dev, gen, cells=CELLS, lanes=LANES):
     alive = torch.rand(cells, lanes, device=dev, generator=gen) < 0.99
     allowed = torch.rand(cells, lanes, device=dev, generator=gen) < 0.5
     q = torch.randn(BATCH, DIM, device=dev, generator=gen)
-    qn = (q * q).sum(1)
+    return {"pvecs": pvecs, "members": members, "pnorms": pnorms, "alive": alive,
+            "allowed": allowed, "q": q, "qn": (q * q).sum(1)}
+
+
+def k1_cases(st, p, top):
+    """K1's (args, kwargs, what) at probe width p over the cells `top`:
+    metrics 0 / 1 / 2 with and without replicas and `allowed`."""
+    lanes = st["members"].shape[1]
+    for metric in (0, 1, 2):
+        for replicated, allow in ((True, None), (False, None), (True, st["allowed"])):
+            m = min(2 * K, p * lanes) if replicated else K
+            args = (st["q"], st["qn"], top, st["pvecs"], st["pnorms"], st["members"],
+                    st["alive"], allow)
+            yield (args, dict(metric=metric, k=K, m=m, replicated=replicated),
+                   f"K1 P={p} metric={metric} replicated={replicated} allowed={allow is not None}")
+
+
+def k1_phase(dev, gen, cells=CELLS, lanes=LANES):
+    from turdb_tpu_torch.kernels import MODE_CAND, MODE_TOPK, ivf_probe_f32, ivf_probe_f32_plain
+
+    st = synthetic_f32_store(dev, gen, cells, lanes)
+    q, qn, pvecs, pnorms = st["q"], st["qn"], st["pvecs"], st["pnorms"]
+    members, alive = st["members"], st["alive"]
     out = {}
     # the headline's nprobe 5; 64 (the sweep's end); 128 = 32,768 lanes,
     # chunked, past the one-block limit of PR 1
-    for p in (K1_PROBE, 64, 128):
+    for p in K1_PROBES:
         top = torch.rand(BATCH, cells, device=dev, generator=gen).topk(p).indices.to(torch.int32)
-        for metric in (0, 1, 2):
-            for replicated, allow in ((True, None), (False, None), (True, allowed)):
-                m = min(2 * K, p * lanes) if replicated else K
-                args = (q, qn, top, pvecs, pnorms, members, alive, allow)
-                kw = dict(metric=metric, k=K, m=m, replicated=replicated)
-                what = f"K1 P={p} metric={metric} replicated={replicated} allowed={allow is not None}"
-                err, id_diff = _near_equal(*ivf_probe_f32(*args, **kw),
-                                           *ivf_probe_f32_plain(*args, **kw), DOT_RTOL, what)
-                if p == K1_PROBE and metric == 0 and replicated and allow is None:
-                    out.update(
-                        shape={"B": BATCH, "P": p, "L": lanes, "d": DIM, "C": cells},
-                        k=K, m=m, max_abs_err=err, id_diff=id_diff,
-                        ms=_median_ms(lambda: ivf_probe_f32(*args, **kw)),
-                        plain_ms=_median_ms(lambda: ivf_probe_f32_plain(*args, **kw)),
-                        library_ms=None,
-                        **_probe_bound(top, members, alive, None, 4 * DIM + 4, 4 * DIM + 4,
-                                       8 * K, DIM, FP32_OPS))
-                if p == 128 and metric == 0 and replicated and allow is None:
-                    out["wide"] = {
-                        "P": p, "lanes": p * lanes, "max_abs_err": err,
-                        "ms": _median_ms(lambda: ivf_probe_f32(*args, **kw), reps=3),
-                        **_probe_bound(top, members, alive, None, 4 * DIM + 4, 4 * DIM + 4,
-                                       8 * K, DIM, FP32_OPS)}
+        for args, kw, what in k1_cases(st, p, top):
+            metric, replicated, m, allow = kw["metric"], kw["replicated"], kw["m"], args[-1]
+            err, id_diff = _near_equal(*ivf_probe_f32(*args, **kw),
+                                       *ivf_probe_f32_plain(*args, **kw), DOT_RTOL, what)
+            if metric == 0 and replicated and allow is None and p in (K1_PROBE, 128):
+                def run():
+                    return ivf_probe_f32(*args, **kw)
+
+                dev_ms, _ = _device_parts(run)
+                row = {"max_abs_err": err, "ms": _median_ms(run, reps=5 if p < 128 else 3),
+                       "loop_ms": _loop_ms(run), "device_ms": dev_ms,
+                       "stream_ms": _stream_ms("query", top, members, alive, None, 4 * DIM,
+                                               8, 4 * DIM + 4, 8 * K),
+                       **_probe_bound(top, members, alive, None, 4 * DIM + 4, 4 * DIM + 4,
+                                      8 * K, DIM, FP32_OPS)}
+                if p == K1_PROBE:
+                    out.update(shape={"B": BATCH, "P": p, "L": lanes, "d": DIM, "C": cells},
+                               k=K, m=m, id_diff=id_diff,
+                               plain_ms=_median_ms(lambda: ivf_probe_f32_plain(*args, **kw)),
+                               library_ms=None, **row)
+                else:
+                    out["wide"] = {"P": p, "lanes": p * lanes, **row}
         # candidate mode (the rerank of the f32 store) and k = 300 with
         # replicas (m = 600, past the old 256 limit)
         if p == K1_PROBE:
@@ -533,68 +608,89 @@ def _queries_near(st, cells, dev, gen):
     return (q + 0.05 * torch.randn(q.shape, device=dev, generator=gen)).contiguous()
 
 
-def k4_phase(dev, gen, st):
-    """K4 in top-k and candidate mode at the ivf_sq8 shapes (P = 8, 64:
-    one block, two chunks) and the hard row's (P = 256, 512: 8 and 16
-    chunks). K4's distance is L2 under every metric (the reference's sq8
-    probe), so it has no metric to vary. Values and ids must equal the
-    plain version's exactly."""
-    from turdb_tpu_torch.kernels import MODE_CAND, MODE_TOPK, ivf_probe_sq8, ivf_probe_sq8_plain
+K4_PROBES = (SQ8_PROBE, 64, HARD_PROBE, 512)
+
+
+def k4_cases(st, p, cells, q):
+    """K4's (args, kwargs, what) at probe width p over `cells` for the
+    queries q: top-k with and without replicas and `allowed`, candidates
+    (the rerank's); at P = SQ8_PROBE also the serving pack's COSINE and IP
+    seeding (top 32 of all lanes, no replicas)."""
+    from turdb_tpu_torch.kernels import MODE_CAND, MODE_TOPK
     from turdb_tpu_torch.ops.quantize import quantize_queries
 
-    out = {}
-    for p in (SQ8_PROBE, 64, HARD_PROBE, 512):
+    qc, qs, qsum = quantize_queries(q)
+    qn = (q * q).sum(1)
+    cases = [(MODE_TOPK, K, 2 * K, True, None, 0), (MODE_TOPK, K, K, False, None, 0),
+             (MODE_TOPK, K, 2 * K, True, st["allowed"], 0),
+             (MODE_CAND, RERANK, RERANK, True, None, 0)]
+    if p == SQ8_PROBE:
+        cases += [(MODE_TOPK, 32, 32, False, None, metric) for metric in (1, 2)]
+    for mode, k, m, replicated, allow, metric in cases:
+        args = (qc, qs, qsum, qn, cells, st["codes"], st["mins"], st["scales"],
+                st["pnorms"], st["members"], st["alive"], allow)
+        yield (args, dict(k=k, m=m, replicated=replicated, mode=mode, metric=metric),
+               f"K4 P={p} mode={mode} k={k} replicated={replicated} "
+               f"allowed={allow is not None} metric={metric}")
+
+
+def k4_phase(dev, gen, st):
+    """K4 in top-k and candidate mode at the ivf_sq8 shapes (P = 8: one
+    block a query; 64: the sweep's end) and the hard row's (P = 256, 512);
+    past one chunk of lanes (P >= 64 here) it runs cell-major
+    (`probe_route`, reported under "paths"). K4's distance is L2 under
+    every metric (the reference's sq8 probe), so it has no metric to vary
+    there; the serving pack's COSINE and IP epilogues are checked at P = 8.
+    Values and ids must equal the plain version's exactly."""
+    from turdb_tpu_torch.kernels import MODE_CAND, ivf_probe_sq8, ivf_probe_sq8_plain, probe_route
+
+    lanes = st["members"].shape[1]
+    out = {"paths": {str(p): probe_route(p, lanes, DIM) for p in K4_PROBES}}
+    for p in K4_PROBES:
         cells = _paired_cells(dev, gen, p, st["members"].shape[0], BATCH)
         q = _queries_near(st, cells, dev, gen)
-        qc, qs, qsum = quantize_queries(q)
-        qn = (q * q).sum(1)
-        for mode, k, m, replicated, allow in ((MODE_TOPK, K, 2 * K, True, None),
-                                              (MODE_TOPK, K, K, False, None),
-                                              (MODE_TOPK, K, 2 * K, True, st["allowed"]),
-                                              (MODE_CAND, RERANK, RERANK, True, None)):
-            args = (qc, qs, qsum, qn, cells, st["codes"], st["mins"], st["scales"],
-                    st["pnorms"], st["members"], st["alive"], allow)
-            kw = dict(k=k, m=m, replicated=replicated, mode=mode)
+        for args, kw, what in k4_cases(st, p, cells, q):
             got = ivf_probe_sq8(*args, **kw)
             want = ivf_probe_sq8_plain(*args, **kw)
-            what = f"K4 P={p} mode={mode} replicated={replicated} allowed={allow is not None}"
             check(all(torch.equal(a, b) for a, b in zip(got, want)), f"{what}: differs from plain")
-            if mode == MODE_CAND:
-                # the copies tie at the top of the candidate list
-                ties = (got[1][:, 0] == got[1][:, 1]) & (got[0][:, 0] == got[0][:, 1])
-                check(bool(ties.any()), f"{what}: no planted replica tie reached the top")
-                if p in (SQ8_PROBE, HARD_PROBE):
-                    reps = 5 if p == SQ8_PROBE else 3
-                    out[f"cand_P{p}"] = {
-                        "shape": {"B": BATCH, "P": p, "L": st["members"].shape[1], "d": DIM,
-                                  "C": st["members"].shape[0]},
-                        "r": RERANK, "max_abs_err": 0.0, "replica_ties": float(ties.float().mean()),
-                        "ms": _median_ms(lambda: ivf_probe_sq8(*args, **kw), reps=reps),
-                        "plain_ms": _median_ms(lambda: ivf_probe_sq8_plain(*args, **kw), reps=reps),
-                        "library_ms": None,
-                        **_probe_bound(cells, st["members"], st["alive"], None, DIM + 12,
-                                       DIM + 12, 12 * RERANK, DIM, INT8_OPS)}
-                if p == SQ8_PROBE:
-                    out["cand"] = (q, qn, cells, got)
-        if p == SQ8_PROBE:
-            # the HNSW serving pack's seeding: COSINE and IP epilogues, top-k
-            # of all P*L lanes without replicas
-            for metric in (1, 2):
-                args = (qc, qs, qsum, qn, cells, st["codes"], st["mins"], st["scales"],
-                        st["pnorms"], st["members"], st["alive"], None)
-                kw = dict(k=32, m=32, replicated=False, metric=metric)
-                got = ivf_probe_sq8(*args, **kw)
-                want = ivf_probe_sq8_plain(*args, **kw)
-                check(all(torch.equal(a, b) for a, b in zip(got, want)),
-                      f"K4 metric={metric}: differs from plain")
-                out[f"metric{metric}"] = {"P": p, "k": 32, "max_abs_err": 0.0}
+            if kw["metric"]:
+                out[f"metric{kw['metric']}"] = {"P": p, "k": kw["k"], "max_abs_err": 0.0}
+            if kw["mode"] != MODE_CAND:
+                continue
+            # the copies tie at the top of the candidate list
+            ties = (got[1][:, 0] == got[1][:, 1]) & (got[0][:, 0] == got[0][:, 1])
+            check(bool(ties.any()), f"{what}: no planted replica tie reached the top")
+            if p == SQ8_PROBE:
+                out["cand"] = (q, args[3], cells, got)
+            if p not in (SQ8_PROBE, HARD_PROBE):
+                continue
+
+            def run():
+                return ivf_probe_sq8(*args, **kw)
+
+            reps = 5 if p == SQ8_PROBE else 3
+            dev_ms, parts = _device_parts(run)
+            path = probe_route(p, lanes, DIM)
+            out[f"cand_P{p}"] = {
+                "shape": {"B": BATCH, "P": p, "L": lanes, "d": DIM, "C": st["members"].shape[0]},
+                "r": RERANK, "path": path, "max_abs_err": 0.0,
+                "replica_ties": float(ties.float().mean()),
+                "ms": _median_ms(run, reps=reps), "loop_ms": _loop_ms(run),
+                "device_ms": dev_ms, "device_parts": parts,
+                "plain_ms": _median_ms(lambda: ivf_probe_sq8_plain(*args, **kw), reps=reps),
+                "library_ms": None,
+                "stream_ms": _stream_ms(path, cells, st["members"], st["alive"], None,
+                                        DIM, 16, DIM + 12, 12 * RERANK),
+                **_probe_bound(cells, st["members"], st["alive"], None, DIM + 12,
+                               DIM + 12, 12 * RERANK, DIM, INT8_OPS)}
     return out
 
 
 def k5_phase(st, cand):
     """K5 over the f32 and the SQ16 store, at r = 40 (the sq8 rows) and
     r = 300, on K4's candidates (which carry the planted replica ties),
-    replicas on and off."""
+    replicas on and off; timed at r = 40 as one call (`ms`), ten back to
+    back (`loop_ms`) and a trace's device time (`device_ms`)."""
     from turdb_tpu_torch.kernels import (
         MODE_CAND, ivf_probe_sq8, ivf_rerank, ivf_rerank_plain)
     from turdb_tpu_torch.ops.quantize import quantize_queries
@@ -618,6 +714,9 @@ def k5_phase(st, cand):
                                            *ivf_rerank_plain(*plain_args, K, replicated),
                                            DOT_RTOL, what)
                 if r == RERANK and replicated:
+                    def run():
+                        return ivf_rerank(*args, k=K, replicated=True)
+
                     fin = torch.isfinite(cd)
                     pos = torch.unique(cpos[fin].long())
                     row_bytes = 4 * DIM if store == "f32" else 2 * DIM + 8
@@ -626,7 +725,8 @@ def k5_phase(st, cand):
                     out[store] = {
                         "shape": {"B": q.shape[0], "r": r, "d": DIM}, "max_abs_err": err,
                         "id_diff": id_diff,
-                        "ms": _median_ms(lambda: ivf_rerank(*args, k=K, replicated=True)),
+                        "ms": _median_ms(run), "loop_ms": _loop_ms(run),
+                        "device_ms": _device_parts(run)[0],
                         "plain_ms": _median_ms(lambda: ivf_rerank_plain(*plain_args, K, True)),
                         "library_ms": None,
                         **_bound(nbytes, 2 * DIM * int(fin.sum()), FP32_OPS)}
@@ -1619,7 +1719,10 @@ def k9_check(ins, wave, wave_q, batch):
                     k: tot[k] + r[k] if k in ("ms", "plain_ms", "bound_ms", "bound_bytes",
                                               "bound_ops", "steps", "scored") else tot[k]
                     for k in tot}
-        out[name] = {**tot, "max_abs_err": max(r["max_abs_err"] for r in levels.values()),
+        # the row's ms sums a launch a level above 0; a single launch's mean
+        n_timed = sum(1 for lvl in levels if lvl > 0)
+        out[name] = {**tot, "launch_ms": tot["ms"] / n_timed,
+                     "max_abs_err": max(r["max_abs_err"] for r in levels.values()),
                      "levels": levels}
     return out
 
@@ -2196,12 +2299,15 @@ def kernel_rows(launches):
         "sq8_scan": REPORT["k11"],
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # where measured: ten calls back to back (the host's launch path hidden),
+    # K3's yardstick, the bf16 product of its operands alone, and K9's mean
+    # single launch (its ms sums one launch a level)
+    extra = ("loop_ms", "gemm_ms", "launch_ms")
     return [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(counts.get(name, 0) for counts in launches.values()),
          **{k: timed[name][k] for k in keys},
-         # K3's yardstick: the bf16 product of its operands alone
-         **({"gemm_ms": timed[name]["gemm_ms"]} if "gemm_ms" in timed[name] else {})}
+         **{k: timed[name][k] for k in extra if k in timed[name]}}
         for name, (src, rep) in KERNELS.items()
     ]
 

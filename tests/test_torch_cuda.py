@@ -570,6 +570,154 @@ def test_ivf_probe_sq8_metric_epilogues_bit_equal(cuda):
                 assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("p", [256, 512])
+def test_ivf_probe_sq8_cell_major_matches_plain(cuda, p):
+    """K4's cell-major pass (probes wider than one chunk: the hard row's
+    widths) in both modes, with and without replicas and `allowed`, a
+    block listed twice in a query's row, a cell every query probes, the
+    COSINE and IP epilogues and m = SEL_MAX: equal to the plain version,
+    one K4 and one K2 launch a call."""
+    from turdb_tpu_torch.ops.quantize import quantize_queries
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    c, lcap, d, b = 1024, 128, 128, 64
+    pvecs, pnorms, members, alive, allowed = _store(g, c, lcap, d, 20_000, cuda)
+    codes, mins, scales, _ = _sq8_store(pvecs)
+    q = torch.randn(b, d, device=cuda, generator=g)
+    qc, qs, qsum = quantize_queries(q)
+    qn = (q * q).sum(1)
+    cells = torch.rand(b, c, device=cuda, generator=g).topk(p).indices.to(torch.int32)
+    cells[::3, 1] = cells[::3, 0]                    # a block listed twice
+    cells[:, -1] = 7                                 # a cell every query probes
+    cells = cells.contiguous()
+    assert kernels.probe_route(p, lcap, d) == "cell"
+    top, cand, sel = kernels.MODE_TOPK, kernels.MODE_CAND, kernels.SEL_MAX
+    for mode, k, m, replicated, allow, metric in (
+            (top, 10, 20, True, None, 0), (top, 10, 10, False, allowed, 0),
+            (cand, 40, 40, True, allowed, 0), (top, 32, 32, False, None, 1),
+            (top, 32, 32, False, allowed, 2), (cand, sel, sel, True, None, 0),
+            (top, 10, sel, True, allowed, 0)):
+        args = (qc, qs, qsum, qn, cells, codes, mins, scales, pnorms, members, alive, allow)
+        kw = dict(k=k, m=m, replicated=replicated, mode=mode, metric=metric)
+        before = dict(kernels.launches)
+        got = kernels.ivf_probe_sq8(*args, **kw)
+        assert kernels.launches["ivf_probe_sq8"] == before["ivf_probe_sq8"] + 1
+        assert kernels.launches["topk_rows"] == before["topk_rows"] + 1
+        want = kernels.ivf_probe_sq8_plain(*args, **kw)
+        for a, w in zip(got, want):
+            assert torch.equal(a, w), (mode, k, m, replicated, allow is not None, metric)
+
+
+def test_ivf_probe_sq8_cell_major_slices_of_queries(cuda, monkeypatch):
+    """K4's cell-major pass runs the batch in slices of queries whose
+    distances fit CELL_DIST_BYTES: three slices (24, 24, 16 queries) give
+    the plain version's outputs, one K4 and one K2 launch a slice."""
+    from turdb_tpu_torch.ops.quantize import quantize_queries
+
+    g = torch.Generator(device=cuda).manual_seed(14)
+    c, lcap, d, b, p = 512, 128, 128, 64, 64
+    pvecs, pnorms, members, alive, allowed = _store(g, c, lcap, d, 10_000, cuda)
+    codes, mins, scales, _ = _sq8_store(pvecs)
+    q = torch.randn(b, d, device=cuda, generator=g)
+    qc, qs, qsum = quantize_queries(q)
+    qn = (q * q).sum(1)
+    cells = torch.rand(b, c, device=cuda, generator=g).topk(p).indices.to(torch.int32)
+    assert kernels.probe_route(p, lcap, d) == "cell"
+    monkeypatch.setattr(kernels, "CELL_DIST_BYTES", 24 * p * lcap * 4)
+    for mode, k, m, replicated, allow in ((kernels.MODE_TOPK, 10, 20, True, allowed),
+                                          (kernels.MODE_CAND, 40, 40, True, None)):
+        args = (qc, qs, qsum, qn, cells, codes, mins, scales, pnorms, members, alive, allow)
+        kw = dict(k=k, m=m, replicated=replicated, mode=mode)
+        before = dict(kernels.launches)
+        got = kernels.ivf_probe_sq8(*args, **kw)
+        assert kernels.launches["ivf_probe_sq8"] == before["ivf_probe_sq8"] + 3
+        assert kernels.launches["topk_rows"] == before["topk_rows"] + 3
+        want = kernels.ivf_probe_sq8_plain(*args, **kw)
+        for a, w in zip(got, want):
+            assert torch.equal(a, w), mode
+
+
+def test_ivf_probe_sq8_cell_fits_is_the_library_rule(cuda):
+    """The kernel library owns the rule for one cell-major block (16-byte
+    words, the block's shared memory on this card); a probe wider than one
+    chunk whose cell does not fit runs query-major, equal to plain."""
+    from turdb_tpu_torch.ops.quantize import quantize_queries
+
+    assert kernels._cell_fits(128, 128, cuda) and kernels._cell_fits(2304, 16, cuda)
+    assert not kernels._cell_fits(128, 100, cuda) and not kernels._cell_fits(4096, 128, cuda)
+    g = torch.Generator(device=cuda).manual_seed(15)
+    c, lcap, d, b, p = 12, 2048, 128, 16, 4
+    assert not kernels._cell_fits(lcap, d, cuda)
+    assert kernels.probe_route(p, lcap, d, cuda) == "query"
+    pvecs, pnorms, members, alive, allowed = _store(g, c, lcap, d, 20_000, cuda)
+    codes, mins, scales, _ = _sq8_store(pvecs)
+    q = torch.randn(b, d, device=cuda, generator=g)
+    qc, qs, qsum = quantize_queries(q)
+    qn = (q * q).sum(1)
+    cells = torch.rand(b, c, device=cuda, generator=g).topk(p).indices.to(torch.int32)
+    args = (qc, qs, qsum, qn, cells, codes, mins, scales, pnorms, members, alive, allowed)
+    before = dict(kernels.launches)
+    got = kernels.ivf_probe_sq8(*args, k=10, m=20, replicated=True)
+    assert kernels.launches["ivf_probe_sq8"] == before["ivf_probe_sq8"] + 1
+    assert kernels.launches["topk_rows"] == before["topk_rows"]
+    want = kernels.ivf_probe_sq8_plain(*args, k=10, m=20, replicated=True)
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize("d, p, route", [(100, 8, "query"), (100, 64, "query"),
+                                          (48, 96, "cell")])
+def test_ivf_probe_sq8_row_layouts_match_plain(cuda, d, p, route):
+    """K4 on rows that are not 16-byte words (d = 100: a warp a row, one
+    block or chunked with the merge) and on rows of 16-byte words padded to
+    the mma's k (d = 48, cell-major): equal to the plain version."""
+    from turdb_tpu_torch.ops.quantize import quantize_queries
+
+    g = torch.Generator(device=cuda).manual_seed(13)
+    pvecs, pnorms, members, alive, allowed = _store(g, 300, 128, d, 3000, cuda)
+    codes, mins, scales, _ = _sq8_store(pvecs)
+    q = torch.randn(40, d, device=cuda, generator=g)
+    qc, qs, qsum = quantize_queries(q)
+    qn = (q * q).sum(1)
+    cells = torch.rand(40, 300, device=cuda, generator=g).topk(p).indices.to(torch.int32)
+    assert kernels.probe_route(p, 128, d) == route
+    for mode, k, m, replicated, allow in ((kernels.MODE_TOPK, 10, 20, True, None),
+                                          (kernels.MODE_TOPK, 10, 10, False, allowed),
+                                          (kernels.MODE_CAND, 40, 40, True, allowed)):
+        args = (qc, qs, qsum, qn, cells, codes, mins, scales, pnorms, members, alive, allow)
+        kw = dict(k=k, m=m, replicated=replicated, mode=mode)
+        got = kernels.ivf_probe_sq8(*args, **kw)
+        want = kernels.ivf_probe_sq8_plain(*args, **kw)
+        for a, w in zip(got, want):
+            assert torch.equal(a, w), (d, p, mode)
+
+
+@pytest.mark.parametrize("d", [128, 384])
+def test_ivf_probe_f32_rows_in_flight_match_plain(cuda, d):
+    """K1 with several rows in flight a warp at d = 128 and 384 (one and
+    three float4 a lane a row), in one block and chunked, both modes,
+    within the probe's tolerance of the plain version; one launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    c, lcap, b = 400, 256, 48
+    pvecs, pnorms, members, alive, allowed = _store(g, c, lcap, d, 6000, cuda)
+    q = torch.randn(b, d, device=cuda, generator=g)
+    qn = (q * q).sum(1)
+    for p in (5, 32):                                # 1280 lanes; 8192: two chunks
+        cells = torch.rand(b, c, device=cuda, generator=g).topk(p).indices.to(torch.int32)
+        for metric, mode, k, m, allow in ((0, kernels.MODE_TOPK, 10, 20, None),
+                                          (1, kernels.MODE_TOPK, 10, 20, allowed),
+                                          (2, kernels.MODE_TOPK, 10, 20, None),
+                                          (0, kernels.MODE_CAND, 40, 40, allowed)):
+            args = (q, qn, cells, pvecs, pnorms, members, alive, allow)
+            kw = dict(metric=metric, k=k, m=m, replicated=True, mode=mode)
+            before = kernels.launches["ivf_probe_f32"]
+            got = kernels.ivf_probe_f32(*args, **kw)
+            assert kernels.launches["ivf_probe_f32"] == before + 1
+            want = kernels.ivf_probe_f32_plain(*args, **kw)
+            torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-4)
+            assert (got[1] == want[1]).float().mean() >= 0.99
+
+
 def test_hnsw_limits_raise(cuda):
     x = torch.randn(2048, 32, device=cuda)
     n = (x * x).sum(1)

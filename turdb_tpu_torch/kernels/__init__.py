@@ -6,6 +6,7 @@ and the launch counters.
     K3 kmeans_assign  csrc/kmeans_assign.cu  bf16 nearest-centroid argmin / top-R
                                              (tensor cores)
     K4 ivf_probe_sq8  csrc/ivf_probe.cu      fused int8 (SQ8) IVF probe + top-k / candidates
+                                             (cell-major + a K2 selection past one chunk)
     K5 ivf_rerank     csrc/ivf_rerank.cu     exact rerank over the f32 or SQ16 row store
     K6 hnsw_serve_beam  csrc/hnsw_beam.cu    HNSW int8 serving beam + exact rerank
     K7 hnsw_select      csrc/hnsw_select.cu  HNSW alpha-diversity neighbour selection
@@ -26,6 +27,7 @@ presorted mode checks it on the CPU too) raise ValueError before any launch.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple
 
@@ -41,8 +43,12 @@ EPI_NONE, EPI_L2, EPI_COS, EPI_IP = 0, 1, 2, 3
 # widest selection a kernel takes (csrc/select.cuh)
 SEL_MAX = 2048
 # lanes one probe block scores and selects from; a wider probe (P*L) runs
-# one block per chunk of lanes and a merge (csrc/ivf_probe.cu)
+# one block per chunk of lanes and a merge (csrc/ivf_probe.cu), or, in K4,
+# the cell-major pass (`probe_route`)
 PROBE_CHUNK_LANES = 4096
+# K4's cell-major pass: the most bytes of [rows, P*L] f32 distances one of
+# its slices of queries writes (as `_probe_plain` caps its temporaries)
+CELL_DIST_BYTES = 1 << 29
 # probe output modes: the final top-k, or the r best lanes for the rerank
 MODE_TOPK, MODE_CAND = 0, 1
 
@@ -86,12 +92,14 @@ def _ptr(t):
 _entry: dict = {}
 
 
-def _launch(name, device, *args):
+def _launch(name, device, *args, counter=""):
     """Launch kernel `name` on `device`, the device of its tensors, on that
     device's current stream, whatever device is current: a mesh keeps
     shards on several cards and a kernel must run where its pointers live.
     The device is made current only for the launch, and only when it is
-    not already."""
+    not already. The launch adds one to `launches[counter]` (the entry
+    point's own name by default; None: a later step of a kernel whose
+    first launch counted)."""
     fn = _entry.get(name)
     if fn is None:
         fn = _entry[name] = getattr(build.library(), name)
@@ -108,7 +116,8 @@ def _launch(name, device, *args):
         # memory) comes back as a CUDA error: the limits live in csrc/
         msg = build.library().kernel_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: {msg} ({err})")
-    launches[name] += 1
+    if counter is not None:
+        launches[counter or name] += 1
 
 
 def _as_u8(mask):
@@ -285,6 +294,8 @@ def _probe_checks(name, cells, members, alive, allowed, k, m, replicated, mode):
     b, p = cells.shape
     nb, lcap = members.shape
     n_lanes = p * lcap
+    if max(nb, p) * lcap >= 1 << 31:
+        raise ValueError(f"{name}: lane indices are int32; got {nb} cells, P={p}, L={lcap}")
     if mode not in (MODE_TOPK, MODE_CAND):
         raise ValueError(f"{name}: unknown mode {mode}")
     if not 0 < k <= m <= min(n_lanes, SEL_MAX):
@@ -301,16 +312,49 @@ def _probe_checks(name, cells, members, alive, allowed, k, m, replicated, mode):
         _check(allowed, "allowed", torch.bool, (nb, lcap))
 
 
-def _probe_buffers(b, p, lcap, k, m, mode, device):
-    """Outputs of a probe launch, and the scratch rows of a chunked one."""
+def _probe_outputs(b, k, m, mode, device):
+    """Outputs of a probe: distances, ids, and in candidate mode positions."""
     width = m if mode == MODE_CAND else k
     out_d = torch.empty((b, width), dtype=torch.float32, device=device)
     out_i = torch.empty((b, width), dtype=torch.int32, device=device)
     out_pos = torch.empty((b, width), dtype=torch.int32, device=device) if mode == MODE_CAND else None
+    return out_d, out_i, out_pos
+
+
+def _probe_scratch(b, p, lcap, m, device):
+    """The scratch rows of a query-major launch that runs in chunks."""
     nchunks = -(-p * lcap // PROBE_CHUNK_LANES)
-    scratch = ([torch.empty((b, nchunks * m), dtype=torch.int32, device=device) for _ in range(3)]
-               if nchunks > 1 else [None] * 3)
-    return out_d, out_i, out_pos, scratch
+    return ([torch.empty((b, nchunks * m), dtype=torch.int32, device=device) for _ in range(3)]
+            if nchunks > 1 else [None] * 3)
+
+
+def _cell_fits(lcap: int, d: int, device=None) -> bool:
+    """Whether one block of K4's cell-major pass takes a cell of lcap lanes
+    at width d on `device` (default: the current card): the kernel
+    library's rule (csrc/ivf_probe.cu cell_fits: codes in 16-byte words and
+    the block's shared memory within the card's limit)."""
+    fn = _entry.get("ivf_probe_sq8_cell_ok")
+    if fn is None:
+        fn = _entry["ivf_probe_sq8_cell_ok"] = build.library().ivf_probe_sq8_cell_ok
+    index = torch.cuda.current_device() if device is None or device.index is None else device.index
+    ok = ctypes.c_int(0)
+    err = fn(lcap, d, index, ctypes.byref(ok))
+    if err != 0:
+        msg = build.library().kernel_error_string(err).decode()
+        raise RuntimeError(f"ivf_probe_sq8_cell_ok failed: {msg} ({err})")
+    return bool(ok.value)
+
+
+def probe_route(p: int, lcap: int, d: int, device=None, fits=_cell_fits) -> str:
+    """The order K4 scores a probe of p cells of lcap lanes at width d in.
+    "cell": when the probe is wider than one chunk of lanes (p*lcap >
+    PROBE_CHUNK_LANES) and `fits(lcap, d, device)` (the kernel library's
+    rule for one cell-major block), the (query, probe) pairs are grouped by
+    cell and each cell is read once for all the queries that probe it.
+    "query": a block per query (or per chunk of its lanes, merged)."""
+    if p * lcap > PROBE_CHUNK_LANES and fits(lcap, d, device):
+        return "cell"
+    return "query"
 
 
 def _probe_result(out_d, out_i, out_pos):
@@ -349,7 +393,8 @@ def ivf_probe_f32(q, qn, cells, pvecs, pnorms, members, alive, allowed=None, *,
     if d % 4 or pvecs.data_ptr() % 16:
         raise ValueError("ivf_probe_f32: rows are read as float4, so dim must be a "
                          f"multiple of 4 (got {d}) and pvecs 16-byte aligned")
-    out_d, out_i, out_pos, scratch = _probe_buffers(b, p, lcap, k, m, mode, q.device)
+    out_d, out_i, out_pos = _probe_outputs(b, k, m, mode, q.device)
+    scratch = _probe_scratch(b, p, lcap, m, q.device)
     if b:
         _launch("ivf_probe_f32", q.device, q.data_ptr(), qn.data_ptr(), cells.data_ptr(),
                 b, p, pvecs.data_ptr(), pnorms.data_ptr(), members.data_ptr(),
@@ -407,7 +452,8 @@ def ivf_probe_sq8(qc, qs, qsum, qn, cells, codes, mins, scales, pnorms, members,
     `metric` 0 (the IVF index's, whatever its own metric) `qn −
     2·(m′·qsum + scale·(qs·(qc·code))) + pnorms`; 1 and 2 are the HNSW
     serving pack's COSINE and IP seeding. Selection, modes and returns as
-    `ivf_probe_f32`."""
+    `ivf_probe_f32`. On CUDA a probe wider than one chunk of lanes runs
+    cell-major (`probe_route`), and its selection is a K2 launch."""
     b, p = cells.shape
     nb, lcap, d = codes.shape
     _probe_checks("ivf_probe_sq8", cells, members, alive, allowed, k, m, replicated, mode)
@@ -426,7 +472,11 @@ def ivf_probe_sq8(qc, qs, qsum, qn, cells, codes, mins, scales, pnorms, members,
     if d % 4 or codes.data_ptr() % 4 or qc.data_ptr() % 4:
         raise ValueError("ivf_probe_sq8: codes are read as 32-bit words, so dim must be a "
                          f"multiple of 4 (got {d}) and codes / qc 4-byte aligned")
-    out_d, out_i, out_pos, scratch = _probe_buffers(b, p, lcap, k, m, mode, qc.device)
+    if b and probe_route(p, lcap, d, qc.device) == "cell":
+        return _probe_sq8_cells(qc, qs, qsum, qn, cells, codes, mins, scales, pnorms, members,
+                                alive, allowed, k, m, replicated, mode, metric)
+    out_d, out_i, out_pos = _probe_outputs(b, k, m, mode, qc.device)
+    scratch = _probe_scratch(b, p, lcap, m, qc.device)
     if b:
         _launch("ivf_probe_sq8", qc.device, qc.data_ptr(), qs.data_ptr(), qsum.data_ptr(),
                 qn.data_ptr(), cells.data_ptr(), b, p, codes.data_ptr(), mins.data_ptr(),
@@ -435,6 +485,39 @@ def ivf_probe_sq8(qc, qs, qsum, qn, cells, codes, mins, scales, pnorms, members,
                 int(replicated), mode, PROBE_CHUNK_LANES, *map(_ptr, scratch),
                 out_d.data_ptr(), out_i.data_ptr(), _ptr(out_pos))
     return _probe_result(out_d, out_i, out_pos)
+
+
+def _probe_sq8_cells(qc, qs, qsum, qn, cells, codes, mins, scales, pnorms, members, alive,
+                     allowed, k, m, replicated, mode, metric):
+    """K4's cell-major pass, in slices of queries whose [rows, P*L]
+    distances fit CELL_DIST_BYTES: the pairs grouped by cell and every
+    lane's distance written (one launch a slice, counted as K4's), the m
+    best of each row by (distance, position) from K2, and the tail that
+    turns them into the probe's outputs."""
+    b, p = cells.shape
+    nb, lcap, d = codes.shape
+    dev = qc.device
+    if codes.data_ptr() % 16 or qc.data_ptr() % 16:
+        raise ValueError("ivf_probe_sq8: the cell-major pass copies 16-byte words, so codes "
+                         "and qc must be 16-byte aligned")
+    rows = min(b, max(1, CELL_DIST_BYTES // (4 * p * lcap)))
+    work = torch.empty(2 * nb + rows * p, dtype=torch.int32, device=dev)
+    dist = torch.empty((rows, p * lcap), dtype=torch.float32, device=dev)
+    out = _probe_outputs(b, k, m, mode, dev)
+    for s in range(0, b, rows):
+        e = min(b, s + rows)
+        _launch("ivf_probe_sq8_cells", dev, qc[s:].data_ptr(), qs[s:].data_ptr(),
+                qsum[s:].data_ptr(), qn[s:].data_ptr(), cells[s:].data_ptr(), e - s, p,
+                codes.data_ptr(), mins.data_ptr(), scales.data_ptr(), pnorms.data_ptr(),
+                members.data_ptr(), _ptr(_as_u8(alive)), _ptr(_as_u8(allowed)), nb, lcap, d,
+                metric, work.data_ptr(), dist.data_ptr(), counter="ivf_probe_sq8")
+        sel_d, sel_pos = topk_rows(dist[:e - s], m)
+        out_d, out_i, out_pos = (None if t is None else t[s:] for t in out)
+        _launch("ivf_probe_cells_finish", dev, cells[s:].data_ptr(), e - s, p,
+                members.data_ptr(), lcap, sel_d.data_ptr(), sel_pos.data_ptr(), k, m,
+                int(replicated), mode, out_d.data_ptr(), out_i.data_ptr(), _ptr(out_pos),
+                counter=None)
+    return _probe_result(*out)
 
 
 # ---------------------------------------------------------------------------

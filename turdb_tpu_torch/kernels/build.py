@@ -43,6 +43,16 @@ SIGNATURES = {
     "ivf_probe_sq8": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
                       _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                       _P, _P, _P, _P, _P],
+    # qc, qs, qsum, qn, cells, B, P, codes, mins, scales, pnorms, members,
+    # alive, allowed, NB, L, d, metric, work, dist, stream
+    "ivf_probe_sq8_cells": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
+                            _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    # L, d, device, ok (no stream: a query of the cell-major pass's rule)
+    "ivf_probe_sq8_cell_ok": [_I, _I, _I, _P],
+    # cells, B, P, members, L, sel_d, sel_pos, k, m, replicated, mode, out_d,
+    # out_i, out_pos, stream
+    "ivf_probe_cells_finish": [_P, _I, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P,
+                               _P, _P, _P],
     # codes, meta, vectors, norms, q, qn, qc, qs, qsum, seed_i, seed_d, B,
     # S, allowed, d, deg, ef, iters, expand, rerank, k, metric, out_d,
     # out_i, out_stats, stream

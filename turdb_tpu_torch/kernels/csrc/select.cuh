@@ -7,8 +7,9 @@
 //
 // Method: radix select on order-preserving 32-bit keys, 8 bits per pass
 // (4 histogram passes find the m-th smallest key T exactly), one collect
-// pass (all keys < T, then keys == T in position order until m are taken),
-// and a bitonic sort of the <= SEL_MAX winners by (key, position). Ties
+// pass (all keys < T, then keys == T in position order until m are taken:
+// each thread a contiguous run of positions, ranked by a block scan), and a
+// bitonic sort of the <= SEL_MAX winners by (key, position). Ties
 // therefore go to the lower position, as lax.top_k does. The winners live
 // in shared memory arrays of sel_pow2(m) entries (16 KB for both at
 // m = SEL_MAX), which the caller sizes from m.
@@ -118,38 +119,39 @@ __device__ void block_select(KeyFn key_of, int n, int m, uint32_t* s_key,
         mask |= 255u << shift;
         __syncthreads();
     }
-    // prefix == T, the m-th smallest key; m - want keys are < T
+    // prefix == T, the m-th smallest key; m - want keys are < T. Each
+    // thread collects a contiguous run of positions: the keys < T in any
+    // order, the first `want` keys == T in position order (a block scan of
+    // the runs' counts ranks them).
     const uint32_t T = prefix;
     const int n_lt = m - want;
-    if (tid == 0) { sc->misc[2] = 0; sc->misc[3] = 0; }
+    const int per = (n + blockDim.x - 1) / blockDim.x;
+    const int lo = min(n, tid * per), hi = min(n, lo + per);
+    int n_eq = 0;
+    for (int j = lo; j < hi; ++j) n_eq += key_of(j) == T;
+    int incl = n_eq;
+    for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += v;
+    }
+    if (lane == 31) sc->wcnt[warp] = incl;
+    if (tid == 0) sc->misc[2] = 0;
     __syncthreads();
-    for (int base = 0; base < n; base += blockDim.x) {
-        int j = base + tid;
-        uint32_t k = j < n ? key_of(j) : 0xffffffffu;
-        bool lt = j < n && k < T;
-        bool eq = j < n && k == T;
-        if (lt) {
-            int slot = atomicAdd(&sc->misc[2], 1);
+    int r = incl - n_eq;
+    for (int w = 0; w < warp; ++w) r += sc->wcnt[w];
+    for (int j = lo; j < hi; ++j) {
+        const uint32_t k = key_of(j);
+        if (k < T) {
+            const int slot = atomicAdd(&sc->misc[2], 1);
             s_key[slot] = k;
             s_pos[slot] = j;
+        } else if (k == T) {
+            if (r < want) {
+                s_key[n_lt + r] = k;
+                s_pos[n_lt + r] = j;
+            }
+            ++r;
         }
-        unsigned bal = __ballot_sync(0xffffffffu, eq);
-        if (lane == 0) sc->wcnt[warp] = __popc(bal);
-        __syncthreads();
-        int off = sc->misc[3];
-        for (int w = 0; w < warp; ++w) off += sc->wcnt[w];
-        int r = off + __popc(bal & ((1u << lane) - 1u));
-        if (eq && r < want) {
-            s_key[n_lt + r] = k;
-            s_pos[n_lt + r] = j;
-        }
-        __syncthreads();
-        if (tid == 0) {
-            int tot = 0;
-            for (int w = 0; w < (int)(blockDim.x >> 5); ++w) tot += sc->wcnt[w];
-            sc->misc[3] += tot;
-        }
-        __syncthreads();
     }
     const int size = sel_pow2(m);
     for (int i = m + tid; i < size; i += blockDim.x) {
