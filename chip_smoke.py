@@ -1622,17 +1622,32 @@ def hnsw_wave_phase(dev, x, queries):
     reachability; then a quarter of the rows deleted (the SQL vacuum's
     min_dead_frac) and `vacuum`, whose survivors take the bulk route, on a
     copy. Returns the wave-built index."""
-    from turdb_tpu_torch.models.hnsw import _BULK_MIN, HnswIndex
+    from turdb_tpu_torch import kernels
+    from turdb_tpu_torch.models.hnsw import _BULK_MIN, HnswIndex, select_levels
     from turdb_tpu_torch.utils.datasets import recall_of
 
     xs = x[:N_WAVE]
     truth, _ = _oracle(dev, xs, queries)
     idx = HnswIndex(dim=DIM, ef_construction=100, build_batch=512, capacity=N_WAVE,
                     bulk_threshold=N_WAVE + 1, device=dev)
+    # the waves that descend: all but the first (the empty graph's), each
+    # with a row below the top level; K9 walks all their levels in one launch
+    levels, descents, off = select_levels(np.arange(N_WAVE, dtype=np.uint64), idx.cfg), 0, 0
+    while off < N_WAVE:
+        w = min(idx.build_batch, N_WAVE - off, max(1, off))
+        descents += off > 0 and bool((levels[off:off + w] < idx.cfg.max_levels - 1).any())
+        off += w
+    before = kernels.launches["hnsw_greedy"]
     _, dt = _synced(lambda: idx.add(xs))
     out = {"rows": N_WAVE, "build_s": dt, "rows_per_s": N_WAVE / dt,
-           "descent_ef": idx._descent_ef, "max_level": idx.state.max_level}
+           "descent_ef": idx._descent_ef, "max_level": idx.state.max_level,
+           "k9_launches": {"waves_descending": descents,
+                           "add": kernels.launches["hnsw_greedy"] - before}}
+    before = kernels.launches["hnsw_greedy"]
     _, ids = idx.search(queries[:N_ORACLE], K, ef=HNSW_GRAPH_EF)
+    out["k9_launches"]["search"] = kernels.launches["hnsw_greedy"] - before
+    check(out["k9_launches"] == {"waves_descending": descents, "add": descents, "search": 1},
+          f"K9 launches: {out['k9_launches']}, not one a descending wave and one a search")
     out["recall@10"] = recall_of(ids, truth)
     out["reach_levels"] = _reach(idx)
     log(f"hnsw waves from empty: {json.dumps(out)}")
@@ -1673,33 +1688,53 @@ def _greedy_bound(stats, b, deg, row_bytes, d):
     return _bound(nbytes, 2 * d * int(tot[1]), FP32_OPS)
 
 
-def _k9_case(adj, rows, norms, q, qn, cur_i, cur_d, row_bytes, what, timed):
+def _k9_case(adjs, st, q, qn, cur_i, cur_d, what, lowest=None, timed=False):
+    """K9 through `adjs` (one launch) against the plain chain of one-level
+    walks: ends within DOT_RTOL, ids apart only at ties; timed, with its
+    device time, the longest chain of steps any query took and the device
+    time a step of it, and the one-level launches of the same walk."""
     from turdb_tpu_torch.kernels import hnsw_greedy, hnsw_greedy_plain
 
-    args = (adj, rows, norms, q, qn, cur_i.contiguous(), cur_d.contiguous())
-    ki, kd, ks = hnsw_greedy(*args, metric=0)
-    pi, pd, ps = hnsw_greedy_plain(*args, metric=0)
+    args = (adjs, st.vectors, st.norms, q, qn, cur_i.contiguous(), cur_d.contiguous())
+    ki, kd, ks = hnsw_greedy(*args, metric=0, lowest=lowest)
+    pi, pd, ps = hnsw_greedy_plain(*args, metric=0, lowest=lowest)
     err, id_diff = _near_equal(kd[:, None], ki[:, None], pd[:, None], pi[:, None], DOT_RTOL, what)
     check(id_diff <= 0.01, f"{what}: {id_diff} of the ends differ")
-    out = {"B": q.shape[0], "deg": adj.shape[1], "max_abs_err": err, "id_diff": id_diff,
-           "steps": int(ks[:, 0].sum()), "scored": int(ks[:, 1].sum()),
+    out = {"B": q.shape[0], "levels": len(adjs), "deg": adjs[0].shape[1], "max_abs_err": err,
+           "id_diff": id_diff, "steps": int(ks[:, 0].sum()), "scored": int(ks[:, 1].sum()),
+           "longest_chain": int(ks[:, 0].max()),
            "stats_equal": float((ks == ps).all(1).float().mean())}
     if timed:
-        out.update(ms=_median_ms(lambda: hnsw_greedy(*args, metric=0)),
-                   plain_ms=_median_ms(lambda: hnsw_greedy_plain(*args, metric=0), reps=3),
+        def fused():
+            return hnsw_greedy(*args, metric=0, lowest=lowest)
+
+        def per_level():
+            # one launch a level, each from where the last ended (the calls
+            # before one launch walked several levels)
+            ci, cd = args[5], args[6]
+            for adj in adjs:
+                ci, cd, _ = hnsw_greedy(adj, *args[1:5], ci, cd, metric=0)
+
+        out.update(ms=_median_ms(fused), loop_ms=_loop_ms(fused),
+                   device_ms=_trace_ms(fused, "greedy_kernel"),
+                   levels_ms=_median_ms(per_level),
+                   plain_ms=_median_ms(lambda: hnsw_greedy_plain(*args, metric=0,
+                                                                 lowest=lowest), reps=3),
                    library_ms=None,
-                   **_greedy_bound(ks, q.shape[0], adj.shape[1], row_bytes, q.shape[1]))
-    return out, ki, kd
+                   **_greedy_bound(ks, q.shape[0], adjs[0].shape[1], 4 * DIM, q.shape[1]))
+        out["step_ms"] = out["device_ms"] / out["longest_chain"]
+    return out
 
 
 def k9_check(ins, wave, wave_q, batch):
-    """K9 against its plain version: a wave of 512 held-out rows through
-    every level of the inserted 1M graph from its entry (the
-    wave's descent; level 0 too, which the waves skip when every row
-    connects), and the 1024-query search descent of the wave-built graph
-    (descent_ef 1, levels 3..1). The timed row is the wave's descent
-    through the levels above 0 (one launch a level, summed)."""
-    from turdb_tpu_torch.models.hnsw import _seed_from_entry
+    """K9 against its plain chain: a wave of 512 held-out rows through
+    levels 3-1 of the inserted 1M graph from its entry in one launch (the
+    timed row), the same wave with each row stopping above its own level
+    (the waves' descent), level 0 alone from there (which the waves skip),
+    and the 1024-query search descent of the wave-built graph (descent_ef
+    1, levels 3-1, one launch)."""
+    from turdb_tpu_torch.kernels import hnsw_greedy
+    from turdb_tpu_torch.models.hnsw import _seed_from_entry, select_levels
     from turdb_tpu_torch.ops.distance import Metric
 
     out = {}
@@ -1708,22 +1743,17 @@ def k9_check(ins, wave, wave_q, batch):
         q = q.contiguous()
         qn = (q * q).sum(1)
         cur_i, cur_d = _seed_from_entry(st.vectors, st.norms, q, qn, st.entry, Metric.L2)
-        levels, tot = {}, None
-        for lvl in range(st.max_level, -1 if name == "wave512" else 0, -1):
-            adj = st.adj0 if lvl == 0 else st.adj_hi[lvl - 1]
-            r, cur_i, cur_d = _k9_case(adj, st.vectors, st.norms, q, qn, cur_i, cur_d, 4 * DIM,
-                                       f"K9 {name} level {lvl}", timed=lvl > 0)
-            levels[lvl] = r
-            if lvl > 0:
-                tot = r if tot is None else {
-                    k: tot[k] + r[k] if k in ("ms", "plain_ms", "bound_ms", "bound_bytes",
-                                              "bound_ops", "steps", "scored") else tot[k]
-                    for k in tot}
-        # the row's ms sums a launch a level above 0; a single launch's mean
-        n_timed = sum(1 for lvl in levels if lvl > 0)
-        out[name] = {**tot, "launch_ms": tot["ms"] / n_timed,
-                     "max_abs_err": max(r["max_abs_err"] for r in levels.values()),
-                     "levels": levels}
+        adjs = [st.adj_hi[lvl - 1] for lvl in range(st.max_level, 0, -1)]
+        out[name] = _k9_case(adjs, st, q, qn, cur_i, cur_d, f"K9 {name}", timed=True)
+        if name == "wave512":
+            slots = np.arange(idx.size, idx.size + len(q), dtype=np.uint64)
+            lowest = torch.as_tensor(select_levels(slots, idx.cfg), device=q.device)
+            out["wave512_own_levels"] = _k9_case(adjs, st, q, qn, cur_i, cur_d,
+                                                 "K9 wave512 own levels", lowest=lowest)
+            end_i, end_d, _ = hnsw_greedy(adjs, st.vectors, st.norms, q, qn, cur_i, cur_d,
+                                          metric=0)
+            out["wave512_level0"] = _k9_case([st.adj0], st, q, qn, end_i, end_d,
+                                             "K9 wave512 level 0")
     return out
 
 
@@ -1731,7 +1761,11 @@ def k8sq_check(idx, batch):
     """K8 over the SQ8 and SQ16 stores of the inserted 1M graph at the
     search shape (B = 1024 through level 0 from the upper levels' beams,
     ef 64): distances within DOT_RTOL, ids apart only at ties."""
-    from turdb_tpu_torch.kernels import hnsw_graph_beam, hnsw_graph_beam_plain
+    from turdb_tpu_torch.kernels import (
+        graph_beam_sq_stage,
+        hnsw_graph_beam,
+        hnsw_graph_beam_plain,
+    )
     from turdb_tpu_torch.models.hnsw import _beam_level, _seed_from_entry
     from turdb_tpu_torch.ops.distance import Metric
     from turdb_tpu_torch.ops.quantize import sq_rows_encode
@@ -1759,12 +1793,17 @@ def k8sq_check(idx, batch):
         deg = st.adj0.shape[1]
         nbytes = (int(tot[0]) * deg * 4 + int(tot[1]) * (DIM * bits // 8 + 12)
                   + b * (4 * DIM + 4) + b * s * 8 + b * 64 * 8 + b * 8)
+        rows_a_warp, fit16, fit32 = graph_beam_sq_stage(b, s, DIM, deg, ef=64, iters=96,
+                                                        expand=4, k_res=0, bits=bits,
+                                                        device=qb.device)
         out[f"sq{bits}"] = {
             "shape": {"B": b, "S": s, "ef": 64, "iters": 96, "deg": deg, "d": DIM},
+            "stage": {"rows": rows_a_warp, "blocks_per_sm_16": fit16, "blocks_per_sm_32": fit32},
             "expanded": int(tot[0]), "scored": int(tot[1]), "max_abs_err": err,
             "id_diff": id_diff,
             "ms": _median_ms(lambda: hnsw_graph_beam(*args, **kw)),
             "loop_ms": _loop_ms(lambda: hnsw_graph_beam(*args, **kw)),
+            "device_ms": _trace_ms(lambda: hnsw_graph_beam(*args, **kw), "graph_beam_sq_kernel"),
             "plain_ms": _median_ms(lambda: hnsw_graph_beam_plain(*args, **kw), reps=3),
             "library_ms": None,
             **_bound(nbytes, 2 * DIM * int(tot[1]), FP32_OPS)}
@@ -2300,9 +2339,9 @@ def kernel_rows(launches):
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # where measured: ten calls back to back (the host's launch path hidden),
-    # K3's yardstick, the bf16 product of its operands alone, and K9's mean
-    # single launch (its ms sums one launch a level)
-    extra = ("loop_ms", "gemm_ms", "launch_ms")
+    # K3's yardstick, the bf16 product of its operands alone, a trace's
+    # device time, and K9's longest chain of steps and device time a step
+    extra = ("loop_ms", "gemm_ms", "device_ms", "longest_chain", "step_ms")
     return [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(counts.get(name, 0) for counts in launches.values()),

@@ -55,10 +55,18 @@ def self_hit(idx, rows, slots, ef, chunk=16_384):
     return hits / len(rows)
 
 
-def beam_descent(adj, vectors, norms, q, qn, cur_i, cur_d, metric):
-    cand_d, cand_i = th._beam_level(adj, vectors, norms, q, qn, cur_i, cur_d, 32, 64, metric,
-                                    expand=2)
-    return cand_i[:, 0].contiguous(), cand_d[:, 0].contiguous()
+def beam_descent(adj, vectors, norms, q, qn, cur_i, cur_d, metric, lowest=None):
+    """th._greedy_level's contract (one level or several, top first, each
+    row down to its `lowest`) with a narrow beam in place of each walk."""
+    adjs = [adj] if isinstance(adj, torch.Tensor) else list(adj)
+    for j, a in enumerate(adjs):
+        cand_d, cand_i = th._beam_level(a, vectors, norms, q, qn, cur_i, cur_d, 32, 64, metric,
+                                        expand=2)
+        walks = (torch.ones_like(cur_i, dtype=torch.bool) if lowest is None
+                 else lowest <= len(adjs) - 1 - j)
+        cur_i = torch.where(walks, cand_i[:, 0], cur_i).contiguous()
+        cur_d = torch.where(walks, cand_d[:, 0], cur_d).contiguous()
+    return cur_i, cur_d
 
 
 def measure(idx, new, slots):

@@ -768,8 +768,10 @@ def _sq_stores(x):
 
 def test_hnsw_greedy_kernel_matches_plain(cuda):
     """K9 over the f32 rows and the SQ8 / SQ16 store, every metric, from
-    random nodes and from -1 (row 0's list against +inf): the same ends but
-    where fp32 dots summed in another order swap a near tie."""
+    random nodes and from -1 (row 0's list against +inf), one level a
+    launch and three levels in one launch: the same ends as the plain
+    version (chain) but where fp32 dots summed in another order swap a near
+    tie."""
     g = torch.Generator(device=cuda).manual_seed(11)
     x, norms, adj = _graph(g, 6000, 64, 16, cuda)
     q = (x[torch.randint(0, 6000, (512,), device=cuda, generator=g)]
@@ -793,15 +795,45 @@ def test_hnsw_greedy_kernel_matches_plain(cuda):
             torch.testing.assert_close(kd, pd, rtol=1e-5, atol=atol)
             assert (ki == pi).float().mean() >= 0.99, (metric, name)
             assert (ks == ps).all(1).float().mean() >= 0.95, (metric, name)
+    # three levels in one launch, each query down to its own lowest level
+    # (some walk none), at d = 64 and 128 and at d = 36, whose SQ rows are
+    # no whole 16-byte words (staged by 4-byte copies)
+    for d in (64, 128, 36):
+        x, norms, adj0 = _graph(g, 6000, d, 16, cuda)
+        adjs = [adj0[torch.randperm(6000, device=cuda, generator=g)].contiguous()
+                for _ in range(2)] + [adj0]
+        q = (x[torch.randint(0, 6000, (700,), device=cuda, generator=g)]
+             + 0.5 * torch.randn(700, d, device=cuda, generator=g)).contiguous()
+        qn = (q * q).sum(1)
+        cur = torch.randint(-1, 6000, (700,), device=cuda, generator=g, dtype=torch.int32)
+        lowest = torch.randint(0, 5, (700,), device=cuda, generator=g, dtype=torch.int32)
+        atol = 1e-5 * float(qn.max() + norms.max())
+        for name, store in _sq_stores(x):
+            cur_d = kernels._gathered_epilogue(
+                torch.einsum("bd,bd->b", q, store[cur.clamp_min(0).long()]), 0, qn,
+                norms[cur.clamp_min(0).long()])
+            cur_d = torch.where(cur >= 0, cur_d, float("inf")).contiguous()
+            args = (adjs, store, norms, q, qn, cur, cur_d)
+            before = kernels.launches["hnsw_greedy"]
+            ki, kd, ks = kernels.hnsw_greedy(*args, metric=0, lowest=lowest)
+            assert kernels.launches["hnsw_greedy"] == before + 1
+            pi, pd, ps = kernels.hnsw_greedy_plain(*args, metric=0, lowest=lowest)
+            torch.testing.assert_close(kd, pd, rtol=1e-5, atol=atol)
+            assert (ki == pi).float().mean() >= 0.99, (d, name)
+            assert (ks == ps).all(1).float().mean() >= 0.95, (d, name)
+            none = lowest >= 3
+            assert torch.equal(ki[none], cur[none]) and bool((ks[none] == 0).all())
 
 
-def test_hnsw_graph_beam_sq_kernel_matches_plain(cuda):
-    """K8 over u8 and u16 codes in its modes: the buffers of the plain
-    version (the same gather) but at near ties of the fp32 dots."""
+@pytest.mark.parametrize("d", (64, 128))
+def test_hnsw_graph_beam_sq_kernel_matches_plain(cuda, d):
+    """K8 over u8 and u16 codes in its modes, at two row widths of the
+    staged scorer: the buffers of the plain version (the same gather) but
+    at near ties of the fp32 dots."""
     g = torch.Generator(device=cuda).manual_seed(12)
-    x, norms, adj = _graph(g, 6000, 64, 16, cuda)
+    x, norms, adj = _graph(g, 6000, d, 16, cuda)
     q = (x[torch.randint(0, 6000, (96,), device=cuda, generator=g)]
-         + 0.5 * torch.randn(96, 64, device=cuda, generator=g)).contiguous()
+         + 0.5 * torch.randn(96, d, device=cuda, generator=g)).contiguous()
     qn = (q * q).sum(1)
     allowed = torch.rand(6000, device=cuda, generator=g) < 0.5
     active = torch.arange(96, device=cuda) % 7 != 0
@@ -891,6 +923,29 @@ def test_hnsw_wave_build_and_vacuum_on_cuda_match_cpu(cuda):
     np.testing.assert_array_equal(map_g, map_c)
     for a, b in (*zip(rows_g, rows_c), *zip(vac_g, vac_c)):
         assert (a == b).all(1).mean() >= 0.99
+
+
+def test_hnsw_greedy_launches_once_a_wave_and_once_a_search(cuda):
+    """K9 walks every upper level in one launch: one for each wave that
+    has a graph to descend and a row below the top level, and one for a
+    search at descent_ef 1."""
+    from turdb_tpu_torch.models import hnsw as th
+
+    x = make_pool(np.random.default_rng(2), 3_000, 32, n_clusters=32)
+    idx = th.HnswIndex(dim=32, ef_construction=64, build_batch=256, bulk_threshold=10**9,
+                       device=cuda)
+    levels = th.select_levels(np.arange(len(x), dtype=np.uint64), idx.cfg)
+    want, off = 0, 0
+    while off < len(x):
+        w = min(idx.build_batch, len(x) - off, max(1, off))
+        want += off > 0 and bool((levels[off:off + w] < idx.cfg.max_levels - 1).any())
+        off += w
+    kernels.reset_launches()
+    idx.add(x)
+    assert kernels.launches["hnsw_greedy"] == want > 0
+    kernels.reset_launches()
+    idx.search(x[:100], k=10, ef=64)
+    assert idx._descent_ef == 1 and kernels.launches["hnsw_greedy"] == 1
 
 
 def test_hnsw_wave_limits_raise_and_leave_no_error_behind(cuda):

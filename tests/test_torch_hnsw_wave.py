@@ -6,8 +6,9 @@
   tolerance (fp32 dots summed in another order);
 - K7's presorted mode against `_select_neighbors_heuristic` on the
   reference's own beam buffers: rows equal on >= 99 %;
-- `_wave_level_core` and `_reverse_dense_core` on a graph imported from the
-  reference: rows equal on >= 99 %, rows no edge touches bit-equal;
+- the one-level descent composed with `_wave_level_core`, and
+  `_reverse_dense_core`, on a graph imported from the reference: rows
+  equal on >= 99 %, rows no edge touches bit-equal;
 - `_entry_update_core` exactly, the empty-graph bootstrap and ties of level
   included;
 - one `_insert_wave` from the same imported state: levels, entry and top
@@ -189,8 +190,11 @@ def _wave(ref_idx, wave, n=NW):
 
 def test_wave_level_core_matches_reference(ref, data):
     """Every level of one wave of BB rows on the imported graph, each level
-    from the reference's seeds: the next seeds equal but at ties, the
-    selected rows equal on >= 99 %."""
+    from the reference's seeds: the port's one-level greedy descent for the
+    rows that pass through, then `_wave_level_core` (the connecting rows'
+    beam and selection) against the reference's `_wave_level_jit`, which
+    does both: the next seeds equal but at ties, the selected rows equal
+    on >= 99 %."""
     vecs, slots, lvls = _wave(ref, data[3], BB)
     st = ref.state
     port = _port_of(ref)
@@ -204,10 +208,13 @@ def test_wave_level_core_matches_reference(ref, data):
         want = [np.asarray(a) for a in jh._wave_level_jit(
             adj, st.vectors, st.norms, q, qn, cur_i, cur_d, jnp.asarray(connect),
             metric=JaxMetric.L2, efc=EFC, iters=EFC + EFC // 2, deg_out=deg)]
+        args = (th._level_adj(port.state, lvl), port.state.vectors, port.state.norms,
+                torch.from_numpy(vecs), torch.from_numpy(np.asarray(qn)))
+        ci, cd = torch.from_numpy(np.asarray(cur_i)), torch.from_numpy(np.asarray(cur_d))
+        gi, gd = th._greedy_level(*args, ci, cd, Metric.L2)
+        conn = torch.from_numpy(connect)
         got = [g.numpy() for g in th._wave_level_core(
-            th._level_adj(port.state, lvl), port.state.vectors, port.state.norms,
-            torch.from_numpy(vecs), torch.from_numpy(np.asarray(qn)),
-            torch.from_numpy(np.asarray(cur_i)), torch.from_numpy(np.asarray(cur_d)), connect,
+            *args, torch.where(conn, ci, gi), torch.where(conn, cd, gd), connect,
             metric=Metric.L2, efc=EFC, iters=EFC + EFC // 2, deg_out=deg)]
         _ids_match(want[0], want[1], got[0], got[1])
         w = want[2].shape[1]
@@ -301,6 +308,71 @@ def test_padded_and_unpadded_waves_build_the_same_graph(ref, data):
         a, b = np.asarray(getattr(padded.state, f)), np.asarray(getattr(unpadded.state, f))
         np.testing.assert_array_equal(a[:cap - 1], b[:cap - 1])   # all but the scratch slot
     assert int(padded.state.entry) == int(unpadded.state.entry)
+
+
+def _level_by_level_wave(state, new_vecs, new_slots, new_levels, *, cfg, efc, iters):
+    """`build_wave_impl` with its descent one K9 call a level, each level's
+    walk just before that level's connections (the order the reference
+    runs them in)."""
+    slots, levels = np.asarray(new_slots, np.int64), np.asarray(new_levels, np.int32)
+    sl = torch.as_tensor(slots)
+    q, qn = th._stage_vectors_core(state.vectors, state.norms, state.levels, new_vecs, sl,
+                                   torch.as_tensor(levels))
+    cur_i, cur_d = th._seed_from_entry(state.vectors, state.norms, q, qn, state.entry,
+                                       cfg.metric)
+    fwd = {}
+    for lvl in range(cfg.max_levels - 1, -1, -1):
+        adj = th._level_adj(state, lvl)
+        connect = (levels >= lvl) & (state.entry >= 0)
+        if not connect.all():
+            gi, gd = th._greedy_level(adj, state.vectors, state.norms, q, qn, cur_i, cur_d,
+                                      cfg.metric)
+            conn = torch.as_tensor(connect)
+            cur_i, cur_d = torch.where(conn, cur_i, gi), torch.where(conn, cur_d, gd)
+        cur_i, cur_d, sel_i, sel_d = th._wave_level_core(
+            adj, state.vectors, state.norms, q, qn, cur_i, cur_d, connect, metric=cfg.metric,
+            efc=efc, iters=iters, deg_out=cfg.m0 if lvl == 0 else cfg.m)
+        th._write_forward(adj, sl, sel_i)
+        if connect.any():
+            fwd[lvl] = (sel_i, sel_d)
+    src = sl.to(torch.int32)
+    for lvl, (sel_i, sel_d) in sorted(fwd.items()):
+        th._reverse_dense_core(th._level_adj(state, lvl), state.vectors, state.norms,
+                               sel_i.reshape(-1), src[:, None].expand_as(sel_i).reshape(-1),
+                               sel_d.reshape(-1), cfg.metric)
+    entry, max_level = th._entry_update_core(state.entry, state.max_level, slots, levels)
+    return state._replace(entry=entry, max_level=max_level)
+
+
+def _same_state(a, b):
+    for x, y in zip(a, b):
+        if isinstance(x, tuple):
+            assert all(torch.equal(u, v) for u, v in zip(x, y))
+        elif isinstance(x, torch.Tensor):
+            assert torch.equal(x, y)
+        else:
+            assert x == y
+
+
+@pytest.mark.parametrize("start", ("imported", "empty"))
+def test_single_descent_builds_the_level_by_level_graph(ref, data, monkeypatch, start):
+    """The waves' descent in one launch before the level loop builds the
+    graph that one walk a level, interleaved with the connections, builds,
+    bit for bit: one wave of BB rows into the imported graph, and a whole
+    build from empty (waves of 1, 2, 4, ... rows, the empty graph's first)."""
+    built = []
+    for impl in (th.build_wave_impl, _level_by_level_wave):
+        monkeypatch.setattr(th, "build_wave_impl", impl)
+        if start == "imported":
+            idx = _port_of(ref)
+            vecs, slots, lvls = _wave(ref, data[3], BB)
+            idx._insert_wave(torch.from_numpy(vecs), slots, lvls)
+        else:
+            idx = th.HnswIndex(dim=DIM, ef_construction=EFC, build_batch=128,
+                               bulk_threshold=10**9, device="cpu")
+            idx.add(data[0][:700])
+        built.append(idx.state)
+    _same_state(*built)
 
 
 @pytest.mark.parametrize("bb, batches", ((64, (1000, 300)), (512, (3, 5, 2000)), (7, (1, 40))))

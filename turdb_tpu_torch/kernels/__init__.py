@@ -13,7 +13,7 @@ and the launch counters.
        hnsw_select_sorted                    ... its presorted mode (a beam's buffer)
     K8 hnsw_graph_beam  csrc/hnsw_beam.cu    HNSW graph beam over one level (f32 rows;
                                              over the SQ store, counted as hnsw_graph_beam_sq)
-    K9 hnsw_greedy      csrc/hnsw_greedy.cu  HNSW greedy descent over one level
+    K9 hnsw_greedy      csrc/hnsw_greedy.cu  HNSW greedy descent through one level or several
     K10 dense_blocks    csrc/dense_blocks.cu dense IVF: probed cells -> first-u distinct blocks
     K11 sq8_scan        csrc/sq8_scan.cu     asymmetric L2 k-NN over a u8 store (+ a K2 merge)
 
@@ -889,6 +889,20 @@ def hnsw_graph_beam(adj, vectors, norms, q, qn, seed_i, seed_d, allowed=None, *,
     return out
 
 
+def graph_beam_sq_stage(b, s, d, deg, *, ef, iters, expand, k_res, bits, device=None):
+    """K8-SQ's stage at these widths on a CUDA device (its rule is in
+    csrc/hnsw_beam.cu `pick_stage`): (rows a warp stages at once, blocks an
+    SM runs at 16 rows, at 32 rows). A query of the library, not a launch."""
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        err = build.library().hnsw_graph_beam_sq_stage(b, s, d, deg, ef, iters, expand, k_res,
+                                                       bits, out)
+    if err:
+        msg = build.library().kernel_error_string(err).decode()
+        raise RuntimeError(f"hnsw_graph_beam_sq_stage: {msg} ({err})")
+    return tuple(out)
+
+
 def _check_sq_rows(name, rows: Sq8Rows, cap, d):
     """The SQ store a kernel reads: codes [cap, d] uint8 or int16 (the
     uint16 bits), read 4 codes at a time; mins and scales [cap] f32."""
@@ -903,13 +917,23 @@ def _check_sq_rows(name, rows: Sq8Rows, cap, d):
 # K9: the HNSW greedy descent
 # ---------------------------------------------------------------------------
 
-GREEDY_CAP = 128  # steps of one descent (the reference's cap, hnsw.py:73)
+GREEDY_CAP = 128  # steps of one level's walk (the reference's cap, hnsw.py:73)
+GREEDY_LEVELS_MAX = build.GREEDY_LEVELS_MAX
 
 
-def hnsw_greedy_plain(adj, vectors, norms, q, qn, cur_i, cur_d, *, metric):
-    """The reference's batched walk (`_greedy_level`): every query steps
-    until none moves; a query's work is the steps it took while it moved
-    and the one that found no better neighbour."""
+def _greedy_adjs(adj):
+    """One level, or a sequence of levels walked top first, as a list."""
+    adjs = [adj] if isinstance(adj, torch.Tensor) else list(adj)
+    if not 1 <= len(adjs) <= GREEDY_LEVELS_MAX:
+        raise ValueError(f"hnsw_greedy: walks 1 to {GREEDY_LEVELS_MAX} levels in one launch, "
+                         f"got {len(adjs)}")
+    return adjs
+
+
+def _greedy_walk(adj, vectors, norms, q, qn, cur_i, cur_d, metric):
+    """The reference's batched walk through one level (`_greedy_level`):
+    every query steps until none moves; a query's work is the steps it
+    took while it moved and the one that found no better neighbour."""
     stats = torch.zeros((cur_i.shape[0], 2), dtype=torch.int32, device=cur_i.device)
     live = torch.ones(cur_i.shape, dtype=torch.bool, device=cur_i.device)
     for _ in range(GREEDY_CAP):
@@ -932,32 +956,58 @@ def hnsw_greedy_plain(adj, vectors, norms, q, qn, cur_i, cur_d, *, metric):
     return cur_i, cur_d, stats
 
 
-def hnsw_greedy(adj, vectors, norms, q, qn, cur_i, cur_d, *, metric: int):
-    """The greedy descent through one adjacency level (`_greedy_level` of
-    the reference's models/hnsw.py).
+def hnsw_greedy_plain(adj, vectors, norms, q, qn, cur_i, cur_d, *, metric, lowest=None):
+    """The chain of one-level walks: level by level from the first, each
+    query from where the last level left it, only the queries that walk
+    the level (see `hnsw_greedy`); the work summed over the levels."""
+    adjs = _greedy_adjs(adj)
+    stats = torch.zeros((cur_i.shape[0], 2), dtype=torch.int32, device=cur_i.device)
+    cur_i, cur_d = cur_i.clone(), cur_d.clone()
+    for j, a in enumerate(adjs):
+        rows = (torch.arange(cur_i.shape[0], device=cur_i.device) if lowest is None
+                else torch.nonzero(lowest <= len(adjs) - 1 - j)[:, 0])
+        ni, nd, work = _greedy_walk(a, vectors, norms, q[rows], qn[rows], cur_i[rows],
+                                    cur_d[rows], metric)
+        cur_i[rows], cur_d[rows] = ni, nd
+        stats[rows] += work
+    return cur_i, cur_d, stats
 
-    adj [cap, deg] int32 (-1 padded), vectors [cap, d] f32 or an
-    `Sq8Rows` store, norms [cap], q [B, d], qn [B] = ‖q‖², cur_i [B]
-    int32 and cur_d [B] f32 the start and its distance. Each step scores
-    the neighbours of cur (`gathered_distances`: L2 clamped at 0, COS,
-    IP; -1 entries +inf; cur -1 reads row 0's list), takes the first of
-    the nearest and moves there only if it is strictly nearer than cur_d;
-    at most GREEDY_CAP steps. Returns (cur_i [B] int32, cur_d [B] f32,
+
+def hnsw_greedy(adj, vectors, norms, q, qn, cur_i, cur_d, *, metric: int, lowest=None):
+    """The greedy descent (`_greedy_level` of the reference's
+    models/hnsw.py) through one adjacency level or several, in one launch.
+
+    adj: one level [cap, deg] int32 (-1 padded), or a sequence of up to
+    GREEDY_LEVELS_MAX levels of one shape, walked in order (the top first);
+    vectors [cap, d] f32 or an `Sq8Rows` store, norms [cap], q [B, d],
+    qn [B] = ‖q‖², cur_i [B] int32 and cur_d [B] f32 the start and its
+    distance; `lowest` [B] int32 or None: the levels are numbered from
+    len - 1 (the first) down to 0 (the last), and query b walks those
+    numbered lowest[b] or more (None: all; len or more: none, its start
+    passes through). Each step scores the neighbours of cur
+    (`gathered_distances`: L2 clamped at 0, COS, IP; -1 entries +inf; cur
+    -1 reads row 0's list), takes the first of the nearest and moves there
+    only if it is strictly nearer than cur_d; at most GREEDY_CAP steps a
+    level, each level from where the last one ended, so the result is the
+    chain of one-level walks. Returns (cur_i [B] int32, cur_d [B] f32,
     stats [B, 2] int32: the lists each query read and the neighbours it
-    scored)."""
+    scored, over its levels)."""
+    adjs = _greedy_adjs(adj)
     b = cur_i.shape[0]
-    cap, deg = adj.shape
+    cap, deg = adjs[0].shape
     d = vectors.shape[1]
     if metric not in (0, 1, 2):
         raise ValueError(f"hnsw_greedy: unknown metric {metric}")
     sq = isinstance(vectors, Sq8Rows)
     store = (vectors.codes, vectors.mins, vectors.scales) if sq else (vectors,)
-    if not _on_cuda(adj, *store, norms, q, qn, cur_i, cur_d):
-        return hnsw_greedy_plain(adj, vectors, norms, q, qn, cur_i, cur_d, metric=metric)
+    if not _on_cuda(*adjs, *store, norms, q, qn, cur_i, cur_d, lowest):
+        return hnsw_greedy_plain(adjs, vectors, norms, q, qn, cur_i, cur_d, metric=metric,
+                                 lowest=lowest)
     if d % 4 or d > 4096:
         raise ValueError("hnsw_greedy: rows are read 4 elements at a time, so dim must be a "
                          f"multiple of 4 and at most 4096 (got {d})")
-    _check(adj, "adj", torch.int32, (cap, deg))
+    for a in adjs:
+        _check(a, "adj", torch.int32, (cap, deg))
     if sq:
         _check_sq_rows("hnsw_greedy", vectors, cap, d)
     else:
@@ -967,18 +1017,22 @@ def hnsw_greedy(adj, vectors, norms, q, qn, cur_i, cur_d, *, metric: int):
     _check(qn, "qn", torch.float32, (b,))
     _check(cur_i, "cur_i", torch.int32, (b,))
     _check(cur_d, "cur_d", torch.float32, (b,))
+    if lowest is not None:
+        _check(lowest, "lowest", torch.int32, (b,))
     if q.data_ptr() % 16 or (not sq and vectors.data_ptr() % 16):
         raise ValueError("hnsw_greedy: vectors and q must be 16-byte aligned")
     out_i = torch.empty(b, dtype=torch.int32, device=q.device)
     out_d = torch.empty(b, dtype=torch.float32, device=q.device)
     stats = torch.empty((b, 2), dtype=torch.int32, device=q.device)
     if b:
-        _launch("hnsw_greedy", adj.device, adj.data_ptr(), None if sq else vectors.data_ptr(),
+        levels = build.GreedyLevels((ctypes.c_void_p * GREEDY_LEVELS_MAX)(
+            *(a.data_ptr() for a in adjs)), len(adjs))
+        _launch("hnsw_greedy", q.device, levels, None if sq else vectors.data_ptr(),
                 vectors.codes.data_ptr() if sq else None, vectors.bits if sq else 0,
                 vectors.mins.data_ptr() if sq else None,
                 vectors.scales.data_ptr() if sq else None, norms.data_ptr(), q.data_ptr(),
-                qn.data_ptr(), cur_i.data_ptr(), cur_d.data_ptr(), b, d, deg, metric,
-                out_i.data_ptr(), out_d.data_ptr(), stats.data_ptr())
+                qn.data_ptr(), cur_i.data_ptr(), cur_d.data_ptr(), _ptr(lowest), b, d, deg,
+                metric, out_i.data_ptr(), out_d.data_ptr(), stats.data_ptr())
     return out_i, out_d, stats
 
 

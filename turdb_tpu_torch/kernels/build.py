@@ -27,6 +27,15 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+GREEDY_LEVELS_MAX = 8   # levels one K9 launch walks (csrc/hnsw_greedy.cu)
+
+
+class GreedyLevels(ctypes.Structure):
+    """K9's levels, passed by value: the adjacencies walked, top first."""
+
+    _fields_ = [("adj", _P * GREEDY_LEVELS_MAX), ("n", _I)]
+
+
 # argtypes of each C entry point, in the order of its declaration
 SIGNATURES = {
     # vals, B, N, rown, coln, colvalid, epilogue, clamp, k, out_d, out_i,
@@ -65,16 +74,19 @@ SIGNATURES = {
     "hnsw_graph_beam": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I,
                         _I, _I, _I, _I, _I, _P, _P, _P,
                         _P, _P, _P, _P],
+    # B, S, d, deg, ef, iters, expand, k_res, bits, out (no stream: a query
+    # of K8-SQ's stage rule)
+    "hnsw_graph_beam_sq_stage": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # adj, codes, bits, mins, scales, norms, q, qn, seed_i, seed_d, B, S,
     # allowed, d, deg, ef, iters, expand, k_res, metric, out_cand_d,
     # out_cand_i, out_res_d, out_res_i, out_exp, out_stats, stream
     "hnsw_graph_beam_sq": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                            _P, _I, _I, _I, _I, _I, _I, _I, _P,
                            _P, _P, _P, _P, _P, _P],
-    # adj, vectors, codes, bits, mins, scales, norms, q, qn, cur_i, cur_d,
-    # B, d, deg, metric, out_i, out_d, out_stats, stream
-    "hnsw_greedy": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                    _I, _I, _I, _I, _P, _P, _P, _P],
+    # levels, vectors, codes, bits, mins, scales, norms, q, qn, cur_i,
+    # cur_d, lowest, B, d, deg, metric, out_i, out_d, out_stats, stream
+    "hnsw_greedy": [GreedyLevels, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                    _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     # vectors, norms, targets, cand, U, W, d, deg, sel_cap, alpha, metric,
     # out_i, out_d, out_pairs, stream
     "hnsw_select": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I,

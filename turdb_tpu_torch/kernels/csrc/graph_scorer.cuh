@@ -3,14 +3,30 @@
 // (hnsw_greedy.cu). A scorer names the neighbour in slot g of a node's list
 // (adj[node, g]) and scores it against the query row held in shared memory,
 // then applies gathered_distances' epilogue (L2 clamped at 0, COS 1 - dot,
-// IP -dot) with the row's stored norm. Two ways: `score`, one thread reads
-// the whole row and sums its fp32 products in order (K9, a lane a
-// neighbour); `group_scores`, a group of GROUP lanes takes R rows at once
-// (K6 / K8: up to 4 groups x R rows in flight a warp). GraphScorer's group
-// reads each row together, each lane 16 bytes in turn (128 contiguous bytes
-// of the row a load, so the loads use whole lines), every load of the R rows
-// issued before their sums, then a 3-step shuffle sum; SqScorer's lanes
-// each score a row of the group's R alone.
+// IP -dot) with the row's stored norm. Two ways:
+// - `group_scores` (K8 over f32 rows; K6 has its own): a group of GROUP
+//   lanes takes R rows at once, up to 4 groups x R rows in flight a warp,
+//   each lane reading 16 bytes of a row in turn (128 contiguous bytes of the
+//   row a load), every load of the R rows issued before their sums, then a
+//   3-step shuffle sum;
+// - `staged_score` (K8-SQ, and K9 over either store): a warp copies the up
+//   to 32 rows it is about to score into its region of shared memory by
+//   `cp.async` (stage_rows: neighbouring lanes on neighbouring words, every
+//   copy of the batch issued before any is waited for, the rows' norms,
+//   mins and scales loaded meanwhile), so a batch pays about one memory
+//   round trip; then lane r scores staged row r alone, in one fmaf chain
+//   over j = 0 .. d-1 (the dequantizing FMA min + scale * code first), so
+//   each distance is the one the same per-row sum gave before the rows were
+//   staged: the SQ store keeps that order, because summed by lane groups one
+//   SQ16 query of chip_smoke's 1M check parted from the plain beam beyond
+//   the tie band (its expansions split at a near tie, PERF.md).
+//
+// Staged layout: row r of a batch at r * sw 16-byte words, sw =
+// stage_words(row bytes), the row's words rounded up to an odd count. A
+// 16-byte shared load runs in four phases of 8 lanes; lanes 8p .. 8p+7 read
+// one offset of 8 rows, whose starts (r * sw mod 8 distinct for odd sw) then
+// cover the 32 banks once: no conflict (a 128- or 512-byte stride would put
+// all 8 on 4 banks). tests/test_torch_greedy_replay.py replays the layout.
 //
 // GraphScorer reads the f32 rows. SqScorer reads the SQ8 / SQ16 graph store
 // (the reference's Sq8Rows: u8 or u16 codes and a per-row min and scale) and
@@ -39,12 +55,56 @@ __device__ __forceinline__ float gathered_epilogue(float acc, float qnb, float x
     return -acc;
 }
 
+// 16-byte words a staged row takes: its bytes rounded up to an odd number
+// of words (see the layout above)
+__host__ __device__ inline int stage_words(int row_bytes) { return ((row_bytes + 15) >> 4) | 1; }
+
+__device__ __forceinline__ void stage_copy16(void* dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(
+                     (unsigned)__cvta_generic_to_shared(dst)), "l"(src));
+}
+__device__ __forceinline__ void stage_copy4(void* dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     (unsigned)__cvta_generic_to_shared(dst)), "l"(src));
+}
+
+// a staged row's norm, min and scale (f32 rows: min and scale unused)
+struct RowMeta {
+    float xn, m, s;
+};
+
+// acc + x . y over four elements in order, one fmaf each
+__device__ __forceinline__ float dot4(float acc, float4 x, float4 y) {
+    acc = fmaf(x.x, y.x, acc);
+    acc = fmaf(x.y, y.y, acc);
+    acc = fmaf(x.z, y.z, acc);
+    return fmaf(x.w, y.w, acc);
+}
+// the same over four codes, each dequantized as m + s * code by one fmaf
+__device__ __forceinline__ float deq_dot4(float acc, float4 u, float4 y, float m, float s) {
+    acc = fmaf(fmaf(s, u.x, m), y.x, acc);
+    acc = fmaf(fmaf(s, u.y, m), y.y, acc);
+    acc = fmaf(fmaf(s, u.z, m), y.z, acc);
+    return fmaf(fmaf(s, u.w, m), y.w, acc);
+}
+// four codes of a little-endian word (u8) or word pair (u16) as floats
+// (exact: u8 and u16 fit a float)
+__device__ __forceinline__ float4 u8x4(unsigned w) {
+    return make_float4(w & 0xffu, (w >> 8) & 0xffu, (w >> 16) & 0xffu, w >> 24);
+}
+__device__ __forceinline__ float4 u16x4(unsigned lo, unsigned hi) {
+    return make_float4(lo & 0xffffu, lo >> 16, hi & 0xffffu, hi >> 16);
+}
+
 struct GraphScorer {
     const int* adj;            // [cap, deg]
     const float* vectors;      // [cap, d]
     const float* norms;        // [cap]
     const float* q;            // [B, d]
     __host__ __device__ static size_t query_bytes(int d) { return (size_t)d * 4; }
+    __host__ __device__ static int row_bytes(int d) { return d * 4; }
+    // rows are staged by 16-byte copies (d % 4 == 0, 16-byte aligned rows)
+    __device__ bool wide() const { return true; }
     __device__ void load(size_t b, int d, unsigned char* s) const {
         float* sq = reinterpret_cast<float*>(s);
         for (int i = threadIdx.x; i < d; i += blockDim.x) sq[i] = q[b * d + i];
@@ -52,20 +112,18 @@ struct GraphScorer {
     __device__ int neighbour(int node, int g, int deg) const {
         return adj[(size_t)node * deg + g];
     }
-    // one thread: the distance of neighbour `id` (slot g of `node`'s list)
-    __device__ float score(const unsigned char* s, int node, int g, int id, int d, int deg,
-                           float qnb, int metric) const {
+    __device__ const unsigned char* row(int id, int d) const {
+        return reinterpret_cast<const unsigned char*>(vectors + (size_t)id * d);
+    }
+    __device__ RowMeta meta(int id) const { return RowMeta{__ldg(norms + id), 0.0f, 0.0f}; }
+    // a staged row's dot with the query, j = 0 .. d-1 in order
+    __device__ float staged_dot(const unsigned char* srow, const unsigned char* s, int d,
+                                const RowMeta&) const {
+        const float4* x4 = reinterpret_cast<const float4*>(srow);
         const float4* q4 = reinterpret_cast<const float4*>(s);
-        const float4* x4 = reinterpret_cast<const float4*>(vectors + (size_t)id * d);
         float acc = 0.0f;
-        for (int j = 0; j < (d >> 2); ++j) {
-            const float4 x = x4[j], y = q4[j];
-            acc = fmaf(x.x, y.x, acc);
-            acc = fmaf(x.y, y.y, acc);
-            acc = fmaf(x.z, y.z, acc);
-            acc = fmaf(x.w, y.w, acc);
-        }
-        return gathered_epilogue(acc, qnb, norms[id], metric);
+        for (int j = 0; j < (d >> 2); ++j) acc = dot4(acc, x4[j], q4[j]);
+        return acc;
     }
     // lane `sub` of a group: rows id[0, R) (-1: none; every lane of a group
     // has the same rows), the distances in out[] on every lane of the group
@@ -104,16 +162,6 @@ struct GraphScorer {
     }
 };
 
-// four codes of a row as floats (exact: u8 and u16 fit a float)
-__device__ __forceinline__ float4 codes4(const uint8_t* p) {
-    const uchar4 v = *reinterpret_cast<const uchar4*>(p);
-    return make_float4(v.x, v.y, v.z, v.w);
-}
-__device__ __forceinline__ float4 codes4(const uint16_t* p) {
-    const ushort4 v = *reinterpret_cast<const ushort4*>(p);
-    return make_float4(v.x, v.y, v.z, v.w);
-}
-
 template <typename CodeT>
 struct SqScorer {
     const int* adj;            // [cap, deg]
@@ -122,7 +170,11 @@ struct SqScorer {
     const float* scales;       // [cap]
     const float* norms;        // [cap] the exact f32 norms
     const float* q;            // [B, d]
+    int wide16;                // rows are staged by 16-byte copies (else 4-byte)
+    int srows, sw;             // K8-SQ: rows a warp stages at once, 16-byte words a row
     __host__ __device__ static size_t query_bytes(int d) { return (size_t)d * 4; }
+    __host__ __device__ static int row_bytes(int d) { return d * (int)sizeof(CodeT); }
+    __device__ bool wide() const { return wide16 != 0; }
     __device__ void load(size_t b, int d, unsigned char* s) const {
         float* sq = reinterpret_cast<float*>(s);
         for (int i = threadIdx.x; i < d; i += blockDim.x) sq[i] = q[b * d + i];
@@ -130,38 +182,91 @@ struct SqScorer {
     __device__ int neighbour(int node, int g, int deg) const {
         return adj[(size_t)node * deg + g];
     }
-    __device__ float score(const unsigned char* s, int node, int g, int id, int d, int deg,
-                           float qnb, int metric) const {
-        const float4* q4 = reinterpret_cast<const float4*>(s);
-        const CodeT* c = codes + (size_t)id * d;
-        const float m = mins[id], sc = scales[id];
-        float acc = 0.0f;
-        for (int j = 0; j < (d >> 2); ++j) {
-            const float4 u = codes4(c + 4 * j), y = q4[j];
-            acc = fmaf(fmaf(sc, u.x, m), y.x, acc);
-            acc = fmaf(fmaf(sc, u.y, m), y.y, acc);
-            acc = fmaf(fmaf(sc, u.z, m), y.z, acc);
-            acc = fmaf(fmaf(sc, u.w, m), y.w, acc);
-        }
-        return gathered_epilogue(acc, qnb, norms[id], metric);
+    __device__ const unsigned char* row(int id, int d) const {
+        return reinterpret_cast<const unsigned char*>(codes + (size_t)id * d);
     }
-    // a lane group's R rows: lane r of the group scores row r alone, in
-    // `score`'s order, and the group shares the results. The SQ store keeps
-    // that per-row sum: summed by lane groups, one SQ16 query of
-    // chip_smoke's 1M check parted from the plain beam beyond the tie band
-    // (its expansions split at a near tie, PERF.md).
-    template <int R>
-    __device__ __forceinline__ void group_scores(const unsigned char* s, const int* node,
-                                                 const int* g, const int* id, int d, int deg,
-                                                 int sub, float qnb, int metric,
-                                                 float* out) const {
-        int mine = -1;
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-            if (sub == r) mine = id[r];
-        const float v = mine >= 0 ? score(s, 0, 0, mine, d, deg, qnb, metric) : 0.0f;
-        const int base = (threadIdx.x & 31) & ~(GROUP - 1);
-#pragma unroll
-        for (int r = 0; r < R; ++r) out[r] = __shfl_sync(0xffffffffu, v, base + r);
+    __device__ RowMeta meta(int id) const {
+        return RowMeta{__ldg(norms + id), __ldg(mins + id), __ldg(scales + id)};
+    }
+    // a staged row's dot with the query: the codes in order 0 .. d-1, read
+    // a 16-byte word (16 u8 or 8 u16 codes) at a time, the last d % 16 (u8)
+    // or d % 8 (u16) codes four at a time
+    __device__ float staged_dot(const unsigned char* srow, const unsigned char* s, int d,
+                                const RowMeta& rm) const {
+        const float4* q4 = reinterpret_cast<const float4*>(s);
+        const uint4* w = reinterpret_cast<const uint4*>(srow);
+        float acc = 0.0f;
+        if constexpr (sizeof(CodeT) == 1) {
+            int c = 0;
+            for (; c < (d >> 4); ++c) {
+                const uint4 v = w[c];
+                acc = deq_dot4(acc, u8x4(v.x), q4[4 * c], rm.m, rm.s);
+                acc = deq_dot4(acc, u8x4(v.y), q4[4 * c + 1], rm.m, rm.s);
+                acc = deq_dot4(acc, u8x4(v.z), q4[4 * c + 2], rm.m, rm.s);
+                acc = deq_dot4(acc, u8x4(v.w), q4[4 * c + 3], rm.m, rm.s);
+            }
+            const unsigned* w1 = reinterpret_cast<const unsigned*>(srow);
+            for (int j = 4 * c; j < (d >> 2); ++j)
+                acc = deq_dot4(acc, u8x4(w1[j]), q4[j], rm.m, rm.s);
+        } else {
+            int c = 0;
+            for (; c < (d >> 3); ++c) {
+                const uint4 v = w[c];
+                acc = deq_dot4(acc, u16x4(v.x, v.y), q4[2 * c], rm.m, rm.s);
+                acc = deq_dot4(acc, u16x4(v.z, v.w), q4[2 * c + 1], rm.m, rm.s);
+            }
+            const uint2* w2 = reinterpret_cast<const uint2*>(srow);
+            for (int j = 2 * c; j < (d >> 2); ++j) {
+                const uint2 v = w2[j];
+                acc = deq_dot4(acc, u16x4(v.x, v.y), q4[j], rm.m, rm.s);
+            }
+        }
+        return acc;
     }
 };
+
+// Copy the rows of a warp's batch into `stage` (row r at r * sw words):
+// lane r < n holds row r's id (-1: none). The copies are 16-byte words
+// (4-byte where a row is not whole, aligned 16-byte words), copy e of the
+// batch (row e / rw, word e % rw) by lane e % 32, so that neighbouring
+// lanes read neighbouring words; none is waited for here. All 32 lanes call.
+template <class Scorer>
+__device__ __forceinline__ void stage_rows(const Scorer& sc, unsigned char* stage, int sw, int id,
+                                           int n, int d, int lane) {
+    const int wb = sc.wide() ? 16 : 4;
+    const int rw = Scorer::row_bytes(d) / wb;    // copies a row
+    const int total = n * rw;
+    const bool pow2 = (rw & (rw - 1)) == 0;      // d = 128: 8, 16 or 32 copies a row
+    const int sh = __popc(rw - 1);
+    for (int e0 = 0; e0 < total; e0 += 32) {
+        const int e = e0 + lane;
+        const int r = e >= total ? 0 : pow2 ? e >> sh : e / rw;
+        const int rid = __shfl_sync(0xffffffffu, id, r);
+        if (e < total && rid >= 0) {
+            const int w = e - r * rw;
+            unsigned char* dst = stage + ((size_t)r * sw << 4) + (size_t)w * wb;
+            const unsigned char* src = sc.row(rid, d) + (size_t)w * wb;
+            if (sc.wide()) stage_copy16(dst, src);
+            else stage_copy4(dst, src);
+        }
+    }
+}
+
+// The distance of lane r's row (r < n, id >= 0; +inf for a lane with none)
+// among a batch of a warp's rows: staged by stage_rows (with the rows' norm,
+// min and scale loaded while the copies fly), then scored from shared
+// memory in the row's own order. `s` is the query row (f32) in shared
+// memory, `stage` the warp's region of n * sw words. All 32 lanes call.
+template <class Scorer>
+__device__ __forceinline__ float staged_score(const Scorer& sc, unsigned char* stage, int sw,
+                                              int id, int n, const unsigned char* s, int d,
+                                              float qnb, int metric, int lane) {
+    __syncwarp();   // the last batch's reads of the region are done
+    stage_rows(sc, stage, sw, id, n, d, lane);
+    const RowMeta rm = id >= 0 ? sc.meta(id) : RowMeta{0.0f, 0.0f, 0.0f};
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncwarp();
+    if (id < 0) return __int_as_float(0x7f800000);
+    const float acc = sc.staged_dot(stage + ((size_t)lane * sw << 4), s, d, rm);
+    return gathered_epilogue(acc, qnb, rm.xn, metric);
+}

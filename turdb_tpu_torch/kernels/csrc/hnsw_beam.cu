@@ -35,7 +35,7 @@
 // order; from then on the buffer stays sorted, so the nearest unexpanded
 // candidates are its first unflagged entries (a warp ballot scan), and the
 // reference's bound reduces to "nothing left to expand". A step is four
-// phases and four barriers:
+// phases and four barriers (K8-SQ five):
 //  1. warp 0 selects the nodes to expand and reads their neighbour lists
 //     while the other warps insert the buffer's ids and every id expanded
 //     before into a hash table (graph_util.cuh, cleared in phase 4);
@@ -44,12 +44,15 @@
 //     lowest wins. That is the reference's member_mask of the buffer and of
 //     the expanded ids, then mask_duplicates, in O(1) a slot. A node that
 //     left the buffer unexpanded is scored again, as in the reference;
-//  3. each warp compacts its kept slots (ballot), scores them by lane
-//     groups (graph_scorer.cuh group_scores: 8 lanes a row, 16 rows a warp
-//     in flight), keeps those below the buffer's worst (a new entry at or
-//     above it cannot enter: a tie goes to the old entry) and, with
-//     `allowed`, the allowed ones below the result buffer's worst, and
-//     sorts them in runs of 32 (a bitonic network of shuffles);
+//  3. each warp compacts its kept slots (ballot), scores them (K6 / K8 by
+//     lane groups, graph_scorer.cuh group_scores: 8 lanes a row, 16 rows a
+//     warp in flight; K8-SQ by staged_score: after a barrier, the warp
+//     stages `srows` rows at a time in its region of shared memory, which
+//     overlays the step's table, and scores them one lane a row), keeps
+//     those below the buffer's worst (a new entry at or above it cannot
+//     enter: a tie goes to the old entry) and, with `allowed`, the allowed
+//     ones below the result buffer's worst, and sorts them in runs of 32 (a
+//     bitonic network of shuffles);
 //  4. the merge: each old entry moves by the new entries below it, each new
 //     one to its rank among the new plus the old entries at or below it
 //     (binary searches of the runs and of the buffer), into the other half
@@ -61,11 +64,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "graph_scorer.cuh"
 #include "graph_util.cuh"
 
 #define BEAM_THREADS 128
 #define BEAM_WARPS (BEAM_THREADS / 32)
+// blocks an SM must hold by K8-SQ's registers (64 a thread): B = 1024
+// queries on 132 SMs run in one wave only at eight
+#define SQ_MIN_BLOCKS 8
 static_assert(BEAM_WARPS == 4, "merge_into splits the new entries among 4 warps");
 #define SLOTS_MAX 1024                                   // kernels.SLOTS_MAX
 #define SLOT_REG ((SLOTS_MAX + BEAM_THREADS - 1) / BEAM_THREADS)
@@ -130,6 +138,10 @@ struct Smem {
     unsigned char* q;              // the scorer's query bytes
 };
 
+// the scorers whose rows phase 3 stages (graph_scorer.cuh staged_score)
+template <class S> struct stages_rows : std::false_type {};
+template <class C> struct stages_rows<SqScorer<C>> : std::true_type {};
+
 // one half of a double buffer (a select, so that Smem stays in registers)
 template <class T>
 __device__ __forceinline__ T* half(T* const (&p)[2], int h) {
@@ -138,20 +150,38 @@ __device__ __forceinline__ T* half(T* const (&p)[2], int h) {
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~(size_t)15; }
 
+// K8-SQ's stage: [BEAM_WARPS][srows * sw] 16-byte words (0 for the other
+// scorers)
+template <class Scorer>
+__host__ __device__ inline size_t stage_bytes(const Scorer& sc) {
+    if constexpr (stages_rows<Scorer>::value) return (size_t)BEAM_WARPS * sc.srows * sc.sw * 16;
+    return 0;
+}
+
 // Bytes of Smem for these widths; `carve` lays it out in the same order.
-__host__ __device__ inline size_t smem_bytes(const BeamArgs& a, size_t qbytes) {
-    return align16(qbytes) + (size_t)8 * ((1 << a.hbits) + 2 * BEAM_WARPS * a.wcap) +
+// K8-SQ's stage shares the step table's bytes: phase 3 stages rows only
+// after a barrier behind the table's last read (the claims' tags), and
+// phase 4 clears the whole table for the next step.
+__host__ __device__ inline size_t table_bytes(const BeamArgs& a, size_t stage) {
+    const size_t table = (size_t)8 << a.hbits;
+    return table > stage ? table : stage;
+}
+
+__host__ __device__ inline size_t smem_bytes(const BeamArgs& a, size_t qbytes, size_t stage) {
+    return align16(qbytes) + table_bytes(a, stage) + (size_t)8 * (2 * BEAM_WARPS * a.wcap) +
            (size_t)4 * (6 * a.ef + 4 * a.k_res + 2 * BEAM_WARPS * a.wcap + 2 * a.slots +
                         2 * a.expand + a.exp_cap + 16);
 }
 
-__device__ inline Smem carve(unsigned char* p, const BeamArgs& a, size_t qbytes) {
+template <bool Staged>
+__device__ inline Smem carve(unsigned char* p, const BeamArgs& a, size_t qbytes, size_t stage) {
     Smem s;
     s.q = p;
     u64* w = reinterpret_cast<u64*>(p + align16(qbytes));
     s.hid = reinterpret_cast<unsigned*>(w);
     s.htag = s.hid + (1 << a.hbits);
-    w += 1 << a.hbits;
+    if constexpr (Staged) w = reinterpret_cast<u64*>(p + align16(qbytes) + table_bytes(a, stage));
+    else w += 1 << a.hbits;
     s.kc = w; w += BEAM_WARPS * a.wcap;
     s.kr = w; w += BEAM_WARPS * a.wcap;
     float* f = reinterpret_cast<float*>(w);
@@ -459,28 +489,23 @@ __device__ int2 run_beam(const BeamArgs& a, const Scorer& sc, const Smem& s, siz
         n_kept += nw;
         __syncwarp();
         int nc = 0, nr = 0;   // the warp's survivors, appended in a fixed order
-        for (int base = 0; base < nw; base += (32 / GROUP) * GROUP_ROWS) {
-            int t[GROUP_ROWS], id[GROUP_ROWS], node[GROUP_ROWS], g[GROUP_ROWS];
-            float v[GROUP_ROWS];
-#pragma unroll
-            for (int r = 0; r < GROUP_ROWS; ++r) {
-                const int row = base + r * (32 / GROUP) + grp;
-                t[r] = row < nw ? wt[row] : 0;
-                id[r] = row < nw ? wi[row] : -1;
-                node[r] = row < nw ? s.sel[t[r] / a.deg] : 0;
-                g[r] = t[r] % a.deg;
-            }
-            sc.template group_scores<GROUP_ROWS>(s.q, node, g, id, a.d, a.deg, sub, qnb,
-                                                 a.metric, v);
-            // the group leaders (sub 0) hold the distances; ballots place
-            // the survivors
-#pragma unroll
-            for (int r = 0; r < GROUP_ROWS; ++r) {
-                const bool lead = sub == 0 && id[r] >= 0;
-                if (lead) s.nd[t[r]] = v[r];
-                const u64 key = ((u64)f2key(v[r]) << 32) | (unsigned)t[r];
-                const bool in_c = lead && v[r] < worst_c;
-                const bool in_r = lead && a.k_res && v[r] < worst_r && a.allowed[id[r]];
+        if constexpr (stages_rows<Scorer>::value) {
+            // batches of srows kept slots, lane r scoring the batch's row r,
+            // staged over the table once every warp has read its tags
+            __syncthreads();
+            unsigned char* stage =
+                reinterpret_cast<unsigned char*>(s.hid) + ((size_t)warp * sc.srows * sc.sw << 4);
+            for (int base = 0; base < nw; base += sc.srows) {
+                const int row = base + lane;
+                const bool mine = lane < sc.srows && row < nw;
+                const int t = mine ? wt[row] : 0;
+                const int id = mine ? wi[row] : -1;
+                const float v = staged_score(sc, stage, sc.sw, id, min(sc.srows, nw - base), s.q,
+                                             a.d, qnb, a.metric, lane);
+                if (mine) s.nd[t] = v;
+                const u64 key = ((u64)f2key(v) << 32) | (unsigned)t;
+                const bool in_c = mine && v < worst_c;
+                const bool in_r = mine && a.k_res && v < worst_r && a.allowed[id];
                 const unsigned bc = __ballot_sync(0xffffffffu, in_c);
                 const unsigned br = __ballot_sync(0xffffffffu, in_r);
                 const unsigned below = (1u << lane) - 1u;
@@ -488,6 +513,38 @@ __device__ int2 run_beam(const BeamArgs& a, const Scorer& sc, const Smem& s, siz
                 if (in_r) kr[nr + __popc(br & below)] = key;
                 nc += __popc(bc);
                 nr += __popc(br);
+            }
+        } else {
+            for (int base = 0; base < nw; base += (32 / GROUP) * GROUP_ROWS) {
+                int t[GROUP_ROWS], id[GROUP_ROWS], node[GROUP_ROWS], g[GROUP_ROWS];
+                float v[GROUP_ROWS];
+#pragma unroll
+                for (int r = 0; r < GROUP_ROWS; ++r) {
+                    const int row = base + r * (32 / GROUP) + grp;
+                    t[r] = row < nw ? wt[row] : 0;
+                    id[r] = row < nw ? wi[row] : -1;
+                    node[r] = row < nw ? s.sel[t[r] / a.deg] : 0;
+                    g[r] = t[r] % a.deg;
+                }
+                sc.template group_scores<GROUP_ROWS>(s.q, node, g, id, a.d, a.deg, sub, qnb,
+                                                     a.metric, v);
+                // the group leaders (sub 0) hold the distances; ballots place
+                // the survivors
+#pragma unroll
+                for (int r = 0; r < GROUP_ROWS; ++r) {
+                    const bool lead = sub == 0 && id[r] >= 0;
+                    if (lead) s.nd[t[r]] = v[r];
+                    const u64 key = ((u64)f2key(v[r]) << 32) | (unsigned)t[r];
+                    const bool in_c = lead && v[r] < worst_c;
+                    const bool in_r = lead && a.k_res && v[r] < worst_r && a.allowed[id[r]];
+                    const unsigned bc = __ballot_sync(0xffffffffu, in_c);
+                    const unsigned br = __ballot_sync(0xffffffffu, in_r);
+                    const unsigned below = (1u << lane) - 1u;
+                    if (in_c) kc[nc + __popc(bc & below)] = key;
+                    if (in_r) kr[nr + __popc(br & below)] = key;
+                    nc += __popc(bc);
+                    nr += __popc(br);
+                }
             }
         }
         if (lane == 0) { s.misc[1 + warp] = nc; s.misc[5 + warp] = nr; }
@@ -526,12 +583,14 @@ __device__ int2 run_beam(const BeamArgs& a, const Scorer& sc, const Smem& s, siz
     return make_int2(n_exp, n_scored);
 }
 
+// one query's beam and its outputs (the body of K8 and K8-SQ)
 template <class Scorer>
-__global__ void __launch_bounds__(BEAM_THREADS)
-graph_beam_kernel(BeamArgs a, Scorer sc, float* out_d, int* out_i, float* out_rd,
-                  int* out_ri, int* out_exp, int* out_stats) {
+__device__ __forceinline__ void graph_beam_block(const BeamArgs& a, const Scorer& sc,
+                                                 float* out_d, int* out_i, float* out_rd,
+                                                 int* out_ri, int* out_exp, int* out_stats) {
     extern __shared__ __align__(16) unsigned char smem[];
-    const Smem s = carve(smem, a, Scorer::query_bytes(a.d));
+    const Smem s = carve<stages_rows<Scorer>::value>(smem, a, Scorer::query_bytes(a.d),
+                                                     stage_bytes(sc));
     const size_t b = blockIdx.x;
     sc.load(b, a.d, s.q);
     __syncthreads();
@@ -551,11 +610,26 @@ graph_beam_kernel(BeamArgs a, Scorer sc, float* out_d, int* out_i, float* out_rd
     if (threadIdx.x == 0) reinterpret_cast<int2*>(out_stats)[b] = stats;
 }
 
+template <class Scorer>
+__global__ void __launch_bounds__(BEAM_THREADS)
+graph_beam_kernel(BeamArgs a, Scorer sc, float* out_d, int* out_i, float* out_rd,
+                  int* out_ri, int* out_exp, int* out_stats) {
+    graph_beam_block(a, sc, out_d, out_i, out_rd, out_ri, out_exp, out_stats);
+}
+
+// K8-SQ: eight blocks an SM by its registers
+template <class Scorer>
+__global__ void __launch_bounds__(BEAM_THREADS, SQ_MIN_BLOCKS)
+graph_beam_sq_kernel(BeamArgs a, Scorer sc, float* out_d, int* out_i, float* out_rd,
+                     int* out_ri, int* out_exp, int* out_stats) {
+    graph_beam_block(a, sc, out_d, out_i, out_rd, out_ri, out_exp, out_stats);
+}
+
 __global__ void __launch_bounds__(BEAM_THREADS)
 serve_beam_kernel(BeamArgs a, ServeScorer sc, const uint8_t* allowed, int r, int k,
                   float* out_d, int* out_i, int* out_stats) {
     extern __shared__ __align__(16) unsigned char smem[];
-    const Smem s = carve(smem, a, ServeScorer::query_bytes(a.d));
+    const Smem s = carve<false>(smem, a, ServeScorer::query_bytes(a.d), 0);
     const size_t b = blockIdx.x;
     sc.load(b, a.d, s.q);
     __syncthreads();
@@ -616,17 +690,51 @@ static int set_smem(K kernel, size_t smem) {
     return (int)e;
 }
 
+// Blocks of `kernel` an SM runs with `smem` bytes of shared memory (0 when
+// it cannot run one).
+template <class K>
+static int blocks_per_sm(K kernel, size_t smem) {
+    int n = 0;
+    if (set_smem(kernel, smem) ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, BEAM_THREADS, smem)) {
+        cudaGetLastError();
+        return 0;
+    }
+    return n;
+}
+
+// K8-SQ's stage: 32 rows a warp (every lane scores in phase 3) unless that
+// cuts the blocks an SM runs below what this launch needs (all of its B
+// blocks at once) and 16 rows would run more; then halves of 16. `fits`
+// (or null) gets the blocks an SM runs at 16 and at 32 rows.
 template <class Scorer>
-static int launch_graph_beam(const BeamArgs& a, const Scorer& sc, float* out_d, int* out_i,
-                             float* out_rd, int* out_ri, int* out_exp, int* out_stats,
-                             void* stream) {
+static void pick_stage(const BeamArgs& a, Scorer& sc, int* fits = nullptr) {
+    sc.sw = stage_words(Scorer::row_bytes(a.d));
+    int dev = 0, sms = 1;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const int need = (a.B + sms - 1) / sms;
+    const size_t qb = Scorer::query_bytes(a.d);
+    sc.srows = 16;
+    const int half_fit = blocks_per_sm(graph_beam_sq_kernel<Scorer>,
+                                       smem_bytes(a, qb, stage_bytes(sc)));
+    sc.srows = 32;
+    const int full_fit = blocks_per_sm(graph_beam_sq_kernel<Scorer>,
+                                       smem_bytes(a, qb, stage_bytes(sc)));
+    if (full_fit < need && full_fit < half_fit) sc.srows = 16;
+    if (fits) { fits[0] = half_fit; fits[1] = full_fit; }
+}
+
+template <class K, class Scorer>
+static int launch_beam(K kernel, const BeamArgs& a, const Scorer& sc, float* out_d, int* out_i,
+                       float* out_rd, int* out_ri, int* out_exp, int* out_stats, void* stream) {
     if (!beam_args_ok(a) || (a.k_res && (out_rd == nullptr || out_ri == nullptr)))
         return (int)cudaErrorInvalidValue;
-    const size_t smem = smem_bytes(a, Scorer::query_bytes(a.d));
-    int e = set_smem(graph_beam_kernel<Scorer>, smem);
+    const size_t smem = smem_bytes(a, Scorer::query_bytes(a.d), stage_bytes(sc));
+    int e = set_smem(kernel, smem);
     if (e) return e;
-    graph_beam_kernel<Scorer><<<a.B, BEAM_THREADS, smem, (cudaStream_t)stream>>>(
-        a, sc, out_d, out_i, out_rd, out_ri, out_exp, out_stats);
+    kernel<<<a.B, BEAM_THREADS, smem, (cudaStream_t)stream>>>(a, sc, out_d, out_i, out_rd,
+                                                              out_ri, out_exp, out_stats);
     return (int)cudaGetLastError();
 }
 
@@ -638,8 +746,23 @@ extern "C" int hnsw_graph_beam(const int* adj, const float* vectors, const float
                                int* out_exp, int* out_stats, void* stream) {
     const BeamArgs a = beam_args(B, S, d, deg, ef, iters, expand, k_res, metric, seed_i, seed_d,
                                  allowed, qn);
-    return launch_graph_beam(a, GraphScorer{adj, vectors, norms, q}, out_d, out_i, out_rd,
-                             out_ri, out_exp, out_stats, stream);
+    return launch_beam(graph_beam_kernel<GraphScorer>, a, GraphScorer{adj, vectors, norms, q},
+                       out_d, out_i, out_rd, out_ri, out_exp, out_stats, stream);
+}
+
+// K8-SQ at these widths: the stage picked, then the launch
+template <class CodeT>
+static int launch_beam_sq(const BeamArgs& a, SqScorer<CodeT> sc, float* out_d, int* out_i,
+                          float* out_rd, int* out_ri, int* out_exp, int* out_stats,
+                          void* stream) {
+    pick_stage(a, sc);
+    return launch_beam(graph_beam_sq_kernel<SqScorer<CodeT>>, a, sc, out_d, out_i, out_rd, out_ri,
+                       out_exp, out_stats, stream);
+}
+
+// rows of whole, aligned 16-byte words are staged by 16-byte copies
+static int wide_rows(const void* codes, int d, int bits) {
+    return (size_t)codes % 16 == 0 && (size_t)d * (bits / 8) % 16 == 0;
 }
 
 // K8 over the SQ store: `codes` [cap, d] u8 (bits 8) or u16 (bits 16)
@@ -652,16 +775,38 @@ extern "C" int hnsw_graph_beam_sq(const int* adj, const void* codes, int bits, c
                                   void* stream) {
     const BeamArgs a = beam_args(B, S, d, deg, ef, iters, expand, k_res, metric, seed_i, seed_d,
                                  allowed, qn);
+    const int wide = wide_rows(codes, d, bits);
     if (bits == 8)
-        return launch_graph_beam(
-            a, SqScorer<uint8_t>{adj, static_cast<const uint8_t*>(codes), mins, scales, norms, q},
+        return launch_beam_sq(
+            a, SqScorer<uint8_t>{adj, static_cast<const uint8_t*>(codes), mins, scales, norms, q,
+                                 wide},
             out_d, out_i, out_rd, out_ri, out_exp, out_stats, stream);
     if (bits == 16)
-        return launch_graph_beam(
+        return launch_beam_sq(
             a, SqScorer<uint16_t>{adj, static_cast<const uint16_t*>(codes), mins, scales, norms,
-                                  q},
+                                  q, wide},
             out_d, out_i, out_rd, out_ri, out_exp, out_stats, stream);
     return (int)cudaErrorInvalidValue;
+}
+
+// K8-SQ's stage at these widths on the current device: out[0] the rows a
+// warp stages at once, out[1] / out[2] the blocks an SM runs at 16 / 32
+extern "C" int hnsw_graph_beam_sq_stage(int B, int S, int d, int deg, int ef, int iters,
+                                        int expand, int k_res, int bits, int* out) {
+    const BeamArgs a = beam_args(B, S, d, deg, ef, iters, expand, k_res, 0, nullptr, nullptr,
+                                 nullptr, nullptr);
+    if (bits == 8) {
+        SqScorer<uint8_t> sc{};
+        pick_stage(a, sc, out + 1);
+        out[0] = sc.srows;
+    } else if (bits == 16) {
+        SqScorer<uint16_t> sc{};
+        pick_stage(a, sc, out + 1);
+        out[0] = sc.srows;
+    } else {
+        return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
 }
 
 extern "C" int hnsw_serve_beam(const int8_t* codes, const int* meta, const float* vectors,
@@ -675,7 +820,7 @@ extern "C" int hnsw_serve_beam(const int8_t* codes, const int* meta, const float
                            qn);
     if (!beam_args_ok(a) || rerank < 1 || rerank > ef || k < 1 || k > rerank)
         return (int)cudaErrorInvalidValue;
-    const size_t smem = smem_bytes(a, ServeScorer::query_bytes(d));
+    const size_t smem = smem_bytes(a, ServeScorer::query_bytes(d), 0);
     int e = set_smem(serve_beam_kernel, smem);
     if (e) return e;
     serve_beam_kernel<<<B, BEAM_THREADS, smem, (cudaStream_t)stream>>>(

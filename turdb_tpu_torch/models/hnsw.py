@@ -12,16 +12,17 @@ and scale; the norms stay exact f32) that the kernels dequantize on the
 gather; `add`, `vacuum` and `pack_serving` dequantize first.
 
 Search (`hnsw_search_impl`): the entry point seeds a beam per upper level
-(K8 `hnsw_graph_beam`, ef = descent_ef, expand 2; or the greedy walk, K9
-`hnsw_greedy`, when descent_ef is 1) whose whole sorted buffer seeds the
-next level, then the level-0 beam (K8) with the filtered result buffer
-when a visibility mask applies, and the k best (K2).
+(K8 `hnsw_graph_beam`, ef = descent_ef, expand 2) whose whole sorted buffer
+seeds the next level, or, when descent_ef is 1, the greedy walk through
+all upper levels in one launch (K9 `hnsw_greedy`); then the level-0 beam
+(K8) with the filtered result buffer when a visibility mask applies, and
+the k best (K2).
 
 Insert waves (`build_wave_impl`, every `add` but the bulk load): stage
-the rows; from the top level down, the greedy descent (K9) for the rows
-passing through a level and, for the rows connecting there, the
-ef_construction beam (K8) and the diversity selection over its sorted
-buffer (K7's presorted mode), their forward rows written at once; then,
+the rows; the greedy descent of every row through the levels above its
+own (K9, one launch); from the top level down, for the rows connecting
+there, the ef_construction beam (K8) and the diversity selection over its
+sorted buffer (K7's presorted mode), their forward rows written at once; then,
 level by level, each neighbour's reverse edges grouped by a stable sort
 and its row re-selected (K7); then the entry point.
 
@@ -138,11 +139,13 @@ def select_levels(row_ids: np.ndarray, cfg: HnswConfig) -> np.ndarray:
 # search
 # ---------------------------------------------------------------------------
 
-def _greedy_level(adj, vectors, norms, q, qn, cur_i, cur_d, metric: Metric):
+def _greedy_level(adj, vectors, norms, q, qn, cur_i, cur_d, metric: Metric, lowest=None):
     """Best-neighbour walk of each query until it stops improving, at most
-    GREEDY_CAP steps (K9)."""
+    GREEDY_CAP steps a level (K9, one launch): through `adj`, one level or
+    a sequence walked top first, each query down to its `lowest` (see
+    `hnsw_greedy`)."""
     cur_i, cur_d, _ = hnsw_greedy(adj, vectors, norms, q, qn, cur_i.contiguous(),
-                                  cur_d.contiguous(), metric=metric.value)
+                                  cur_d.contiguous(), metric=metric.value, lowest=lowest)
     return cur_i, cur_d
 
 
@@ -188,18 +191,16 @@ def hnsw_search_impl(state: HnswState, queries: torch.Tensor, allowed, *, cfg: H
     q = queries.float().contiguous()
     qn = prep_norms(q)
     cur_i, cur_d = _seed_from_entry(state.vectors, state.norms, q, qn, state.entry, cfg.metric)
+    if descent_ef <= 1 and state.adj_hi:
+        # levels max_levels - 1 .. 1 in one launch
+        cur_i, cur_d = _greedy_level(state.adj_hi[::-1], state.vectors, state.norms, q, qn,
+                                     cur_i, cur_d, cfg.metric)
     seeds_i, seeds_d = cur_i[:, None], cur_d[:, None]
-    for lvl in range(cfg.max_levels - 1, 0, -1):
-        adj = state.adj_hi[lvl - 1]
-        if descent_ef <= 1:
-            cur_i, cur_d = _greedy_level(adj, state.vectors, state.norms, q, qn,
-                                         seeds_i[:, 0], seeds_d[:, 0], cfg.metric)
-            seeds_i, seeds_d = cur_i[:, None], cur_d[:, None]
-        else:
-            # the whole sorted beam seeds the next level
-            seeds_d, seeds_i = _beam_level(adj, state.vectors, state.norms, q, qn, seeds_i,
-                                           seeds_d, descent_ef, 2 * descent_ef, cfg.metric,
-                                           expand=2)
+    for lvl in range(cfg.max_levels - 1, 0, -1) if descent_ef > 1 else ():
+        # the whole sorted beam seeds the next level
+        seeds_d, seeds_i = _beam_level(state.adj_hi[lvl - 1], state.vectors, state.norms, q, qn,
+                                       seeds_i, seeds_d, descent_ef, 2 * descent_ef, cfg.metric,
+                                       expand=2)
     if filtered:
         _, _, res_d, res_i = _beam_level(state.adj0, state.vectors, state.norms, q, qn,
                                          seeds_i, seeds_d, ef, iters, cfg.metric,
@@ -489,24 +490,20 @@ def _stage_vectors_core(vectors, norms, levels, vecs, slots, lvls):
 
 def _wave_level_core(adj, vectors, norms, q, qn, cur_i, cur_d, connect, *, metric: Metric,
                      efc: int, iters: int, deg_out: int):
-    """One level of an insert wave (the reference's insert descent and
-    connection phases): the greedy descent (K9) carries the rows that pass
-    through this level; for the rows that connect here (`connect`, a host
-    bool array) the ef_construction beam (K8 with `active`) and the
-    diversity selection over its whole sorted buffer (K7's presorted mode,
-    alpha 1). A stage whose result no row uses is skipped (the descent when
-    every row connects, the beam and the selection when none does), as the
-    reference's masks discard it. Returns the next level's seeds (the
-    beam's best where a row connects, else the descent's end) and the
-    selection [B, deg_out] with its distances, -1 / +inf where a row does
-    not connect."""
+    """One level of an insert wave (the reference's insert connection
+    phase): for the rows that connect here (`connect`, a host bool array)
+    the ef_construction beam (K8 with `active`) from their seeds cur_i /
+    cur_d and the diversity selection over its whole sorted buffer (K7's
+    presorted mode, alpha 1); the other rows pass their seeds through
+    (their greedy descent, the reference's insert descent phase, ran for
+    all levels at once before: `build_wave_impl`). The beam and the
+    selection are skipped when no row connects, as the reference's masks
+    discard them. Returns the next level's seeds (the beam's best where a
+    row connects, else cur) and the selection [B, deg_out] with its
+    distances, -1 / +inf where a row does not connect."""
     b, dev = q.shape[0], q.device
-    if connect.all():
-        gi, gd = cur_i, cur_d
-    else:
-        gi, gd = _greedy_level(adj, vectors, norms, q, qn, cur_i, cur_d, metric)
     if not connect.any():
-        return (gi, gd, torch.full((b, deg_out), NIL, dtype=torch.int32, device=dev),
+        return (cur_i, cur_d, torch.full((b, deg_out), NIL, dtype=torch.int32, device=dev),
                 torch.full((b, deg_out), INF, device=dev))
     conn = torch.as_tensor(connect, device=dev)
     cand_d, cand_i = _beam_level(adj, vectors, norms, q, qn, cur_i, cur_d, efc, iters, metric,
@@ -514,7 +511,7 @@ def _wave_level_core(adj, vectors, norms, q, qn, cur_i, cur_d, connect, *, metri
     sel_i, sel_d, _ = hnsw_select_sorted(vectors, cand_i, cand_d, deg=deg_out,
                                          metric=metric.value, alpha=1.0)
     keep = conn[:, None]
-    return (torch.where(conn, cand_i[:, 0], gi), torch.where(conn, cand_d[:, 0], gd),
+    return (torch.where(conn, cand_i[:, 0], cur_i), torch.where(conn, cand_d[:, 0], cur_d),
             torch.where(keep, sel_i, NIL), torch.where(keep, sel_d, INF))
 
 
@@ -593,10 +590,21 @@ def build_wave_impl(state: HnswState, new_vecs, new_slots, new_levels, *, cfg: H
     dev = state.vectors.device
     slots = np.asarray(new_slots, np.int64)
     levels = np.asarray(new_levels, np.int32)
-    sl = torch.as_tensor(slots, device=dev)
-    q, qn = _stage_vectors_core(state.vectors, state.norms, state.levels, new_vecs, sl,
-                                torch.as_tensor(levels, device=dev))
+    sl, lv = torch.as_tensor(slots, device=dev), torch.as_tensor(levels, device=dev)
+    q, qn = _stage_vectors_core(state.vectors, state.norms, state.levels, new_vecs, sl, lv)
     cur_i, cur_d = _seed_from_entry(state.vectors, state.norms, q, qn, state.entry, cfg.metric)
+    if state.entry >= 0 and (levels < len(state.adj_hi)).any():
+        # The greedy descent of every row through the levels above its own,
+        # in one K9 launch before the level loop (levels numbered from 0 at
+        # level 1, so a row's lowest is its own level; a row at the top
+        # does not descend). This is the reference's level-by-level order
+        # exactly: a row's greedy levels all lie strictly above the levels
+        # it connects at, the beams below write no adjacency, and
+        # _write_forward writes only the wave's own rows, which nothing
+        # links to until the reverse pass after the loop; so no walk can
+        # see a write made before it in the reference's order.
+        cur_i, cur_d = _greedy_level(state.adj_hi[::-1], state.vectors, state.norms, q, qn,
+                                     cur_i, cur_d, cfg.metric, lowest=lv)
     fwd = {}
     for lvl in range(cfg.max_levels - 1, -1, -1):
         adj = _level_adj(state, lvl)
