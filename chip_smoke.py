@@ -1252,12 +1252,9 @@ def hnsw_phase(dev, x, queries, truth):
     return out, idx, batches, gate, dele
 
 
-def k6_check(idx, batch, gate):
-    """K6 on the 1M pack, B = 1024: the beam's expansions and scored
-    neighbours equal the plain version's (exact int8 dots, the same
-    rounding); the reranked distances within DOT_RTOL of their scale, ids
-    equal but at ties inside that band."""
-    from turdb_tpu_torch.kernels import hnsw_serve_beam, hnsw_serve_beam_plain
+def k6_cases(idx, batch, gate):
+    """K6's inputs on the 1M pack, B = 1024, at the gate and at K6_WIDE:
+    [(ef, args, kwargs)], the seeds from the pack's own seeding (K4)."""
     from turdb_tpu_torch.models.hnsw_serve import serve_seeds
     from turdb_tpu_torch.ops.distance import Metric
     from turdb_tpu_torch.ops.quantize import quantize_queries
@@ -1266,14 +1263,29 @@ def k6_check(idx, batch, gate):
     q = batch.float().contiguous()
     qn = (q * q).sum(1)
     qc, qs, qsum = quantize_queries(q)
-    deg = sv.nbr_codes.shape[1]
-    out = {}
+    out = []
     for ef, iters in (gate, K6_WIDE):
         sd, si = serve_seeds(sv, q, qn, qc, qs, qsum, metric=Metric.L2, ef=ef, nprobe=2,
                              nseed=32)
         args = (sv.nbr_codes, sv.nbr_meta, sv.vectors, sv.norms, q, qn, qc, qs, qsum, si, sd,
                 None)
-        kw = dict(ef=ef, iters=iters, expand=4, rerank=0, k=K, metric=0)
+        out.append((ef, args, dict(ef=ef, iters=iters, expand=4, rerank=0, k=K, metric=0)))
+    return out
+
+
+def k6_check(idx, batch, gate):
+    """K6 on the 1M pack, B = 1024: the beam's expansions and scored
+    neighbours equal the plain version's (exact int8 dots, the same
+    rounding); the reranked distances within DOT_RTOL of their scale, ids
+    equal but at ties inside that band. Timed as one call (`ms`), ten back
+    to back (`loop_ms`) and a trace's device time (`device_ms`)."""
+    from turdb_tpu_torch.kernels import hnsw_serve_beam, hnsw_serve_beam_plain, serve_beam_stage
+
+    deg = idx.serve.nbr_codes.shape[1]
+    out = {}
+    for ef, args, kw in k6_cases(idx, batch, gate):
+        q, si = args[4], args[9]
+        iters = kw["iters"]
         dk, ik, sk = hnsw_serve_beam(*args, **kw)
         dp, ip, sp = hnsw_serve_beam_plain(*args, **kw)
         check(torch.equal(sk, sp), f"K6 ef={ef}: expansions differ from the plain version")
@@ -1286,8 +1298,15 @@ def k6_check(idx, batch, gate):
             "shape": {"B": b, "ef": ef, "iters": iters, "deg": deg, "d": DIM},
             "expanded": int(tot[0]), "scored": int(tot[1]), "max_abs_err": err,
             "id_diff": id_diff,
+            # the stage rule's choice at this shape (a query of the library)
+            "stage": dict(zip(("code_rows", "rerank_rows", "smem_bytes", "blocks_at_16",
+                               "blocks_at_32"),
+                              serve_beam_stage(b, si.shape[1], DIM, deg, ef=ef, iters=iters,
+                                               expand=4, rerank=ef, device=q.device)))
+            if q.is_cuda else None,
             "ms": _median_ms(lambda: hnsw_serve_beam(*args, **kw)),
             "loop_ms": _loop_ms(lambda: hnsw_serve_beam(*args, **kw)),
+            "device_ms": _trace_ms(lambda: hnsw_serve_beam(*args, **kw), "serve_beam"),
             "plain_ms": _median_ms(lambda: hnsw_serve_beam_plain(*args, **kw), reps=3),
             # no PyTorch call runs a graph beam
             "library_ms": None,
@@ -1302,7 +1321,8 @@ def k8_check(idx, batch):
     through level 1 from level 2's beam, deg 16, ef 32, expand 2) and the
     search shape (B = 1024 through level 0 from the upper levels' beams,
     deg 32, ef 64, with and without a 50 % `allowed` mask): distances
-    within DOT_RTOL, ids apart only at ties, on <= 1 % of entries."""
+    within DOT_RTOL, ids apart only at ties, on <= 1 % of entries. Timed
+    as `ms`, `loop_ms` and a trace's `device_ms`."""
     from turdb_tpu_torch.kernels import hnsw_graph_beam, hnsw_graph_beam_plain
     from turdb_tpu_torch.models.hnsw import _beam_level, _seed_from_entry
     from turdb_tpu_torch.ops.distance import Metric
@@ -1353,6 +1373,7 @@ def k8_check(idx, batch):
             "id_diff": id_diff,
             "ms": _median_ms(lambda: hnsw_graph_beam(*args, **kw)),
             "loop_ms": _loop_ms(lambda: hnsw_graph_beam(*args, **kw)),
+            "device_ms": _trace_ms(lambda: hnsw_graph_beam(*args, **kw), "graph_beam"),
             "plain_ms": _median_ms(lambda: hnsw_graph_beam_plain(*args, **kw), reps=3),
             "library_ms": None,
             **_bound(nbytes, 2 * DIM * int(tot[1]), FP32_OPS)}

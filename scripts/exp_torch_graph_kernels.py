@@ -10,10 +10,14 @@ insert waves (chip_smoke's hnsw_wave index), then:
    older commit, unpacked with `git archive`; its own `build.py` builds it
    and gives its argtypes), B from this one. Each time is `ms` (one call
    between CUDA events, the host's launch path included), `loop_ms` (ten
-   calls back to back, a tenth of the time) and, for K8-SQ and K9,
-   `device_ms` (a trace's device time a call):
-   - K6, K7 and K8 at chip_smoke's shapes (chip_smoke.k6_check, k7_check,
-     k8_check, which also hold each kernel against its plain version);
+   calls back to back, a tenth of the time) and, for K6, K8, K8-SQ and
+   K9, `device_ms` (a trace's device time a call):
+   - K6 at chip_smoke's two shapes (B = 1024 over the 1M serving pack, ef
+     32 / iters 24 and ef 192 / iters 160, chip_smoke.k6_cases), with
+     `device_ms`: every output (distances, ids, stats) of B must equal
+     A's bit for bit;
+   - K7 and K8 at chip_smoke's shapes (chip_smoke.k7_check, k8_check,
+     which also hold each kernel against its plain version);
    - K8-SQ over the SQ8 and SQ16 stores at chip_smoke's search shape (B =
      1024 through level 0 from the SQ store's upper-level beams, ef 64),
      with `allowed` and with the expanded ids as well: every output buffer
@@ -26,8 +30,9 @@ insert waves (chip_smoke's hnsw_wave index), then:
      own level: every end and every step count of B must equal A's;
 2. compiles each checkout's hnsw_beam.cu once more with -DBEAM_PHASE_CLOCKS
    and runs K8 at the search (ef 64), descent (ef 32, expand 2) and refine
-   (ef 32, 4096 rows) shapes and K8-SQ at the search shape: the cycles of
-   each phase of a step, summed over blocks, per step.
+   (ef 32, 4096 rows) shapes, K8-SQ at the search shape and K6 at its two
+   shapes: the cycles of each phase of a step, summed over blocks, per
+   step, and K6's rerank (with its ranks) a block.
 
 Run on a CUDA card (about four minutes on an H100):
 
@@ -65,6 +70,7 @@ from turdb_tpu_torch.ops.quantize import Sq8Rows, sq_rows_encode  # noqa: E402
 from turdb_tpu_torch.utils.datasets import make_pool  # noqa: E402
 
 PHASES = ("seeds", "select+members", "claims", "score+runs", "merge")
+GATE = (32, 24)   # HNSW serve's gate (ef, iters), chip_smoke's K6 shape
 
 
 def build_module(checkout: Path):
@@ -96,11 +102,19 @@ def beam_timings(idx, batch, gate):
     gen = torch.Generator(device=batch.device)
     gen.manual_seed(1)
     out = {}
-    for name, res in (("K6", cs.k6_check(idx, batch, gate)), ("K8", cs.k8_check(idx, batch)),
-                      ("K7", cs.k7_check(idx, gen))):
+    for name, res in (("K8", cs.k8_check(idx, batch)), ("K7", cs.k7_check(idx, gen))):
         for shape, v in res.items():
-            out[f"{name} {shape}"] = {"ms": v["ms"], "loop_ms": v["loop_ms"]}
+            out[f"{name} {shape}"] = {k: v[k] for k in ("ms", "loop_ms", "device_ms") if k in v}
     return out
+
+
+def k6_run(cases):
+    """K6's outputs and times at chip_smoke's shapes."""
+    out, bufs = {}, {}
+    for ef, args, kw in cases:
+        bufs[f"ef{ef}"] = [t.clone() for t in kernels.hnsw_serve_beam(*args, **kw)]
+        out[f"K6 ef{ef}"] = _times(lambda: kernels.hnsw_serve_beam(*args, **kw), "serve_beam")
+    return out, bufs
 
 
 def sq_seeds(st, rows, qb, qbn):
@@ -233,7 +247,7 @@ def phase_library(csrc: Path, tag: str):
                     "-shared", "-o", str(out), str(csrc / "hnsw_beam.cu")], check=True,
                    capture_output=True)
     lib = ctypes.CDLL(str(out))
-    for name in ("hnsw_graph_beam", "hnsw_graph_beam_sq"):
+    for name in ("hnsw_graph_beam", "hnsw_graph_beam_sq", "hnsw_serve_beam"):
         getattr(lib, name).argtypes = build.SIGNATURES[name]
         getattr(lib, name).restype = ctypes.c_int
     lib.hnsw_beam_clocks.argtypes = [ctypes.c_void_p]
@@ -241,10 +255,12 @@ def phase_library(csrc: Path, tag: str):
     return lib
 
 
-def phases(idx, batch, lib):
+def phases(idx, batch, lib, k6):
     """Cycles a step of each phase (summed over blocks, over the steps all
-    blocks took) at the search, descent and refine shapes, and at the
-    search shape over the SQ8 and SQ16 stores."""
+    blocks took) at the search, descent and refine shapes, at the search
+    shape over the SQ8 and SQ16 stores, and for K6 (`k6`: chip_smoke's
+    cases, seeded with this checkout's K4) at its two shapes, with its
+    rerank's cycles a block and their share of a block's cycles."""
     use(lib)
     st = idx.state
     clocks = (ctypes.c_ulonglong * 8)()
@@ -255,7 +271,11 @@ def phases(idx, batch, lib):
         c = list(clocks)
         per = {p: c[i] / max(c[5], 1) for i, p in enumerate(PHASES)}
         loop = sum(per[p] for p in PHASES[1:])
-        return {"steps": c[5], **per, "score_share": per["score+runs"] / max(loop, 1)}
+        out = {"steps": c[5], **per, "score_share": per["score+runs"] / max(loop, 1)}
+        if c[7]:
+            out.update({"blocks": c[7], "rerank": c[6] / c[7],
+                        "rerank_share": c[6] / max(sum(c[:5]) + c[6], 1)})
+        return out
 
     qb = batch.float().contiguous()
     qbn = (qb * qb).sum(1)
@@ -284,6 +304,9 @@ def phases(idx, batch, lib):
         _beam_level(st.adj0, rows, st.norms, qb, qbn, s_i, s_d, 64, 96, Metric.L2)
         out[f"search_sq{bits}"] = read()
         del rows
+    for ef, args, kw in k6:
+        kernels.hnsw_serve_beam(*args, **kw)
+        out[f"serve_ef{ef}"] = read()
     return out
 
 
@@ -300,6 +323,13 @@ def main() -> int:
     lib_b = build.library()
     other_build = None if phases_only else build_module(other)
     lib_a = None if phases_only else other_build.library()
+    if lib_a is not None:
+        # entry points whose arguments have not changed run under this
+        # checkout's wrappers: their argtypes (K9's levels struct) are this
+        # build's
+        for name, argtypes in build.SIGNATURES.items():
+            if len(other_build.SIGNATURES.get(name, ())) == len(argtypes):
+                getattr(lib_a, name).argtypes = argtypes
     cs.OUT.mkdir(exist_ok=True)
     (cs.OUT / "ptxas_B.txt").write_text(build.build_log)
     if other_build is not None:
@@ -313,8 +343,9 @@ def main() -> int:
     build_s = time.perf_counter() - t
     batch = torch.as_tensor(queries[:cs.BATCH], device=dev)
     out = {"card": card, "other": str(other), "build_s": build_s}
+    idx.pack_serving()
+    k6 = cs.k6_cases(idx, batch, GATE)
     if not phases_only:
-        idx.pack_serving()
         wave = HnswIndex(dim=cs.DIM, ef_construction=100, build_batch=512, capacity=cs.N_WAVE,
                          bulk_threshold=cs.N_WAVE + 1, device=dev)
         wave.add(x[:cs.N_WAVE])
@@ -324,21 +355,23 @@ def main() -> int:
         # A's K9 entry point: one level a launch in older builds, else the wrapper's
         a_one_level = len(other_build.SIGNATURES["hnsw_greedy"]) != len(
             build.SIGNATURES["hnsw_greedy"])
-        runs, bufs, ends = [], {}, {}
+        runs, bufs, ends, k6_bufs = [], {}, {}, {}
         for name in ("A", "B", "B", "A"):
             lib = {"A": lib_a, "B": lib_b}[name]
             use(lib)
             one_level = (greedy_one_level(lib_a.hnsw_greedy) if name == "A" and a_one_level
                          else lambda *a: kernels.hnsw_greedy(*a, metric=0))
-            r = beam_timings(idx, batch, (32, 24))
+            r = beam_timings(idx, batch, GATE)
+            k6_t, k6_bufs[name] = k6_run(k6)
             sq_t, bufs[name] = k8sq_run(sq_cases, timed=True)
             g_t, ends[name] = k9_run(g_cases, one_level, fused=name == "B" or not a_one_level)
-            runs.append((name, {**r, **{f"K8-SQ {k}": v for k, v in sq_t.items()},
+            runs.append((name, {**r, **k6_t, **{f"K8-SQ {k}": v for k, v in sq_t.items()},
                                 **{f"K9 {k}": v for k, v in g_t.items()}}))
         use(lib_b)
         keys = list(dict.fromkeys(k for _, r in runs for k in r))
         out["ab"] = {k: {n: [r[k] for m, r in runs if m == n and k in r] for n in ("A", "B")}
                      for k in keys}
+        out["k6_equal"] = {c: _equal(k6_bufs["A"][c], k6_bufs["B"][c]) for c in k6_bufs["A"]}
         out["k8sq_equal"] = {c: _equal(bufs["A"][c], bufs["B"][c]) for c in bufs["A"]}
         out["k8sq_stage"] = {bits: kernels.graph_beam_sq_stage(
             cs.BATCH, 1, cs.DIM, idx.cfg.m0, ef=64, iters=96, expand=4, k_res=0, bits=bits)
@@ -351,13 +384,13 @@ def main() -> int:
     out["phases"] = {}
     if not phases_only:
         out["phases"]["A"] = phases(idx, batch, phase_library(
-            other / "turdb_tpu_torch" / "kernels" / "csrc", "A"))
-    out["phases"]["B"] = phases(idx, batch, phase_library(build.CSRC, "B"))
+            other / "turdb_tpu_torch" / "kernels" / "csrc", "A"), k6)
+    out["phases"]["B"] = phases(idx, batch, phase_library(build.CSRC, "B"), k6)
     use(lib_b)
     print(json.dumps(out))
     (cs.OUT / "exp_torch_graph_kernels.json").write_text(json.dumps(out, indent=1))
-    ok = all(out.get("k8sq_equal", {}).values()) and all(out.get("k9_equal", {}).values()) \
-        and all(out.get("k9_fused_equals_chain", {}).values())
+    ok = all(all(out.get(key, {}).values())
+             for key in ("k6_equal", "k8sq_equal", "k9_equal", "k9_fused_equals_chain"))
     return 0 if ok else 1
 
 

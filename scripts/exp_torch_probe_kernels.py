@@ -21,7 +21,9 @@ K4's two orders on the hard row's own probes.
    events), `loop_ms` (ten calls back to back, a tenth of the time) and `device_ms`
    (a call's device time in a trace); K4 at P >= 64 also with B's
    query-major order (`B/query`). A variant built with
-   -DPROBE_PHASE_CLOCKS adds the cycles a block spends in each phase;
+   -DPROBE_PHASE_CLOCKS adds the cycles a block spends in each phase of
+   K1 / K4, one built with -DRERANK_PHASE_CLOCKS those of K5 and the
+   span of its launch;
 4. times B's query-major and cell-major K4 (candidates) at P = 8 to 64
    on the synthetic store: the crossover of the two orders;
 5. builds the bench's ivf_hard index as chip_smoke.py does (make_pool,
@@ -31,7 +33,9 @@ K4's two orders on the hard row's own probes.
 
 Run on a CUDA card:
 
-    python3 scripts/exp_torch_probe_kernels.py OTHER_CHECKOUT [--variant NAME=FLAGS ...]
+    python3 scripts/exp_torch_probe_kernels.py OTHER_CHECKOUT [--variant NAME=FLAGS ...] [--k5-only]
+
+`--k5-only` runs K5's part of 3 alone (a minute, most of it the builds).
 
 It prints one JSON object and writes it to exp_torch_probe_kernels.json
 in chip_smoke.py's output directory (`chip_smoke.OUT`).
@@ -65,21 +69,24 @@ def load(name, csrc: Path, flags=()):
     lacks are left out."""
     base = list(build.NVCC_FLAGS)
     build.CSRC, build.NVCC_FLAGS = csrc, base + list(flags)
+    build.build_log = ""
     try:
         lib = ctypes.CDLL(str(build.build()))
     finally:
         build.NVCC_FLAGS = base
     cs.OUT.mkdir(exist_ok=True)
-    (cs.OUT / f"ptxas_{name}.txt").write_text(build.build_log)
+    (cs.OUT / f"ptxas_{name}.txt").write_text(
+        build.build_log or f"{build.library_path()} was built before this run: no report\n")
     for name, argtypes in build.SIGNATURES.items():
         fn = getattr(lib, name, None)
         if fn is not None:
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
     lib.kernel_error_string.argtypes = [ctypes.c_int]
     lib.kernel_error_string.restype = ctypes.c_char_p
-    clocks = getattr(lib, "ivf_probe_clocks", None)
-    if clocks is not None:
-        clocks.argtypes, clocks.restype = [ctypes.c_void_p], ctypes.c_int
+    for name in ("ivf_probe_clocks", "ivf_rerank_clocks"):
+        clocks = getattr(lib, name, None)
+        if clocks is not None:
+            clocks.argtypes, clocks.restype = [ctypes.c_void_p], ctypes.c_int
     return lib
 
 
@@ -103,6 +110,26 @@ def use(lib, route=None):
 
 PHASES = ("query+cells", "scoring", "selection", "outputs", "blocks",
           "cell metadata", "cell tiles", "cell blocks")
+K5_PHASES = ("candidates", "rows", "dots", "duplicates", "selection", "outputs")
+
+
+def k5_clocks(fn, lib):
+    """A build with -DRERANK_PHASE_CLOCKS: K5's cycles a block in each phase
+    and the launch's span from its first block's start to its last one's
+    end (ns, %globaltimer)."""
+    read = getattr(lib, "ivf_rerank_clocks", None)
+    if read is None:
+        return {}
+    clocks = (ctypes.c_ulonglong * 9)()
+    torch.cuda.synchronize()
+    read(clocks)
+    fn()
+    torch.cuda.synchronize()
+    read(clocks)
+    c = list(clocks)
+    return {"cycles_per_block": {**{p: c[i] / max(c[6], 1) for i, p in enumerate(K5_PHASES)},
+                                 "blocks": c[6]},
+            "span_ms": c[8] / 1e6}
 
 
 def timing(fn, lib):
@@ -231,6 +258,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("other")
     ap.add_argument("--variant", action="append", default=[])
+    ap.add_argument("--k5-only", action="store_true")
     opts = ap.parse_args()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -248,7 +276,7 @@ def main() -> int:
     variants = [n for n in libs if n not in ("A", "B")]
     order = ["A", "B", *variants, "B", "A"]
 
-    all_cases = cases(dev)
+    all_cases = [] if opts.k5_only else cases(dev)
     # equality: every library against A at every case
     mismatches = []
     for kernel, p, args, kw, what in all_cases:
@@ -294,10 +322,31 @@ def main() -> int:
             want = k5_want.setdefault(store, got)
             if not all(torch.equal(a, b) for a, b in zip(got, want)):
                 mismatches.append(f"{name}: K5 {store}")
+            def run():
+                return kernels.ivf_rerank(*args, k=cs.K, replicated=True)
+
             ab.setdefault(f"K5 {store}", {}).setdefault(name, []).append(
-                timing(lambda: kernels.ivf_rerank(*args, k=cs.K, replicated=True), libs[name]))
+                {**timing(run, libs[name]), **k5_clocks(run, libs[name])})
     del k5, k5_want
     torch.cuda.empty_cache()
+    crossover, hard_build_s, hard_out = {}, None, {}
+    if not opts.k5_only:
+        crossover, hard_build_s, hard_out = k4_orders(libs, mismatches)
+    use(libs["B"])
+    out = {"card": card, "other": opts.other, "build_s": build_s, "variants": opts.variant,
+           "order": order, "cases": n_cases, "mismatches": mismatches, "ab": ab,
+           "crossover": crossover, "hard_build_s": hard_build_s, "hard": hard_out}
+    text = json.dumps(out)
+    print(text)
+    cs.OUT.mkdir(exist_ok=True)
+    (cs.OUT / "exp_torch_probe_kernels.json").write_text(json.dumps(out, indent=1))
+    return 1 if mismatches else 0
+
+
+def k4_orders(libs, mismatches):
+    """Parts 4 and 5: B's two orders of K4 at the crossover widths, and K4
+    on the hard index's own probes (A, B query-major, B cell-major)."""
+    dev = torch.device("cuda")
     # the crossover: B's two orders of K4 (candidates, r = 40) at widths
     # around one chunk of lanes
     crossover = {}
@@ -330,15 +379,7 @@ def main() -> int:
             rows.setdefault(tag, []).append(
                 timing(lambda: kernels.ivf_probe_sq8(*args, **kw), libs[lib]))
         hard_out[name] = rows
-    use(libs["B"])
-    out = {"card": card, "other": opts.other, "build_s": build_s, "variants": opts.variant,
-           "order": order, "cases": n_cases,
-           "mismatches": mismatches, "ab": ab, "crossover": crossover, "hard_build_s": hard_build_s, "hard": hard_out}
-    text = json.dumps(out)
-    print(text)
-    cs.OUT.mkdir(exist_ok=True)
-    (cs.OUT / "exp_torch_probe_kernels.json").write_text(json.dumps(out, indent=1))
-    return 1 if mismatches else 0
+    return crossover, hard_build_s, hard_out
 
 
 if __name__ == "__main__":

@@ -16,6 +16,22 @@ from turdb_tpu_torch.utils.datasets import make_pool, recall_of
 
 pytestmark = pytest.mark.cuda
 
+# kernel against plain: distances within this share of their scale (fp32
+# dots summed in another order), as chip_smoke.py's DOT_RTOL
+DOT_RTOL = 1e-5
+
+
+def _assert_near(dk, ik, dp, ip, atol, equal_ids):
+    """Kernel against plain: the same +inf entries, distances within atol
+    (and DOT_RTOL of their own size), ids apart only inside that band and
+    equal on at least `equal_ids` of the entries."""
+    assert torch.equal(torch.isinf(dk), torch.isinf(dp))
+    torch.testing.assert_close(dk, dp, rtol=DOT_RTOL, atol=atol)
+    close = (dk - dp).abs() <= atol + DOT_RTOL * dp.abs()
+    assert bool(((ik == ip) | close | torch.isinf(dp)).all())
+    share = float((ik == ip).float().mean())
+    assert share >= equal_ids, share
+
 
 @pytest.fixture
 def cuda():
@@ -112,6 +128,21 @@ def test_kernel_limits_raise_and_leave_no_error_behind(cuda):
     vk, _ = kernels.topk_rows(x, 5)
     vp, _ = kernels.topk_rows_plain(x, 5)
     assert torch.equal(vk, vp)
+    # K5 stages its rows beside the query row: a row past shared memory
+    # raises, and the next launch is not charged with it
+    q = torch.randn(2, d, device=cuda)
+    cand = torch.zeros(2, 4, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError):
+        kernels.ivf_rerank(q, (q * q).sum(1), torch.zeros(2, 4, device=cuda), cand, cand,
+                           pvecs, (pvecs * pvecs).sum(-1), k=2, replicated=False)
+    vk, _ = kernels.topk_rows(x, 5)
+    assert torch.equal(vk, vp)
+    # K6 at the widest rows the beams take (d 4096): its stages shrink to
+    # fit (fewer code rows a warp, one rerank row a chunk)
+    stage = kernels.serve_beam_stage(4, 1, 4096, 32, ef=64, iters=64, expand=4, rerank=64)
+    assert stage[0] < 16 and stage[1] == 1 and stage[2] <= 232448, stage
+    stage = kernels.serve_beam_stage(1024, 32, 128, 32, ef=32, iters=24, expand=4, rerank=32)
+    assert stage[0] == 32 and stage[1] == 32 and stage[4] >= 8, stage
 
 
 def _store(g, c, lcap, d, n_ids, cuda):
@@ -292,13 +323,17 @@ def test_ivf_probe_sq8_kernel_matches_plain(cuda):
                 assert torch.equal(a, b)
 
 
-def test_ivf_rerank_kernel_matches_plain(cuda):
-    """K5 over the f32 and the SQ16 store, r = 40 and 300, with copies of
-    a row under one id among the candidates (ties the first copy wins)."""
+@pytest.mark.parametrize("d", (32, 36, 128))
+def test_ivf_rerank_kernel_matches_plain(cuda, d):
+    """K5 over the f32 and the SQ16 store (16-byte staged words, and 8-byte
+    ones for SQ16 rows at d = 36), r = 40 and 300 (several chunks), with
+    copies of a row under one id among the candidates (ties the first copy
+    wins): the distances within DOT_RTOL (and 1e-4), ids apart only inside
+    that band and equal on 99 %."""
     g = torch.Generator(device=cuda).manual_seed(6)
-    pvecs, pnorms, members, alive, _ = _store(g, 300, 64, 32, 800, cuda)
+    pvecs, pnorms, members, alive, _ = _store(g, 300, 64, d, 800, cuda)
     _, mins, scales, u16 = _sq8_store(pvecs)
-    q = torch.randn(30, 32, device=cuda, generator=g)
+    q = torch.randn(30, d, device=cuda, generator=g)
     qn = (q * q).sum(1)
     cells = torch.rand(30, 300, device=cuda, generator=g).topk(12).indices.to(torch.int32)
     for r in (40, 300):
@@ -309,11 +344,12 @@ def test_ivf_rerank_kernel_matches_plain(cuda):
         for store, meta in ((pvecs, ()), (u16, (mins, scales))):
             for replicated in (True, False):
                 args = (q, qn, cd, ci, cpos, store, pnorms, *meta)
+                before = kernels.launches["ivf_rerank"]
                 dk, ik = kernels.ivf_rerank(*args, k=10, replicated=replicated)
+                assert kernels.launches["ivf_rerank"] == before + 1
                 dp, ip = kernels.ivf_rerank_plain(*args, *(None, None)[len(meta):], k=10,
                                                   replicated=replicated)
-                torch.testing.assert_close(dk, dp, rtol=1e-5, atol=1e-4)
-                assert (ik == ip).float().mean() >= 0.99
+                _assert_near(dk, ik, dp, ip, 1e-4, 0.99)
 
 
 def test_sq8_slice_on_cuda_matches_cpu(cuda):
@@ -434,6 +470,69 @@ def test_hnsw_serve_beam_kernel_matches_plain(cuda):
     d_h, i_h = serve_search_impl(cpu, q.cpu(), None, metric=Metric.L2, k=10, ef=64, iters=96)
     torch.testing.assert_close(d_c.cpu(), d_h, rtol=1e-4, atol=1e-3)
     assert (i_c.cpu() == i_h).float().mean() >= 0.99
+
+
+@pytest.mark.parametrize("d", (36, 128))
+def test_hnsw_serve_beam_at_chip_smoke_widths(cuda, d):
+    """K6 on a serving pack at chip_smoke's two widths (ef 32 / iters 24 and
+    ef 192 / iters 160), with rerank < ef and `allowed`, every metric, at a
+    row width staged by 16-byte words (128) and one by 4-byte words (36):
+    its int8 dots are exact and its epilogue rounds as the plain expression,
+    so expansions and scored counts are equal; the rerank's fp32 dots
+    differ in the last bits (distances within DOT_RTOL of the norms'
+    scale, ids apart only inside that band and equal on 99 %)."""
+    from turdb_tpu_torch.models.hnsw_serve import pack_serving
+    from turdb_tpu_torch.ops.distance import Metric
+    from turdb_tpu_torch.ops.quantize import quantize_queries
+
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x, norms, adj = _graph(g, 6000, d, 32, cuda)
+    pack = pack_serving(x, norms, adj, 6000, Metric.L2)
+    q = (x[:128] + 0.5 * torch.randn(128, d, device=cuda, generator=g)).contiguous()
+    qn = (q * q).sum(1)
+    qc, qs, qsum = quantize_queries(q)
+    seeds = torch.rand(128, 6000, device=cuda, generator=g).topk(16).indices.to(torch.int32)
+    allowed = torch.rand(6000, device=cuda, generator=g) < 0.6
+    atol = DOT_RTOL * float(qn.max() + norms.max())   # as in the K8 test
+    for metric in (0, 1, 2):
+        seed_d = torch.arange(16, device=cuda, dtype=torch.float32).expand(128, 16).contiguous()
+        for ef, iters, rerank, allow in ((32, 24, 0, None), (32, 24, 20, allowed),
+                                         (192, 160, 0, None), (192, 160, 100, allowed)):
+            args = (pack.nbr_codes, pack.nbr_meta, x, norms, q, qn, qc, qs, qsum, seeds, seed_d,
+                    allow)
+            opts = dict(ef=ef, iters=iters, expand=4, rerank=rerank, k=10, metric=metric)
+            before = kernels.launches["hnsw_serve_beam"]
+            dk, ik, sk = kernels.hnsw_serve_beam(*args, **opts)
+            assert kernels.launches["hnsw_serve_beam"] == before + 1
+            dp, ip, sp = kernels.hnsw_serve_beam_plain(*args, **opts)
+            assert torch.equal(sk, sp), (metric, ef, rerank)
+            _assert_near(dk, ik, dp, ip, atol, 0.99)
+            if allow is not None:
+                assert bool(allow[ik[ik >= 0].long()].all())
+
+
+def test_hnsw_serve_beam_at_the_widest_rows(cuda):
+    """K6 at d = 4096, the widest row the beams take: fewer staged code
+    rows a warp and one rerank row a chunk, the same beams as the plain
+    version (80 results: ids equal on 95 %, apart only at near ties)."""
+    from turdb_tpu_torch.models.hnsw_serve import pack_serving
+    from turdb_tpu_torch.ops.distance import Metric
+    from turdb_tpu_torch.ops.quantize import quantize_queries
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x, norms, adj = _graph(g, 1200, 4096, 32, cuda)
+    pack = pack_serving(x, norms, adj, 1200, Metric.L2)
+    q = (x[:8] + 0.5 * torch.randn(8, 4096, device=cuda, generator=g)).contiguous()
+    qn = (q * q).sum(1)
+    qc, qs, qsum = quantize_queries(q)
+    seeds = torch.rand(8, 1200, device=cuda, generator=g).topk(4).indices.to(torch.int32)
+    seed_d = torch.zeros(8, 4, device=cuda)
+    args = (pack.nbr_codes, pack.nbr_meta, x, norms, q, qn, qc, qs, qsum, seeds, seed_d, None)
+    opts = dict(ef=64, iters=64, expand=4, rerank=0, k=10, metric=0)
+    dk, ik, sk = kernels.hnsw_serve_beam(*args, **opts)
+    dp, ip, sp = kernels.hnsw_serve_beam_plain(*args, **opts)
+    assert torch.equal(sk, sp)
+    _assert_near(dk, ik, dp, ip, DOT_RTOL * float(qn.max() + norms.max()), 0.95)
 
 
 def test_hnsw_select_kernel_matches_plain(cuda):

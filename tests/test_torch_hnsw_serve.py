@@ -5,7 +5,8 @@
   the rows; `torch.round` and `jnp.round` both round half to even), with
   and without `pack_m`;
 - `serve_search_impl` on a pack imported from the reference (with an
-  `allowed` mask, `rerank < ef`, COSINE and IP, several (ef, iters))
+  `allowed` mask, `rerank < ef`, COSINE and IP, and their combinations,
+  several (ef, iters))
   equals the reference's search within `assert_knn_match`: the seeding
   (K2 + K4's plain version with the metric's epilogue) and the int8 beam
   (K6's plain version) are exact integer dots under the same rounding, the
@@ -95,6 +96,10 @@ CASES = {
     "l2_allowed": (Metric.L2, dict(ef=64, iters=96)),
     "cosine": (Metric.COSINE, dict(ef=48, iters=48, nprobe=3)),
     "ip": (Metric.IP, dict(ef=48, iters=48)),
+    # the rerank's other paths together: a width below ef, `allowed`
+    "l2_rerank_lt_ef_allowed": (Metric.L2, dict(ef=64, iters=64, rerank=24)),
+    "cosine_rerank_lt_ef_allowed": (Metric.COSINE, dict(ef=64, iters=64, rerank=24)),
+    "ip_allowed": (Metric.IP, dict(ef=48, iters=48)),
 }
 
 
@@ -106,7 +111,7 @@ def test_serve_search_matches_reference(built, case):
     if metric is Metric.COSINE:
         q = (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32)
     allowed = None
-    if case == "l2_allowed":
+    if case.endswith("allowed"):
         allowed = np.zeros(ref.capacity, bool)
         allowed[:N] = np.random.default_rng(50).random(N) < 0.5
     want = jhs.serve_search_impl(ref.serve, jnp.asarray(q),

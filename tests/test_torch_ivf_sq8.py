@@ -219,10 +219,12 @@ def _wide_sq8_state(c=512, lcap=8, d=16):
     return arrays, jstate, q.astype(np.float32)
 
 
-@pytest.mark.parametrize("rerank", [0, 64])
+@pytest.mark.parametrize("rerank", [0, 64, 300])
 def test_search_parity_wide_sq8_state(rerank):
     """P·L = 2400 lanes > 2048 with 8r <= P·L: the reference selects the
-    candidates with its two-level selector, the port in one pass."""
+    candidates with its two-level selector (`topk_smallest_wide`, at r = 300
+    too), the port in one pass; the rerank reads the SQ16 store, replicas
+    on."""
     arrays, jstate, q = _wide_sq8_state()
     c, lcap = arrays["members"].shape
     jcfg = jivf.IvfConfig(dim=16, n_clusters=c, cluster_cap=lcap, sq8=True,

@@ -1129,6 +1129,22 @@ def hnsw_serve_beam(nbr_codes, nbr_meta, vectors, norms, q, qn, qc, qs, qsum, se
     return out_d, out_i, stats
 
 
+def serve_beam_stage(b, s, d, deg, *, ef, iters, expand, rerank, device=None):
+    """K6's stages at these widths on a CUDA device (its rule is in
+    csrc/hnsw_beam.cu `pick_serve_stage`): (code rows a warp stages at
+    once, rerank rows a chunk, shared memory a block in bytes, blocks an SM
+    runs at 16 code rows, at 32). `rerank` is the rerank's width (at most
+    ef). A query of the library, not a launch."""
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        err = build.library().hnsw_serve_beam_stage(b, s, d, deg, ef, iters, expand, rerank,
+                                                    out)
+    if err:
+        msg = build.library().kernel_error_string(err).decode()
+        raise RuntimeError(f"hnsw_serve_beam_stage: {msg} ({err})")
+    return tuple(out)
+
+
 # ---------------------------------------------------------------------------
 # K7: the HNSW diversity selection
 # ---------------------------------------------------------------------------

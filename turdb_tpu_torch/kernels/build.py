@@ -68,6 +68,9 @@ SIGNATURES = {
     "hnsw_serve_beam": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                         _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
                         _P, _P, _P],
+    # B, S, d, deg, ef, iters, expand, rerank, out (no stream: a query of
+    # K6's stage rule)
+    "hnsw_serve_beam_stage": [_I, _I, _I, _I, _I, _I, _I, _I, _P],
     # adj, vectors, norms, q, qn, seed_i, seed_d, B, S, allowed, d, deg,
     # ef, iters, expand, k_res, metric, out_cand_d, out_cand_i, out_res_d,
     # out_res_i, out_exp, out_stats, stream

@@ -22,7 +22,8 @@
 //   the tie band (its expansions split at a near tie, PERF.md).
 //
 // Staged layout: row r of a batch at r * sw 16-byte words, sw =
-// stage_words(row bytes), the row's words rounded up to an odd count. A
+// stage_words(row bytes), the row's words rounded up to an odd count (K6's
+// code rows and rerank rows in hnsw_beam.cu take the same layout). A
 // 16-byte shared load runs in four phases of 8 lanes; lanes 8p .. 8p+7 read
 // one offset of 8 rows, whose starts (r * sw mod 8 distinct for odd sw) then
 // cover the 32 banks once: no conflict (a 128- or 512-byte stride would put
@@ -36,6 +37,8 @@
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "async_copy.cuh"
 
 #define GROUP 8   // lanes that read one row in group_scores
 
@@ -58,15 +61,6 @@ __device__ __forceinline__ float gathered_epilogue(float acc, float qnb, float x
 // 16-byte words a staged row takes: its bytes rounded up to an odd number
 // of words (see the layout above)
 __host__ __device__ inline int stage_words(int row_bytes) { return ((row_bytes + 15) >> 4) | 1; }
-
-__device__ __forceinline__ void stage_copy16(void* dst, const void* src) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(
-                     (unsigned)__cvta_generic_to_shared(dst)), "l"(src));
-}
-__device__ __forceinline__ void stage_copy4(void* dst, const void* src) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                     (unsigned)__cvta_generic_to_shared(dst)), "l"(src));
-}
 
 // a staged row's norm, min and scale (f32 rows: min and scale unused)
 struct RowMeta {
@@ -226,12 +220,13 @@ struct SqScorer {
 };
 
 // Copy the rows of a warp's batch into `stage` (row r at r * sw words):
-// lane r < n holds row r's id (-1: none). The copies are 16-byte words
-// (4-byte where a row is not whole, aligned 16-byte words), copy e of the
-// batch (row e / rw, word e % rw) by lane e % 32, so that neighbouring
-// lanes read neighbouring words; none is waited for here. All 32 lanes call.
-template <class Scorer>
-__device__ __forceinline__ void stage_rows(const Scorer& sc, unsigned char* stage, int sw, int id,
+// lane r < n holds row r's id (-1: none; K6 passes a code row's 64-bit
+// index, sc.row's argument). The copies are 16-byte words (4-byte where a
+// row is not whole, aligned 16-byte words), copy e of the batch (row e /
+// rw, word e % rw) by lane e % 32, so that neighbouring lanes read
+// neighbouring words; none is waited for here. All 32 lanes call.
+template <class Scorer, class Id>
+__device__ __forceinline__ void stage_rows(const Scorer& sc, unsigned char* stage, int sw, Id id,
                                            int n, int d, int lane) {
     const int wb = sc.wide() ? 16 : 4;
     const int rw = Scorer::row_bytes(d) / wb;    // copies a row
@@ -241,7 +236,7 @@ __device__ __forceinline__ void stage_rows(const Scorer& sc, unsigned char* stag
     for (int e0 = 0; e0 < total; e0 += 32) {
         const int e = e0 + lane;
         const int r = e >= total ? 0 : pow2 ? e >> sh : e / rw;
-        const int rid = __shfl_sync(0xffffffffu, id, r);
+        const Id rid = __shfl_sync(0xffffffffu, id, r);
         if (e < total && rid >= 0) {
             const int w = e - r * rw;
             unsigned char* dst = stage + ((size_t)r * sw << 4) + (size_t)w * wb;

@@ -1,6 +1,6 @@
 // Block-level helpers of the HNSW graph kernels K6 / K8 (hnsw_beam.cu) and
-// K7 (hnsw_select.cu): sorted runs of 64-bit keys and an open-addressing
-// table in shared memory.
+// K7 (hnsw_select.cu), and of K5's selection (ivf_rerank.cu): sorted runs
+// of 64-bit keys and an open-addressing table in shared memory.
 //
 // Keys: (f2key(distance) << 32) | position. f2key (select.cuh) keeps the
 // float order (negative COS / IP distances included) and folds -0.0 into

@@ -15,7 +15,7 @@
 // left to expand or ceil(iters/expand) steps are spent. The neighbour
 // scorer is the template parameter: K8 and K8-SQ read adj[sel] and the
 // rows (graph_scorer.cuh: f32, or u8 / u16 codes dequantized on the
-// gather; gathered_distances' epilogue); K6 reads one
+// gather; gathered_distances' epilogue); K6 (ServeScorer) reads one
 // [deg, d] int8 code block and one [deg, 4] int32 meta block (f32 base,
 // scale, norm as bits, the neighbour id) per expanded node, takes the
 // exact int32 dot with __dp4a and rounds _approx_dist's epilogue in the
@@ -26,7 +26,9 @@
 // 2d bytes of codes and 8 of min and scale) or expand
 // contiguous blocks (K6, deg*(d+16) bytes each) that depend on the step
 // before, and a query takes tens of steps in sequence. What a step costs
-// beyond that latency is its serial shared-memory work and its barriers.
+// beyond that latency is its serial shared-memory work and its barriers;
+// so a step makes as few dependent trips to device memory as it can: K6
+// two (its meta blocks, then its kept code rows), each one coalesced copy.
 //
 // Design: one 128-thread block per query, a persistent loop, and every
 // buffer in shared memory. Each query stops on its own: a finished query
@@ -37,18 +39,23 @@
 // reference's bound reduces to "nothing left to expand". A step is four
 // phases and four barriers (K8-SQ five):
 //  1. warp 0 selects the nodes to expand and reads their neighbour lists
-//     while the other warps insert the buffer's ids and every id expanded
-//     before into a hash table (graph_util.cuh, cleared in phase 4);
+//     (K6: one `cp.async.bulk` of each node's deg x 16-byte meta block into
+//     shared memory, completing on an mbarrier that phase 2 waits for, its
+//     phase bit flipping once a step) while the other warps insert the
+//     buffer's ids and every id expanded before into a hash table
+//     (graph_util.cuh, cleared in phase 4);
 //  2. each neighbour slot claims its id in the table (atomicMin of its slot
 //     index): a member is dropped, and of several slots with one id the
 //     lowest wins. That is the reference's member_mask of the buffer and of
 //     the expanded ids, then mask_duplicates, in O(1) a slot. A node that
 //     left the buffer unexpanded is scored again, as in the reference;
-//  3. each warp compacts its kept slots (ballot), scores them (K6 / K8 by
-//     lane groups, graph_scorer.cuh group_scores: 8 lanes a row, 16 rows a
-//     warp in flight; K8-SQ by staged_score: after a barrier, the warp
-//     stages `srows` rows at a time in its region of shared memory, which
-//     overlays the step's table, and scores them one lane a row), keeps
+//  3. each warp compacts its kept slots (ballot), scores them (K8 by lane
+//     groups, graph_scorer.cuh group_scores: 8 lanes a row, 16 rows a warp
+//     in flight; K8-SQ by staged_score and K6 by staged_block_score: after
+//     a barrier, the warp stages `srows` rows at a time in its region of
+//     shared memory, which overlays the step's table, by coalesced
+//     cp.async, and scores them one lane a row, K6 from the staged meta
+//     blocks), keeps
 //     those below the buffer's worst (a new entry at or above it cannot
 //     enter: a tie goes to the old entry) and, with `allowed`, the allowed
 //     ones below the result buffer's worst, and sorts them in runs of 32 (a
@@ -57,23 +64,29 @@
 //     one to its rank among the new plus the old entries at or below it
 //     (binary searches of the runs and of the buffer), into the other half
 //     of a double buffer. The filtered result buffer merges the same way.
-// K6 ends with its rerank: the r best of the buffer, their f32 rows, an fp32
-// dot, the metric's exact distance (unclamped L2), +inf outside `allowed`,
-// and the k smallest by (distance, position). Each query reports how many
-// nodes it expanded and how many neighbours it scored.
+// K6 ends with its rerank: the r best of the buffer, their f32 rows staged
+// in chunks of up to 32 by every thread's cp.async at once (over the dead
+// table), an fp32 dot by one thread a row in the row's own fmaf order, the
+// metric's exact distance (unclamped L2), +inf outside `allowed`, and the
+// k smallest by (distance, position): runs of 32 keys sorted by warps,
+// ranked by their place plus binary searches of the other runs. Each query
+// reports how many nodes it expanded and how many neighbours it scored.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
+#include "async_copy.cuh"
 #include "graph_scorer.cuh"
 #include "graph_util.cuh"
+#include "launch_util.cuh"
 
 #define BEAM_THREADS 128
 #define BEAM_WARPS (BEAM_THREADS / 32)
-// blocks an SM must hold by K8-SQ's registers (64 a thread): B = 1024
-// queries on 132 SMs run in one wave only at eight
-#define SQ_MIN_BLOCKS 8
+// blocks an SM must hold by K8-SQ's and K6's registers (64 a thread): B =
+// 1024 queries on 132 SMs run in one wave only at eight
+#define WAVE_BLOCKS 8
 static_assert(BEAM_WARPS == 4, "merge_into splits the new entries among 4 warps");
 #define SLOTS_MAX 1024                                   // kernels.SLOTS_MAX
 #define SLOT_REG ((SLOTS_MAX + BEAM_THREADS - 1) / BEAM_THREADS)
@@ -84,7 +97,8 @@ static_assert(BEAM_WARPS == 4, "merge_into splits the new entries among 4 warps"
 // 0 of every block adds the cycles of each phase of run_beam to
 // beam_clocks: 0 the seeds, 1 the selection and the members, 2 the claims
 // (with the lists' reads), 3 the scoring and the runs, 4 the merge; 5
-// counts the steps. hnsw_beam_clocks reads and clears them.
+// counts the steps; 6 K6's rerank and its ranks, 7 counts the blocks that
+// ran them. hnsw_beam_clocks reads and clears them.
 #ifdef BEAM_PHASE_CLOCKS
 __device__ unsigned long long beam_clocks[8];
 #define BEAM_MARK(i)                                                                  \
@@ -93,6 +107,7 @@ __device__ unsigned long long beam_clocks[8];
             const long long now = clock64();                                          \
             atomicAdd(beam_clocks + (i), (unsigned long long)(now - mark));           \
             if ((i) == 4) atomicAdd(beam_clocks + 5, 1ull);                           \
+            if ((i) == 6) atomicAdd(beam_clocks + 7, 1ull);                           \
             mark = now;                                                               \
         }                                                                             \
     } while (0)
@@ -141,6 +156,9 @@ struct Smem {
 // the scorers whose rows phase 3 stages (graph_scorer.cuh staged_score)
 template <class S> struct stages_rows : std::false_type {};
 template <class C> struct stages_rows<SqScorer<C>> : std::true_type {};
+struct ServeScorer;
+// K6: phase 1 copies the meta blocks, phase 3 stages the kept code rows
+template <class S> struct stages_blocks : std::is_same<S, ServeScorer> {};
 
 // one half of a double buffer (a select, so that Smem stays in registers)
 template <class T>
@@ -150,18 +168,20 @@ __device__ __forceinline__ T* half(T* const (&p)[2], int h) {
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~(size_t)15; }
 
-// K8-SQ's stage: [BEAM_WARPS][srows * sw] 16-byte words (0 for the other
-// scorers)
+// K8-SQ's stage: [BEAM_WARPS][srows * sw] 16-byte words; K6's, the bytes
+// pick_serve_stage sets (0 for the other scorers)
 template <class Scorer>
 __host__ __device__ inline size_t stage_bytes(const Scorer& sc) {
     if constexpr (stages_rows<Scorer>::value) return (size_t)BEAM_WARPS * sc.srows * sc.sw * 16;
+    if constexpr (stages_blocks<Scorer>::value) return (size_t)sc.stage;
     return 0;
 }
 
 // Bytes of Smem for these widths; `carve` lays it out in the same order.
-// K8-SQ's stage shares the step table's bytes: phase 3 stages rows only
-// after a barrier behind the table's last read (the claims' tags), and
-// phase 4 clears the whole table for the next step.
+// K8-SQ's and K6's stages share the step table's bytes: phase 3 stages rows
+// only after a barrier behind the table's last read (the claims' tags), and
+// phase 4 clears the whole table for the next step. K6's rerank stages its
+// rows there too, after the beam, with the survivor runs that follow.
 __host__ __device__ inline size_t table_bytes(const BeamArgs& a, size_t stage) {
     const size_t table = (size_t)8 << a.hbits;
     return table > stage ? table : stage;
@@ -204,7 +224,9 @@ __device__ inline Smem carve(unsigned char* p, const BeamArgs& a, size_t qbytes,
 }
 
 // K6's neighbour scorer: packed int8 code and meta blocks; the query row
-// is kept in f32 (for the rerank) and as int8 words.
+// is kept in f32 (for the rerank) and as int8 words. The host fills the
+// stage's shape (pick_serve_stage); `meta_off` is the offset of the step's
+// meta blocks in shared memory ([expand][deg] int4, then their mbarrier).
 struct ServeScorer {
     const int8_t* codes;       // [cap, deg, d]
     const int4* meta;          // [cap, deg] of (base, scale, norm bits, id)
@@ -214,6 +236,11 @@ struct ServeScorer {
     const int8_t* qc;          // [B, d]
     const float* qs;           // [B]
     const float* qsum;         // [B]
+    int wide16;                // code rows staged by 16-byte copies (else 4-byte)
+    int srows, sw;             // code rows a warp stages at once, 16-byte words a staged row
+    int rc, rw;                // rerank rows a chunk, 16-byte words a staged f32 row
+    int stage;                 // bytes the table's region must hold for the stages
+    unsigned meta_off;         // the meta blocks' offset in shared memory
     __host__ __device__ static size_t query_bytes(int d) { return (size_t)d * 4 + d + 8; }
     __device__ void load(size_t b, int d, unsigned char* s) const {
         float* sq = reinterpret_cast<float*>(s);
@@ -224,64 +251,89 @@ struct ServeScorer {
         float* sf = reinterpret_cast<float*>(s + (size_t)d * 5);
         if (threadIdx.x == 0) { sf[0] = qs[b]; sf[1] = qsum[b]; }
     }
-    __device__ int neighbour(int node, int g, int deg) const {
-        return meta[(size_t)node * deg + g].w;
+    __device__ int4* smeta(unsigned char* base) const {
+        return reinterpret_cast<int4*>(base + meta_off);
     }
-    // a lane group's int8 dots of R neighbours' code blocks (exact int32
-    // sums, so the lanes' order does not change them), then _approx_dist's
-    // epilogue as the plain expression rounds it
-    template <int R>
-    __device__ __forceinline__ void group_scores(const unsigned char* s, const int* node,
-                                                 const int* g, const int* id, int d, int deg,
-                                                 int sub, float qnb, int metric,
-                                                 float* out) const {
-        const int* qw = reinterpret_cast<const int*>(s + (size_t)d * 4);
-        const float* sf = reinterpret_cast<const float*>(s + (size_t)d * 5);
-        int acc[R];
-        size_t blk[R];
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-            acc[r] = 0;
-            blk[r] = id[r] >= 0 ? (size_t)node[r] * deg + g[r] : 0;
-        }
-#pragma unroll 4
-        for (int c = sub; c < (d >> 2); c += GROUP) {
-            int cw[R];
-#pragma unroll
-            for (int r = 0; r < R; ++r)
-                cw[r] = id[r] >= 0 ? __ldg(reinterpret_cast<const int*>(codes + blk[r] * d) + c)
-                                   : 0;
-            const int qv = qw[c];
-#pragma unroll
-            for (int r = 0; r < R; ++r) acc[r] = __dp4a(cw[r], qv, acc[r]);
-        }
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-            const int dot = group_sum(acc[r]);
-            const int4 m = id[r] >= 0 ? meta[blk[r]] : make_int4(0, 0, 0, 0);
-            // base*q_sum + scale*(qs*dot), as _approx_dist rounds it
-            const float qdx = __fadd_rn(__fmul_rn(__int_as_float(m.x), sf[1]),
-                                        __fmul_rn(__int_as_float(m.y),
-                                                  __fmul_rn(sf[0], __int2float_rn(dot))));
-            if (metric == 0)
-                out[r] = __fadd_rn(__fsub_rn(qnb, __fmul_rn(2.0f, qdx)), __int_as_float(m.z));
-            else if (metric == 1) out[r] = __fsub_rn(1.0f, qdx);
-            else out[r] = -qdx;
-        }
+    __device__ uint64_t* bar(unsigned char* base, int slots) const {
+        return reinterpret_cast<uint64_t*>(base + meta_off + (size_t)slots * 16);
     }
-    // the exact distance of row `id` for the rerank (no clamp)
-    __device__ float exact(const unsigned char* s, int id, int d, float qnb, int metric) const {
+    // Phase 1, warp 0 (all lanes, `found` warp-uniform): one bulk copy of
+    // each selected node's meta block, deg * 16 contiguous bytes, into row
+    // e of the staged blocks, completing on the mbarrier; lane 0 arrives
+    // first with the bytes to expect (none when nothing was selected: the
+    // phase then completes at once)
+    __device__ void fetch_meta(unsigned char* base, const int* sel, int found, int deg,
+                               int slots, int lane) const {
+        uint64_t* b = bar(base, slots);
+        const unsigned bytes = (unsigned)deg * 16;
+        if (lane == 0) mbar_arrive_tx(b, (unsigned)found * bytes);
+        __syncwarp();
+        int4* sm = smeta(base);
+        for (int e = lane; e < found; e += 32)
+            bulk_copy(sm + (size_t)e * deg, meta + (size_t)sel[e] * deg, bytes, b);
+    }
+    // the staged rows' interface of graph_scorer.cuh stage_rows: a code row
+    // by its index node * deg + g
+    __host__ __device__ static int row_bytes(int d) { return d; }
+    __device__ bool wide() const { return wide16 != 0; }
+    __device__ const unsigned char* row(long long blk, int d) const {
+        return reinterpret_cast<const unsigned char*>(codes + blk * d);
+    }
+    // Phase 3: the distance of lane r's kept slot t (-1: none; +inf) among
+    // a batch of n of a warp's slots. The batch's code rows are copied into
+    // `stage` (row r at r * sw words) by stage_rows (16-byte or 4-byte
+    // cp.async, neighbouring lanes on neighbouring words); then lane r
+    // takes row r's exact int32 dot by __dp4a (any order gives the same
+    // sum) and _approx_dist's epilogue from its staged meta entry, rounded
+    // as the plain expression rounds it. All 32 lanes call.
+    __device__ float staged_block_score(unsigned char* base, unsigned char* stage, int t, int n,
+                                        const int* sel, int d, int deg, float qnb, int metric,
+                                        int lane) const {
+        __syncwarp();  // the last batch's reads of the region are done
+        stage_rows(*this, stage, sw, t >= 0 ? (long long)sel[t / deg] * deg + t % deg : -1ll,
+                   n, d, lane);
+        const int4 m = t >= 0 ? smeta(base)[t] : make_int4(0, 0, 0, 0);
+        stage_wait();
+        __syncwarp();
+        if (t < 0) return F_INF;
+        const unsigned char* srow = stage + ((size_t)lane * sw << 4);
+        const int* qw = reinterpret_cast<const int*>(base + (size_t)d * 4);
+        int dot = 0;
+        int j = 0;
+        if (wide16) {
+            const int4* x4 = reinterpret_cast<const int4*>(srow);
+            const int4* y4 = reinterpret_cast<const int4*>(qw);
+            for (; j < (d >> 4); ++j) {
+                const int4 x = x4[j], y = y4[j];
+                dot = __dp4a(x.x, y.x, dot);
+                dot = __dp4a(x.y, y.y, dot);
+                dot = __dp4a(x.z, y.z, dot);
+                dot = __dp4a(x.w, y.w, dot);
+            }
+            j <<= 2;
+        }
+        const int* x1 = reinterpret_cast<const int*>(srow);
+        for (; j < (d >> 2); ++j) dot = __dp4a(x1[j], qw[j], dot);
+        const float* sf = reinterpret_cast<const float*>(base + (size_t)d * 5);
+        // base*q_sum + scale*(qs*dot), as _approx_dist rounds it
+        const float qdx = __fadd_rn(__fmul_rn(__int_as_float(m.x), sf[1]),
+                                    __fmul_rn(__int_as_float(m.y),
+                                              __fmul_rn(sf[0], __int2float_rn(dot))));
+        if (metric == 0) return __fadd_rn(__fsub_rn(qnb, __fmul_rn(2.0f, qdx)), __int_as_float(m.z));
+        if (metric == 1) return __fsub_rn(1.0f, qdx);
+        return -qdx;
+    }
+    // the rerank's exact distance of a staged f32 row (no clamp): one fmaf
+    // chain over j = 0 .. d-1, the order of the per-row sum before the rows
+    // were staged
+    __device__ float staged_exact(const unsigned char* s, const unsigned char* srow, int d,
+                                  float qnb, float xn, int metric) const {
         const float4* q4 = reinterpret_cast<const float4*>(s);
-        const float4* x4 = reinterpret_cast<const float4*>(vectors + (size_t)id * d);
+        const float4* x4 = reinterpret_cast<const float4*>(srow);
         float acc = 0.0f;
-        for (int j = 0; j < (d >> 2); ++j) {
-            const float4 x = x4[j], y = q4[j];
-            acc = fmaf(x.x, y.x, acc);
-            acc = fmaf(x.y, y.y, acc);
-            acc = fmaf(x.z, y.z, acc);
-            acc = fmaf(x.w, y.w, acc);
-        }
-        if (metric == 0) return __fsub_rn(__fadd_rn(qnb, norms[id]), __fmul_rn(2.0f, acc));
+#pragma unroll 8
+        for (int j = 0; j < (d >> 2); ++j) acc = dot4(acc, x4[j], q4[j]);
+        if (metric == 0) return __fsub_rn(__fadd_rn(qnb, xn), __fmul_rn(2.0f, acc));
         if (metric == 1) return __fsub_rn(1.0f, acc);
         return -acc;
     }
@@ -426,18 +478,24 @@ __device__ int2 run_beam(const BeamArgs& a, const Scorer& sc, const Smem& s, siz
             if (lane == 0) s.misc[0] = found;
             n_exp += found;
             __syncwarp();
-            // the lists' reads all issued before their stores
-            for (int t0 = 0; t0 < a.slots; t0 += 4 * 32) {
-                int nb[4];
+            if constexpr (stages_blocks<Scorer>::value) {
+                // K6: the selected nodes' meta blocks, in flight while the
+                // other warps fill the table
+                sc.fetch_meta(s.q, s.sel, found, a.deg, a.slots, lane);
+            } else {
+                // the lists' reads all issued before their stores
+                for (int t0 = 0; t0 < a.slots; t0 += 4 * 32) {
+                    int nb[4];
 #pragma unroll
-                for (int k = 0; k < 4; ++k) {
-                    const int t = t0 + k * 32 + lane;
-                    const int node = t < a.slots ? s.sel[t / a.deg] : -1;
-                    nb[k] = node >= 0 ? sc.neighbour(node, t % a.deg, a.deg) : -1;
+                    for (int k = 0; k < 4; ++k) {
+                        const int t = t0 + k * 32 + lane;
+                        const int node = t < a.slots ? s.sel[t / a.deg] : -1;
+                        nb[k] = node >= 0 ? sc.neighbour(node, t % a.deg, a.deg) : -1;
+                    }
+#pragma unroll
+                    for (int k = 0; k < 4; ++k)
+                        if (t0 + k * 32 + lane < a.slots) s.nid[t0 + k * 32 + lane] = nb[k];
                 }
-#pragma unroll
-                for (int k = 0; k < 4; ++k)
-                    if (t0 + k * 32 + lane < a.slots) s.nid[t0 + k * 32 + lane] = nb[k];
             }
         } else {
             const int n_mem = a.ef + it * a.expand;
@@ -456,11 +514,25 @@ __device__ int2 run_beam(const BeamArgs& a, const Scorer& sc, const Smem& s, siz
         // 2. each slot claims its neighbour: not in the buffer, not expanded
         // before, and the lowest slot of its id
         int pid[SLOT_REG], ppos[SLOT_REG];
+        if constexpr (stages_blocks<Scorer>::value) {
+            // K6: the ids from the staged meta blocks, once they are in
+            // (the barrier's phase `it` of the copies this step issued)
+            mbar_wait(sc.bar(s.q, a.slots), it & 1);
+            const int4* sm = sc.smeta(s.q);
+            const int n_sl = s.misc[0] * a.deg;
 #pragma unroll
-        for (int k = 0; k < SLOT_REG; ++k) {
-            const int t = tid + k * BEAM_THREADS;
-            pid[k] = t < a.slots ? s.nid[t] : -1;
-            ppos[k] = pid[k] >= 0 ? table_claim(s.hid, s.htag, a.hbits, pid[k], t) : -1;
+            for (int k = 0; k < SLOT_REG; ++k) {
+                const int t = tid + k * BEAM_THREADS;
+                pid[k] = t < n_sl ? sm[t].w : -1;
+                ppos[k] = pid[k] >= 0 ? table_claim(s.hid, s.htag, a.hbits, pid[k], t) : -1;
+            }
+        } else {
+#pragma unroll
+            for (int k = 0; k < SLOT_REG; ++k) {
+                const int t = tid + k * BEAM_THREADS;
+                pid[k] = t < a.slots ? s.nid[t] : -1;
+                ppos[k] = pid[k] >= 0 ? table_claim(s.hid, s.htag, a.hbits, pid[k], t) : -1;
+            }
         }
         __syncthreads();
         BEAM_MARK(2);
@@ -489,19 +561,28 @@ __device__ int2 run_beam(const BeamArgs& a, const Scorer& sc, const Smem& s, siz
         n_kept += nw;
         __syncwarp();
         int nc = 0, nr = 0;   // the warp's survivors, appended in a fixed order
-        if constexpr (stages_rows<Scorer>::value) {
-            // batches of srows kept slots, lane r scoring the batch's row r,
-            // staged over the table once every warp has read its tags
+        if constexpr (stages_rows<Scorer>::value || stages_blocks<Scorer>::value) {
+            // batches of srows kept slots, lane r scoring the batch's row r
+            // (K6 from its staged code row and meta entry), staged over the
+            // table once every warp has read its tags
+            constexpr bool k6 = stages_blocks<Scorer>::value;
             __syncthreads();
             unsigned char* stage =
                 reinterpret_cast<unsigned char*>(s.hid) + ((size_t)warp * sc.srows * sc.sw << 4);
             for (int base = 0; base < nw; base += sc.srows) {
                 const int row = base + lane;
                 const bool mine = lane < sc.srows && row < nw;
-                const int t = mine ? wt[row] : 0;
+                const int t = mine ? wt[row] : k6 ? -1 : 0;
                 const int id = mine ? wi[row] : -1;
-                const float v = staged_score(sc, stage, sc.sw, id, min(sc.srows, nw - base), s.q,
-                                             a.d, qnb, a.metric, lane);
+                float v;
+                if constexpr (k6) {
+                    v = sc.staged_block_score(s.q, stage, t, min(sc.srows, nw - base), s.sel, a.d,
+                                              a.deg, qnb, a.metric, lane);
+                    if (mine) s.nid[t] = id;
+                } else {
+                    v = staged_score(sc, stage, sc.sw, id, min(sc.srows, nw - base), s.q, a.d, qnb,
+                                     a.metric, lane);
+                }
                 if (mine) s.nd[t] = v;
                 const u64 key = ((u64)f2key(v) << 32) | (unsigned)t;
                 const bool in_c = mine && v < worst_c;
@@ -619,44 +700,98 @@ graph_beam_kernel(BeamArgs a, Scorer sc, float* out_d, int* out_i, float* out_rd
 
 // K8-SQ: eight blocks an SM by its registers
 template <class Scorer>
-__global__ void __launch_bounds__(BEAM_THREADS, SQ_MIN_BLOCKS)
+__global__ void __launch_bounds__(BEAM_THREADS, WAVE_BLOCKS)
 graph_beam_sq_kernel(BeamArgs a, Scorer sc, float* out_d, int* out_i, float* out_rd,
                      int* out_ri, int* out_exp, int* out_stats) {
     graph_beam_block(a, sc, out_d, out_i, out_rd, out_ri, out_exp, out_stats);
 }
 
-__global__ void __launch_bounds__(BEAM_THREADS)
+// K6: its own kernel and bound, so that K8's code keeps its registers
+__global__ void __launch_bounds__(BEAM_THREADS, WAVE_BLOCKS)
 serve_beam_kernel(BeamArgs a, ServeScorer sc, const uint8_t* allowed, int r, int k,
                   float* out_d, int* out_i, int* out_stats) {
     extern __shared__ __align__(16) unsigned char smem[];
-    const Smem s = carve<false>(smem, a, ServeScorer::query_bytes(a.d), 0);
+    const Smem s = carve<true>(smem, a, ServeScorer::query_bytes(a.d), stage_bytes(sc));
     const size_t b = blockIdx.x;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     sc.load(b, a.d, s.q);
+    if (tid == 0) mbar_init(sc.bar(s.q, a.slots));
     __syncthreads();
     const int2 stats = run_beam(a, sc, s, b);
     __syncthreads();
-    // exact rerank of the r best (the buffer is sorted: its first r), in
-    // the other half of the double buffer
+#ifdef BEAM_PHASE_CLOCKS
+    long long mark = clock64();
+#endif
+    // Exact rerank of the r best (the buffer is sorted: its first r), in
+    // chunks of rc rows staged over the dead table and survivor runs (rows
+    // of rw 16-byte words, an odd count: a 16-byte load's 8 lanes of a phase
+    // fall on the 32 banks once): every thread's 16-byte copies of the
+    // chunk in flight at once, the rows' ids, norms and `allowed` loaded
+    // meanwhile, then thread j scores row j of the chunk. Distances land
+    // in the other half of the double buffer.
     const float qnb = a.qn[b];
     float* td = s.cd[1];
     int* ti = s.ci[1];
-    for (int j = threadIdx.x; j < r; j += blockDim.x) {
-        const int id = s.ci[0][j];
-        const bool bad = id < 0 || (allowed != nullptr && !allowed[id]);
-        td[j] = bad ? F_INF : sc.exact(s.q, id, a.d, qnb, a.metric);
-        ti[j] = id;
+    const int* best = s.ci[0];
+    unsigned char* stage = reinterpret_cast<unsigned char*>(s.hid);
+    const int words = a.d >> 2;  // 16-byte words of an f32 row (d % 4 == 0, 16-byte aligned)
+    const bool pow2 = (words & (words - 1)) == 0;  // d = 128: 32 words
+    const int sh = __popc(words - 1);
+    for (int c0 = 0; c0 < r; c0 += sc.rc) {
+        const int n = min(sc.rc, r - c0);
+        for (int e = tid; e < n * words; e += BEAM_THREADS) {
+            const int row = pow2 ? e >> sh : e / words, w = e - row * words;
+            const int id = best[c0 + row];
+            if (id >= 0)
+                stage_copy16(stage + ((size_t)row * sc.rw << 4) + ((size_t)w << 4),
+                             sc.vectors + (size_t)id * a.d + 4 * w);
+        }
+        int id = -1;
+        bool bad = true;
+        float xn = 0.0f;
+        if (tid < n) {
+            id = best[c0 + tid];
+            bad = id < 0 || (allowed != nullptr && !allowed[id]);
+            if (!bad && a.metric == 0) xn = sc.norms[id];
+        }
+        stage_wait();
+        __syncthreads();
+        if (tid < n) {
+            td[c0 + tid] = bad ? F_INF
+                               : sc.staged_exact(s.q, stage + ((size_t)tid * sc.rw << 4), a.d,
+                                                 qnb, xn, a.metric);
+            ti[c0 + tid] = id;
+        }
+        __syncthreads();  // the chunk's reads of the stage are done
+    }
+    // The k smallest by (distance, position): keys sorted in runs of 32 by
+    // warps (the beam's bitonic network); a key's rank is its place in its
+    // run plus the keys below it in every other run.
+    u64* keys = reinterpret_cast<u64*>(s.hid);
+    for (int base = warp * 32; base < r; base += BEAM_THREADS) {
+        const int j = base + lane;
+        u64 key = j < r ? ((u64)f2key(td[j]) << 32) | (unsigned)j : ~0ull;
+        key = warp_sort32(key, lane);
+        if (j < r) keys[j] = key;
     }
     __syncthreads();
-    for (int j = threadIdx.x; j < r; j += blockDim.x) {
-        const float v = td[j];
-        int rank = 0;
-        for (int i = 0; i < r && rank < k; ++i) rank += td[i] < v || (td[i] == v && i < j);
+    for (int j = tid; j < r; j += BEAM_THREADS) {
+        const u64 key = keys[j];
+        int rank = j & 31;
+        for (int o = 0; o < r && rank < k; o += 32)
+            if (o != (j & ~31)) rank += count_below(keys + o, min(32, r - o), key);
         if (rank < k) {
+            const int p = (int)(key & 0xffffffffu);
+            const float v = td[p];
             out_d[b * k + rank] = v;
-            out_i[b * k + rank] = v < F_INF ? ti[j] : -1;
+            out_i[b * k + rank] = v < F_INF ? ti[p] : -1;
         }
     }
-    if (threadIdx.x == 0) reinterpret_cast<int2*>(out_stats)[b] = stats;
+    if (tid == 0) reinterpret_cast<int2*>(out_stats)[b] = stats;
+#ifdef BEAM_PHASE_CLOCKS
+    __syncthreads();
+#endif
+    BEAM_MARK(6);
 }
 
 static BeamArgs beam_args(int B, int S, int d, int deg, int ef, int iters, int expand,
@@ -682,25 +817,11 @@ static bool beam_args_ok(const BeamArgs& a) {
            (a.k_res == 0 || a.allowed != nullptr) && a.metric >= 0 && a.metric <= 2;
 }
 
-template <class K>
-static int set_smem(K kernel, size_t smem) {
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) cudaGetLastError();  // clear it for the next launch
-    return (int)e;
-}
-
 // Blocks of `kernel` an SM runs with `smem` bytes of shared memory (0 when
-// it cannot run one).
+// it cannot run one); launch_util.cuh asks once for each size.
 template <class K>
 static int blocks_per_sm(K kernel, size_t smem) {
-    int n = 0;
-    if (set_smem(kernel, smem) ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, BEAM_THREADS, smem)) {
-        cudaGetLastError();
-        return 0;
-    }
-    return n;
+    return sm_blocks(kernel, BEAM_THREADS, smem);
 }
 
 // K8-SQ's stage: 32 rows a warp (every lane scores in phase 3) unless that
@@ -710,9 +831,7 @@ static int blocks_per_sm(K kernel, size_t smem) {
 template <class Scorer>
 static void pick_stage(const BeamArgs& a, Scorer& sc, int* fits = nullptr) {
     sc.sw = stage_words(Scorer::row_bytes(a.d));
-    int dev = 0, sms = 1;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const int sms = launch_util::sm_count();
     const int need = (a.B + sms - 1) / sms;
     const size_t qb = Scorer::query_bytes(a.d);
     sc.srows = 16;
@@ -731,7 +850,7 @@ static int launch_beam(K kernel, const BeamArgs& a, const Scorer& sc, float* out
     if (!beam_args_ok(a) || (a.k_res && (out_rd == nullptr || out_ri == nullptr)))
         return (int)cudaErrorInvalidValue;
     const size_t smem = smem_bytes(a, Scorer::query_bytes(a.d), stage_bytes(sc));
-    int e = set_smem(kernel, smem);
+    int e = raise_smem(kernel, smem);
     if (e) return e;
     kernel<<<a.B, BEAM_THREADS, smem, (cudaStream_t)stream>>>(a, sc, out_d, out_i, out_rd,
                                                               out_ri, out_exp, out_stats);
@@ -809,6 +928,48 @@ extern "C" int hnsw_graph_beam_sq_stage(int B, int S, int d, int deg, int ef, in
     return (int)cudaGetLastError();
 }
 
+// K6's rerank stage: at most RERANK_STAGE_BYTES of staged f32 rows a
+// chunk (32 rows of d = 128), at least one
+#define RERANK_STAGE_BYTES (32 * 33 * 16)
+
+// K6's shared memory: the beam's (the stages over the table), then the meta
+// blocks of a step and their mbarrier
+static size_t serve_smem(const BeamArgs& a, ServeScorer& sc) {
+    sc.meta_off = (unsigned)align16(smem_bytes(a, ServeScorer::query_bytes(a.d), stage_bytes(sc)));
+    return (size_t)sc.meta_off + (size_t)a.slots * 16 + 16;
+}
+
+// K6's stages at these widths, as K8-SQ's (pick_stage): 32 code rows a
+// warp unless that cuts the blocks an SM runs below what the launch needs
+// (all of its B blocks at once) and half as many would run more; halved
+// again while the stage would not fit at all (wide rows). The table's
+// region also holds a rerank chunk of rc rows (less the survivor runs
+// after it). Returns the shared memory; `fits` (or null) gets the blocks
+// an SM runs at 16 and at 32 rows.
+static size_t pick_serve_stage(const BeamArgs& a, ServeScorer& sc, int r, int* fits = nullptr) {
+    sc.sw = stage_words(a.d);
+    sc.rw = stage_words(4 * a.d);
+    sc.rc = std::max(1, std::min({32, r, RERANK_STAGE_BYTES / (sc.rw * 16)}));
+    const long rerank = (long)sc.rc * sc.rw * 16 - 16L * BEAM_WARPS * a.wcap;
+    const int sms = launch_util::sm_count();
+    const int need = (a.B + sms - 1) / sms;
+    auto fit = [&](int srows) {
+        sc.srows = srows;
+        sc.stage = (int)std::max((long)BEAM_WARPS * srows * sc.sw * 16, rerank);
+        return blocks_per_sm(serve_beam_kernel, serve_smem(a, sc));
+    };
+    if (fits) { fits[0] = fit(16); fits[1] = fit(32); }
+    int rows = 32, here = fit(32);
+    while (rows > 1) {
+        const int half = fit(rows / 2);
+        if (here > 0 && (here >= need || here >= half)) break;
+        rows /= 2;
+        here = half;
+    }
+    fit(rows);
+    return serve_smem(a, sc);
+}
+
 extern "C" int hnsw_serve_beam(const int8_t* codes, const int* meta, const float* vectors,
                                const float* norms, const float* q, const float* qn,
                                const int8_t* qc, const float* qs, const float* qsum,
@@ -818,13 +979,30 @@ extern "C" int hnsw_serve_beam(const int8_t* codes, const int* meta, const float
                                int* out_i, int* out_stats, void* stream) {
     BeamArgs a = beam_args(B, S, d, deg, ef, iters, expand, 0, metric, seed_i, seed_d, nullptr,
                            qn);
-    if (!beam_args_ok(a) || rerank < 1 || rerank > ef || k < 1 || k > rerank)
+    if (!beam_args_ok(a) || rerank < 1 || rerank > ef || k < 1 || k > rerank ||
+        (size_t)meta % 16 || (size_t)vectors % 16)
         return (int)cudaErrorInvalidValue;
-    const size_t smem = smem_bytes(a, ServeScorer::query_bytes(d), 0);
-    int e = set_smem(serve_beam_kernel, smem);
+    ServeScorer sc{codes, reinterpret_cast<const int4*>(meta), vectors, norms, q, qc, qs, qsum};
+    sc.wide16 = wide_rows(codes, d, 8);
+    const size_t smem = pick_serve_stage(a, sc, rerank);
+    int e = raise_smem(serve_beam_kernel, smem);
     if (e) return e;
     serve_beam_kernel<<<B, BEAM_THREADS, smem, (cudaStream_t)stream>>>(
-        a, ServeScorer{codes, reinterpret_cast<const int4*>(meta), vectors, norms, q, qc, qs, qsum},
-        allowed, rerank, k, out_d, out_i, out_stats);
+        a, sc, allowed, rerank, k, out_d, out_i, out_stats);
+    return (int)cudaGetLastError();
+}
+
+// K6's stages at these widths on the current device: out[0] the code rows
+// a warp stages at once, out[1] the rerank's rows a chunk, out[2] the
+// shared memory a block, out[3] / out[4] the blocks an SM runs at 16 / 32
+// code rows
+extern "C" int hnsw_serve_beam_stage(int B, int S, int d, int deg, int ef, int iters, int expand,
+                                     int rerank, int* out) {
+    const BeamArgs a = beam_args(B, S, d, deg, ef, iters, expand, 0, 0, nullptr, nullptr,
+                                 nullptr, nullptr);
+    ServeScorer sc{};
+    out[2] = (int)pick_serve_stage(a, sc, rerank, out + 3);
+    out[0] = sc.srows;
+    out[1] = sc.rc;
     return (int)cudaGetLastError();
 }

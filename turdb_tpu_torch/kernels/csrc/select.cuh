@@ -78,8 +78,9 @@ __device__ __forceinline__ void bitonic_sort(uint32_t* s_key, int* s_pos, int si
 }
 
 // Select the m smallest of n keys (1 <= m <= min(n, SEL_MAX)); on return
-// s_key/s_pos[0, m) hold them sorted by (key, position). Needs blockDim.x
-// == SEL_THREADS and s_key/s_pos of sel_pow2(m) entries. All threads call it.
+// s_key/s_pos[0, m) hold them sorted by (key, position). Needs blockDim.x a
+// multiple of 32 up to SEL_THREADS (K1 / K4 run SEL_THREADS, K5 128) and
+// s_key/s_pos of sel_pow2(m) entries. All threads call it.
 template <class KeyFn>
 __device__ void block_select(KeyFn key_of, int n, int m, uint32_t* s_key,
                              int* s_pos, SelectScratch* sc) {
