@@ -8,7 +8,8 @@
 2. builds the hand-written kernels (K1 ivf_probe_f32, K2 topk_rows,
    K3 kmeans_assign, K4 ivf_probe_sq8, K5 ivf_rerank, K6 hnsw_serve_beam,
    K7 hnsw_select and its presorted mode, K8 hnsw_graph_beam and its SQ
-   reader, K9 hnsw_greedy, K10 dense_blocks, K11 sq8_scan) from
+   reader, K9 hnsw_greedy, K10 dense_blocks (inside K2's launch), K11
+   sq8_scan) from
    `turdb_tpu_torch/kernels/csrc`, one nvcc
    per source, and prints the build seconds;
 3. kernel phase: each kernel against its plain PyTorch version on the same
@@ -69,7 +70,7 @@
      route, the serving packs, the serve sweep to the gate and QPS, graph
      search at ef 64, one wave `add` of 4,096 rows found by their own query;
    - dense IVF (`dense_pack=True`): blocks against cells, the sweep and QPS
-     at nblocks = nprobe and nblocks = nprobe / 2 (K10);
+     at nblocks = nprobe and nblocks = nprobe / 2 (K10 inside K2's launch);
    - `sq8_search` over the pool's u8 codes (K11 and a K2 merge): recall;
 5. checks that each path launched each of its kernels; then, outside the
    counted runs, traces the searches (device time per kernel, idle share),
@@ -77,8 +78,17 @@
    index at the path's shapes, and K9 (a wave of 512 at every level, a
    1024-query descent), K8-SQ (SQ8, SQ16) and K7's presorted mode (W = 100)
    on the inserted and wave-built indexes, K2 at the mesh merge's
-   [1024, 40] and at the sq8 index's own cell-selection width, K10 on the
-   dense index's cell lists (bit-equal), K11 at B = 1024 over the 1M store;
+   [1024, 40] and at the sq8 index's own cell-selection width, K10 (fused
+   into K2) on the dense index's cells (bit-equal to `dense_blocks_plain`),
+   K11 at B = 1024 over the 1M store (its ids apart and every one at a
+   near-tie, its recall beside its plain version's, which the fp32 kernel
+   before it equalled bit for bit); then the widths past the old limits,
+   each in its kernel and against its plain version: K2's wide form at k =
+   3000 (and with K10 fused), K11 at k = 2100 and at d = 384 (two column
+   slices), the d = 6 and d = 130 IVF and HNSW stores (rows copied
+   zero-padded for the kernels), a 10-level graph (two K9 launches); and
+   the widths no kernel holds (IVF rerank 2,500, ef = 1500, K7 at W = 100
+   and d = 512) raising on the card before any launch;
 6. prints {"kernels": [...]}, the card, and, last, {"ok": true, "device": {...}}.
 
 Any failure exits non-zero without the last line. The full report goes to
@@ -120,6 +130,9 @@ HARD_PROBE = 256             # the hard row's gate in the prediction
 # within 1e-5 of the distance scale, and ids may differ only inside that band.
 K2_RTOL = 1e-6
 DOT_RTOL = 1e-5
+# K11's recall@10 against its plain version's (the fp32 kernel before it
+# was bit-equal to the plain version): the tensor cores' sums may move a near-tie
+K11_RECALL_TOL = 0.002
 K3_AGREE = 0.995
 # the HNSW insert and wave paths
 N_INSERT = 65_536            # rows inserted into the bulk graph of N - N_INSERT
@@ -2153,36 +2166,58 @@ def dense_ivf_phase(dev, x, queries, truth):
 
 
 def k10_check(idx, batch, nprobe):
-    """K10 on the dense index's own cell lists (the queries' top-nprobe
-    cells), at u = nprobe / 2: bit-equal to its plain version."""
-    from turdb_tpu_torch.kernels import EPI_L2, dense_blocks, dense_blocks_plain, topk_rows
-    from turdb_tpu_torch.utils.timing import device_profile
+    """K10, fused into K2, on the dense index's own cell selection (the
+    queries' top-nprobe cells) at u = nprobe / 2: the blocks bit-equal to
+    `dense_blocks_plain` of K2's own cells, and at u = P the gather. Its
+    row is its own share of the fused launch: `ms` and `device_ms` the
+    fused launch's device time less K2's alone (K2's kernel in traces of
+    each, A B B A), against K10's
+    own bound (the cells read, their map entries gathered, the blocks
+    written) and its plain version alone on K2's cells; the fused launch's
+    times and bound stay as `fused_*` fields."""
+    from turdb_tpu_torch.kernels import EPI_L2, dense_blocks_plain, topk_rows, topk_rows_plain
 
     st = idx.state
     q = batch.float().contiguous()
-    _, top = topk_rows(q @ st.centroids.T, nprobe, rown=(q * q).sum(1), coln=st.cnorms,
-                       epilogue=EPI_L2)
+    dots = q @ st.centroids.T
+    kw = dict(rown=(q * q).sum(1), coln=st.cnorms, epilogue=EPI_L2)
     u = max(1, nprobe // DENSE_SPLIT)
-    got, want = dense_blocks(st.cell_block, top, u), dense_blocks_plain(st.cell_block, top, u)
-    check(torch.equal(got, want), "K10 dense_blocks differs from its plain version")
-    full = dense_blocks(st.cell_block, top, nprobe)
+    _, top, got = topk_rows(dots, nprobe, cell_block=st.cell_block, u=u, **kw)
+    check(torch.equal(top, topk_rows_plain(dots, nprobe, **kw)[1]), "K2 with K10 fused: cells")
+    want = dense_blocks_plain(st.cell_block, top, u)
+    check(torch.equal(got, want), "K10 (fused) differs from dense_blocks_plain")
+    _, _, full = topk_rows(dots, nprobe, cell_block=st.cell_block, u=nprobe, **kw)
     check(torch.equal(full, st.cell_block[top.long()]), "K10 at u = P is not the gather")
-    b, p = top.shape
-    # a launch this small is timed by its device time in a trace of 50:
-    # an event pair around one call also holds the host's launch path
-    prof = device_profile(lambda: [dense_blocks(st.cell_block, top, u) for _ in range(50)])
-    kern = [t for t in prof.get("top", []) if t["name"].startswith("dense_blocks_kernel")]
-    check(len(kern) == 1, "K10 did not show in its trace")
-    return {"shape": [b, p], "u": u, "max_abs_err": 0.0,
+    b, c = dots.shape
+
+    def fused():
+        return topk_rows(dots, nprobe, cell_block=st.cell_block, u=u, **kw)
+
+    def k2_alone():
+        return topk_rows(dots, nprobe, **kw)
+
+    # K2's kernel span in each trace (per call it kept: the profiler drops
+    # spans), fused and alone in turns A B B A
+    t = [_trace_ms(f, "topk_") for f in (fused, k2_alone, k2_alone, fused)]
+    fused_dev, k2_dev = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+    # the fused launch: the dot matrix, its norms and the cell map read
+    # once, the cells' values, ids and blocks written once
+    pair = _bound(4 * b * c + 4 * (b + c) + 4 * c + 8 * b * nprobe + 4 * b * u, 3 * b * c,
+                  FP32_OPS)
+    return {"shape": [b, c], "P": nprobe, "u": u, "max_abs_err": 0.0,
             "distinct_blocks_per_query": float(
                 sum(len(set(r.tolist())) for r in want.cpu()) / b),
             "distinct_blocks_in_batch": torch.unique(want).numel(),
-            "ms": kern[0]["ms"] / kern[0]["calls"],
-            "event_ms": _median_ms(lambda: dense_blocks(st.cell_block, top, u)),
+            "ms": fused_dev - k2_dev, "device_ms": fused_dev - k2_dev,
+            "fused_ms": _median_ms(fused), "fused_loop_ms": _loop_ms(fused),
+            "fused_device_ms": fused_dev, "k2_alone_device_ms": k2_dev,
+            "fused_bound_ms": pair["bound_ms"],
             "plain_ms": _median_ms(lambda: dense_blocks_plain(st.cell_block, top, u)),
             "library_ms": None,
-            # the cell lists read, one table entry per listed cell, the lists written
-            **_bound(4 * b * p + 4 * b * p + 4 * b * u, 0, FP32_OPS)}
+            # K10's own work: the P cells of each row read, their map
+            # entries gathered, the u blocks written, one compare a cell
+            # at the least
+            **_bound(4 * b * nprobe + 4 * b * nprobe + 4 * b * u, b * nprobe, FP32_OPS)}
 
 
 def sq8_search_phase(dev, x, queries, truth):
@@ -2213,8 +2248,12 @@ def sq8_search_phase(dev, x, queries, truth):
 def k11_check(store, gen, truth):
     """K11 against its plain version at B = 1024, N = 1M, d = 128, k = 10,
     with 1 % of the rows invalid: ids equal except at ties, distances
-    within DOT_RTOL of the distance scale (the fp32 products sum in another
-    order than cuBLAS); its recall against the exact oracle."""
+    within DOT_RTOL of the distance scale (the int8 tensor cores' exact
+    sums joined in fp32, against cuBLAS's fp32 order); the share of ids
+    apart; its recall against the exact oracle beside its plain version's
+    (which the fp32 kernel before it equalled bit for bit, PERF.md §6), within
+    K11_RECALL_TOL. Bound on both units: the fp32 FMA pipes, and the
+    kernel's own work, four int8 passes."""
     from turdb_tpu_torch.kernels import sq8_scan, sq8_scan_plain
     from turdb_tpu_torch.utils.datasets import recall_of
 
@@ -2227,7 +2266,11 @@ def k11_check(store, gen, truth):
     dk, ik = sq8_scan(*args)
     dp, ip = sq8_scan_plain(*args)
     err, id_diff = _near_equal(dk, ik, dp, ip, DOT_RTOL, "K11 sq8_scan")
-    _, ik_all = sq8_scan(q, qn, qsum, codes, mins, scales, torch.ones_like(valid), K)
+    all_valid = (q, qn, qsum, codes, mins, scales, torch.ones_like(valid), K)
+    rec = recall_of(sq8_scan(*all_valid)[1][:N_ORACLE].cpu().numpy(), truth)
+    rec_plain = recall_of(sq8_scan_plain(*all_valid)[1][:N_ORACLE].cpu().numpy(), truth)
+    check(abs(rec - rec_plain) <= K11_RECALL_TOL,
+          f"K11 recall@10 {rec} against its plain version's {rec_plain}")
 
     def library():
         u = codes.float()
@@ -2237,12 +2280,17 @@ def k11_check(store, gen, truth):
         return torch.topk(dist, K, largest=False)
 
     nbytes = n * d + 12 * n + n + b * (4 * d + 8) + 8 * b * K
+    fp32 = _bound(nbytes, 2 * b * n * d, FP32_OPS)
+    dev_ms, parts = _device_parts(lambda: sq8_scan(*args))
     return {"shape": [b, n, d], "k": K, "max_abs_err": err, "id_diff": id_diff,
-            "recall@10_all_valid": recall_of(ik_all[:N_ORACLE].cpu().numpy(), truth),
-            "ms": _median_ms(lambda: sq8_scan(*args)),
+            "recall@10_all_valid": rec, "plain_recall@10_all_valid": rec_plain,
+            "ms": _median_ms(lambda: sq8_scan(*args)), "loop_ms": _loop_ms(lambda: sq8_scan(*args)),
+            "device_ms": dev_ms, "device_parts": parts,
             "plain_ms": _median_ms(lambda: sq8_scan_plain(*args), reps=3),
             "library_ms": _median_ms(library, reps=3),
-            **_bound(nbytes, 2 * b * n * d, FP32_OPS)}
+            "bound_fp32_ms": fp32["bound_ms"],
+            # the kernel's work: four int8 passes of B x N x d multiply-adds
+            **_bound(nbytes, 4 * 2 * b * n * d, INT8_OPS)}
 
 
 def k2_merge_check(case):
@@ -2288,6 +2336,137 @@ def k2_width_check(idx, batch, nprobe):
             "library_ms": _median_ms(lambda: torch.topk(full, nprobe, largest=False)),
             **_bound(4 * b * n + 4 * (b + n) + 8 * b * nprobe, 3 * b * n, FP32_OPS)}
 
+def _on_cpu(state):
+    from turdb_tpu_torch.parallel.sharded import _to_device
+
+    return _to_device(state, torch.device("cpu"))
+
+
+def width_check(dev):
+    """The widths past the old limits, outside the counted paths, each in
+    its kernel (launches counted here) and against its plain version: K2's
+    wide form (bit-equal, and with K10 fused), K11 past its list mode and
+    past one column slice (DOT_RTOL), the d = 6 / 130 IVF and HNSW stores
+    and a 10-level graph (against the same state searched on the CPU);
+    then the widths no kernel holds, which must raise (ValueError, before
+    the kernel that refuses them launches)."""
+    import copy
+    import dataclasses
+
+    from turdb_tpu_torch import kernels
+    from turdb_tpu_torch.kernels import EPI_L2
+    from turdb_tpu_torch.models import hnsw as th
+    from turdb_tpu_torch.models.hnsw_serve import serve_search_impl
+    from turdb_tpu_torch.models.ivf import IvfIndex
+    from turdb_tpu_torch.ops.quantize import sq8_encode
+    from turdb_tpu_torch.utils.datasets import make_pool
+
+    out = {}
+
+    def launched(name, fn, kernel, n):
+        before = kernels.launches[kernel]
+        res = fn()
+        torch.cuda.synchronize()
+        got = kernels.launches[kernel] - before
+        check(got == n, f"{name}: {got} {kernel} launches, expected {n}")
+        return res
+
+    def near(name, got, want):
+        err, diff = _near_equal(got[0].cpu(), got[1].cpu(), want[0].cpu(), want[1].cpu(),
+                                DOT_RTOL, name)
+        out[name] = {"max_abs_err": err, "id_diff": diff}
+        log(f"width {name}: max abs err {err}, ids apart {diff}")
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    x = torch.randn(5000, 16, device=dev, generator=gen)
+    q = torch.randn(64, 16, device=dev, generator=gen)
+    dots = q @ x.T
+    kw = dict(rown=(q * q).sum(1), coln=(x * x).sum(1), epilogue=EPI_L2)
+    got = launched("topk_rows k=3000", lambda: kernels.topk_rows(dots, 3000, **kw), "topk_rows", 1)
+    want = kernels.topk_rows_plain(dots, 3000, **kw)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)), "K2's wide form: not bit-equal")
+    cell_block = torch.randint(0, 700, (5000,), device=dev, generator=gen, dtype=torch.int32)
+    _, top, blk = kernels.topk_rows(dots, 3000, cell_block=cell_block, u=2100, **kw)
+    check(torch.equal(blk, kernels.dense_blocks_plain(cell_block, top, 2100)),
+          "K10 in K2's wide form: not bit-equal")
+    out["topk_rows k=3000"] = {"max_abs_err": 0.0,
+                               "ms": _median_ms(lambda: kernels.topk_rows(dots, 3000, **kw)),
+                               "plain_ms": _median_ms(lambda: kernels.topk_rows_plain(
+                                   dots, 3000, **kw))}
+    for d, k in ((128, 2100), (384, 10)):
+        xs = torch.randn(100_000, d, device=dev, generator=gen)
+        codes, mins, scales = sq8_encode(xs)
+        qs = torch.randn(256, d, device=dev, generator=gen)
+        valid = torch.rand(100_000, device=dev, generator=gen) >= 0.01
+        args = (qs, (qs * qs).sum(1), qs.sum(1), codes, mins, scales, valid, k)
+        n_launch = len(kernels.sq8_slices(d))
+        got = launched(f"sq8_scan d={d} k={k}", lambda: kernels.sq8_scan(*args), "sq8_scan",
+                       n_launch)
+        near(f"sq8_scan d={d} k={k}", got, kernels.sq8_scan_plain(*args))
+        out[f"sq8_scan d={d} k={k}"].update(
+            launches=n_launch, ms=_median_ms(lambda: kernels.sq8_scan(*args)),
+            plain_ms=_median_ms(lambda: kernels.sq8_scan_plain(*args)))
+        del xs, codes
+    for d in (6, 130):
+        pool = make_pool(np.random.default_rng(4), 12_032, d)
+        dx, dq = pool[:12_000], pool[12_000:]
+        for flags in (dict(), dict(sq8=True, rerank=40)):
+            idx = IvfIndex(dim=d, device=dev, **flags)
+            idx.add(dx)
+            check(idx.state.pvecs.shape[-1] == d, f"the d = {d} IVF store's dim")
+            cpu = copy.copy(idx)
+            cpu.device, cpu.state = torch.device("cpu"), _on_cpu(idx.state)
+            near(f"ivf d={d}{' sq8' if flags else ''}", idx.search(dq, K, nprobe=8, out="torch"),
+                 cpu.search(dq, K, nprobe=8, out="torch"))
+        hd = th.HnswIndex(dim=d, device=dev, ef_construction=64)
+        hd.add(dx[:6000])
+        hd.add(dx[6000:6500])
+        hd.pack_serving()
+        dqt = torch.as_tensor(dq, device=dev)
+        near(f"hnsw d={d}", hd.search(dqt, K, ef=64, out="torch"),
+             th.hnsw_search_impl(_on_cpu(hd.state), dqt.cpu(), None, cfg=hd.cfg, k=K, ef=64,
+                                 iters=96, filtered=False, descent_ef=hd._descent_ef))
+        near(f"hnsw serve d={d}", hd.search_serve(dqt, K, ef=64, out="torch"),
+             serve_search_impl(_on_cpu(hd.serve), dqt.cpu(), None, metric=hd.cfg.metric, k=K,
+                               ef=64, iters=96))
+    pool = make_pool(np.random.default_rng(3), 20_032, 32)
+    px, hq = pool[:20_000], torch.as_tensor(pool[20_000:], device=dev)
+    ten = th.HnswIndex(dim=32, device=dev, ef_construction=64, bulk_threshold=10**9)
+    ten.cfg = dataclasses.replace(ten.cfg, max_levels=10)
+    ten.state = th.init_state(ten.cfg, ten.capacity, ten.device)
+    ten.add(px[:4000])
+    got = launched("hnsw 10 levels", lambda: ten.search(hq, K, ef=64, out="torch"),
+                   "hnsw_greedy", 2)
+    near("hnsw 10 levels", got,
+         th.hnsw_search_impl(_on_cpu(ten.state), hq.cpu(), None, cfg=ten.cfg, k=K, ef=64,
+                             iters=96, filtered=False, descent_ef=ten._descent_ef))
+    # the widths no kernel holds: refused before any launch
+    ivf = IvfIndex(dim=32, device=dev, n_clusters=16, sq8=True, rerank=2500)
+    ivf.add(px)
+    hn = th.HnswIndex(dim=32, device=dev, ef_construction=64)
+    hn.add(px[:12_000])
+    hn.pack_serving()
+    x5 = torch.randn(4000, 512, device=dev, generator=gen)
+    cand = torch.randint(0, 4000, (64, 100), dtype=torch.int32, device=dev, generator=gen)
+    refused = {
+        "ivf rerank=2500": lambda: ivf.search(pool[20_000:], K, nprobe=8),
+        "hnsw ef=1500": lambda: hn.search(hq, K, ef=1500),
+        "hnsw serve ef=1500": lambda: hn.search_serve(hq, K, ef=1500),
+        "hnsw_select W=100 d=512": lambda: kernels.hnsw_select(
+            x5, (x5 * x5).sum(1), torch.arange(64, dtype=torch.int32, device=dev), cand, deg=16,
+            metric=0, alpha=1.0),
+    }
+    for name, fn in refused.items():
+        try:
+            fn()
+        except ValueError as e:
+            out[name] = {"refused": str(e)}
+        else:
+            check(False, f"{name}: answered on the card; no kernel holds it")
+        log(f"width {name}: refused ({out[name]['refused']})")
+    return out
+
 # ---------------------------------------------------------------------------
 
 KERNELS = {
@@ -2313,7 +2492,7 @@ KERNELS = {
                            "turdb_tpu/models/hnsw.py:130"),
     "hnsw_select_sorted": ("turdb_tpu_torch/kernels/csrc/hnsw_select.cu",
                            "turdb_tpu/models/hnsw.py:471"),
-    "dense_blocks": ("turdb_tpu_torch/kernels/csrc/dense_blocks.cu",
+    "dense_blocks": ("turdb_tpu_torch/kernels/csrc/topk_rows.cu",
                      "turdb_tpu/models/ivf.py:225"),
     "sq8_scan": ("turdb_tpu_torch/kernels/csrc/sq8_scan.cu",
                  "turdb_tpu/ops/quantize.py:42"),
@@ -2362,7 +2541,7 @@ def kernel_rows(launches):
     # where measured: ten calls back to back (the host's launch path hidden),
     # K3's yardstick, the bf16 product of its operands alone, a trace's
     # device time, and K9's longest chain of steps and device time a step
-    extra = ("loop_ms", "gemm_ms", "device_ms", "longest_chain", "step_ms")
+    extra = ("loop_ms", "gemm_ms", "device_ms", "longest_chain", "step_ms", "bound_fp32_ms")
     return [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(counts.get(name, 0) for counts in launches.values()),
@@ -2524,6 +2703,8 @@ def run_paths(dev, launches):
     idx, batches = counted("hard", hard)
     profile("hard", idx, batches, REPORT["hard"]["gate_nprobe"])
     del idx
+    torch.cuda.empty_cache()
+    REPORT["widths"] = width_check(dev)
     torch.cuda.empty_cache()
 
 

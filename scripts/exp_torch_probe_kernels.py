@@ -33,9 +33,23 @@ K4's two orders on the hard row's own probes.
 
 Run on a CUDA card:
 
-    python3 scripts/exp_torch_probe_kernels.py OTHER_CHECKOUT [--variant NAME=FLAGS ...] [--k5-only]
+    python3 scripts/exp_torch_probe_kernels.py OTHER_CHECKOUT [--variant NAME=FLAGS ...] [--k5-only | --k11-only]
 
 `--k5-only` runs K5's part of 3 alone (a minute, most of it the builds).
+`--k11-only` runs K11 `sq8_scan` and the dense path's K2 + K10 pair alone
+(about two minutes): on the bench's make_pool 1M x 128 as u8 codes (its
+first 96 columns for d = 96) and 1024 of its held-out queries, K11 at
+(k, d) = (10, 128), (100, 128), (10, 96), A B V.. B A: `ms` of the whole
+`sq8_search` (K11 and its K2 merge), `loop_ms`, `device_ms` with its
+parts, each library's ids and distances against the plain version (the
+share of ids apart, the largest relative error, and whether every id
+apart lies where the plain distances of the two ids are within DOT_RTOL
+of the distance scale: a near-tie); A's K11 (an older commit's entry
+point) takes k <= 32 only. A variant built with -DSQ8_PHASE_CLOCKS adds
+the cycles a block spends in each phase of K11. Then the K2 + K10 pair at
+the dense path's shape (B = 1024, C = 7936 cells, P = 16, u = 8): A's two
+launches (K2, then its standalone K10) against B's one fused launch, A B B
+A, the blocks bit-equal to `dense_blocks_plain`.
 
 It prints one JSON object and writes it to exp_torch_probe_kernels.json
 in chip_smoke.py's output directory (`chip_smoke.OUT`).
@@ -259,6 +273,7 @@ def main() -> int:
     ap.add_argument("other")
     ap.add_argument("--variant", action="append", default=[])
     ap.add_argument("--k5-only", action="store_true")
+    ap.add_argument("--k11-only", action="store_true")
     opts = ap.parse_args()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -275,6 +290,15 @@ def main() -> int:
     build_s = time.perf_counter() - t
     variants = [n for n in libs if n not in ("A", "B")]
     order = ["A", "B", *variants, "B", "A"]
+    if opts.k11_only:
+        out = {"card": card, "other": opts.other, "build_s": build_s, "variants": opts.variant,
+               "order": order, **k11_ab(libs, order, dev)}
+        use(libs["B"])
+        text = json.dumps(out)
+        print(text)
+        cs.OUT.mkdir(exist_ok=True)
+        (cs.OUT / "exp_torch_probe_kernels_k11.json").write_text(json.dumps(out, indent=1))
+        return 1 if out["mismatches"] else 0
 
     all_cases = [] if opts.k5_only else cases(dev)
     # equality: every library against A at every case
@@ -341,6 +365,156 @@ def main() -> int:
     cs.OUT.mkdir(exist_ok=True)
     (cs.OUT / "exp_torch_probe_kernels.json").write_text(json.dumps(out, indent=1))
     return 1 if mismatches else 0
+
+
+K11_CASES = ((10, 128), (100, 128), (10, 96))   # (k, d) at B = 1024, N = 1M
+K11_PHASES = ("product", "epilogue+selection", "copy wait", "barrier", "outputs")
+# the older commits' C entry point of K11: q, qn, qsum, B, codes, mins, scales, valid,
+# N, d, chunk, k (<= 32), out_d, out_i, stream
+_OLD_SQ8 = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 4 + \
+    [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+# the older commits' K2 and (standalone) K10 entry points
+_OLD_TOPK = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3 + \
+    [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6
+_OLD_DENSE = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+
+
+def _old_sq8(lib, q, qn, qsum, codes, mins, scales, valid, k):
+    """An older library's K11 (one launch, a [B, k] list a chunk of 8192
+    rows) and this checkout's K2 merge of the chunks."""
+    fn = lib.sq8_scan
+    fn.argtypes, fn.restype = _OLD_SQ8, ctypes.c_int
+    b, d = q.shape
+    n = codes.shape[0]
+    nch = -(-n // kernels.SQ8_CHUNK)
+    part_d = torch.empty((b, nch * k), device=q.device)
+    part_i = torch.empty((b, nch * k), dtype=torch.int32, device=q.device)
+    err = fn(q.data_ptr(), qn.data_ptr(), qsum.data_ptr(), b, codes.data_ptr(), mins.data_ptr(),
+             scales.data_ptr(), valid.data_ptr(), n, d, kernels.SQ8_CHUNK, k, part_d.data_ptr(),
+             part_i.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"the other library's sq8_scan failed ({err})")
+    dk, pos = kernels.topk_rows(part_d, k)
+    ik = torch.gather(part_i, 1, pos.long())
+    return dk, torch.where(torch.isinf(dk), -1, ik)
+
+
+def _agreement(got, want):
+    """Share of ids apart, largest relative distance error, and whether
+    every id apart is a near-tie: the plain distances at the two ids within
+    DOT_RTOL of the distance scale."""
+    (dk, ik), (dp, ip) = got, want
+    fin = torch.isfinite(dp)
+    scale = max(float(dp[fin].abs().max()), 1.0)
+    apart = (ik != ip) & fin
+    rel = ((dk - dp).abs() / dp.abs().clamp_min(1e-30))[fin]
+    return {"ids_apart": float(apart.float().mean()), "max_rel_err": float(rel.max()),
+            "max_abs_err": float((dk - dp)[fin].abs().max()),
+            "apart_at_near_ties": bool(((dk - dp).abs()[apart] <= cs.DOT_RTOL * scale).all())}
+
+
+def _k11_clocks(lib, fn):
+    read = getattr(lib, "sq8_scan_clocks", None)
+    if read is None:
+        return {}
+    read.argtypes, read.restype = [ctypes.c_void_p], ctypes.c_int
+    c = (ctypes.c_ulonglong * 6)()
+    torch.cuda.synchronize()
+    read(c)
+    fn()
+    torch.cuda.synchronize()
+    read(c)
+    c = list(c)
+    return {"cycles_per_block": {**{p: c[i] / max(c[5], 1) for i, p in enumerate(K11_PHASES)},
+                                 "blocks": c[5]}}
+
+
+def k11_ab(libs, order, dev):
+    """--k11-only: K11 and the K2 + K10 pair, A B V.. B A (see the module
+    docstring)."""
+    from turdb_tpu_torch.kernels import EPI_L2, dense_blocks_plain
+    from turdb_tpu_torch.ops.quantize import sq8_encode
+    from turdb_tpu_torch.utils.datasets import make_pool
+
+    pool = make_pool(np.random.default_rng(0), cs.N + cs.N_QUERIES, cs.DIM)
+    xd = torch.as_tensor(pool[:cs.N], device=dev)
+    qd = torch.as_tensor(pool[cs.N:cs.N + cs.BATCH], device=dev)
+    del pool
+    valid = torch.ones(cs.N, dtype=torch.bool, device=dev)
+    stores = {}
+    for d in sorted({d for _, d in K11_CASES}):
+        codes, mins, scales = sq8_encode(xd[:, :d].contiguous())
+        q = qd[:, :d].contiguous()
+        stores[d] = (q, (q * q).sum(1), q.sum(1), codes, mins, scales, valid)
+    del xd
+    mismatches, rows = [], {}
+    for k, d in K11_CASES:
+        args = stores[d]
+        use(libs["B"])
+        want = kernels.sq8_scan_plain(*args, k)
+        plain_ms = cs._median_ms(lambda: kernels.sq8_scan_plain(*args, k), reps=3)
+        row = {"plain_ms": plain_ms, **cs._bound(
+            cs.N * d + 12 * cs.N + cs.BATCH * (4 * d + 8) + 8 * cs.BATCH * k,
+            2 * cs.BATCH * cs.N * d, cs.FP32_OPS)}
+        for name in order:
+            if name == "A" and k > 32:
+                continue
+            # A's K11 by its own entry point, its merge by B's K2 (unchanged)
+            use(libs["B" if name == "A" else name])
+            fn = ((lambda: _old_sq8(libs["A"], *args, k)) if name == "A"
+                  else (lambda: kernels.sq8_scan(*args, k)))
+            agree = _agreement(fn(), want)
+            if not agree["apart_at_near_ties"]:
+                mismatches.append(f"{name}: K11 k={k} d={d}")
+            row.setdefault(name, []).append({**timing(fn, libs[name]), **agree,
+                                             **_k11_clocks(libs[name], fn)})
+        rows[f"k={k} d={d}"] = row
+    del stores
+    torch.cuda.empty_cache()
+    # the dense path's cell selection: K2 + K10 (A: two launches) or K2 with
+    # K10 fused (B)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    b, c, p, u = cs.BATCH, 7936, 16, 8
+    q = torch.randn((b, cs.DIM), device=dev, generator=gen)
+    cents = torch.randn((c, cs.DIM), device=dev, generator=gen)
+    cnorms, qn = (cents * cents).sum(1), (q * q).sum(1)
+    cell_block = torch.randint(0, c // 3, (c,), device=dev, generator=gen, dtype=torch.int32)
+    dots = q @ cents.T
+
+    def pair_old():
+        lib = libs["A"]
+        lib.topk_rows.argtypes, lib.dense_blocks.argtypes = _OLD_TOPK, _OLD_DENSE
+        s = torch.cuda.current_stream().cuda_stream
+        vals = torch.empty((b, p), device=dev)
+        top = torch.empty((b, p), dtype=torch.int32, device=dev)
+        out = torch.empty((b, u), dtype=torch.int32, device=dev)
+        assert lib.topk_rows(dots.data_ptr(), b, c, qn.data_ptr(), cnorms.data_ptr(), None,
+                             EPI_L2, 0, p, vals.data_ptr(), top.data_ptr(), None, None, None,
+                             s) == 0
+        assert lib.dense_blocks(cell_block.data_ptr(), top.data_ptr(), b, p, u, out.data_ptr(),
+                                s) == 0
+        return top, out
+
+    def pair_new():
+        _, top, out = kernels.topk_rows(dots, p, rown=qn, coln=cnorms, epilogue=EPI_L2,
+                                        cell_block=cell_block, u=u)
+        return top, out
+
+    use(libs["B"])
+    want_top, want = pair_new()
+    plain = dense_blocks_plain(cell_block, want_top, u)
+    if not torch.equal(want, plain):
+        mismatches.append("B: fused K10 differs from dense_blocks_plain")
+    pair = {"shape": [b, c], "P": p, "u": u}
+    for name in ("A", "B", "B", "A"):
+        use(libs["B"])
+        fn = pair_old if name == "A" else pair_new
+        top, blocks = fn()
+        if not (torch.equal(top, want_top) and torch.equal(blocks, plain)):
+            mismatches.append(f"{name}: the K2 + K10 pair")
+        pair.setdefault(name, []).append(timing(fn, libs[name]))
+    return {"k11": rows, "k2_k10": pair, "mismatches": mismatches}
 
 
 def k4_orders(libs, mismatches):

@@ -110,12 +110,16 @@ def test_slice_on_cuda_matches_cpu(cuda):
 
 
 def test_kernel_limits_raise_and_leave_no_error_behind(cuda):
-    """A selection wider than SEL_MAX raises ValueError before any launch;
-    a shape past the card's shared memory comes back from the C entry
-    point as an error and raises; the next launch is not charged with it."""
+    """A selection wider than SEL_MAX runs K2's wide form, one launch,
+    bit-equal to the plain version; a shape past the card's shared memory
+    comes back from the C entry point as an error and raises (nothing runs
+    in its place); the next launch is not charged with it."""
     x = torch.randn(4, 5000, device=cuda)
-    with pytest.raises(ValueError):
-        kernels.topk_rows(x, kernels.SEL_MAX + 1)
+    before = kernels.launches["topk_rows"]
+    vw, pw = kernels.topk_rows(x, kernels.SEL_MAX + 1)
+    assert kernels.launches["topk_rows"] == before + 1
+    vpw, ppw = kernels.topk_rows_plain(x, kernels.SEL_MAX + 1)
+    assert torch.equal(vw, vpw) and torch.equal(pw, ppw)
     c, lcap, d = 4, 8, 60_000                        # a 240 KB query row in shared memory
     pvecs = torch.randn(c, lcap, d, device=cuda)
     members = torch.arange(c * lcap, device=cuda, dtype=torch.int32).reshape(c, lcap)
@@ -1048,9 +1052,10 @@ def test_hnsw_greedy_launches_once_a_wave_and_once_a_search(cuda):
 
 
 def test_hnsw_wave_limits_raise_and_leave_no_error_behind(cuda):
-    """K7's presorted mode past SELECT_W_MAX, K9 on rows it cannot read
-    four at a time, K8-SQ past EF_MAX: ValueError before a launch; the
-    next launches run and agree with their plain versions."""
+    """K7's presorted mode past SELECT_W_MAX and K8-SQ past EF_MAX:
+    ValueError before a launch; K9 on rows of 30 (not a multiple of 4)
+    reads a zero-padded copy; the next launches run and agree with their
+    plain versions."""
     from turdb_tpu_torch.ops.quantize import sq_rows_encode
 
     x = torch.randn(2048, 32, device=cuda)
@@ -1061,9 +1066,11 @@ def test_hnsw_wave_limits_raise_and_leave_no_error_behind(cuda):
         kernels.hnsw_select_sorted(x, torch.zeros(4, w, dtype=torch.int32, device=cuda),
                                    torch.zeros(4, w, device=cuda), deg=16, metric=0, alpha=1.0)
     cur = torch.zeros(4, dtype=torch.int32, device=cuda)
-    x30 = torch.randn(2048, 30, device=cuda)
-    with pytest.raises(ValueError):
-        kernels.hnsw_greedy(adj, x30, n, x30[:4], n[:4], cur, n[:4], metric=0)
+    x30 = torch.randn(2048, 30, device=cuda)      # rows read from a zero-padded copy
+    n30 = (x30 * x30).sum(1)
+    ki, kd, _ = kernels.hnsw_greedy(adj, x30, n30, x30[:4], n30[:4], cur, n30[:4], metric=0)
+    pi, pd, _ = kernels.hnsw_greedy_plain(adj, x30, n30, x30[:4], n30[:4], cur, n30[:4], metric=0)
+    torch.testing.assert_close(kd, pd, rtol=1e-5, atol=1e-3)
     rows = sq_rows_encode(x, 8)
     with pytest.raises(ValueError):
         kernels.hnsw_graph_beam(adj, rows, n, x[:4], n[:4], cur[:, None], n[:4, None],
@@ -1075,25 +1082,32 @@ def test_hnsw_wave_limits_raise_and_leave_no_error_behind(cuda):
 
 
 def test_dense_blocks_kernel_matches_plain(cuda):
-    """K10 bit-equal to its plain version: rows with many repeated blocks,
-    rows with fewer than u distinct blocks, u >= P (the gather), and a
-    probe list past one warp's width."""
+    """K10, fused into K2 (`topk_rows(..., cell_block=, u=)`), bit-equal to
+    `dense_blocks_plain` of K2's own selection: rows with many repeated
+    blocks, rows with fewer than u distinct blocks, u >= P (the gather), a
+    probe list past one warp's width, and a row of K2's segmented path
+    (N > 2048); one launch a call, counted as K2's and K10's."""
     g = torch.Generator(device=cuda).manual_seed(10)
-    for nblk, p, u in ((6, 12, 4), (40, 16, 8), (3, 9, 6), (500, 256, 100), (50, 8, 8)):
-        cell_block = torch.randint(0, nblk, (600,), device=cuda, generator=g, dtype=torch.int32)
-        top = torch.rand(257, 600, device=cuda, generator=g).topk(p).indices.to(torch.int32)
-        got = kernels.dense_blocks(cell_block, top, u)
+    for nblk, p, u, c in ((6, 12, 4, 600), (40, 16, 8, 600), (3, 9, 6, 600),
+                          (500, 256, 100, 600), (50, 8, 8, 600), (900, 16, 8, 7936)):
+        cell_block = torch.randint(0, nblk, (c,), device=cuda, generator=g, dtype=torch.int32)
+        x = torch.rand(257, c, device=cuda, generator=g)
+        before = (kernels.launches["topk_rows"], kernels.launches["dense_blocks"])
+        _, top, got = kernels.topk_rows(x, p, cell_block=cell_block, u=u)
         torch.cuda.synchronize()
+        assert (kernels.launches["topk_rows"], kernels.launches["dense_blocks"]) == (
+            before[0] + 1, before[1] + 1)
+        assert torch.equal(top, kernels.topk_rows_plain(x, p)[1])
         assert torch.equal(got, kernels.dense_blocks_plain(cell_block, top, u)), (nblk, p, u)
     with pytest.raises(ValueError):
-        kernels.dense_blocks(cell_block, top, 0)
+        kernels.topk_rows(x, p, cell_block=cell_block, u=0)
 
 
 def test_sq8_scan_kernel_matches_plain(cuda):
     """K11 against its plain version: ids equal except where the two
     distances tie within 1e-5 of the scale (fp32 sums in another order),
     over a store with invalid rows, repeated rows, a ragged last chunk and
-    k up to SQ8_K_MAX."""
+    k up to SQ8_LIST_MAX and one past it (the distance mode)."""
     from turdb_tpu_torch.ops.quantize import sq8_encode
 
     g = torch.Generator(device=cuda).manual_seed(11)
@@ -1103,7 +1117,7 @@ def test_sq8_scan_kernel_matches_plain(cuda):
     codes, mins, scales = sq8_encode(x)
     valid = torch.rand(n, device=cuda, generator=g) > 0.05
     q = torch.randn(130, d, device=cuda, generator=g) * 3
-    for k in (1, 10, kernels.SQ8_K_MAX):
+    for k in (1, 10, 64, kernels.SQ8_LIST_MAX, kernels.SQ8_LIST_MAX + 1):
         args = (q, (q * q).sum(1), q.sum(1), codes, mins, scales, valid, k)
         dk, ik = kernels.sq8_scan(*args)
         dp, ip = kernels.sq8_scan_plain(*args)
@@ -1176,3 +1190,161 @@ def test_mesh_across_cards_answers_as_one_card(cuda):
     for a, b in zip(out["one"], out["many"]):
         np.testing.assert_array_equal(a[1], b[1])
         np.testing.assert_array_equal(a[0], b[0])
+
+
+def test_widths_past_the_kernels(cuda):
+    """k = 3000 takes K2's wide form (one launch, bit-equal to the plain
+    version, and with K10 fused, bit-equal blocks); the widths no kernel
+    holds raise on the card before any launch: the IVF rerank past
+    SEL_MAX, ef = 1500 in K8 and K6, K7 at W = 100, d = 512; a wave insert
+    past SELECT_W_MAX refuses before any write."""
+    from turdb_tpu_torch.models import hnsw as th
+
+    g = torch.Generator(device=cuda).manual_seed(20)
+    x = torch.randn(5000, 16, device=cuda, generator=g)
+    q = torch.randn(2, 16, device=cuda, generator=g)
+    xn, qn = (x * x).sum(1), (q * q).sum(1)
+    kw = dict(rown=qn, coln=xn, epilogue=kernels.EPI_L2)
+    before = kernels.launches["topk_rows"]
+    dk, ik = kernels.topk_rows(q @ x.T, 3000, **kw)
+    assert kernels.launches["topk_rows"] == before + 1 and dk.shape == (2, 3000)
+    dp, ip = kernels.topk_rows_plain(q @ x.T, 3000, **kw)
+    assert torch.equal(dk, dp) and torch.equal(ik, ip)
+    cell_block = torch.randint(0, 700, (5000,), device=cuda, generator=g, dtype=torch.int32)
+    for u in (2100, 3000):
+        _, top, blk = kernels.topk_rows(q @ x.T, 3000, cell_block=cell_block, u=u, **kw)
+        assert torch.equal(top, ip) and torch.equal(blk, kernels.dense_blocks_plain(
+            cell_block, top, u))
+    pool = make_pool(np.random.default_rng(3), 20_256, 32, n_clusters=64)
+    ivf = IvfIndex(dim=32, device=cuda, n_clusters=16, sq8=True, rerank=2500)
+    ivf.add(pool[:20_000])
+    with pytest.raises(ValueError, match="SEL_MAX|2048"):
+        ivf.search(pool[20_000:], 10, nprobe=8)
+    hn = th.HnswIndex(dim=32, device=cuda, ef_construction=64)
+    hn.add(pool[:12_000])
+    hq = torch.as_tensor(pool[20_000:20_064], device=cuda)
+    with pytest.raises(ValueError, match="ef"):
+        hn.search(hq, 10, ef=1500)
+    hn.pack_serving()
+    with pytest.raises(ValueError, match="ef"):
+        hn.search_serve(hq, 10, ef=1500)
+    x5 = torch.randn(4000, 512, device=cuda, generator=g)
+    cand = torch.randint(0, 4000, (64, 100), dtype=torch.int32, device=cuda, generator=g)
+    with pytest.raises(ValueError, match="W\\*dim"):
+        kernels.hnsw_select(x5, (x5 * x5).sum(1), torch.arange(64, dtype=torch.int32,
+                                                               device=cuda), cand,
+                            deg=16, metric=0, alpha=1.0)
+    wide = th.HnswIndex(dim=32, device=cuda, ef_construction=kernels.SELECT_W_MAX + 1)
+    with pytest.raises(ValueError, match="ef_construction"):
+        wide.add(pool[:100])
+    assert len(wide) == 0
+    vk, _ = kernels.topk_rows(x[:4, :100].contiguous(), 5)
+    assert torch.equal(vk, kernels.topk_rows_plain(x[:4, :100], 5)[0])
+
+
+def test_sq8_scan_past_the_list_and_the_slice(cuda):
+    """K11 at k = 100 and k = 2100 (the distance mode; K2's wide form past
+    SEL_MAX) and at d = 400 (two column slices, 320 + 80, summed in fp32),
+    against its plain version with test_sq8_scan_kernel_matches_plain's
+    tolerance (1e-5 of the distance scale; ids apart only inside it); every
+    K11 launch counts (two a slice of queries at d = 400)."""
+    from turdb_tpu_torch.ops.quantize import sq8_encode
+
+    g = torch.Generator(device=cuda).manual_seed(12)
+    for d, k in ((24, 100), (24, 2100), (400, 10), (400, 100)):
+        x = torch.randn(5000, d, device=cuda, generator=g)
+        codes, mins, scales = sq8_encode(x)
+        valid = torch.rand(5000, device=cuda, generator=g) > 0.05
+        q = torch.randn(70, d, device=cuda, generator=g) * 3
+        args = (q, (q * q).sum(1), q.sum(1), codes, mins, scales, valid, k)
+        before = kernels.launches["sq8_scan"]
+        dk, ik = kernels.sq8_scan(*args)
+        assert kernels.launches["sq8_scan"] - before == len(kernels.sq8_slices(d))
+        dp, ip = kernels.sq8_scan_plain(*args)
+        scale = float(dp.abs().max())
+        assert float((dk - dp).abs().max()) <= 1e-5 * scale, (d, k)
+        differ = ik != ip
+        assert bool(((dk - dp).abs()[differ] <= 1e-5 * scale).all()), (d, k)
+        assert bool(valid[ik.long()].all())
+
+
+def _norm_atol(x, q):
+    """Distances' tolerance where two sums of fp32 products part: DOT_RTOL
+    of the largest ‖x‖² + ‖q‖² (the terms the L2 epilogue cancels), as
+    test_hnsw_graph_beam_at_its_limits holds K8."""
+    x, q = (np.asarray(a, np.float32) for a in (x, q))
+    return DOT_RTOL * float((x * x).sum(1).max() + (q * q).sum(1).max())
+
+
+def _cpu_state(state):
+    from turdb_tpu_torch.parallel.sharded import _to_device
+
+    return _to_device(state, torch.device("cpu"))
+
+
+def _cpu_ivf(idx):
+    """A CPU copy of an IvfIndex (its state and config): its search runs
+    the plain versions."""
+    import copy
+
+    cpu = copy.copy(idx)
+    cpu.device = torch.device("cpu")
+    cpu.state = _cpu_state(idx.state)
+    return cpu
+
+
+@pytest.mark.parametrize("d", (6, 130))
+def test_dims_past_a_multiple_of_four(cuda, d):
+    """d = 6 and d = 130: the IVF f32 and sq8 stores and the HNSW graph and
+    serving pack, built on the card (the kernels read zero-padded copies of
+    the rows), answer as the same states searched by the plain versions on
+    the CPU."""
+    from turdb_tpu_torch.models import hnsw as th
+    from turdb_tpu_torch.models.hnsw_serve import serve_search_impl
+
+    pool = make_pool(np.random.default_rng(4), 12_064, d, n_clusters=64)
+    x, q = pool[:12_000], pool[12_000:]
+    atol = _norm_atol(x, q)
+    for flags in (dict(), dict(sq8=True, rerank=40)):
+        idx = IvfIndex(dim=d, device=cuda, **flags)
+        idx.add(x)
+        assert idx.state.pvecs.shape[-1] == d
+        dk, ik = idx.search(q, 10, nprobe=8, out="torch")
+        dp, ip = _cpu_ivf(idx).search(q, 10, nprobe=8)
+        _assert_near(dk.cpu(), ik.cpu(), torch.from_numpy(dp), torch.from_numpy(ip), atol, 0.99)
+    hn = th.HnswIndex(dim=d, device=cuda, ef_construction=64)
+    hn.add(x[:6000])
+    hn.add(x[6000:6500])                      # the waves
+    hq = torch.as_tensor(q, device=cuda)
+    dk, ik = hn.search(hq, 10, ef=64, out="torch")
+    dp, ip = th.hnsw_search_impl(_cpu_state(hn.state), hq.cpu(), None, cfg=hn.cfg, k=10, ef=64,
+                                 iters=96, filtered=False, descent_ef=hn._descent_ef)
+    _assert_near(dk.cpu(), ik.cpu(), dp, ip, atol, 0.99)
+    hn.pack_serving()
+    dk, ik = hn.search_serve(hq, 10, ef=64, out="torch")
+    dp, ip = serve_search_impl(_cpu_state(hn.serve), hq.cpu(), None, metric=hn.cfg.metric, k=10,
+                               ef=64, iters=96)
+    _assert_near(dk.cpu(), ik.cpu(), dp, ip, atol, 0.99)
+
+
+def test_ten_level_graph(cuda):
+    """An HnswConfig(max_levels=10) graph (nine upper levels) on the card:
+    the descent walks them in two K9 launches (8, then 1) and answers as
+    the same state on the CPU."""
+    import dataclasses
+
+    from turdb_tpu_torch.models import hnsw as th
+
+    pool = make_pool(np.random.default_rng(5), 8_064, 32, n_clusters=64)
+    hn = th.HnswIndex(dim=32, device=cuda, ef_construction=64, bulk_threshold=10**9)
+    hn.cfg = dataclasses.replace(hn.cfg, max_levels=10)
+    hn.state = th.init_state(hn.cfg, hn.capacity, hn.device)
+    hn.add(pool[:4000])
+    assert len(hn.state.adj_hi) == 9
+    hq = torch.as_tensor(pool[8000:], device=cuda)
+    before = kernels.launches["hnsw_greedy"]
+    dk, ik = hn.search(hq, 10, ef=64, out="torch")
+    assert kernels.launches["hnsw_greedy"] == before + 2
+    dp, ip = th.hnsw_search_impl(_cpu_state(hn.state), hq.cpu(), None, cfg=hn.cfg, k=10, ef=64,
+                                 iters=96, filtered=False, descent_ef=hn._descent_ef)
+    _assert_near(dk.cpu(), ik.cpu(), dp, ip, _norm_atol(pool[:4000], pool[8000:]), 0.99)

@@ -148,7 +148,7 @@ def test_dense_blocks_plain_is_first_unique(p, u, nblk):
     top = np.stack([rng.choice(50, p, replace=False) for _ in range(64)]).astype(np.int32)
     blk = jnp.asarray(cell_block)[jnp.asarray(top)]
     want = np.asarray(jivf._first_unique(blk, u) if u < p else blk)
-    got = kernels.dense_blocks(torch.from_numpy(cell_block), torch.from_numpy(top), u)
+    got = kernels.dense_blocks_plain(torch.from_numpy(cell_block), torch.from_numpy(top), u)
     np.testing.assert_array_equal(got.numpy(), want)
 
 

@@ -75,3 +75,30 @@ def test_flat_search_empty_and_short_store():
     pd, pi = port.search(q, k=8)
     assert_knn_match(rd, ri, pd, pi)
     assert (pi[:, 5:] == -1).all() and np.isinf(pd[:, 5:]).all()
+
+
+@pytest.mark.parametrize("entry", ["flat_index", "topk_rows"])
+def test_k_past_the_selection_width(entry):
+    """k = 3000 over 5,000 rows (past K2's SEL_MAX = 2048, where the card
+    takes K2's wide form): the shape [2, 3000] and the reference's
+    `flat_search` ids and distances, from `FlatIndex.search` and from
+    `topk_rows` with the L2 epilogue on the dot matrix."""
+    from turdb_tpu_torch.kernels import EPI_L2, SEL_MAX, topk_rows
+
+    x, q, _ = _rows(14, n=5000, b=2)
+    k = 3000
+    assert k > SEL_MAX
+    ref = JaxFlat(dim=16)
+    ref.add(x)
+    want = ref.search(q, k=k)
+    if entry == "flat_index":
+        port = FlatIndex(dim=16, device="cpu")
+        port.add(x)
+        d, i = port.search(q, k=k)
+    else:
+        qt, xt = torch.from_numpy(q), torch.from_numpy(x)
+        d, i = topk_rows(qt @ xt.T, k, rown=prep_norms(qt), coln=prep_norms(xt),
+                         epilogue=EPI_L2, clamp=True)
+        d, i = d.numpy(), i.numpy()
+    assert d.shape == (2, k) and i.shape == (2, k)
+    assert_knn_match(*want, d, i)

@@ -14,7 +14,8 @@
   from its entry over its levels (>= 0.99; level 0 alone is as reachable
   as the reference's) and its recall@10 is within 0.02 of the
   reference's on the same data;
-- deletes and `allowed` masks, and the width the wave inserts refuse.
+- deletes and `allowed` masks; wave inserts at an ef_construction past
+  K7's SELECT_W_MAX build the reference's graph.
 The reference's graph is built once per module at 9000 x 32.
 """
 
@@ -321,15 +322,22 @@ def test_unported_paths_raise(data):
     """Every mutation path of the index is ported (tests/test_torch_hnsw_wave.py
     and tests/test_torch_hnsw_sq.py hold them to the reference): an add
     below bulk_threshold and into a non-empty index take the waves, and
-    quantize, dequantize and vacuum run. What still raises is a width the
-    kernels refuse: the waves select from the ef_construction beam, so an
-    ef_construction past SELECT_W_MAX raises ValueError before the index
-    changes, while a bulk load, which never selects from that beam, takes it."""
+    quantize, dequantize and vacuum run. No width raises on the CPU: the
+    waves select from the ef_construction beam, and at ef_construction =
+    300, past K7's SELECT_W_MAX (on the card the waves refuse it before any
+    write), wave inserts build the reference's graph."""
     base, _, _ = data
-    wide = th.HnswIndex(dim=DIM, ef_construction=SELECT_W_MAX + 1, device="cpu")
-    with pytest.raises(ValueError, match="ef_construction"):
-        wide.add(base[:100])                    # below bulk_threshold: a wave insert
-    assert len(wide) == 0 and wide.state.entry == -1
+    efc = 300
+    assert efc > SELECT_W_MAX
+    wide = th.HnswIndex(dim=DIM, ef_construction=efc, device="cpu")
+    want = jh.HnswIndex(dim=DIM, ef_construction=efc)
+    for idx in (wide, want):
+        idx.add(base[:300])                     # below bulk_threshold: the waves
+        idx.add(base[300:400])
+    assert len(wide) == 400 and (wide.state.entry, wide.state.max_level) == (
+        int(want.state.entry), int(want.state.max_level))
+    for a, b in zip((wide.state.adj0, *wide.state.adj_hi), (want.state.adj0, *want.state.adj_hi)):
+        assert (a.numpy()[:400] == np.asarray(b)[:400]).all(1).mean() >= 0.99
     small = th.HnswIndex(dim=DIM, device="cpu")
     np.testing.assert_array_equal(small.add(base[:100]), np.arange(100))
     idx = th.HnswIndex(dim=DIM, capacity=4096, bulk_threshold=2000, device="cpu")
@@ -348,3 +356,58 @@ def test_unported_paths_raise(data):
     empty = th.HnswIndex(dim=DIM, device="cpu")
     d, i = empty.search(base[:3], k=4)
     assert (i == -1).all() and np.isinf(d).all()
+
+
+def test_ten_levels_through_convert(data):
+    """A reference state with HnswConfig(max_levels=10), nine upper levels
+    (past K9's GREEDY_LEVELS_MAX = 8 a launch), loaded by convert.py: the
+    port walks them in launches of at most eight, top first, and answers
+    as the reference's `hnsw_search_impl`, with and without a mask."""
+    import dataclasses
+
+    base, queries, _ = data
+    ref = jh.HnswIndex(dim=DIM, capacity=2048)
+    ref.cfg = dataclasses.replace(ref.cfg, max_levels=10)
+    ref.state = jh.init_state(ref.cfg, ref.capacity)
+    ref.add(base[:1500])
+    assert len(ref.state.adj_hi) == 9
+    arrays, conf = export_hnsw(ref.state, ref.cfg, ref.size)
+    port = hnsw_index_from_numpy(arrays, conf, ref.size, alive=ref._alive, device="cpu")
+    assert port.cfg.max_levels == 10 and len(port.state.adj_hi) == 9
+    allowed = np.random.default_rng(48).random(port.capacity) < 0.7
+    for mask in (None, allowed):
+        want = jh.hnsw_search_impl(ref.state, jnp.asarray(queries),
+                                   None if mask is None else jnp.asarray(mask), cfg=ref.cfg,
+                                   k=10, ef=64, iters=96, filtered=mask is not None)
+        got = th.hnsw_search_impl(port.state, torch.from_numpy(queries),
+                                  None if mask is None else torch.from_numpy(mask), cfg=port.cfg,
+                                  k=10, ef=64, iters=96, filtered=mask is not None)
+        assert_knn_match(*(np.asarray(a) for a in want), *(a.numpy() for a in got))
+
+
+def test_dim_not_a_multiple_of_four():
+    """d = 6 (the card's row kernels read rows zero-padded to 8): the
+    reference's wave-built graph, loaded by convert.py, answers as the
+    reference; the port's own waves over the same rows keep the true dim
+    and recall as the reference's (graph search and the serving pack's
+    search)."""
+    d = 6
+    rng = np.random.default_rng(49)
+    x = _clustered(rng, 1500, d=d, c=16)
+    q = x[:24] + 0.05 * rng.standard_normal((24, d)).astype(np.float32)
+    ref = jh.HnswIndex(dim=d, ef_construction=64)
+    ref.add(x)
+    arrays, conf = export_hnsw(ref.state, ref.cfg, ref.size)
+    port = hnsw_index_from_numpy(arrays, conf, ref.size, alive=ref._alive, device="cpu")
+    assert port.state.vectors.shape[1] == d
+    assert_knn_match(*ref.search(q, k=10, ef=64), *port.search(q, k=10, ef=64))
+    own = th.HnswIndex(dim=d, ef_construction=64, device="cpu")
+    own.add(x)
+    assert own.state.vectors.shape[1] == d
+    own.pack_serving()
+    assert own.serve.nbr_codes.shape[-1] == d
+    exact = np.argsort(((q[:, None] - x[None]) ** 2).sum(-1), axis=1)[:, :10]
+    rec = [np.mean([len(set(a) & set(b)) / 10 for a, b in zip(np.asarray(ids), exact)])
+           for ids in (ref.search(q, k=10, ef=64)[1], own.search(q, k=10, ef=64)[1],
+                       own.search_serve(q, k=10, ef=64)[1])]
+    assert min(rec[1:]) >= rec[0] - 0.02, rec

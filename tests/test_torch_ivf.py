@@ -196,3 +196,45 @@ def test_unported_paths_raise():
     idx = tivf.IvfIndex(dim=8, dense_pack=True, nblocks=4, device="cpu")
     assert idx.dense_pack and idx.nblocks == 4
     assert Metric.L2.value == 0
+
+
+def test_rerank_past_the_selection_width():
+    """sq8 with rerank = 2500 candidate lanes (past SEL_MAX = 2048, which
+    the probe's candidate selection and K5 refuse on the card): the
+    reference's answers on its own state."""
+    rng = np.random.default_rng(25)
+    x = _clustered(rng, 3000)
+    q = x[:16] + 0.05 * rng.standard_normal((16, DIM)).astype(np.float32)
+    ref = jivf.IvfIndex(dim=DIM, n_clusters=16, nprobe=8, sq8=True, rerank=2500)
+    ref.add(x)
+    ref.train()
+    assert ref.cfg.rerank > 2048 and 8 * ref.cfg.cluster_cap >= ref.cfg.rerank
+    _both(*export_ivf(ref.state, ref.cfg), ref.state, ref.cfg, q)
+
+
+@pytest.mark.parametrize("sq8", [False, True], ids=["f32", "sq8"])
+def test_dim_not_a_multiple_of_four(sq8):
+    """d = 6 (the card's row kernels read rows zero-padded to 8): the
+    reference's state, loaded by convert.py, answers as the reference; the
+    port's own build of the same rows keeps the true dim and recalls as the
+    reference's build."""
+    d = 6
+    rng = np.random.default_rng(26)
+    x = _clustered(rng, 2000, d=d, c=16)
+    q = x[:32] + 0.05 * rng.standard_normal((32, d)).astype(np.float32)
+    kw = dict(n_clusters=32, nprobe=4, sq8=sq8, rerank=20 if sq8 else 0)
+    ref = jivf.IvfIndex(dim=d, **kw)
+    ref.add(x)
+    ref.train()
+    arrays, conf = export_ivf(ref.state, ref.cfg)
+    state, _ = ivf_state_from_numpy(arrays, conf, "cpu")
+    assert state.pvecs.shape[-1] == d
+    _both(arrays, conf, ref.state, ref.cfg, q)
+    port = tivf.IvfIndex(dim=d, device="cpu", **kw)
+    port.add(x)
+    port.train()
+    assert port.state.pvecs.shape[-1] == d
+    exact = np.argsort(((q[:, None] - x[None]) ** 2).sum(-1), axis=1)[:, :10]
+    rec = [np.mean([len(set(a) & set(b)) / 10 for a, b in zip(np.asarray(ids), exact)])
+           for ids in (ref.search(q, k=10)[1], port.search(q, k=10)[1])]
+    assert rec[1] >= rec[0] - 0.02, rec

@@ -205,8 +205,7 @@ def test_cpu_wrappers_leave_launch_counters_at_zero():
     cand = torch.arange(40, dtype=torch.int32).reshape(4, 10) % 32
     kernels.hnsw_select_sorted(xt[:32].contiguous(), cand, torch.arange(40.0).reshape(4, 10),
                                deg=4, metric=0, alpha=1.0)
-    kernels.dense_blocks(torch.tensor([0, 0, 1, 2], dtype=torch.int32),
-                         torch.tensor([[0, 1, 2, 3]], dtype=torch.int32), 2)
+    kernels.topk_rows(qt @ xt.T, 4, cell_block=torch.arange(300, dtype=torch.int32) // 3, u=2)
     u8, m8, s8 = tq.sq8_encode(xt[:32])
     kernels.sq8_scan(qt, td.prep_norms(qt), qsum, u8, m8, s8,
                      torch.ones(32, dtype=torch.bool), 3)
@@ -220,7 +219,13 @@ def test_cpu_wrappers_leave_launch_counters_at_zero():
 
 def test_wrappers_never_fall_back():
     """Tensors off the CPU and off CUDA (here: meta) are refused, as are
-    mixed devices: the plain version runs only for CPU tensors."""
+    mixed devices: the plain version runs only for CPU tensors, at any
+    width. On CUDA no width routes to it: K2 and K11 take any k (and K11
+    any d) in kernels of their own, and a width past what a kernel holds (m
+    or r past SEL_MAX in the probes and the rerank, the beams past EF_MAX /
+    SLOTS_MAX / EXP_MAX or DIM_MAX, K7 past SELECT_W_MAX / SELECT_SMEM_MAX,
+    K9 past DIM_MAX) raises before any launch. A failed build or launch
+    raises; nothing falls back after it. A k past the row still raises."""
     x = torch.empty((4, 64), device="meta")
     with pytest.raises(ValueError):
         kernels.topk_rows(x, 3)

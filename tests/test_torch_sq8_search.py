@@ -83,8 +83,16 @@ def test_plain_chunks_change_nothing(monkeypatch):
     assert tie.any() and (i[:, 1:][tie] > i[:, :-1][tie]).all()
 
 
-def test_k_past_the_kernel_limit_raises():
-    codes = torch.zeros((100, 8), dtype=torch.uint8)
-    with pytest.raises(ValueError, match="sq8_scan"):
-        tq.sq8_search(torch.zeros((2, 8)), codes, torch.zeros(100), torch.ones(100),
-                      torch.ones(100, dtype=torch.bool), kernels.SQ8_K_MAX + 1)
+def test_k_past_the_old_kernel_limit():
+    """k = 100 (past the old K11 limit of 32; the card's list mode takes it,
+    k past SQ8_LIST_MAX the distance mode) answers as the reference's."""
+    rng = np.random.default_rng(100)
+    x = rng.standard_normal((3000, 24)).astype(np.float32) * 2
+    q = rng.standard_normal((8, 24)).astype(np.float32) * 2
+    codes, mins, scales = _store(x)
+    valid = rng.random(3000) < 0.9
+    d_ref, i_ref = jq.sq8_search(jnp.asarray(q), jnp.asarray(codes), jnp.asarray(mins),
+                                 jnp.asarray(scales), jnp.asarray(valid), k=100)
+    d, i = _port(q, codes, mins, scales, valid, 100)
+    assert d.shape == (8, 100)
+    assert_knn_match(d_ref, i_ref, d, i)

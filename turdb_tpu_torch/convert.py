@@ -7,6 +7,8 @@ the caller.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -121,6 +123,8 @@ def hnsw_index_from_numpy(arrays: dict, cfg: dict, size: int, *, alive=None,
                     ef_search=cfg.get("ef_search", 64), capacity=cap, device=device)
     dev = idx.device
     adj_hi = np.asarray(arrays["adj_hi"], np.int32)
+    # the state's own level count (a reference config may set max_levels)
+    idx.cfg = dataclasses.replace(idx.cfg, max_levels=len(adj_hi) + 1)
     if sq:
         codes = np.array(codes)     # the uint16 codes are kept as int16 bits
         rows = Sq8Rows(

@@ -14,15 +14,26 @@ and the launch counters.
     K8 hnsw_graph_beam  csrc/hnsw_beam.cu    HNSW graph beam over one level (f32 rows;
                                              over the SQ store, counted as hnsw_graph_beam_sq)
     K9 hnsw_greedy      csrc/hnsw_greedy.cu  HNSW greedy descent through one level or several
-    K10 dense_blocks    csrc/dense_blocks.cu dense IVF: probed cells -> first-u distinct blocks
-    K11 sq8_scan        csrc/sq8_scan.cu     asymmetric L2 k-NN over a u8 store (+ a K2 merge)
+    K10 dense_blocks    csrc/topk_rows.cu    dense IVF: probed cells -> first-u distinct blocks
+                                             (fused into K2: `topk_rows(..., cell_block=, u=)`)
+    K11 sq8_scan        csrc/sq8_scan.cu     asymmetric L2 k-NN over a u8 store on the int8
+                                             tensor cores (+ a K2 merge)
 
-A wrapper given CPU tensors runs the plain version below; given CUDA
-tensors it launches its kernel (built at first use) or raises. There is
-no fallback from one to the other. `launches[name]` counts kernel
-launches only. Widths past a kernel's limits (SEL_MAX for selections,
-EF_MAX / SLOTS_MAX / EXP_MAX for the beams, SELECT_W_MAX for K7, whose
-presorted mode checks it on the CPU too) raise ValueError before any launch.
+A wrapper given CPU tensors runs the plain version below, at any width;
+given CUDA tensors it launches its kernel (built at first use) or raises.
+There is no fallback after a failed build or launch, and none by shape:
+a width past what a kernel holds (SEL_MAX for the probes and the rerank,
+EF_MAX / SLOTS_MAX / EXP_MAX for the beams, SELECT_W_MAX and
+SELECT_SMEM_MAX for K7, DIM_MAX for the row readers) raises on CUDA; each
+wrapper's docstring names its limits. K2 takes any k (past SEL_MAX its
+wide form), K11 any k and any d (d-slices), and a caller walks more
+levels than K9 holds in launches of at most GREEDY_LEVELS_MAX.
+`launches[name]` counts kernel launches only.
+
+Dims. The row kernels read rows 4 elements at a time: a row store whose
+dim is not a multiple of 4 is copied zero-padded for each launch
+(`_rows4`), and the queries with it (`pad_dim`), so a pad lane meets a
+zero query lane.
 """
 
 from __future__ import annotations
@@ -57,11 +68,34 @@ launches = {"ivf_probe_f32": 0, "topk_rows": 0, "kmeans_assign": 0,
             "hnsw_select": 0, "hnsw_graph_beam": 0, "hnsw_select_sorted": 0,
             "hnsw_graph_beam_sq": 0, "hnsw_greedy": 0, "dense_blocks": 0,
             "sq8_scan": 0}
+# widest row a row-reading kernel (K6-K9) keeps in its buffers
+DIM_MAX = 4096
 
 
 def reset_launches() -> None:
+    """Zero `launches`."""
     for name in launches:
         launches[name] = 0
+
+
+def pad_dim(x: torch.Tensor) -> torch.Tensor:
+    """`x` [..., d] with zero columns up to a multiple of 4 (the kernels read
+    rows 4 elements at a time); `x` itself when d already is one."""
+    extra = -x.shape[-1] % 4
+    return x if extra == 0 else torch.nn.functional.pad(x, (0, extra))
+
+
+def _rows4(t: torch.Tensor) -> torch.Tensor:
+    """The rows a kernel reads 4 elements at a time: `t` when its dim is a
+    multiple of 4, else a zero-padded copy (a copy a launch)."""
+    return t if t.shape[-1] % 4 == 0 else pad_dim(t.contiguous())
+
+
+def _rows4_store(vectors):
+    """`_rows4` of an f32 row store or of an `Sq8Rows` store's codes."""
+    if isinstance(vectors, Sq8Rows):
+        return Sq8Rows(_rows4(vectors.codes), vectors.mins, vectors.scales)
+    return _rows4(vectors)
 
 
 def _on_cuda(*tensors) -> bool:
@@ -86,6 +120,13 @@ def _check(t, name, dtype, shape):
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def _past_limit(name: str, limits: str, got: str):
+    """The error of a CUDA call past what its kernel holds (the plain
+    version, on CPU tensors, takes any width)."""
+    return ValueError(f"{name}: on CUDA the kernel takes {limits}; got {got} (CPU tensors take "
+                      f"any width)")
 
 
 # the C entry points, looked up in the library once each
@@ -169,7 +210,12 @@ def topk_segments(n: int) -> int:
 
 def _topk_scratch(b, n, k, device):
     """(candidate keys, candidate positions, row counters) of a segmented
-    launch, or Nones."""
+    launch; for the wide form (k > SEL_MAX) the rows' keys [B, N] and their
+    [B, pow2(k)] 64-bit winners; else Nones."""
+    if k > SEL_MAX:
+        return (torch.empty(b * n, dtype=torch.int32, device=device),
+                torch.empty(b * 2 * (1 << (k - 1).bit_length()), dtype=torch.int32,
+                            device=device), None)
     nseg = topk_segments(n)
     if nseg == 1:
         return None, None, None
@@ -182,36 +228,56 @@ def _topk_scratch(b, n, k, device):
 
 
 def topk_rows(x: torch.Tensor, k: int, *, rown=None, coln=None, colvalid=None,
-              epilogue: int = EPI_NONE, clamp: bool = False):
+              epilogue: int = EPI_NONE, clamp: bool = False, cell_block=None,
+              u: int | None = None):
     """Exact k smallest of each row of `x` [B, N] f32, after an optional
     epilogue: L2 `(rown[b] + coln[j]) − 2·x[b, j]` (clamped at 0 if
     `clamp`), COS `1 − x`, IP `−x`; lanes where `colvalid` [N] is False
     become +inf. Returns ([B, k] values ascending, [B, k] int32 column
     positions); ties go to the lower position, as `lax.top_k` does. On
-    CUDA one launch a call."""
+    CUDA one launch a call, at any k: past SEL_MAX its wide form (a block
+    a row, over the keys in a scratch row; a correctness path).
+
+    With `cell_block` [C] int32 (the dense IVF map, C = N) and `u`, K10
+    runs in the same launch on each row's winners: a third output [B,
+    min(u, k)] holds `dense_blocks_plain(cell_block, positions, u)`, the
+    first u distinct blocks of the selected cells (the launch counts as
+    `dense_blocks` too)."""
     b, n = x.shape
-    if not 0 < k <= min(n, SEL_MAX):
-        raise ValueError(f"topk_rows: need 0 < k <= min(N, {SEL_MAX}), got k={k}, N={n}")
+    if not 0 < k <= n:
+        raise ValueError(f"topk_rows: need 0 < k <= N, got k={k}, N={n}")
     if epilogue == EPI_L2 and (rown is None or coln is None):
         raise ValueError("topk_rows: the L2 epilogue needs rown and coln")
-    if not _on_cuda(x, rown, coln, colvalid):
-        return topk_rows_plain(x, k, rown, coln, colvalid, epilogue, clamp)
+    if cell_block is not None and (u is None or u < 1):
+        raise ValueError(f"topk_rows: the dense blocks need u >= 1, got {u}")
+    if not _on_cuda(x, rown, coln, colvalid, cell_block):
+        vals, pos = topk_rows_plain(x, k, rown, coln, colvalid, epilogue, clamp)
+        if cell_block is None:
+            return vals, pos
+        return vals, pos, dense_blocks_plain(cell_block, pos, u)
     _check(x, "x", torch.float32, (b, n))
     if epilogue == EPI_L2:
         _check(rown, "rown", torch.float32, (b,))
         _check(coln, "coln", torch.float32, (n,))
     if colvalid is not None:
         _check(colvalid, "colvalid", torch.bool, (n,))
+    if cell_block is not None:
+        _check(cell_block, "cell_block", torch.int32, cell_block.shape[:1])
     out_d = torch.empty((b, k), dtype=torch.float32, device=x.device)
     out_i = torch.empty((b, k), dtype=torch.int32, device=x.device)
+    out_b = (None if cell_block is None else
+             torch.empty((b, min(u, k)), dtype=torch.int32, device=x.device))
     if b:
         _launch("topk_rows", x.device, x.data_ptr(), b, n,
                 _ptr(rown) if epilogue == EPI_L2 else None,
                 _ptr(coln) if epilogue == EPI_L2 else None,
                 _ptr(_as_u8(colvalid)), epilogue, int(clamp), k,
                 out_d.data_ptr(), out_i.data_ptr(),
-                *map(_ptr, _topk_scratch(b, n, k, x.device)))
-    return out_d, out_i
+                *map(_ptr, _topk_scratch(b, n, k, x.device)),
+                _ptr(cell_block), u or 0, _ptr(out_b))
+        if cell_block is not None:
+            launches["dense_blocks"] += 1
+    return (out_d, out_i) if cell_block is None else (out_d, out_i, out_b)
 
 
 # ---------------------------------------------------------------------------
@@ -298,9 +364,8 @@ def _probe_checks(name, cells, members, alive, allowed, k, m, replicated, mode):
         raise ValueError(f"{name}: lane indices are int32; got {nb} cells, P={p}, L={lcap}")
     if mode not in (MODE_TOPK, MODE_CAND):
         raise ValueError(f"{name}: unknown mode {mode}")
-    if not 0 < k <= m <= min(n_lanes, SEL_MAX):
-        raise ValueError(f"{name}: need 0 < k <= m <= min(P*L, {SEL_MAX}); "
-                         f"got k={k}, m={m}, P*L={n_lanes}")
+    if not 0 < k <= m <= n_lanes:
+        raise ValueError(f"{name}: need 0 < k <= m <= P*L; got k={k}, m={m}, P*L={n_lanes}")
     if mode == MODE_TOPK and not replicated and m != k:
         raise ValueError(f"{name}: m must equal k without replicas")
     if mode == MODE_CAND and m != k:
@@ -377,7 +442,8 @@ def ivf_probe_f32(q, qn, cells, pvecs, pnorms, members, alive, allowed=None, *,
     k survivors kept. Returns ([B, k] f32 ascending, [B, k] int32 ids, -1
     where +inf).
     MODE_CAND (k == m): the m smallest lanes, before any dedup, as
-    ([B, m] distances, [B, m] ids, [B, m] int32 flat positions cell*L + lane)."""
+    ([B, m] distances, [B, m] ids, [B, m] int32 flat positions cell*L + lane).
+    On CUDA m > SEL_MAX raises."""
     b, p = cells.shape
     nb, lcap, d = pvecs.shape
     _probe_checks("ivf_probe_f32", cells, members, alive, allowed, k, m, replicated, mode)
@@ -386,13 +452,17 @@ def ivf_probe_f32(q, qn, cells, pvecs, pnorms, members, alive, allowed=None, *,
     if not _on_cuda(q, qn, cells, pvecs, pnorms, members, alive, allowed):
         return ivf_probe_f32_plain(q, qn, cells, pvecs, pnorms, members,
                                    alive, allowed, metric, k, m, replicated, mode)
+    if m > SEL_MAX:
+        raise _past_limit("ivf_probe_f32", f"m <= {SEL_MAX}", f"m={m}")
+    q, pvecs = pad_dim(q), _rows4(pvecs)
+    d = pvecs.shape[2]
     _check(q, "q", torch.float32, (b, d))
     _check(qn, "qn", torch.float32, (b,))
     _check(pvecs, "pvecs", torch.float32, (nb, lcap, d))
     _check(pnorms, "pnorms", torch.float32, (nb, lcap))
-    if d % 4 or pvecs.data_ptr() % 16:
-        raise ValueError("ivf_probe_f32: rows are read as float4, so dim must be a "
-                         f"multiple of 4 (got {d}) and pvecs 16-byte aligned")
+    if pvecs.data_ptr() % 16:
+        raise ValueError("ivf_probe_f32: rows are read as float4, so pvecs must be 16-byte "
+                         "aligned")
     out_d, out_i, out_pos = _probe_outputs(b, k, m, mode, q.device)
     scratch = _probe_scratch(b, p, lcap, m, q.device)
     if b:
@@ -453,7 +523,8 @@ def ivf_probe_sq8(qc, qs, qsum, qn, cells, codes, mins, scales, pnorms, members,
     2·(m′·qsum + scale·(qs·(qc·code))) + pnorms`; 1 and 2 are the HNSW
     serving pack's COSINE and IP seeding. Selection, modes and returns as
     `ivf_probe_f32`. On CUDA a probe wider than one chunk of lanes runs
-    cell-major (`probe_route`), and its selection is a K2 launch."""
+    cell-major (`probe_route`), and its selection is a K2 launch; m >
+    SEL_MAX raises."""
     b, p = cells.shape
     nb, lcap, d = codes.shape
     _probe_checks("ivf_probe_sq8", cells, members, alive, allowed, k, m, replicated, mode)
@@ -463,15 +534,19 @@ def ivf_probe_sq8(qc, qs, qsum, qn, cells, codes, mins, scales, pnorms, members,
                     allowed):
         return ivf_probe_sq8_plain(qc, qs, qsum, qn, cells, codes, mins, scales, pnorms,
                                    members, alive, allowed, k, m, replicated, mode, metric)
+    if m > SEL_MAX:
+        raise _past_limit("ivf_probe_sq8", f"m <= {SEL_MAX}", f"m={m}")
+    qc, codes = pad_dim(qc), _rows4(codes)
+    d = codes.shape[2]
     _check(qc, "qc", torch.int8, (b, d))
     for t, name in ((qs, "qs"), (qsum, "qsum"), (qn, "qn")):
         _check(t, name, torch.float32, (b,))
     _check(codes, "codes", torch.int8, (nb, lcap, d))
     for t, name in ((mins, "mins"), (scales, "scales"), (pnorms, "pnorms")):
         _check(t, name, torch.float32, (nb, lcap))
-    if d % 4 or codes.data_ptr() % 4 or qc.data_ptr() % 4:
-        raise ValueError("ivf_probe_sq8: codes are read as 32-bit words, so dim must be a "
-                         f"multiple of 4 (got {d}) and codes / qc 4-byte aligned")
+    if codes.data_ptr() % 4 or qc.data_ptr() % 4:
+        raise ValueError("ivf_probe_sq8: codes are read as 32-bit words, so codes / qc must "
+                         "be 4-byte aligned")
     if b and probe_route(p, lcap, d, qc.device) == "cell":
         return _probe_sq8_cells(qc, qs, qsum, qn, cells, codes, mins, scales, pnorms, members,
                                 alive, allowed, k, m, replicated, mode, metric)
@@ -554,18 +629,23 @@ def ivf_rerank(q, qn, cand_d, cand_i, cand_pos, pvecs, pnorms, mins=None, scales
     [NB, L]; pnorms [NB, L] the exact ‖x‖². A candidate whose probe
     distance is ±inf stays +inf; under `replicated` later copies of an id
     (and id -1) are dropped. Returns the k smallest by (distance,
-    candidate index): ([B, k] f32 ascending, [B, k] int32 ids, -1 where +inf)."""
+    candidate index): ([B, k] f32 ascending, [B, k] int32 ids, -1 where +inf).
+    On CUDA r > SEL_MAX raises."""
     b, r = cand_d.shape
     nb, lcap, d = pvecs.shape
     sq16 = pvecs.dtype == torch.int16
-    if not 0 < k <= r <= SEL_MAX:
-        raise ValueError(f"ivf_rerank: need 0 < k <= r <= {SEL_MAX}; got k={k}, r={r}")
+    if not 0 < k <= r:
+        raise ValueError(f"ivf_rerank: need 0 < k <= r; got k={k}, r={r}")
     if sq16 and (mins is None or scales is None):
         raise ValueError("ivf_rerank: the SQ16 store needs mins and scales")
     store_meta = (mins, scales) if sq16 else ()
     if not _on_cuda(q, qn, cand_d, cand_i, cand_pos, pvecs, pnorms, *store_meta):
         return ivf_rerank_plain(q, qn, cand_d, cand_i, cand_pos, pvecs, pnorms, mins,
                                 scales, k, replicated)
+    if r > SEL_MAX:
+        raise _past_limit("ivf_rerank", f"r <= {SEL_MAX}", f"r={r}")
+    q, pvecs = pad_dim(q), _rows4(pvecs)
+    d = pvecs.shape[2]
     _check(q, "q", torch.float32, (b, d))
     _check(qn, "qn", torch.float32, (b,))
     _check(cand_d, "cand_d", torch.float32, (b, r))
@@ -575,9 +655,9 @@ def ivf_rerank(q, qn, cand_d, cand_i, cand_pos, pvecs, pnorms, mins=None, scales
     _check(pnorms, "pnorms", torch.float32, (nb, lcap))
     for t, name in zip(store_meta, ("mins", "scales")):
         _check(t, name, torch.float32, (nb, lcap))
-    if d % 4 or pvecs.data_ptr() % 16:
-        raise ValueError("ivf_rerank: rows are read 4 elements at a time, so dim must be a "
-                         f"multiple of 4 (got {d}) and pvecs 16-byte aligned")
+    if pvecs.data_ptr() % 16:
+        raise ValueError("ivf_rerank: rows are read 4 elements at a time, so pvecs must be "
+                         "16-byte aligned")
     out_d = torch.empty((b, k), dtype=torch.float32, device=q.device)
     out_i = torch.empty((b, k), dtype=torch.int32, device=q.device)
     if b:
@@ -644,7 +724,7 @@ def kmeans_assign(x, cents, xn, cn, r: int = 1):
         return kmeans_assign_plain(x, cents, xn, cn, r)
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x: expected float32 or bfloat16, got {x.dtype}")
-    _check(x, "x", x.dtype, (n, d))
+    # x may be a view (a row store's rows): its operand below is a copy
     _check(cents, "cents", torch.float32, (c, d))
     _check(xn, "xn", torch.float32, (n,))
     _check(cn, "cn", torch.float32, (c,))
@@ -809,16 +889,21 @@ def _beam_checks(name, b, s, ef, iters, expand, deg, d, seed_i, seed_d):
 
 
 def _beam_limits(name, ef, iters, expand, deg, d, k_res=0):
-    """Widths past what the kernel keeps in shared memory raise here."""
+    """Raise unless a beam kernel keeps these widths in shared memory: ef
+    and k_res <= EF_MAX, expand·deg <= SLOTS_MAX, at most EXP_MAX
+    expansions and d (rounded up to 4) <= DIM_MAX."""
     _, exp_cap = _loops(iters, expand)
-    if ef > EF_MAX or k_res > EF_MAX or expand * deg > SLOTS_MAX or exp_cap > EXP_MAX:
-        raise ValueError(f"{name}: need ef, k_res <= {EF_MAX}, expand*deg <= {SLOTS_MAX}, "
-                         f"expansions <= {EXP_MAX}; got ef={ef}, k_res={k_res}, "
-                         f"expand*deg={expand * deg}, expansions={exp_cap}")
-    if d % 4 or d > 4096:
-        raise ValueError(f"{name}: rows are read 4 elements at a time, so dim must be a "
-                         f"multiple of 4 and at most 4096 (got {d})")
-    return exp_cap
+    if not (ef <= EF_MAX and k_res <= EF_MAX and expand * deg <= SLOTS_MAX
+            and exp_cap <= EXP_MAX and d <= DIM_MAX):
+        raise _past_limit(name, f"ef, k_res <= {EF_MAX}, expand*deg <= {SLOTS_MAX}, at most "
+                          f"{EXP_MAX} expansions and dim <= {DIM_MAX}",
+                          f"ef={ef}, k_res={k_res}, expand*deg={expand * deg}, "
+                          f"{exp_cap} expansions, dim={d}")
+
+
+def _d4(d: int) -> int:
+    """The width a row kernel reads: d rounded up to 4."""
+    return d + (-d % 4)
 
 
 def hnsw_graph_beam(adj, vectors, norms, q, qn, seed_i, seed_d, allowed=None, *,
@@ -839,7 +924,9 @@ def hnsw_graph_beam(adj, vectors, norms, q, qn, seed_i, seed_d, allowed=None, *,
     merges them into the ef buffer (ties to the earlier entry), for at most
     ceil(iters / expand) steps; a query stops when nothing is left to
     expand. With `allowed`, nodes outside it are traversed and kept out of
-    a second result buffer of width `k_res` (default ef)."""
+    a second result buffer of width `k_res` (default ef). On CUDA widths
+    past `_beam_limits` (ef or k_res > EF_MAX, expand·deg > SLOTS_MAX, more
+    than EXP_MAX expansions, d > DIM_MAX) raise."""
     b, s = seed_i.shape
     cap, deg = adj.shape
     d = vectors.shape[1]
@@ -854,7 +941,10 @@ def hnsw_graph_beam(adj, vectors, norms, q, qn, seed_i, seed_d, allowed=None, *,
                                      ef=ef, iters=iters, metric=metric, expand=expand,
                                      k_res=k_res, active=active,
                                      return_expanded=return_expanded)
-    exp_cap = _beam_limits("hnsw_graph_beam", ef, iters, expand, deg, d, kr)
+    _beam_limits("hnsw_graph_beam", ef, iters, expand, deg, _d4(d), kr)
+    vectors, q = _rows4_store(vectors), pad_dim(q)
+    d = vectors.shape[1]
+    _, exp_cap = _loops(iters, expand)
     _check(adj, "adj", torch.int32, (cap, deg))
     if sq:
         _check_sq_rows("hnsw_graph_beam", vectors, cap, d)
@@ -991,7 +1081,9 @@ def hnsw_greedy(adj, vectors, norms, q, qn, cur_i, cur_d, *, metric: int, lowest
     level, each level from where the last one ended, so the result is the
     chain of one-level walks. Returns (cur_i [B] int32, cur_d [B] f32,
     stats [B, 2] int32: the lists each query read and the neighbours it
-    scored, over its levels)."""
+    scored, over its levels). On CUDA d > DIM_MAX raises; more levels
+    than GREEDY_LEVELS_MAX raise everywhere (a caller walks them in
+    launches of at most that many, top first: the walk is a chain)."""
     adjs = _greedy_adjs(adj)
     b = cur_i.shape[0]
     cap, deg = adjs[0].shape
@@ -1003,9 +1095,10 @@ def hnsw_greedy(adj, vectors, norms, q, qn, cur_i, cur_d, *, metric: int, lowest
     if not _on_cuda(*adjs, *store, norms, q, qn, cur_i, cur_d, lowest):
         return hnsw_greedy_plain(adjs, vectors, norms, q, qn, cur_i, cur_d, metric=metric,
                                  lowest=lowest)
-    if d % 4 or d > 4096:
-        raise ValueError("hnsw_greedy: rows are read 4 elements at a time, so dim must be a "
-                         f"multiple of 4 and at most 4096 (got {d})")
+    if _d4(d) > DIM_MAX:
+        raise _past_limit("hnsw_greedy", f"dim <= {DIM_MAX}", f"dim={d}")
+    vectors, q = _rows4_store(vectors), pad_dim(q)
+    d = vectors.shape[1]
     for a in adjs:
         _check(a, "adj", torch.int32, (cap, deg))
     if sq:
@@ -1088,7 +1181,8 @@ def hnsw_serve_beam(nbr_codes, nbr_meta, vectors, norms, q, qn, qc, qs, qsum, se
     get their exact distance (L2 `(qn + norm) − 2·dot` unclamped, COS, IP),
     +inf outside `allowed` [cap], and the k smallest are returned:
     ([B, k] f32 ascending, [B, k] int32 ids, -1 where +inf, and the
-    [B, 2] int32 stats of `BeamResult`)."""
+    [B, 2] int32 stats of `BeamResult`). On CUDA widths past `_beam_limits`
+    raise."""
     b, s = seed_i.shape
     cap, deg, d = nbr_codes.shape
     _beam_checks("hnsw_serve_beam", b, s, ef, iters, expand, deg, d, seed_i, seed_d)
@@ -1102,7 +1196,9 @@ def hnsw_serve_beam(nbr_codes, nbr_meta, vectors, norms, q, qn, qc, qs, qsum, se
         return hnsw_serve_beam_plain(nbr_codes, nbr_meta, vectors, norms, q, qn, qc, qs, qsum,
                                      seed_i, seed_d, allowed, ef=ef, iters=iters, expand=expand,
                                      rerank=rerank, k=k, metric=metric)
-    _beam_limits("hnsw_serve_beam", ef, iters, expand, deg, d)
+    _beam_limits("hnsw_serve_beam", ef, iters, expand, deg, _d4(d))
+    nbr_codes, vectors, q, qc = _rows4(nbr_codes), _rows4(vectors), pad_dim(q), pad_dim(qc)
+    d = vectors.shape[1]
     _check(nbr_codes, "nbr_codes", torch.int8, (cap, deg, d))
     _check(nbr_meta, "nbr_meta", torch.int32, (cap, deg, 4))
     _check(vectors, "vectors", torch.float32, (cap, d))
@@ -1150,6 +1246,15 @@ def serve_beam_stage(b, s, d, deg, *, ef, iters, expand, rerank, device=None):
 # ---------------------------------------------------------------------------
 
 SELECT_W_MAX = 256   # candidates a selection kernel holds (csrc/hnsw_select.cu)
+SELECT_SMEM_MAX = 160 << 10   # bytes of the candidates' rows (W·d·4) it stages
+
+
+def _select_limits(name: str, w: int, d: int):
+    """Raise unless K7 holds W candidates' rows of width d (rounded up to 4)
+    in shared memory."""
+    if not (w <= SELECT_W_MAX and d <= DIM_MAX and w * d * 4 <= SELECT_SMEM_MAX):
+        raise _past_limit(name, f"W <= {SELECT_W_MAX}, dim <= {DIM_MAX} and W*dim*4 <= "
+                          f"{SELECT_SMEM_MAX}", f"W={w}, dim={d}")
 
 
 def select_cap(w: int, deg: int, alpha: float) -> int:
@@ -1229,7 +1334,8 @@ def hnsw_select(vectors, norms, targets, cand, *, deg: int, metric: int, alpha: 
     from the rows, clamped at 0). Returns (sel_i [U, deg] int32: the taken,
     then the others as backfill, both in distance order, -1 padded; sel_d
     [U, deg] their distances, +inf padded; n_pairs [U] int32, the pair
-    distances the scan needed)."""
+    distances the scan needed). On CUDA W > SELECT_W_MAX, d > DIM_MAX or
+    W·d·4 > SELECT_SMEM_MAX raise."""
     u, w = cand.shape
     cap, d = vectors.shape
     if not 1 <= deg:
@@ -1239,10 +1345,9 @@ def hnsw_select(vectors, norms, targets, cand, *, deg: int, metric: int, alpha: 
     if not _on_cuda(vectors, norms, targets, cand):
         return hnsw_select_plain(vectors, norms, targets, cand, deg=deg, metric=metric,
                                  alpha=alpha)
-    if w > SELECT_W_MAX or d % 4 or d > 4096 or w * d * 4 > (160 << 10):
-        raise ValueError(f"hnsw_select: need W <= {SELECT_W_MAX}, dim a multiple of 4 up to "
-                         f"4096 and W*dim*4 <= 160 KB (the candidates' rows in shared memory); "
-                         f"got W={w}, dim={d}")
+    _select_limits("hnsw_select", w, _d4(d))
+    vectors = _rows4(vectors)
+    d = vectors.shape[1]
     _check(vectors, "vectors", torch.float32, (cap, d))
     _check(norms, "norms", torch.float32, (cap,))
     _check(targets, "targets", torch.int32, (u,))
@@ -1274,8 +1379,8 @@ def hnsw_select_sorted(vectors, cand_i, cand_d, *, deg: int, metric: int, alpha:
     ascending order (-1 / +inf at the end). No dedup, no re-sort, no
     window: the scan of `hnsw_select` over all W in the given order (pair
     distances from the rows), then the taken and the others as backfill
-    in that order. W <= SELECT_W_MAX on every device: wider raises
-    ValueError. Returns (sel_i [U, deg], sel_d [U, deg], n_pairs [U]) as
+    in that order. Returns (sel_i [U, deg], sel_d [U, deg], n_pairs [U])
+    as `hnsw_select`. On CUDA the widths past `_select_limits` raise, as in
     `hnsw_select`."""
     u, w = cand_i.shape
     cap, d = vectors.shape
@@ -1283,14 +1388,12 @@ def hnsw_select_sorted(vectors, cand_i, cand_d, *, deg: int, metric: int, alpha:
         raise ValueError(f"hnsw_select_sorted: deg must be positive, got {deg}")
     if metric not in (0, 1, 2):
         raise ValueError(f"hnsw_select_sorted: unknown metric {metric}")
-    if w > SELECT_W_MAX:
-        raise ValueError(f"hnsw_select_sorted: need W <= {SELECT_W_MAX}, got W={w}")
     if not _on_cuda(vectors, cand_i, cand_d):
         return hnsw_select_sorted_plain(vectors, cand_i, cand_d, deg=deg, metric=metric,
                                         alpha=alpha)
-    if d % 4 or d > 4096 or w * d * 4 > (160 << 10):
-        raise ValueError("hnsw_select_sorted: need dim a multiple of 4 up to 4096 and W*dim*4 "
-                         f"<= 160 KB (the candidates' rows in shared memory); got W={w}, dim={d}")
+    _select_limits("hnsw_select_sorted", w, _d4(d))
+    vectors = _rows4(vectors)
+    d = vectors.shape[1]
     _check(vectors, "vectors", torch.float32, (cap, d))
     _check(cand_i, "cand_i", torch.int32, (u, w))
     _check(cand_d, "cand_d", torch.float32, (u, w))
@@ -1307,14 +1410,18 @@ def hnsw_select_sorted(vectors, cand_i, cand_d, *, deg: int, metric: int, alpha:
 
 
 # ---------------------------------------------------------------------------
-# K10: dense IVF block list
+# K10: dense IVF block list (its kernel runs inside K2: `topk_rows(...,
+# cell_block=, u=)`)
 # ---------------------------------------------------------------------------
 
-# widest probe list K10 takes (csrc/dense_blocks.cu DB_PMAX)
-DENSE_P_MAX = 4096
-
-
 def dense_blocks_plain(cell_block, top, u):
+    """The physical blocks a dense IVF probe gathers (`_first_unique` of
+    `cell_block[top]`, the reference's ivf.py:225-237, :277-284):
+    cell_block [C] int32 maps each cell to its block, top [B, P] the
+    probed cells. With u >= P returns `cell_block[top]` [B, P]; with u < P
+    the first u distinct blocks of each row [B, u], in first-occurrence
+    order, followed, where a row has fewer than u, by its repeats in their
+    own order (the reference's stable argsort)."""
     blk = cell_block[top.long()]
     p = blk.shape[1]
     if u >= p:
@@ -1333,37 +1440,20 @@ def dense_blocks_plain(cell_block, top, u):
     return torch.cat(outs).to(torch.int32)
 
 
-def dense_blocks(cell_block: torch.Tensor, top: torch.Tensor, u: int) -> torch.Tensor:
-    """The physical blocks a dense IVF probe gathers (`_first_unique` of
-    `cell_block[top]`, the reference's ivf.py:225-237, :277-284).
-
-    cell_block [C] int32 maps each cell to its block, top [B, P] int32 the
-    probed cells. With u >= P returns `cell_block[top]` [B, P]; with u < P
-    the first u distinct blocks of each row [B, u], in first-occurrence
-    order, followed, where a row has fewer than u, by its repeats in their
-    own order (the reference's stable argsort)."""
-    b, p = top.shape
-    if u < 1 or p > DENSE_P_MAX:
-        raise ValueError(f"dense_blocks: need u >= 1 and P <= {DENSE_P_MAX}, got u={u}, P={p}")
-    if not _on_cuda(cell_block, top):
-        return dense_blocks_plain(cell_block, top, u)
-    _check(cell_block, "cell_block", torch.int32, cell_block.shape[:1])
-    _check(top, "top", torch.int32, (b, p))
-    width = min(u, p)
-    out = torch.empty((b, width), dtype=torch.int32, device=top.device)
-    if b:
-        _launch("dense_blocks", top.device, cell_block.data_ptr(), top.data_ptr(), b, p,
-                width, out.data_ptr())
-    return out
-
-
 # ---------------------------------------------------------------------------
 # K11: asymmetric L2 over a u8 store
 # ---------------------------------------------------------------------------
 
-# widest k K11 keeps (a list per query over one warp's lanes), and the
-# rows a block scans (a multiple of the kernel's 64-row tile)
-SQ8_K_MAX, SQ8_CHUNK = 32, 8192
+# widest k of K11's list mode (a candidate buffer per query; wider k writes
+# the distances out and selects with K2), the rows a block scans (a multiple
+# of the kernel's 64-row tile), the widest column slice (a multiple of 16)
+# whose tiles fit a block (a wider row runs in slices), and the bytes of
+# [rows, N] distances one slice of queries of the distance mode writes
+SQ8_LIST_MAX, SQ8_CHUNK, SQ8_D_MAX = 64, 8192, 320
+SQ8_DIST_BYTES = 1 << 29
+# a d-sliced distance pass: PART_IN adds the earlier slices' partial sums,
+# PART_OUT leaves its own for the next slice (csrc/sq8_scan.cu)
+SQ8_PART_IN, SQ8_PART_OUT = 1, 2
 # the plain version's [B, rows] distance block, in elements
 _SQ8_PLAIN_ELEMS = 1 << 26
 
@@ -1398,6 +1488,14 @@ def sq8_scan_plain(q, qn, qsum, codes, mins, scales, valid, k):
     return dk, torch.where(torch.isinf(dk), -1, ik).to(torch.int32)
 
 
+def sq8_slices(d: int) -> list[tuple[int, int]]:
+    """The column slices (first column, width) K11 reads a row of d codes
+    in: one of d rounded up to 16 up to SQ8_D_MAX, else slices of at most
+    SQ8_D_MAX."""
+    ldr = -(-d // 16) * 16
+    return [(c0, min(SQ8_D_MAX, ldr - c0)) for c0 in range(0, ldr, SQ8_D_MAX)]
+
+
 def sq8_scan(q, qn, qsum, codes, mins, scales, valid, k: int):
     """Asymmetric L2² k-NN of f32 queries over a u8 store (the reference's
     `sq8_search`, ops/quantize.py:42-76).
@@ -1407,12 +1505,24 @@ def sq8_scan(q, qn, qsum, codes, mins, scales, valid, k: int):
     `qn − 2·(min·qsum + scale·(q·u)) + (d·min² + 2·min·scale·Σu +
     scale²·Σu²)` clamped at 0, +inf where not valid. Returns the k
     smallest by (distance, row): ([B, k] f32 ascending, [B, k] int32 row
-    ids, -1 where +inf). On CUDA: one K11 launch (a [B, k] list per chunk
-    of SQ8_CHUNK rows) and one K2 launch merging the chunks."""
+    ids, -1 where +inf). On CUDA, q·u runs on the int8 tensor cores: the
+    u8 codes times four int8 digits of q under a power-of-two scale (exact
+    s32 sums, joined in fp32), at any k and any d:
+    - k <= SQ8_LIST_MAX and d <= SQ8_D_MAX: one K11 launch (a [B, k] list
+      per chunk of SQ8_CHUNK rows, after its row pre-pass) and one K2
+      launch merging the chunks;
+    - else the distance mode: for each slice of queries whose [rows, N]
+      f32 distances fit SQ8_DIST_BYTES (a scratch of min(B, 2^29 / 4N)
+      rows, allocated a call), one K11 launch a column slice (`sq8_slices`:
+      a row wider than SQ8_D_MAX sums its slices in fp32) and one K2
+      selection (its wide form past SEL_MAX).
+    Every K11 launch counts. Rows whose d is not a multiple of 16 are
+    copied zero-padded to one for the kernel, store and queries, each
+    call."""
     b, d = q.shape
     n = codes.shape[0]
-    if not 0 < k <= min(n, SQ8_K_MAX):
-        raise ValueError(f"sq8_scan: need 0 < k <= min(N, {SQ8_K_MAX}), got k={k}, N={n}")
+    if not 0 < k <= n:
+        raise ValueError(f"sq8_scan: need 0 < k <= N, got k={k}, N={n}")
     if not _on_cuda(q, qn, qsum, codes, mins, scales, valid):
         return sq8_scan_plain(q, qn, qsum, codes, mins, scales, valid, k)
     _check(q, "q", torch.float32, (b, d))
@@ -1422,16 +1532,42 @@ def sq8_scan(q, qn, qsum, codes, mins, scales, valid, k: int):
     _check(mins, "mins", torch.float32, (n,))
     _check(scales, "scales", torch.float32, (n,))
     _check(valid, "valid", torch.bool, (n,))
+    dev = q.device
     if b == 0:
-        return (torch.empty((0, k), device=q.device),
-                torch.empty((0, k), dtype=torch.int32, device=q.device))
+        return (torch.empty((0, k), device=dev), torch.empty((0, k), dtype=torch.int32, device=dev))
+    slices = sq8_slices(d)
+    ldr = slices[-1][0] + slices[-1][1]
+    if ldr != d:   # the tiles are copied in 16-byte words: rows of ldr codes
+        codes = torch.nn.functional.pad(codes, (0, ldr - d))
+        q = torch.nn.functional.pad(q, (0, ldr - d))
+    elif codes.data_ptr() % 16:
+        codes = codes.clone()
     chunk = min(SQ8_CHUNK, -(-n // 64) * 64)
     nch = -(-n // chunk)
-    part_d = torch.empty((b, nch * k), dtype=torch.float32, device=q.device)
-    part_i = torch.empty((b, nch * k), dtype=torch.int32, device=q.device)
-    _launch("sq8_scan", q.device, q.data_ptr(), qn.data_ptr(), qsum.data_ptr(), b,
-            codes.data_ptr(), mins.data_ptr(), scales.data_ptr(), _ptr(_as_u8(valid)), n, d,
-            chunk, k, part_d.data_ptr(), part_i.data_ptr())
-    dk, pos = topk_rows(part_d, k)
-    ik = torch.gather(part_i, 1, pos.long())
-    return dk, torch.where(torch.isinf(dk), -1, ik)
+    rec = torch.empty((n, 4), dtype=torch.float32, device=dev)   # the rows' ‖x̂‖², min, scale
+    store = (codes.data_ptr(), mins.data_ptr(), scales.data_ptr(), _ptr(_as_u8(valid)), n, d, ldr)
+    if k <= SQ8_LIST_MAX and len(slices) == 1:
+        part_d = torch.empty((b, nch * k), dtype=torch.float32, device=dev)
+        part_i = torch.empty((b, nch * k), dtype=torch.int32, device=dev)
+        _launch("sq8_scan", dev, q.data_ptr(), qn.data_ptr(), qsum.data_ptr(), b, *store,
+                0, ldr, chunk, k, part_d.data_ptr(), part_i.data_ptr(), None, 0, rec.data_ptr(),
+                0, 0)
+        dk, pos = topk_rows(part_d, k)
+        ik = torch.gather(part_i, 1, pos.long())
+        return dk, torch.where(torch.isinf(dk), -1, ik)
+    rows = min(b, max(1, SQ8_DIST_BYTES // (4 * n)))
+    dist = torch.empty((rows, n), dtype=torch.float32, device=dev)
+    out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+    for s in range(0, b, rows):
+        e = min(b, s + rows)
+        for j, (c0, width) in enumerate(slices):
+            part = ((SQ8_PART_IN if j > 0 else 0)
+                    | (SQ8_PART_OUT if j + 1 < len(slices) else 0))
+            _launch("sq8_scan", dev, q[s:].data_ptr(), qn[s:].data_ptr(), qsum[s:].data_ptr(),
+                    e - s, *store, c0, width, chunk, k, None, None, dist.data_ptr(), n,
+                    rec.data_ptr(), int(s > 0 or j > 0), part)
+        dk, pos = topk_rows(dist[:e - s], k)
+        out_d[s:e] = dk
+        out_i[s:e] = torch.where(torch.isinf(dk), -1, pos)
+    return out_d, out_i

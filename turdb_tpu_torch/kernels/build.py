@@ -39,8 +39,9 @@ class GreedyLevels(ctypes.Structure):
 # argtypes of each C entry point, in the order of its declaration
 SIGNATURES = {
     # vals, B, N, rown, coln, colvalid, epilogue, clamp, k, out_d, out_i,
-    # cand_key, cand_pos, counters, stream
-    "topk_rows": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    # cand_key, cand_pos, counters, cell_block, u, out_blocks, stream
+    "topk_rows": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P,
+                  _P],
     # q, qn, cells, B, P, pvecs, pnorms, members, alive, allowed, L, d,
     # metric, k, m, replicated, mode, chunk, sc_key, sc_pos, sc_id,
     # out_d, out_i, out_pos, stream
@@ -105,12 +106,10 @@ SIGNATURES = {
     # x (bf16), xn, n, cents (bf16), cn, C, d (a multiple of 16), r, out_i,
     # out_d, stream
     "kmeans_assign": [_P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P],
-    # cell_block, top, B, P, u, out, stream
-    "dense_blocks": [_P, _P, _I, _I, _I, _P, _P],
-    # q, qn, qsum, B, codes, mins, scales, valid, N, d, chunk, k, out_d,
-    # out_i, stream
-    "sq8_scan": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P,
-                 _P, _P],
+    # q, qn, qsum, B, codes, mins, scales, valid, N, d, ldr, c0, ld, chunk, k,
+    # out_d, out_i, dist, ld_dist, rec, rec_ready, part, stream
+    "sq8_scan": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                 _P, _P, _P, ctypes.c_longlong, _P, _I, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

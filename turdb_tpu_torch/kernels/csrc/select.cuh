@@ -1,7 +1,8 @@
 // Exact block-wide selection of the m smallest (key, position) pairs.
 //
 // Shared by K1/K4 (ivf_probe.cu) and K5 (ivf_rerank.cu); K2 (topk_rows.cu)
-// takes only its keys (f2key / key2f) and limits. One thread block selects
+// takes only its keys (f2key / key2f) and limits. K2 and K11 (sq8_scan.cu)
+// share `warp_bitonic`; K2 runs K10's ranks (`dense_ranks`) on its winners. One thread block selects
 // from n candidates whose keys come from a functor (`ArrayKey`: an array
 // in shared or global memory).
 //
@@ -161,4 +162,94 @@ __device__ void block_select(KeyFn key_of, int n, int m, uint32_t* s_key,
     }
     __syncthreads();
     bitonic_sort(s_key, s_pos, size);
+}
+
+// Bitonic sort of a warp's 32*J (key << 32 | position) values: element e
+// = j*32 + lane sits in v[j] of that lane.
+template <int J>
+__device__ __forceinline__ void warp_bitonic(unsigned long long (&v)[J], int lane) {
+    constexpr int N = 32 * J;
+#pragma unroll
+    for (int len = 2; len <= N; len <<= 1) {
+#pragma unroll
+        for (int s = len >> 1; s > 0; s >>= 1) {
+            if (s >= 32) {
+                // partner in the same lane, register j ^ (s / 32)
+#pragma unroll
+                for (int j = 0; j < J; ++j) {
+                    const int p = j ^ (s >> 5);
+                    if (p > j) {
+                        const bool up = ((j * 32) & len) == 0;
+                        const unsigned long long a = v[j], b = v[p];
+                        if ((a > b) == up) {
+                            v[j] = b;
+                            v[p] = a;
+                        }
+                    }
+                }
+            } else {
+#pragma unroll
+                for (int j = 0; j < J; ++j) {
+                    const unsigned long long o = __shfl_xor_sync(0xffffffffu, v[j], s);
+                    const bool up = ((j * 32 + lane) & len) == 0;
+                    const bool lower = (lane & s) == 0;
+                    const unsigned long long mn = v[j] < o ? v[j] : o;
+                    const unsigned long long mx = v[j] < o ? o : v[j];
+                    v[j] = lower == up ? mn : mx;
+                }
+            }
+        }
+    }
+}
+
+// K10 dense_blocks, fused into K2 (topk_rows.cu): the physical blocks a
+// dense IVF probe gathers (the reference's `_first_unique` of
+// `cell_block[top]`, turdb_tpu/models/ivf.py:225-237, :277-284). `blk`
+// [P] (shared memory) holds the blocks of a row's P winners in K2's order
+// ((distance, position), ties to the lower position: the reference's
+// order). With u >= P they are written as they are; else the first u
+// distinct blocks in first-occurrence order, followed, where a row has
+// fewer, by its repeats in their own order (the reference's stable
+// argsort on `P + 1 if duplicate else position`). One warp: it flags each
+// position that repeats an earlier one (in `first` [P], shared memory)
+// and writes each position to its rank, a first occurrence to the count
+// of first occurrences before it, a repeat to (first occurrences) +
+// (repeats before it), both counted by ballots over 32 positions at a
+// time; ranks >= u are dropped. The callers' barrier (or __syncwarp) has
+// made `blk` visible to the warp.
+static __device__ void dense_ranks(const int* blk, int* first, int P, int u, int* o, int lane) {
+    if (u >= P) {
+        for (int p = lane; p < P; p += 32) o[p] = blk[p];
+        return;
+    }
+    int n_first = 0;
+    for (int base = 0; base < P; base += 32) {
+        const int p = base + lane;
+        int f = 0;
+        if (p < P) {
+            const int v = blk[p];
+            f = 1;
+            for (int j = 0; j < p; ++j) {
+                if (blk[j] == v) { f = 0; break; }
+            }
+            first[p] = f;
+        }
+        n_first += __popc(__ballot_sync(0xffffffffu, f));
+    }
+    __syncwarp();
+    const unsigned below = (1u << lane) - 1u;
+    int seen_first = 0, seen_dup = 0;
+    for (int base = 0; base < P; base += 32) {
+        const int p = base + lane;
+        const int f = p < P ? first[p] : 0;
+        const unsigned mf = __ballot_sync(0xffffffffu, p < P && f);
+        const unsigned md = __ballot_sync(0xffffffffu, p < P && !f);
+        if (p < P) {
+            const int r = f ? seen_first + __popc(mf & below)
+                            : n_first + seen_dup + __popc(md & below);
+            if (r < u) o[r] = blk[p];
+        }
+        seen_first += __popc(mf);
+        seen_dup += __popc(md);
+    }
 }

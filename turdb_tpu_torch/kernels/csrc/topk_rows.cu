@@ -40,8 +40,24 @@
 //   lane) and a warp bitonic sort orders them, with no radix passes.
 // Ties go to the lower position, as lax.top_k does; the winners of a long
 // row are sorted in shared memory (k <= SEL_MAX = 2048: 16 KB).
+// - Wide k (k > SEL_MAX: a flat search or an SQ8 scan asked for thousands
+//   of neighbours): a 256-thread block a row, in global memory. It writes
+//   the row's keys once to a scratch row, runs the same radix select and
+//   collect over them (read back from L2), and sorts its k winners by a
+//   bitonic sort in a second scratch row of pow2(k) (key, position)
+//   pairs. A correctness path: each pass reads the row again, and the
+//   sort takes log²(pow2(k)) / 2 block barriers.
+// - K10 `dense_blocks`, fused (the dense IVF path's cell selection): given
+//   `cell_block`, the block (or warp) that holds a row's sorted winners maps
+//   them to their physical blocks and keeps the first u distinct ones
+//   (`dense_ranks`, select.cuh), so the [B, P] cells never make a round
+//   trip through device memory and the dense path makes one launch fewer.
+//   A long row's blocks go through the keys' shared memory (free once the
+//   winners are sorted); a short row's through 2·k ints a warp of dynamic
+//   shared memory.
 // Shared memory of a long-row block: 1.1 KB + 32 KB of keys + 8·pow2(k),
 // past the 48 KB default from k = 2048 (the entry point opts in).
+#include "launch_util.cuh"
 #include "select.cuh"
 
 typedef unsigned long long u64;
@@ -327,12 +343,26 @@ __device__ __forceinline__ void sort_and_write(u64* win, int m, size_t b, float*
     }
 }
 
+// K10 on a long row's sorted winners `win` [m]: their blocks gathered into
+// `scratch` (the segment's keys, free by now: 2·m ints), then the first u
+// distinct by one warp (row b of out_blocks, width min(u, m)).
+__device__ __forceinline__ void row_blocks(const u64* win, int m, size_t b,
+                                           const int* __restrict__ cell_block, int u,
+                                           int* __restrict__ out_blocks, uint32_t* scratch) {
+    int* blk = reinterpret_cast<int*>(scratch);
+    for (int i = threadIdx.x; i < m; i += blockDim.x) blk[i] = cell_block[(int)(uint32_t)win[i]];
+    __syncthreads();
+    if (threadIdx.x < 32)
+        dense_ranks(blk, blk + m, m, u, out_blocks + b * (size_t)min(u, m), threadIdx.x);
+}
+
 __global__ void __launch_bounds__(SEG_THREADS)
 topk_seg_kernel(const float* __restrict__ vals, int n, const float* __restrict__ rown,
                 const float* __restrict__ coln, const uint8_t* __restrict__ valid, int epi,
                 int clamp, int k, int nseg, int segw, float* __restrict__ out_d,
                 int* __restrict__ out_i, uint32_t* __restrict__ cand_key,
-                int* __restrict__ cand_pos, int* __restrict__ counters) {
+                int* __restrict__ cand_pos, int* __restrict__ counters,
+                const int* __restrict__ cell_block, int u, int* __restrict__ out_blocks) {
     extern __shared__ __align__(16) unsigned char smem[];
     TopkShared* sh = reinterpret_cast<TopkShared*>(smem);
     uint32_t* s_key = reinterpret_cast<uint32_t*>(sh + 1);   // [SEG_W]
@@ -369,6 +399,7 @@ topk_seg_kernel(const float* __restrict__ vals, int n, const float* __restrict__
         });
         __syncthreads();
         sort_and_write(win, kp, row, out_d, out_i);
+        if (cell_block != nullptr) row_blocks(win, kp, row, cell_block, u, out_blocks, s_key);
         return;
     }
     // k <= SHORT_MAX < segw: every segment sends exactly k candidates
@@ -396,51 +427,16 @@ topk_seg_kernel(const float* __restrict__ vals, int n, const float* __restrict__
     });
     __syncthreads();
     sort_and_write(win, k, row, out_d, out_i);
-}
-
-// Bitonic sort of a warp's 32*J (key << 32 | position) values: element e
-// = j*32 + lane sits in v[j] of that lane.
-template <int J>
-__device__ __forceinline__ void warp_bitonic(u64 (&v)[J], int lane) {
-    constexpr int N = 32 * J;
-#pragma unroll
-    for (int len = 2; len <= N; len <<= 1) {
-#pragma unroll
-        for (int s = len >> 1; s > 0; s >>= 1) {
-            if (s >= 32) {
-                // partner in the same lane, register j ^ (s / 32)
-#pragma unroll
-                for (int j = 0; j < J; ++j) {
-                    const int p = j ^ (s >> 5);
-                    if (p > j) {
-                        const bool up = ((j * 32) & len) == 0;
-                        const u64 a = v[j], b = v[p];
-                        if ((a > b) == up) {
-                            v[j] = b;
-                            v[p] = a;
-                        }
-                    }
-                }
-            } else {
-#pragma unroll
-                for (int j = 0; j < J; ++j) {
-                    const u64 o = __shfl_xor_sync(0xffffffffu, v[j], s);
-                    const bool up = ((j * 32 + lane) & len) == 0;
-                    const bool lower = (lane & s) == 0;
-                    const u64 mn = v[j] < o ? v[j] : o;
-                    const u64 mx = v[j] < o ? o : v[j];
-                    v[j] = lower == up ? mn : mx;
-                }
-            }
-        }
-    }
+    if (cell_block != nullptr) row_blocks(win, k, row, cell_block, u, out_blocks, s_key);
 }
 
 template <int J>
 __global__ void __launch_bounds__(SHORT_WARPS * 32)
 topk_short_kernel(const float* __restrict__ vals, int B, int n, const float* __restrict__ rown,
                   const float* __restrict__ coln, const uint8_t* __restrict__ valid, int epi,
-                  int clamp, int k, float* __restrict__ out_d, int* __restrict__ out_i) {
+                  int clamp, int k, float* __restrict__ out_d, int* __restrict__ out_i,
+                  const int* __restrict__ cell_block, int u, int* __restrict__ out_blocks) {
+    extern __shared__ int short_blk[];   // 2·k ints a warp, with cell_block only
     const int lane = threadIdx.x & 31;
     const size_t row = (size_t)blockIdx.x * SHORT_WARPS + (threadIdx.x >> 5);
     if (row >= (size_t)B) return;   // the whole warp
@@ -468,6 +464,68 @@ topk_short_kernel(const float* __restrict__ vals, int B, int n, const float* __r
             out_i[row * k + e] = (int)(uint32_t)v[j];
         }
     }
+    if (cell_block != nullptr) {
+        int* blk = short_blk + (threadIdx.x >> 5) * 2 * k;
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+            const int e = j * 32 + lane;
+            if (e < k) blk[e] = cell_block[(int)(uint32_t)v[j]];
+        }
+        __syncwarp();
+        dense_ranks(blk, blk + k, k, u, out_blocks + row * (size_t)min(u, k), lane);
+    }
+}
+
+// A row's keys in its scratch row, written by this block before; read
+// from L2.
+struct RowItems {
+    const uint32_t* key;
+    int n;
+    template <class F>
+    __device__ __forceinline__ void each(F f) const {
+        for (int base = 0; base < n; base += blockDim.x) {
+            const int i = base + (int)threadIdx.x;
+            const bool ok = i < n;
+            f(ok ? __ldcg(key + i) : 0u, (uint32_t)i, ok);
+        }
+    }
+};
+
+// K2's wide form (k > SEL_MAX): block b takes row b; keys [B, n] and win
+// [B, pow2(k)] are its scratch rows.
+__global__ void __launch_bounds__(SEG_THREADS)
+topk_wide_kernel(const float* __restrict__ vals, int n, const float* __restrict__ rown,
+                 const float* __restrict__ coln, const uint8_t* __restrict__ valid, int epi,
+                 int clamp, int k, float* __restrict__ out_d, int* __restrict__ out_i,
+                 uint32_t* __restrict__ keys, u64* __restrict__ win,
+                 const int* __restrict__ cell_block, int u, int* __restrict__ out_blocks) {
+    __shared__ TopkShared sh;
+    const size_t row = blockIdx.x;
+    const float* rp = vals + row * (size_t)n;
+    uint32_t* rk = keys + row * (size_t)n;
+    u64* w = win + row * (size_t)sel_pow2(k);
+    const float rn = epi == 1 ? rown[row] : 0.0f;
+    for (int i = threadIdx.x; i < n; i += blockDim.x)
+        rk[i] = epi_key(__ldcs(rp + i), rn, coln, valid, i, epi, clamp);
+    __syncthreads();
+    const RowItems items{rk, n};
+    const Threshold t = radix_select(items, k, &sh);
+    if (threadIdx.x == 0) sh.count = 0;
+    __syncthreads();
+    collect(items, t, &sh, [&](int slot, uint32_t key, uint32_t pos) {
+        w[slot] = ((u64)key << 32) | pos;
+    });
+    __syncthreads();
+    sort_and_write(w, k, row, out_d, out_i);
+    if (cell_block == nullptr) return;
+    // K10 on the written winners, through the sort's scratch row (2·pow2(k)
+    // ints, free now)
+    __syncthreads();
+    int* blk = reinterpret_cast<int*>(w);
+    for (int i = threadIdx.x; i < k; i += blockDim.x) blk[i] = cell_block[out_i[row * k + i]];
+    __syncthreads();
+    if (threadIdx.x < 32)
+        dense_ranks(blk, blk + k, k, u, out_blocks + row * (size_t)min(u, k), threadIdx.x);
 }
 
 // The segments of a long row: as many as SEG_W needs, of equal width.
@@ -476,16 +534,34 @@ static inline int seg_count(int n) { return (n + SEG_W - 1) / SEG_W; }
 extern "C" int topk_rows(const float* vals, int B, int N, const float* rown,
                          const float* coln, const uint8_t* valid, int epi,
                          int clamp, int k, float* out_d, int* out_i, uint32_t* cand_key,
-                         int* cand_pos, int* counters, void* stream) {
-    if (k < 1 || k > N || k > SEL_MAX) return (int)cudaErrorInvalidValue;
+                         int* cand_pos, int* counters, const int* cell_block, int u,
+                         int* out_blocks, void* stream) {
+    if (k < 1 || k > N) return (int)cudaErrorInvalidValue;
+    if (cell_block != nullptr && (u < 1 || out_blocks == nullptr)) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
+    if (k > SEL_MAX) {
+        // the wide form: cand_key holds [B, N] keys and cand_pos the [B,
+        // pow2(k)] 64-bit winners (2·pow2(k) ints a row, 8-byte aligned)
+        if (cand_key == nullptr || cand_pos == nullptr || ((uintptr_t)cand_pos & 7))
+            return (int)cudaErrorInvalidValue;
+        topk_wide_kernel<<<(unsigned)B, SEG_THREADS, 0, s>>>(
+            vals, N, rown, coln, valid, epi, clamp, k, out_d, out_i, cand_key,
+            reinterpret_cast<u64*>(cand_pos), cell_block, u, out_blocks);
+        return (int)cudaGetLastError();
+    }
     if (N <= SHORT_MAX) {
         const dim3 grid((B + SHORT_WARPS - 1) / SHORT_WARPS);
         const int J = sel_pow2((N + 31) / 32);
+        const size_t smem = cell_block != nullptr ? (size_t)SHORT_WARPS * 2 * k * sizeof(int) : 0;
 #define SHORT_CASE(JJ)                                                                        \
     case JJ:                                                                                  \
-        topk_short_kernel<JJ><<<grid, SHORT_WARPS * 32, 0, s>>>(vals, B, N, rown, coln, valid, \
-                                                                epi, clamp, k, out_d, out_i); \
+        if (smem > (48 << 10)) {                                                              \
+            const int err = raise_smem(topk_short_kernel<JJ>, smem);                          \
+            if (err) return err;                                                              \
+        }                                                                                     \
+        topk_short_kernel<JJ><<<grid, SHORT_WARPS * 32, smem, s>>>(                           \
+            vals, B, N, rown, coln, valid, epi, clamp, k, out_d, out_i, cell_block, u,        \
+            out_blocks);                                                                      \
         break;
         switch (J) {
             SHORT_CASE(1) SHORT_CASE(2) SHORT_CASE(4) SHORT_CASE(8) SHORT_CASE(16)
@@ -509,7 +585,7 @@ extern "C" int topk_rows(const float* vals, int B, int N, const float* rown,
     }
     topk_seg_kernel<<<(unsigned)((size_t)B * nseg), SEG_THREADS, smem, s>>>(
         vals, N, rown, coln, valid, epi, clamp, k, nseg, segw, out_d, out_i, cand_key,
-        cand_pos, counters);
+        cand_pos, counters, cell_block, u, out_blocks);
     return (int)cudaGetLastError();
 }
 

@@ -14,7 +14,8 @@ gather; `add`, `vacuum` and `pack_serving` dequantize first.
 Search (`hnsw_search_impl`): the entry point seeds a beam per upper level
 (K8 `hnsw_graph_beam`, ef = descent_ef, expand 2) whose whole sorted buffer
 seeds the next level, or, when descent_ef is 1, the greedy walk through
-all upper levels in one launch (K9 `hnsw_greedy`); then the level-0 beam
+all upper levels (K9 `hnsw_greedy`, up to GREEDY_LEVELS_MAX levels a
+launch, top first); then the level-0 beam
 (K8) with the filtered result buffer when a visibility mask applies, and
 the k best (K2).
 
@@ -49,6 +50,7 @@ import torch
 from turdb_tpu_torch.kernels import (
     EPI_IP,
     EPI_L2,
+    GREEDY_LEVELS_MAX,
     SELECT_W_MAX,
     hnsw_graph_beam,
     hnsw_greedy,
@@ -141,11 +143,22 @@ def select_levels(row_ids: np.ndarray, cfg: HnswConfig) -> np.ndarray:
 
 def _greedy_level(adj, vectors, norms, q, qn, cur_i, cur_d, metric: Metric, lowest=None):
     """Best-neighbour walk of each query until it stops improving, at most
-    GREEDY_CAP steps a level (K9, one launch): through `adj`, one level or
-    a sequence walked top first, each query down to its `lowest` (see
-    `hnsw_greedy`)."""
-    cur_i, cur_d, _ = hnsw_greedy(adj, vectors, norms, q, qn, cur_i.contiguous(),
-                                  cur_d.contiguous(), metric=metric.value, lowest=lowest)
+    GREEDY_CAP steps a level (K9): through `adj`, one level or a sequence
+    walked top first, each query down to its `lowest` (see `hnsw_greedy`).
+    A sequence runs in launches of at most GREEDY_LEVELS_MAX levels, top
+    first, each from where the last left the queries: the walk is a chain,
+    so this is the one walk (each launch's `lowest` counted from its own
+    last level)."""
+    adjs = [adj] if isinstance(adj, torch.Tensor) else list(adj)
+    cur_i, cur_d = cur_i.contiguous(), cur_d.contiguous()
+    for start in range(0, len(adjs), GREEDY_LEVELS_MAX):
+        part = adjs[start:start + GREEDY_LEVELS_MAX]
+        # levels are numbered from len - 1 (the first) down to 0; this part's
+        # last level is numbered len(adjs) - start - len(part)
+        low = (None if lowest is None else
+               (lowest - (len(adjs) - start - len(part))).contiguous())
+        cur_i, cur_d, _ = hnsw_greedy(part, vectors, norms, q, qn, cur_i, cur_d,
+                                      metric=metric.value, lowest=low)
     return cur_i, cur_d
 
 
@@ -671,9 +684,11 @@ class HnswIndex:
         vecs = np.atleast_2d(np.asarray(vecs, np.float32))
         n = vecs.shape[0]
         bulk = self.size == 0 and n >= self.bulk_threshold
-        if n and not bulk and self.cfg.ef_construction > SELECT_W_MAX:
+        if n and not bulk and self.device.type == "cuda" and self.cfg.ef_construction > SELECT_W_MAX:
+            # before any write: K7 holds the ef_construction beam up to
+            # SELECT_W_MAX (on the CPU the waves take any ef_construction)
             raise ValueError(f"the insert waves select from the ef_construction beam, which K7 "
-                             f"holds up to {SELECT_W_MAX}; got {self.cfg.ef_construction}")
+                             f"holds up to {SELECT_W_MAX} on CUDA; got {self.cfg.ef_construction}")
         if isinstance(self.state.vectors, Sq8Rows):
             self.dequantize()   # writes need the f32 store
         self.serve = None   # graph mutation invalidates the serving pack

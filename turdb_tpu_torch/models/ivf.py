@@ -18,8 +18,8 @@ block that holds its rows):
     scales      [C, L] f32 (sq8), else (1, 1)
 
 Search: one fp32 q·Cᵀ matmul -> K2 with the `qn + cnorms − 2·dot` epilogue
-selects the top-nprobe cells -> (dense: K10 maps them to the first
-`nblocks` distinct blocks) -> the probe scores those blocks' rows: K1
+selects the top-nprobe cells (dense: K10, in the same launch, maps them to
+the first `nblocks` distinct blocks) -> the probe scores those blocks' rows: K1
 over f32 rows, K4 over int8 codes. Without rerank the probe returns the k
 nearest (deduplicating boundary replicas); with it, the probe returns the
 r best lanes and K5 reranks them exactly from the row store.
@@ -41,7 +41,6 @@ import torch
 from turdb_tpu_torch.kernels import (
     EPI_L2,
     MODE_CAND,
-    dense_blocks,
     ivf_probe_f32,
     ivf_probe_sq8,
     ivf_rerank,
@@ -153,7 +152,7 @@ def ivf_search_impl(state: IvfState, queries: torch.Tensor, allowed, *,
                     cfg: IvfConfig, k: int, nprobe: int, nblocks: int | None = None):
     """Centroid matmul -> top-nprobe cells (K2) -> under `cfg.dense` the
     physical blocks of those cells, cut to the first `nblocks` distinct
-    ones (K10) -> fused probe (K1 over f32 rows, K4 over int8 codes) ->
+    ones (K10, inside the same K2 launch) -> fused probe (K1 over f32 rows, K4 over int8 codes) ->
     optional exact rerank (K5). `allowed` is a bool visibility mask over
     the store's [blocks, L] lanes, or None. A slot may sit in several
     probed lanes (boundary replicas, blocks shared by cells): those
@@ -164,8 +163,11 @@ def ivf_search_impl(state: IvfState, queries: torch.Tensor, allowed, *,
     qn = prep_norms(q)
     # cell scoring is L2 for every metric and, like the reference, unclamped
     dots = q @ state.centroids.T
-    _, top = topk_rows(dots, nprobe, rown=qn, coln=state.cnorms, epilogue=EPI_L2)
-    src = dense_blocks(state.cell_block, top, nblocks or nprobe) if cfg.dense else top
+    if cfg.dense:
+        *_, src = topk_rows(dots, nprobe, rown=qn, coln=state.cnorms, epilogue=EPI_L2,
+                            cell_block=state.cell_block, u=nblocks or nprobe)
+    else:
+        _, src = topk_rows(dots, nprobe, rown=qn, coln=state.cnorms, epilogue=EPI_L2)
     dedup = cfg.replicated or cfg.dense
     lanes = src.shape[1] * cfg.cluster_cap
     if cfg.rerank:
