@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the port's IVF, HNSW and mesh build, insert and query paths once on one CUDA card.
+"""Drive the port's IVF, HNSW, mesh and SQL build, insert and query paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -72,6 +72,19 @@
    - dense IVF (`dense_pack=True`): blocks against cells, the sweep and QPS
      at nblocks = nprobe and nblocks = nprobe / 2 (K10 inside K2's launch);
    - `sq8_search` over the pool's u8 codes (K11 and a K2 merge): recall;
+   - the SQL database (`Database.create` on its default device, the
+     card): the 1M pool bulk-loaded as docs(id, emb VECTOR(128), grp) with
+     the WAL on; four exact queries without an index against the oracle;
+     `CREATE INDEX ... USING IVF WITH (nprobe = 8)`, EXPLAIN's
+     AnnIndexScan, 256 held-out statements (`ORDER BY emb <-> '[...]'
+     LIMIT 10`) gated at recall@10 0.95 against the card's FlatIndex, p50 /
+     p99 ms a statement, a `WHERE grp = 1` query, a DELETE; the same on
+     `WITH (compact = true)`; `USING HNSW` (the bulk build): the graph
+     path's answers equal to the top 10 by exact distance of
+     `HnswIndex.search(k=40, ef=80)`, 256 INSERTs found by their own
+     query, `PRAGMA ann_pack` and the serve path gated at 0.95; then
+     checkpoint, close and `Database.open`: the .hnsw snapshot loads and
+     the graph and serve answers equal those before the close;
 5. checks that each path launched each of its kernels; then, outside the
    counted runs, traces the searches (device time per kernel, idle share),
    and holds K6, K7 and K8 against their plain versions on the built HNSW
@@ -83,9 +96,10 @@
    K11 at B = 1024 over the 1M store (its ids apart and every one at a
    near-tie, its recall beside its plain version's, which the fp32 kernel
    before it equalled bit for bit); then the widths past the old limits,
-   each in its kernel and against its plain version: K2's wide form at k =
-   3000 (and with K10 fused), K11 at k = 2100 and at d = 384 (two column
-   slices), the d = 6 and d = 130 IVF and HNSW stores (rows copied
+   each in its kernel and against its plain version, with its bound and
+   the library call: K2's wide form at k = 3000 (and with K10 fused;
+   `torch.topk`), K11's distance mode at k = 100 and 2100 and its column
+   slices at d = 384 (matmul, epilogue and `torch.topk`), the d = 6 and d = 130 IVF and HNSW stores (rows copied
    zero-padded for the kernels), a 10-level graph (two K9 launches); and
    the widths no kernel holds (IVF rerank 2,500, ef = 1500, K7 at W = 100
    and d = 512) raising on the card before any launch;
@@ -332,6 +346,23 @@ def _trace_ms(fn, kernel=None, calls=50):
     return kern[0]["ms"] / kern[0]["calls"]
 
 
+def _k2_timed(x, k, **kw):
+    """K2's, its plain version's and `torch.topk`'s times on x, and K2's
+    bound: x read once (and the epilogue's norms and mask), the k values and
+    positions of each row written once; three operations an entry."""
+    from turdb_tpu_torch.kernels import _row_values, topk_rows, topk_rows_plain
+
+    # the library call selects on the distances the epilogue produces
+    full = _row_values(x, kw.get("rown"), kw.get("coln"), kw.get("colvalid"),
+                       kw.get("epilogue", 0), kw.get("clamp", False))
+    b, n = x.shape
+    extra = 4 * (b + n) * (kw.get("rown") is not None) + n * (kw.get("colvalid") is not None)
+    return {"ms": _median_ms(lambda: topk_rows(x, k, **kw)),
+            "plain_ms": _median_ms(lambda: topk_rows_plain(x, k, **kw)),
+            "library_ms": _median_ms(lambda: torch.topk(full, k, largest=False)),
+            **_bound(4 * b * n + extra + 8 * b * k, 3 * b * n, FP32_OPS)}
+
+
 def k2_phase(dev, gen, cells=CELLS, flat_chunk=FLAT_CHUNK):
     from turdb_tpu_torch.kernels import EPI_L2, _row_values, topk_rows, topk_rows_plain
 
@@ -344,16 +375,7 @@ def k2_phase(dev, gen, cells=CELLS, flat_chunk=FLAT_CHUNK):
         return _selection_error(vk, pk, vp, pp, lambda p: torch.gather(full, 1, p.long()),
                                 K2_RTOL, what)
 
-    def timed(x, k, **kw):
-        # the library call selects on the distances the epilogue produces
-        full = _row_values(x, kw.get("rown"), kw.get("coln"), kw.get("colvalid"),
-                           kw.get("epilogue", 0), kw.get("clamp", False))
-        b, n = x.shape
-        extra = 4 * (b + n) * (kw.get("rown") is not None) + n * (kw.get("colvalid") is not None)
-        return {"ms": _median_ms(lambda: topk_rows(x, k, **kw)),
-                "plain_ms": _median_ms(lambda: topk_rows_plain(x, k, **kw)),
-                "library_ms": _median_ms(lambda: torch.topk(full, k, largest=False)),
-                **_bound(4 * b * n + extra + 8 * b * k, 3 * b * n, FP32_OPS)}
+    timed = _k2_timed
 
     out = {}
     # cell selection: [1024, C] dot matrix, top-nprobe with the unclamped
@@ -2272,24 +2294,34 @@ def k11_check(store, gen, truth):
     check(abs(rec - rec_plain) <= K11_RECALL_TOL,
           f"K11 recall@10 {rec} against its plain version's {rec_plain}")
 
-    def library():
-        u = codes.float()
-        xn = d * mins ** 2 + 2.0 * mins * scales * u.sum(1) + scales ** 2 * (u * u).sum(1)
-        dist = qn[:, None] - 2.0 * (mins[None, :] * qsum[:, None] + scales[None, :] * (q @ u.T))
-        dist = torch.where(valid[None, :], torch.clamp_min(dist + xn[None, :], 0.0), float("inf"))
-        return torch.topk(dist, K, largest=False)
-
-    nbytes = n * d + 12 * n + n + b * (4 * d + 8) + 8 * b * K
-    fp32 = _bound(nbytes, 2 * b * n * d, FP32_OPS)
     dev_ms, parts = _device_parts(lambda: sq8_scan(*args))
     return {"shape": [b, n, d], "k": K, "max_abs_err": err, "id_diff": id_diff,
             "recall@10_all_valid": rec, "plain_recall@10_all_valid": rec_plain,
             "ms": _median_ms(lambda: sq8_scan(*args)), "loop_ms": _loop_ms(lambda: sq8_scan(*args)),
             "device_ms": dev_ms, "device_parts": parts,
             "plain_ms": _median_ms(lambda: sq8_scan_plain(*args), reps=3),
-            "library_ms": _median_ms(library, reps=3),
-            "bound_fp32_ms": fp32["bound_ms"],
-            # the kernel's work: four int8 passes of B x N x d multiply-adds
+            **_sq8_library_and_bound(*args)}
+
+
+def _sq8_library_and_bound(q, qn, qsum, codes, mins, scales, valid, k):
+    """K11's yardsticks on its arguments: the time of the same function as
+    one matmul, its epilogue and `torch.topk`; the bound on both units (the
+    bytes: the codes, the rows' min / scale / valid, the queries and the
+    outputs once), the fp32 FMA pipes and the kernel's own work, four int8
+    passes of B x N x d multiply-adds."""
+    n, d = codes.shape
+    b = q.shape[0]
+
+    def library():
+        u = codes.float()
+        xn = d * mins ** 2 + 2.0 * mins * scales * u.sum(1) + scales ** 2 * (u * u).sum(1)
+        dist = qn[:, None] - 2.0 * (mins[None, :] * qsum[:, None] + scales[None, :] * (q @ u.T))
+        dist = torch.where(valid[None, :], torch.clamp_min(dist + xn[None, :], 0.0), float("inf"))
+        return torch.topk(dist, k, largest=False)
+
+    nbytes = n * d + 12 * n + n + b * (4 * d + 8) + 8 * b * k
+    return {"library_ms": _median_ms(library, reps=3),
+            "bound_fp32_ms": _bound(nbytes, 2 * b * n * d, FP32_OPS)["bound_ms"],
             **_bound(nbytes, 4 * 2 * b * n * d, INT8_OPS)}
 
 
@@ -2390,11 +2422,11 @@ def width_check(dev):
     _, top, blk = kernels.topk_rows(dots, 3000, cell_block=cell_block, u=2100, **kw)
     check(torch.equal(blk, kernels.dense_blocks_plain(cell_block, top, 2100)),
           "K10 in K2's wide form: not bit-equal")
-    out["topk_rows k=3000"] = {"max_abs_err": 0.0,
-                               "ms": _median_ms(lambda: kernels.topk_rows(dots, 3000, **kw)),
-                               "plain_ms": _median_ms(lambda: kernels.topk_rows_plain(
-                                   dots, 3000, **kw))}
-    for d, k in ((128, 2100), (384, 10)):
+    out["topk_rows k=3000"] = {"shape": list(dots.shape), "max_abs_err": 0.0,
+                               **_k2_timed(dots, 3000, **kw)}
+    # K11's distance mode (k past 64) at k = 100 and 2100, its column slices
+    # (rows past 320 codes) at d = 384
+    for d, k in ((128, 100), (128, 2100), (384, 10)):
         xs = torch.randn(100_000, d, device=dev, generator=gen)
         codes, mins, scales = sq8_encode(xs)
         qs = torch.randn(256, d, device=dev, generator=gen)
@@ -2405,8 +2437,10 @@ def width_check(dev):
                        n_launch)
         near(f"sq8_scan d={d} k={k}", got, kernels.sq8_scan_plain(*args))
         out[f"sq8_scan d={d} k={k}"].update(
-            launches=n_launch, ms=_median_ms(lambda: kernels.sq8_scan(*args)),
-            plain_ms=_median_ms(lambda: kernels.sq8_scan_plain(*args)))
+            shape=[256, 100_000, d], launches=n_launch,
+            ms=_median_ms(lambda: kernels.sq8_scan(*args)),
+            plain_ms=_median_ms(lambda: kernels.sq8_scan_plain(*args)),
+            **_sq8_library_and_bound(*args))
         del xs, codes
     for d in (6, 130):
         pool = make_pool(np.random.default_rng(4), 12_032, d)
@@ -2467,6 +2501,259 @@ def width_check(dev):
         log(f"width {name}: refused ({out[name]['refused']})")
     return out
 
+
+# ---------------------------------------------------------------------------
+# the SQL database (turdb_tpu_torch.database) over the port's indexes
+
+N_SQL_QUERIES = 256          # held-out queries sent as SQL statements
+N_SQL_INSERT = 256           # rows INSERTed into the HNSW-indexed table
+SQL_REL_TOL = 1e-6           # distances after a reopen against before it
+SQL_TRACED = 8               # statements in a store's device trace
+SQL_REOPEN = 64              # statements a path repeats after the reopen
+# The 256 INSERTed rows join the 1M bulk graph as one wave at the next
+# statement's flush. They find themselves as the insert path's rows do
+# (the waves' greedy descent, ROADMAP queue 3; 0.4986 of 65,536 rows there,
+# 0.5039 of a 256-row add), but 256 rows give a standard error of 0.031:
+# 0.4258 of them did (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6), every
+# one as the index's own search on the same state answers. The gate sits
+# 1.6 standard errors under INSERT_SELF_HIT_GATE.
+SQL_INSERT_SELF_HIT_GATE = 0.40
+
+
+def _sql_vec(v):
+    return "'[" + ",".join(f"{float(a):.6f}" for a in v) + "]'"
+
+
+def _sql_ann(lit, limit=K):
+    return f"SELECT id, emb <-> {lit} FROM docs ORDER BY emb <-> {lit} LIMIT {limit}"
+
+
+def _parsed(vecs):
+    """The vectors as the SQL engine reads their literals."""
+    from turdb_tpu_torch.sql.expr import parse_vector_text
+
+    return np.stack([parse_vector_text(_sql_vec(v).strip("'")) for v in vecs])
+
+
+def _exact_d(rows, lit):
+    """`emb <-> lit` over these rows as the SQL engine computes it (sql/expr.py
+    `_vector_distance`, the literal read once a row)."""
+    from turdb_tpu_torch.sql.expr import Col, _vector_distance
+
+    rows = np.asarray(rows, np.float32)
+    text = lit.strip("'")
+    return _vector_distance("<->", Col(rows), Col(np.array([text] * len(rows), object))).values
+
+
+def _same_ranking(got, want, vec_of, lit, what):
+    """`got` and `want` are id lists in rank order: equal, or apart only
+    where the two ids' exact distances tie."""
+    check(len(got) == len(want), f"{what}: {len(got)} rows against {len(want)}")
+    for a, b in zip(got, want):
+        if a != b:
+            da, db_ = _exact_d(vec_of([a, b]), lit)
+            check(da == db_, f"{what}: id {a} where {b} was expected")
+
+
+def _sql_timed(db, sql_list):
+    """Each statement through `db.query`: (rows, ms each)."""
+    rows, ms = [], []
+    for s in sql_list:
+        t = time.perf_counter()
+        rows.append(db.query(s))
+        ms.append((time.perf_counter() - t) * 1e3)
+    return rows, ms
+
+
+def _pcts(ms):
+    return {"p50_ms": float(np.percentile(ms, 50)), "p99_ms": float(np.percentile(ms, 99)),
+            "statements": len(ms)}
+
+
+def _sql_recall(rows, truth):
+    return float(np.mean([len({r[0] for r in rr} & set(t.tolist())) / K
+                          for rr, t in zip(rows, truth)]))
+
+
+def sql_phase(dev, x, queries):
+    """The database on the card (`Database.create` with its default device):
+    the 1M make_pool rows bulk-loaded as docs(id, emb VECTOR(128), grp) with
+    the WAL on; exact queries without an index; USING IVF (f32, then
+    compact) and USING HNSW, each queried by 256 held-out SQL statements
+    against the card's FlatIndex oracle; 256 INSERTs into the graph; the
+    serving pack; a checkpoint, close and reopen that must give the same
+    answers."""
+    import shutil
+    import tempfile
+
+    from turdb_tpu_torch import Database
+    from turdb_tpu_torch.models.flat import FlatIndex
+
+    out = {}
+    qv = _parsed(queries[:N_SQL_QUERIES])
+    new = _parsed(queries[N_SQL_QUERIES:N_SQL_QUERIES + N_SQL_INSERT])
+    lits = [_sql_vec(v) for v in qv]
+    # the oracle follows the table: slot = id (the DELETE and the INSERTs
+    # below are applied to it too)
+    flat = FlatIndex(dim=DIM, capacity=len(x) + N_SQL_INSERT, device=dev)
+    flat.add(x)
+    truth = flat.search(qv, k=K)[1]
+
+    def vec_of(ids):
+        ids = np.asarray(ids)
+        return np.where((ids < N)[:, None], x[np.minimum(ids, N - 1)],
+                        new[np.clip(ids - N, 0, N_SQL_INSERT - 1)])
+
+    def explain(db):
+        return "\n".join(r[0] for r in db.query("EXPLAIN " + _sql_ann(lits[0])))
+
+    def traced(db):
+        # a trace of one statement now and then keeps no device span at all;
+        # SQL_TRACED of them, taken again if so
+        prof = _traced(lambda: db.query(_sql_ann(lits[1])), SQL_TRACED)
+        return {"statements": SQL_TRACED,
+                **{k: prof[k] for k in ("busy_ms", "window_ms", "idle_share", "top")}}
+
+    def ann(name, db, gate=True):
+        rows, ms = _sql_timed(db, [_sql_ann(s) for s in lits])
+        rec = _sql_recall(rows, truth)
+        out[name] = {"recall@10": rec, **_pcts(ms), "trace": traced(db)}
+        log(f"sql {name}: recall@10 {rec}, p50 {out[name]['p50_ms']:.3f} ms, "
+            f"p99 {out[name]['p99_ms']:.3f} ms, idle {out[name]['trace']['idle_share']:.3f}")
+        if gate:
+            check(rec >= RECALL_GATE, f"sql {name}: recall@10 {rec} < {RECALL_GATE}")
+        check(all(len(r) == K for r in rows), f"sql {name}: short answers")
+        return rows
+
+    tmp = tempfile.mkdtemp(prefix="turdb_sql_")
+    path = f"{tmp}/db"
+    try:
+        t = time.perf_counter()
+        db = Database.create(path)
+        db.execute(f"CREATE TABLE docs (id BIGINT PRIMARY KEY, emb VECTOR({DIM}), grp INT)")
+        check(db.wal_enabled, "the WAL is off")
+        db.bulk_insert("docs", {"id": np.arange(len(x)), "emb": x, "grp": np.arange(len(x)) % 4})
+        out["load_s"] = time.perf_counter() - t
+        log(f"sql load: {len(x)} rows in {out['load_s']:.3f} s")
+        # the exact path (no index): the oracle's ranking
+        for i in range(4):
+            rows = db.query("SELECT id FROM docs ORDER BY emb <-> $1 LIMIT 10", [qv[i]])
+            _same_ranking([r[0] for r in rows], truth[i].tolist(), vec_of, lits[i],
+                          f"sql exact query {i}")
+
+        # IVF, the f32 store
+        t = time.perf_counter()
+        db.execute("CREATE INDEX iv ON docs USING IVF (emb) WITH (nprobe = 8)")
+        out["create_ivf_s"] = time.perf_counter() - t
+        check(db.catalog["main"]["docs"].hnsw["iv"].index.device.type == "cuda",
+              "the IVF index is not on the card")
+        check("AnnIndexScan" in explain(db), "EXPLAIN shows no AnnIndexScan under USING IVF")
+        ivf_rows = ann("ivf", db)
+        rows = db.query(f"SELECT id, grp FROM docs WHERE grp = 1 ORDER BY emb <-> {lits[2]} "
+                        "LIMIT 10")
+        check(len(rows) == K and all(r[1] == 1 for r in rows),
+              f"sql ivf WHERE grp = 1: {rows}")
+        victim = ivf_rows[3][0][0]
+        db.execute(f"DELETE FROM docs WHERE id = {victim}")
+        rows = db.query(_sql_ann(lits[3]))
+        check(victim not in [r[0] for r in rows], "sql ivf: a deleted row came back")
+        flat.delete([victim])
+        truth = flat.search(qv, k=K)[1]
+
+        # IVF, the compact store (int8 probe + SQ16 rerank)
+        db.execute("DROP INDEX iv")
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        db.execute("CREATE INDEX ivc ON docs USING IVF (emb) WITH (compact = true)")
+        out["create_ivf_compact_s"] = time.perf_counter() - t
+        ann("ivf_compact", db)
+
+        # HNSW: the bulk build, the graph path, inserts, the serving pack
+        db.execute("DROP INDEX ivc")
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        db.execute("CREATE INDEX ih ON docs USING HNSW (emb)")
+        out["create_hnsw_s"] = time.perf_counter() - t
+        info = db.catalog["main"]["docs"]
+        h = info.hnsw["ih"]
+        check(h.index.device.type == "cuda", "the HNSW index is not on the card")
+        check("hnsw:ih" in explain(db), "EXPLAIN shows no AnnIndexScan under USING HNSW")
+        graph_rows = ann("hnsw_graph", db, gate=False)
+        def index_ids(queries, k, ef):
+            """The index's own search on the statements' visibility: the
+            ids (not the rowids the index holds) of each query's k rows."""
+            at = info.table.visible_indices(db.mgr, db.mgr.snapshot_ts(), 0)
+            vis = info.table.rowids[at]
+            order = np.argsort(vis)
+            ids = np.asarray(info.table.column_batch("id", at)[0])[order]
+            _, slots = h.index.search(queries, k=k, ef=ef, allowed=h._allowed_mask(vis))
+            rids = [h._slots_to_rowids(sl) for sl in slots]
+            return [ids[np.searchsorted(vis[order], r[r >= 0])] for r in rids]
+
+        # the statements against the index's own answer: its 40 candidates
+        # at ef 80 (the ANN path's fetch and ef for LIMIT 10), the 10 best
+        # by exact distance
+        for i, (rr, cand) in enumerate(zip(graph_rows, index_ids(qv, 4 * K, 8 * K))):
+            want = cand[np.argsort(_exact_d(vec_of(cand), lits[i]), kind="stable")[:K]]
+            _same_ranking([r[0] for r in rr], want.tolist(), vec_of, lits[i],
+                          f"sql hnsw graph query {i} against HnswIndex.search")
+        ms = []
+        for j, v in enumerate(new):
+            t = time.perf_counter()
+            db.execute(f"INSERT INTO docs VALUES ({N + j}, {_sql_vec(v)}, {j % 4})")
+            ms.append((time.perf_counter() - t) * 1e3)
+        own, _ = _sql_timed(db, [_sql_ann(_sql_vec(v), 1) for v in new])
+        found = np.array([rr[0][0] == N + j for j, rr in enumerate(own)])
+        # the same rows through the index's own search (LIMIT 1: 9 rows at
+        # ef 64) on the same state and visibility
+        in_index = np.array([N + j in c for j, c in enumerate(index_ids(new, 9, 64))])
+        check(np.array_equal(found, in_index),
+              f"sql insert: {int((found != in_index).sum())} rows found by the statement "
+              "and not by HnswIndex.search, or the other way")
+        hit = float(found.mean())
+        out["insert"] = {**_pcts(ms), "self_hit": hit}
+        log(f"sql insert: {json.dumps(out['insert'])}")
+        check(hit >= SQL_INSERT_SELF_HIT_GATE,
+              f"sql insert: self-hit {hit} < {SQL_INSERT_SELF_HIT_GATE}")
+        flat.add(new)
+        truth = flat.search(qv, k=K)[1]
+        graph_before, _ = _sql_timed(db, [_sql_ann(s) for s in lits])
+        t = time.perf_counter()
+        db.execute("PRAGMA ann_pack = 'docs'")
+        out["ann_pack_s"] = time.perf_counter() - t
+        check(h.index.serve is not None, "PRAGMA ann_pack built no serving pack")
+        serve_before = ann("hnsw_serve", db)
+
+        # checkpoint, close, reopen: the snapshot loads, the answers hold
+        for step, fn in (("checkpoint_s", db.checkpoint), ("close_s", db.close)):
+            t = time.perf_counter()
+            fn()
+            out[step] = time.perf_counter() - t
+        t = time.perf_counter()
+        db = Database.open(path)
+        out["open_s"] = time.perf_counter() - t
+        info = db.catalog["main"]["docs"]
+        check(getattr(info, "_hnsw_loaded", False), "the .hnsw snapshot did not load")
+        check(info.hnsw["ih"].index.device.type == "cuda", "the reopened index is not on the card")
+
+        def same(before, what):
+            after, ms = _sql_timed(db, [_sql_ann(s) for s in lits[:SQL_REOPEN]])
+            for i, (a, b) in enumerate(zip(after, before)):
+                check([r[0] for r in a] == [r[0] for r in b], f"{what} query {i}: ids moved")
+                check(np.allclose([r[1] for r in a], [r[1] for r in b], rtol=SQL_REL_TOL,
+                                  atol=0.0), f"{what} query {i}: distances moved")
+            return _pcts(ms)
+
+        out["reopen_graph"] = same(graph_before, "sql graph path after the reopen")
+        db.execute("PRAGMA ann_pack = 'docs'")
+        out["reopen_serve"] = same(serve_before, "sql serve path after the reopen")
+        out["graph_recall@10_before_reopen"] = _sql_recall(graph_before, truth)
+        db.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"sql: {json.dumps({k: v for k, v in out.items() if not isinstance(v, dict)})}")
+    return out
+
 # ---------------------------------------------------------------------------
 
 KERNELS = {
@@ -2516,6 +2803,9 @@ PATH_KERNELS = {
                   "hnsw_select", "hnsw_graph_beam", "hnsw_greedy", "hnsw_select_sorted"),
     "dense_ivf": ("dense_blocks", "ivf_probe_f32", "topk_rows", "kmeans_assign"),
     "sq8_search": ("sq8_scan", "topk_rows"),
+    "sql": ("ivf_probe_f32", "topk_rows", "kmeans_assign", "ivf_probe_sq8", "ivf_rerank",
+            "hnsw_serve_beam", "hnsw_select", "hnsw_graph_beam", "hnsw_greedy",
+            "hnsw_select_sorted"),
 }
 
 
@@ -2693,7 +2983,11 @@ def run_paths(dev, launches):
     store = counted("sq8_search", sq8_search)
     REPORT["k11"] = k11_check(store, gen, truth)
     log(f"k11: {json.dumps(REPORT['k11'])}")
-    del store, pool, x, queries
+    del store
+    torch.cuda.empty_cache()
+
+    REPORT["sql"] = counted("sql", lambda: sql_phase(dev, x, queries))
+    del pool, x, queries
     torch.cuda.empty_cache()
 
     def hard():
@@ -2759,7 +3053,7 @@ def main() -> int:
     REPORT["total_s"] = time.perf_counter() - t0
     (OUT / "chip_smoke_report.json").write_text(json.dumps(REPORT, indent=1))
     for name in ("headline", "sq8", "compact", "hard", "probe_only", "hnsw", "hnsw_insert",
-                 "hnsw_wave", "mesh_ivf", "mesh_hnsw", "dense_ivf", "sq8_search"):
+                 "hnsw_wave", "mesh_ivf", "mesh_hnsw", "dense_ivf", "sq8_search", "sql"):
         log(f"{name}: {json.dumps({k: v for k, v in REPORT[name].items() if k != 'build_profile'})}")
 
     rows = kernel_rows(launches)

@@ -1,7 +1,14 @@
-"""turdb_tpu_torch — the IVF vector engine of turdb_tpu on PyTorch and CUDA.
+"""turdb_tpu_torch — turdb_tpu on PyTorch and CUDA.
 
 A second package beside `turdb_tpu` (the JAX reference, which it never
 imports). It mirrors the reference layout:
+
+    database/         Database, connect: the SQL engine's entry points
+                      (`USING IVF` / `USING HNSW` on the indexes below)
+    cli/              the REPL: python -m turdb_tpu_torch.cli <dir>
+    sql/, records/, types/, mvcc/, memory/, storage/, native/, config.py
+                      the host layers, copies of the reference's
+                      (storage/hnsw_io.py reads and writes its .hnsw files)
 
     ops/distance.py   Metric, norms, pairwise / gathered distances
     ops/topk.py       exact k-smallest selection, dedup, membership
@@ -17,10 +24,12 @@ imports). It mirrors the reference layout:
     kernels/          hand-written CUDA C++ kernels for sm_90a + wrappers
     convert.py        reference state (as numpy) -> port state
 
-Every index runs on the card unless its `device` says otherwise. On a CPU
-tensor each kernel wrapper runs its plain PyTorch version; on a CUDA
-tensor it launches the hand-written kernel or raises.
+Every index, and every Database, runs on the card unless its `device`
+says otherwise. On a CPU tensor each kernel wrapper runs its plain PyTorch
+version; on a CUDA tensor it launches the hand-written kernel or raises.
 """
+
+__version__ = "0.1.0"
 
 import torch
 
@@ -32,4 +41,15 @@ torch.backends.cudnn.allow_tf32 = False
 
 from turdb_tpu_torch.ops.distance import Metric  # noqa: E402
 
-__all__ = ["Metric"]
+__all__ = ["Metric", "Database", "connect", "RecoveryInfo",
+           "CheckpointInfo", "__version__"]
+
+
+def __getattr__(name):
+    # Lazy: the SQL/database stack is large; keep `import turdb_tpu_torch`
+    # cheap for index-only users (ops/, models/).
+    if name in ("Database", "connect", "RecoveryInfo", "CheckpointInfo"):
+        from turdb_tpu_torch.database import api
+
+        return getattr(api, name)
+    raise AttributeError(f"module 'turdb_tpu_torch' has no attribute {name!r}")

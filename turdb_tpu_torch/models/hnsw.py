@@ -32,8 +32,8 @@ level, top-r candidates for every node, from the numpy host route
 (n <= _BULK_BRUTE), the exact chunked scan (`torch.matmul` + K2, n <=
 _BULK_EXACT) or the self-probe of a temporary probe-only IVF store (K3 to
 build it, K2 + K4 to probe it); the alpha-diversity selection (K7
-`hnsw_select`); the reverse edges (numpy); a union that keeps a quota of
-them; then two rounds of navigability refinement of every upper level
+`hnsw_select`); the reverse edges (host C, or numpy); a union that keeps a
+quota of them; then two rounds of navigability refinement of every upper level
 (K8 beams with the expanded path as extra candidates, K7, reverse edges,
 union). Vacuum rebuilds over the survivors through `add`.
 """
@@ -294,12 +294,20 @@ def _topr_vs_subset(xc, xcn, sub_vecs, sub_norms, r: int, metric: Metric):
 def _bulk_reverse_lists(sub_slots, adj, seld, rcap: int):
     """Host-side reverse-edge lists: for each node, the up-to-rcap NEAREST
     nodes that selected it as a forward edge (the batched analog of the
-    reference's bidirectional edge write, mod.rs:1067-1077). numpy: the
-    (target, distance) sort is one radix argsort of a packed uint64."""
+    reference's bidirectional edge write, mod.rs:1067-1077). The host C
+    pass of native/hnsw_host.cpp where g++ built it, as the reference
+    does; else numpy, whose (target, distance) sort is one radix argsort of
+    a packed uint64. Both give the same lists (the C pass keeps the stable
+    argsort's order)."""
+    from turdb_tpu_torch.native.build import reverse_topk
+
     sub_slots = np.ascontiguousarray(sub_slots, np.int64)
     ns, deg = adj.shape
     pos_arr = np.full(int(sub_slots.max()) + 1, -1, np.int64)
     pos_arr[sub_slots] = np.arange(ns)
+    nat = reverse_topk(sub_slots, adj, seld, pos_arr, rcap)
+    if nat is not None:
+        return nat
     src = np.repeat(sub_slots, deg)
     tgt = adj.reshape(-1)
     dist = seld.reshape(-1)
@@ -406,8 +414,8 @@ def _bulk_layer_adj(vectors, norms, sub_slots, x_sub, deg: int, metric: Metric,
                     rcap: int = 16, chunk: int = 16384, r_mult: int = 2, alpha: float = 1.0):
     """One layer's adjacency for the subset `sub_slots` (global slot ids):
     candidates by the route its size picks, the forward selection (K7), the
-    reverse edges (numpy) and the union. Returns [len(sub), deg] int32 rows
-    of global slot ids on the vectors' device.
+    reverse edges (host C, or numpy) and the union. Returns [len(sub), deg]
+    int32 rows of global slot ids on the vectors' device.
 
     Upper layers pass r_mult=8 and alpha>1: a pure exact-kNN pool yields
     only short edges, and the wide pool with the relaxed rule restores the

@@ -1,4 +1,8 @@
-"""Device timing with CUDA events.
+"""Host phase counters, and device timing with CUDA events.
+
+The host half is the reference's (turdb_tpu/utils/timing.py): a dict of
+nanosecond accumulators per phase with a context manager, read by PRAGMA
+timing_stats (the database's parse and execute phases).
 
 PyTorch returns before the card finishes, so a host clock without a
 synchronise measures the enqueue; events recorded on the stream measure
@@ -8,9 +12,38 @@ metric's name would be wrong.
 
 from __future__ import annotations
 
+import contextlib
 import statistics
+import time
+from collections import defaultdict
 
 import torch
+
+TIMERS: dict[str, dict] = defaultdict(lambda: {"ns": 0, "count": 0})
+
+
+def reset():
+    TIMERS.clear()
+
+
+@contextlib.contextmanager
+def timed(name: str):
+    t0 = time.perf_counter_ns()
+    try:
+        yield
+    finally:
+        t = TIMERS[name]
+        t["ns"] += time.perf_counter_ns() - t0
+        t["count"] += 1
+
+
+def timing_stats() -> list[tuple]:
+    """(phase, total_ms, count, avg_us) rows, sorted by total time."""
+    rows = []
+    for name, t in TIMERS.items():
+        avg_us = (t["ns"] / t["count"] / 1e3) if t["count"] else 0.0
+        rows.append((name, round(t["ns"] / 1e6, 3), t["count"], round(avg_us, 2)))
+    return sorted(rows, key=lambda r: -r[1])
 
 
 def cuda_times_ms(fn, *, reps: int = 5, warmup: int = 1) -> list[float]:
