@@ -9,7 +9,9 @@
    K3 kmeans_assign, K4 ivf_probe_sq8, K5 ivf_rerank, K6 hnsw_serve_beam,
    K7 hnsw_select and its presorted mode, K8 hnsw_graph_beam and its SQ
    reader, K9 hnsw_greedy, K10 dense_blocks (inside K2's launch), K11
-   sq8_scan) from
+   sq8_scan, and the wide forms of K1, K4, K5, K6, K7, K8 and K9: the
+   `<kernel>_wide` kernels of probe_wide.cu, graph_wide.cu and
+   hnsw_select_wide.cu) from
    `turdb_tpu_torch/kernels/csrc`, one nvcc
    per source, and prints the build seconds;
 3. kernel phase: each kernel against its plain PyTorch version on the same
@@ -33,7 +35,8 @@
      `IvfIndex.add` (auto-train), a second traced build that must equal
      the first bit for bit, a recall@10 sweep over nprobe up to the 0.95
      gate, QPS at the gate on batches of 1024 held-out queries, then
-     delete / `allowed` / append on the 1M index;
+     delete / `allowed` / append on the 1M index, and a build with
+     `fast_build=True` (seconds, recall@10 at the gate nprobe);
    - sq8 headline: `IvfIndex(sq8=True, rerank=40)` on the same pool and
      oracle: build, sweep to the gate, QPS;
    - compact store: `sq8=True, keep_f32=False, rerank=40`: memory, recall
@@ -76,7 +79,7 @@
      card): the 1M pool bulk-loaded as docs(id, emb VECTOR(128), grp) with
      the WAL on; four exact queries without an index against the oracle;
      `CREATE INDEX ... USING IVF WITH (nprobe = 8)`, EXPLAIN's
-     AnnIndexScan, 256 held-out statements (`ORDER BY emb <-> '[...]'
+     AnnIndexScan, 64 held-out statements (`ORDER BY emb <-> '[...]'
      LIMIT 10`) gated at recall@10 0.95 against the card's FlatIndex, p50 /
      p99 ms a statement, a `WHERE grp = 1` query, a DELETE; the same on
      `WITH (compact = true)`; `USING HNSW` (the bulk build): the graph
@@ -85,8 +88,24 @@
      query, `PRAGMA ann_pack` and the serve path gated at 0.95; then
      checkpoint, close and `Database.open`: the .hnsw snapshot loads and
      the graph and serve answers equal those before the close;
+   - emb (the reference bench's embedding rows, bench.py:810-824):
+     `emb_pool` 500k x 384 (cosine) with 16,384 queries and k = 10 / 50
+     cosine oracles: `IvfIndex(metric=cosine, rerank=200)` swept over
+     nprobe 4-64 to the gate, recall@50, QPS; the HNSW bulk build (K7's
+     wide form at the upper levels), pack, serve sweep to the gate, QPS,
+     graph search at ef 64, a 4,096-row wave add, reachability; the rows
+     as SQL docs(id, emb VECTOR(384)): USING HNSW at LIMIT 10 and 200 on
+     the graph and serve paths (LIMIT 200: ef 1600, K8's and K6's wide
+     forms), USING IVF at LIMIT 10 and 600 (K1's wide form) and WITH (sq8,
+     rerank = 2400) at LIMIT 600 (K4's and K5's), two deep statements of
+     each store against the plain versions on the card's tensors; 768-d
+     rows (65,536 bulk-built, K7 wide at level 0; a 1,024-row wave, K7's
+     presorted mode wide; the SQ8 store at ef 1,600, K8-SQ wide) and 4,096
+     rows of 4,608 dims through the waves (K9 wide);
 5. checks that each path launched each of its kernels; then, outside the
-   counted runs, traces the searches (device time per kernel, idle share),
+   counted runs, replays each wide form's first call on the emb path
+   against the plain versions on the same CUDA tensors (`wide_check`),
+   traces the searches (device time per kernel, idle share),
    and holds K6, K7 and K8 against their plain versions on the built HNSW
    index at the path's shapes, and K9 (a wave of 512 at every level, a
    1024-query descent), K8-SQ (SQ8, SQ16) and K7's presorted mode (W = 100)
@@ -101,8 +120,9 @@
    `torch.topk`), K11's distance mode at k = 100 and 2100 and its column
    slices at d = 384 (matmul, epilogue and `torch.topk`), the d = 6 and d = 130 IVF and HNSW stores (rows copied
    zero-padded for the kernels), a 10-level graph (two K9 launches); and
-   the widths no kernel holds (IVF rerank 2,500, ef = 1500, K7 at W = 100
-   and d = 512) raising on the card before any launch;
+   the widths past the fast forms (IVF rerank 2,500, ef = 1500 on both
+   HNSW searches, K7 at W = 100 and d = 512) in their wide forms against
+   the plain versions;
 6. prints {"kernels": [...]}, the card, and, last, {"ok": true, "device": {...}}.
 
 Any failure exits non-zero without the last line. The full report goes to
@@ -878,6 +898,21 @@ def headline_phase(dev, x, queries, truth):
     batches = _batches(queries, dev)
     out.update(qps_phase(idx, batches, out["gate_nprobe"]))
     return out, idx, batches
+
+
+def fast_build_phase(dev, x, queries, truth, nprobe):
+    """`IvfIndex(fast_build=True)` (the reference's candidate-generator
+    profile) over the headline's rows: build seconds and recall@10 at the
+    headline's gate nprobe, beside the full build's (nothing is claimed)."""
+    from turdb_tpu_torch.utils.datasets import recall_of
+
+    out, idx = build_phase(dev, x, fast_build=True)
+    _, ids = idx.search(queries[:N_ORACLE], K, nprobe=nprobe)
+    out.update(gate_nprobe=nprobe, recall_at_gate=recall_of(ids, truth))
+    log(f"fast_build: {json.dumps(out)}")
+    del idx
+    torch.cuda.empty_cache()
+    return out
 
 
 def append_check(idx, new, nprobe):
@@ -2380,8 +2415,9 @@ def width_check(dev):
     wide form (bit-equal, and with K10 fused), K11 past its list mode and
     past one column slice (DOT_RTOL), the d = 6 / 130 IVF and HNSW stores
     and a 10-level graph (against the same state searched on the CPU);
-    then the widths no kernel holds, which must raise (ValueError, before
-    the kernel that refuses them launches)."""
+    then the widths past the fast forms (a rerank of 2,500, ef 1,500 on
+    both searches, K7 at W = 100, d = 512), each in its wide form against
+    the plain versions on the same CUDA tensors."""
     import copy
     import dataclasses
 
@@ -2475,41 +2511,54 @@ def width_check(dev):
     near("hnsw 10 levels", got,
          th.hnsw_search_impl(_on_cpu(ten.state), hq.cpu(), None, cfg=ten.cfg, k=K, ef=64,
                              iters=96, filtered=False, descent_ef=ten._descent_ef))
-    # the widths no kernel holds: refused before any launch
+    # past the fast forms' widths: each answers in its wide form, counted,
+    # as the same state through the plain versions on the card's tensors
     ivf = IvfIndex(dim=32, device=dev, n_clusters=16, sq8=True, rerank=2500)
     ivf.add(px)
     hn = th.HnswIndex(dim=32, device=dev, ef_construction=64)
     hn.add(px[:12_000])
     hn.pack_serving()
+    hq8 = hq[:8]
     x5 = torch.randn(4000, 512, device=dev, generator=gen)
     cand = torch.randint(0, 4000, (64, 100), dtype=torch.int32, device=dev, generator=gen)
-    refused = {
-        "ivf rerank=2500": lambda: ivf.search(pool[20_000:], K, nprobe=8),
-        "hnsw ef=1500": lambda: hn.search(hq, K, ef=1500),
-        "hnsw serve ef=1500": lambda: hn.search_serve(hq, K, ef=1500),
-        "hnsw_select W=100 d=512": lambda: kernels.hnsw_select(
-            x5, (x5 * x5).sum(1), torch.arange(64, dtype=torch.int32, device=dev), cand, deg=16,
-            metric=0, alpha=1.0),
+    t5 = torch.arange(64, dtype=torch.int32, device=dev)
+    answered = {
+        "ivf rerank=2500": ("ivf_rerank_wide",
+                            lambda: ivf.search(pool[20_000:], K, nprobe=8, out="torch")),
+        "hnsw ef=1500": ("hnsw_graph_beam_wide", lambda: hn.search(hq8, K, ef=1500, out="torch")),
+        "hnsw serve ef=1500": ("hnsw_serve_beam_wide",
+                               lambda: hn.search_serve(hq8, K, ef=1500, out="torch")),
     }
-    for name, fn in refused.items():
-        try:
-            fn()
-        except ValueError as e:
-            out[name] = {"refused": str(e)}
-        else:
-            check(False, f"{name}: answered on the card; no kernel holds it")
-        log(f"width {name}: refused ({out[name]['refused']})")
+    for name, (kernel, fn) in answered.items():
+        before = kernels.launches[kernel]
+        got = fn()
+        torch.cuda.synchronize()
+        check(kernels.launches[kernel] > before, f"{name}: no {kernel} launch")
+        with _PlainVersions():
+            want = fn()
+        near(name, got, want)
+    before = kernels.launches["hnsw_select_wide"]
+    ki, _, _ = kernels.hnsw_select(x5, (x5 * x5).sum(1), t5, cand, deg=16, metric=0, alpha=1.0)
+    check(kernels.launches["hnsw_select_wide"] == before + 1, "K7 W=100 d=512: not its wide form")
+    pi, _, _ = kernels.hnsw_select_plain(x5, (x5 * x5).sum(1), t5, cand, deg=16, metric=0,
+                                         alpha=1.0)
+    frac = float((ki == pi).all(1).float().mean())
+    check(frac >= 0.98, f"K7 W=100 d=512: only {frac} of the rows equal the plain version's")
+    out["hnsw_select W=100 d=512"] = {"rows_equal": frac}
+    log(f"width hnsw_select W=100 d=512: rows equal {frac}")
     return out
 
 
 # ---------------------------------------------------------------------------
 # the SQL database (turdb_tpu_torch.database) over the port's indexes
 
-N_SQL_QUERIES = 256          # held-out queries sent as SQL statements
+# held-out queries sent as SQL statements (256 until the emb path joined:
+# the script's time stays near half its limit)
+N_SQL_QUERIES = 64
 N_SQL_INSERT = 256           # rows INSERTed into the HNSW-indexed table
 SQL_REL_TOL = 1e-6           # distances after a reopen against before it
 SQL_TRACED = 8               # statements in a store's device trace
-SQL_REOPEN = 64              # statements a path repeats after the reopen
+SQL_REOPEN = 32              # statements a path repeats after the reopen
 # The 256 INSERTed rows join the 1M bulk graph as one wave at the next
 # statement's flush. They find themselves as the insert path's rows do
 # (the waves' greedy descent, ROADMAP queue 3; 0.4986 of 65,536 rows there,
@@ -2579,7 +2628,7 @@ def sql_phase(dev, x, queries):
     """The database on the card (`Database.create` with its default device):
     the 1M make_pool rows bulk-loaded as docs(id, emb VECTOR(128), grp) with
     the WAL on; exact queries without an index; USING IVF (f32, then
-    compact) and USING HNSW, each queried by 256 held-out SQL statements
+    compact) and USING HNSW, each queried by 64 held-out SQL statements
     against the card's FlatIndex oracle; 256 INSERTs into the graph; the
     serving pack; a checkpoint, close and reopen that must give the same
     answers."""
@@ -2755,6 +2804,503 @@ def sql_phase(dev, x, queries):
     return out
 
 # ---------------------------------------------------------------------------
+# the embedding widths (the reference bench's emb rows, bench.py:810-824):
+# 384-d and 768-d rows, deep SQL LIMITs, rows past DIM_MAX. Its main path
+# runs every kernel's wide form; wide_check holds each against its plain
+# version on the path's own inputs.
+# ---------------------------------------------------------------------------
+
+N_EMB = 500_000               # bench.py:49, N_EMB = min(N, 500k)
+EMB_DIM = 384                 # emb_pool's width (all-MiniLM-L6-v2's)
+EMB_PROBES = (4, 6, 8, 12, 16, 24, 32, 64)   # bench.py:817
+EMB_RERANK = 200              # bench.py:818
+N_EMB_WAVE = 4_096            # rows of the wave add into the 384-d bulk graph
+N_EMB_SQL = 64                # statements a store and LIMIT
+EMB_DEEP_HNSW, EMB_DEEP_IVF = 200, 600   # fetch 800 at ef 1600; fetch 2400
+N_EMB_PLAIN = 2               # deep statements a store held against the plain versions
+N_768, N_768_WAVE = 65_536, 1_024        # BERT-base / mpnet width: bulk graph, wave add
+EMB_DEEP_EF = 1_600           # the deep graph search over the 768-d SQ8 store
+N_WIDE_ROWS, WIDE_ROWS_DIM = 4_096, 4_608   # rows past DIM_MAX (4096): waves from empty
+
+
+class _WideCalls:
+    """The first call of each wide kernel form on a path: the wrappers the
+    model modules call are wrapped for the run, and a call after which a
+    `<kernel>_wide` count rose is kept (wrapper, arguments) for
+    wide_check to replay outside the counts."""
+
+    WRAPPERS = {"ivf": ("ivf_probe_f32", "ivf_probe_sq8", "ivf_rerank"),
+                "hnsw_serve": ("hnsw_serve_beam", "ivf_probe_sq8"),
+                "hnsw": ("hnsw_graph_beam", "hnsw_greedy", "hnsw_select", "hnsw_select_sorted")}
+
+    def __init__(self):
+        self.calls, self.saved = {}, []
+
+    def __enter__(self):
+        from turdb_tpu_torch import kernels, models
+        from turdb_tpu_torch.models import hnsw, hnsw_serve, ivf  # noqa: F401
+
+        for mod, names in self.WRAPPERS.items():
+            mod = getattr(models, mod)
+            for name in names:
+                fn = getattr(mod, name)
+                self.saved.append((mod, name, fn))
+                setattr(mod, name, self._wrapped(fn, kernels))
+        return self
+
+    def _wrapped(self, fn, kernels):
+        def wrapped(*a, **kw):
+            before = {w: kernels.launches[w] for w in kernels.WIDE}
+            out = fn(*a, **kw)
+            for w in kernels.WIDE:
+                if kernels.launches[w] > before[w]:
+                    self.calls.setdefault(w, (fn, a, kw))
+            return out
+        return wrapped
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+class _PlainVersions:
+    """Inside: every kernel wrapper runs its plain version, on the device
+    its tensors lie on (the wrappers ask `_on_cuda` which to take)."""
+
+    def __enter__(self):
+        from turdb_tpu_torch import kernels
+
+        self.kernels, self.on_cuda = kernels, kernels._on_cuda
+        kernels._on_cuda = lambda *t: False
+        return self
+
+    def __exit__(self, *exc):
+        self.kernels._on_cuda = self.on_cuda
+
+
+def _cos_oracle(dev, x, queries, k):
+    """The exact cosine k-NN of `queries` over `x` (FlatIndex on the card)."""
+    from turdb_tpu_torch.models.flat import FlatIndex
+    from turdb_tpu_torch.ops.distance import Metric
+
+    flat = FlatIndex(dim=x.shape[1], capacity=len(x), metric=Metric.COSINE, device=dev)
+    flat.add(x)
+    truth = flat.search(queries, k=k)[1]
+    check(bool((truth >= 0).all()), "the cosine oracle returned empty slots")
+    return truth
+
+
+def _emb_ivf(dev, xe, qe, truth, truth50):
+    """bench.py's ivf_emb384 row: IvfIndex(cosine, rerank=200), the sweep to
+    the gate, recall@50 at the gate and up to 0.99 (`_recall50_ivf`), QPS."""
+    from turdb_tpu_torch.models.ivf import IvfIndex
+    from turdb_tpu_torch.ops.distance import Metric
+    from turdb_tpu_torch.utils.datasets import recall_of
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    idx = IvfIndex(dim=EMB_DIM, metric=Metric.COSINE, rerank=EMB_RERANK, device=dev)
+    idx.add(xe)
+    torch.cuda.synchronize()
+    out = {"build_s": time.perf_counter() - t, "C": idx.cfg.n_clusters,
+           "L": idx.cfg.cluster_cap}
+    out["sweep"], gate = sweep_phase(idx, qe, truth, EMB_PROBES)
+    out["gate_nprobe"] = gate
+    r50 = {}
+    for p in sorted({gate, *[p for p in EMB_PROBES if p >= gate]}):
+        _, ids = idx.search(qe[:N_ORACLE], K50, nprobe=p)
+        r50[str(p)] = recall_of(ids, truth50)
+        if r50[str(p)] >= 0.99:
+            break
+    out["recall50"] = {"at_gate": r50[str(gate)], "sweep": r50}
+    out.update(qps_phase(idx, _batches(qe, dev), gate))
+    log(f"emb ivf: {json.dumps(out)}")
+    return out
+
+
+def _emb_hnsw(dev, xe, qe, truth):
+    """bench.py's bench_hnsw on the emb rows: the bulk build (K7's wide form
+    at the upper levels: W = 8 x 16 candidates of 384 floats, 196,608 bytes
+    of rows), the serving pack, the serve sweep to the gate with QPS, the
+    graph search at ef 64, a wave add of held-out rows, reachability."""
+    from turdb_tpu_torch import kernels
+    from turdb_tpu_torch.models.hnsw import HnswIndex
+    from turdb_tpu_torch.ops.distance import Metric
+    from turdb_tpu_torch.utils.datasets import recall_of
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    before = kernels.launches["hnsw_select_wide"]
+    idx = HnswIndex(dim=EMB_DIM, metric=Metric.COSINE, ef_construction=100, build_batch=512,
+                    capacity=N_EMB + N_EMB_WAVE, device=dev)
+    idx.add(xe)
+    torch.cuda.synchronize()
+    lv = idx.state.levels[:idx.size].cpu().numpy()
+    out = {"build_s": time.perf_counter() - t,
+           "level_sizes": [int((lv >= lvl).sum()) for lvl in range(idx.state.max_level + 1)],
+           "select_wide_launches": kernels.launches["hnsw_select_wide"] - before}
+    check(out["select_wide_launches"] > 0, "the 384-d bulk build ran no K7 wide launch")
+    t = time.perf_counter()
+    idx.pack_serving()
+    torch.cuda.synchronize()
+    out["pack_s"] = time.perf_counter() - t
+    out["sweep"], gate = hnsw_sweep(idx.search_serve, qe, truth, HNSW_SWEEP)
+    check(gate is not None, f"emb hnsw serve: recall gate {RECALL_GATE} not reached by ef 96")
+    out["gate"] = {"ef": gate[0], "iters": gate[1]}
+    batches = _batches(qe, dev)
+    out["serve"] = hnsw_qps(lambda b: idx.search_serve(b, K, ef=gate[0], iters=gate[1],
+                                                       out="torch"), batches, idx.size)
+    _, ids = idx.search(qe[:N_ORACLE], K, ef=HNSW_GRAPH_EF)
+    out["graph"] = {"ef": HNSW_GRAPH_EF, "recall@10": recall_of(ids, truth),
+                    **hnsw_qps(lambda b: idx.search(b, K, ef=HNSW_GRAPH_EF, out="torch"),
+                               batches[:4], idx.size)}
+    new = qe[-N_EMB_WAVE:]
+    t = time.perf_counter()
+    slots = idx.add(new)
+    torch.cuda.synchronize()
+    out["wave_s"] = time.perf_counter() - t
+    _, ids = idx.search(new[:N_ORACLE], 1, ef=HNSW_GRAPH_EF)
+    out["wave_self_hit"] = float(np.mean(ids[:, 0] == slots[:N_ORACLE]))
+    out["reach_levels"] = _reach(idx)
+    log(f"emb hnsw: {json.dumps(out)}")
+    check(out["reach_levels"] >= REACH_GATE,
+          f"emb hnsw: only {out['reach_levels']} of the graph is reachable")
+    return out
+
+
+def _emb_sql(dev, xe, qe):
+    """The emb rows as docs(id BIGINT PRIMARY KEY, emb VECTOR(384)): USING
+    HNSW at LIMIT 10 and 200 on the graph path and, after PRAGMA ann_pack,
+    the serve path (gated at recall@10 0.95); USING IVF (f32) and USING IVF
+    WITH (sq8, rerank = 2400) at LIMIT 10 and 600. Every deep statement
+    answers with LIMIT rows; its recall@LIMIT against the exact cosine
+    oracle is recorded; N_EMB_PLAIN of each deep store's statements give
+    the ids the same state gives through the plain versions on the card's
+    tensors, up to exact-tie order."""
+    import shutil
+    import tempfile
+
+    from turdb_tpu_torch import Database
+
+    qv = _parsed(qe[:N_EMB_SQL])
+    lits = [_sql_vec(v) for v in qv]
+    truth = _cos_oracle(dev, xe, qv, EMB_DEEP_IVF)
+
+    def vec_of(ids):
+        return xe[np.asarray(ids)]
+
+    out = {}
+
+    def run(name, db, limit, gate=False):
+        rows, ms = _sql_timed(db, [_sql_ann(s, limit) for s in lits])
+        check(all(len(r) == limit for r in rows), f"emb sql {name}: short answers")
+        rec = float(np.mean([len({r[0] for r in rr} & set(t[:limit].tolist())) / limit
+                             for rr, t in zip(rows, truth)]))
+        out[name] = {"limit": limit, f"recall@{limit}": rec, **_pcts(ms)}
+        log(f"emb sql {name}: {json.dumps(out[name])}")
+        if gate:
+            check(rec >= RECALL_GATE, f"emb sql {name}: recall@{limit} {rec} < {RECALL_GATE}")
+        return rows
+
+    def against_plain(name, db, rows, limit):
+        for i in range(N_EMB_PLAIN):
+            with _PlainVersions():
+                want = db.query(_sql_ann(lits[i], limit))
+            _same_ranking([r[0] for r in rows[i]], [r[0] for r in want], vec_of, lits[i],
+                          f"emb sql {name} statement {i} against the plain versions")
+        out[name]["plain_equal"] = N_EMB_PLAIN
+
+    tmp = tempfile.mkdtemp(prefix="turdb_emb_sql_")
+    try:
+        t = time.perf_counter()
+        db = Database.create(f"{tmp}/db")
+        db.execute(f"CREATE TABLE docs (id BIGINT PRIMARY KEY, emb VECTOR({EMB_DIM}))")
+        db.bulk_insert("docs", {"id": np.arange(len(xe)), "emb": xe})
+        out["load_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        db.execute("CREATE INDEX ih ON docs USING HNSW (emb)")
+        out["create_hnsw_s"] = time.perf_counter() - t
+        run("hnsw_graph", db, K)
+        rows = run("hnsw_graph_deep", db, EMB_DEEP_HNSW)
+        against_plain("hnsw_graph_deep", db, rows, EMB_DEEP_HNSW)
+        db.execute("PRAGMA ann_pack = 'docs'")
+        run("hnsw_serve", db, K, gate=True)
+        rows = run("hnsw_serve_deep", db, EMB_DEEP_HNSW)
+        against_plain("hnsw_serve_deep", db, rows, EMB_DEEP_HNSW)
+        db.execute("DROP INDEX ih")
+        torch.cuda.empty_cache()
+        for name, opts in (("ivf", ""),
+                           ("ivf_sq8", f"WITH (sq8 = true, rerank = {4 * EMB_DEEP_IVF})")):
+            t = time.perf_counter()
+            db.execute(f"CREATE INDEX iv ON docs USING IVF (emb) {opts}")
+            out[f"create_{name}_s"] = time.perf_counter() - t
+            if name == "ivf":
+                run(name, db, K)
+            rows = run(f"{name}_deep", db, EMB_DEEP_IVF)
+            against_plain(f"{name}_deep", db, rows, EMB_DEEP_IVF)
+            db.execute("DROP INDEX iv")
+            torch.cuda.empty_cache()
+        db.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _emb_768(dev):
+    """emb_pool at 768 dims (BERT-base / mpnet): the bulk build of 65,536
+    rows (K7's wide form at level 0: W = 2 x 32 candidates of 768 floats),
+    a 1,024-row wave add (the ef_construction beam's W = 100 presorted
+    selection, wide), reachability and recall@10 at ef 64; then the SQ8
+    store searched at ef 1,600 (K8-SQ's wide form)."""
+    from turdb_tpu_torch.models.hnsw import HnswIndex
+    from turdb_tpu_torch.ops.distance import Metric
+    from turdb_tpu_torch.utils.datasets import emb_pool, recall_of
+
+    from turdb_tpu_torch import kernels
+
+    x, q = emb_pool(np.random.default_rng(1), N_768 + N_768_WAVE, n_queries=N_ORACLE, dim=768)
+    truth = _cos_oracle(dev, x, q, K)
+    idx = HnswIndex(dim=768, metric=Metric.COSINE, ef_construction=100, build_batch=512,
+                    capacity=len(x), device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    before = kernels.launches["hnsw_select_wide"]
+    idx.add(x[:N_768])
+    torch.cuda.synchronize()
+    out = {"build_s": time.perf_counter() - t,
+           "select_wide_launches": kernels.launches["hnsw_select_wide"] - before}
+    check(out["select_wide_launches"] > 0, "the 768-d bulk build ran no K7 wide launch")
+    t = time.perf_counter()
+    idx.add(x[N_768:])
+    torch.cuda.synchronize()
+    out["wave_s"] = time.perf_counter() - t
+    out["reach_levels"] = _reach(idx)
+    _, ids = idx.search(q, K, ef=HNSW_GRAPH_EF)
+    out["recall@10"] = recall_of(ids, truth)
+    idx.quantize_sq8()
+    # batches of 32: wide_check replays the first against the plain beam
+    ids = np.concatenate([idx.search(q[s:s + 32], K, ef=EMB_DEEP_EF)[1]
+                          for s in range(0, len(q), 32)])
+    out[f"sq8_recall@10_ef{EMB_DEEP_EF}"] = recall_of(ids, truth)
+    log(f"emb 768: {json.dumps(out)}")
+    check(out["reach_levels"] >= REACH_GATE,
+          f"emb 768: only {out['reach_levels']} of the graph is reachable")
+    return out
+
+
+def _emb_wide_rows(dev):
+    """Rows past DIM_MAX (4,608 floats): 4,096 rows through the waves from
+    empty (K9's wide form in each wave's descent, K8 and K7 wide), then a
+    search (K9 wide at descent_ef 1); recall@10 at ef 64 recorded."""
+    from turdb_tpu_torch.models.hnsw import HnswIndex
+    from turdb_tpu_torch.ops.distance import Metric
+    from turdb_tpu_torch.utils.datasets import emb_pool, recall_of
+
+    x, q = emb_pool(np.random.default_rng(2), N_WIDE_ROWS, n_queries=N_ORACLE,
+                    dim=WIDE_ROWS_DIM)
+    truth = _cos_oracle(dev, x, q, K)
+    idx = HnswIndex(dim=WIDE_ROWS_DIM, metric=Metric.COSINE, capacity=len(x), device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    idx.add(x)
+    torch.cuda.synchronize()
+    out = {"wave_s": time.perf_counter() - t}
+    _, ids = idx.search(q, K, ef=HNSW_GRAPH_EF)
+    out["recall@10"] = recall_of(ids, truth)
+    out["reach_levels"] = _reach(idx)
+    log(f"emb rows past DIM_MAX: {json.dumps(out)}")
+    return out
+
+
+def emb_phase(dev):
+    """The emb path: the reference bench's embedding size (emb_pool 500k x
+    384, 16,384 queries, cosine; flat oracles at k = 10 and 50 on 256
+    held-out queries) through IVF, HNSW and SQL at deep LIMITs, then 768-d
+    rows and rows past DIM_MAX. Returns the report and the first call of
+    each wide kernel form."""
+    from turdb_tpu_torch.utils.datasets import emb_pool
+
+    t = time.perf_counter()
+    xe, qe = emb_pool(np.random.default_rng(0), N_EMB, n_queries=N_QUERIES)
+    out = {"pool_s": time.perf_counter() - t}
+    truth50 = _cos_oracle(dev, xe, qe[:N_ORACLE], K50)
+    truth = truth50[:, :K]
+    with _WideCalls() as wide:
+        out["ivf"] = _emb_ivf(dev, xe, qe, truth, truth50)
+        torch.cuda.empty_cache()
+        out["hnsw"] = _emb_hnsw(dev, xe, qe, truth)
+        torch.cuda.empty_cache()
+        out["sql"] = _emb_sql(dev, xe, qe)
+        torch.cuda.empty_cache()
+        out["d768"] = _emb_768(dev)
+        out["wide_rows"] = _emb_wide_rows(dev)
+    return out, wide.calls
+
+
+def _wide_outputs(name, got):
+    """(distances, ids) of a wide form's output, for `_near_equal`."""
+    if name.startswith("hnsw_graph_beam"):
+        return got.cand_d, got.cand_i
+    if name == "hnsw_greedy_wide":
+        return got[1][:, None], got[0][:, None]
+    if name.startswith("hnsw_select"):
+        return got[1], got[0]
+    return got[0], got[1]
+
+
+def _wide_bound(name, fn, a, kw, got):
+    """The bound of one wide call on its own inputs (each input byte read
+    once, each output byte written once; the operations the inputs need),
+    as the fast forms' checks count them."""
+    if name in ("ivf_probe_f32_wide", "ivf_probe_sq8_wide"):
+        f32 = name == "ivf_probe_f32_wide"
+        # the places of cells, members, alive, allowed and the store
+        at = (2, 5, 6, 7, 3) if f32 else (4, 9, 10, 11, 5)
+        cells, members, alive = (a[i] for i in at[:3])
+        allowed = a[at[3]] if len(a) > at[3] else None
+        d = a[at[4]].shape[-1]
+        row = 4 * d + 4 if f32 else d + 12
+        width = kw["m"] if kw.get("mode", 0) == 1 else kw["k"]
+        return _probe_bound(cells, members, alive, allowed, row, row, 8 * width, d,
+                            FP32_OPS if f32 else INT8_OPS)
+    if name == "ivf_rerank_wide":
+        q, cd, cpos, rows = a[0], a[2], a[4], a[5]
+        d = rows.shape[-1]
+        fin = torch.isfinite(cd)
+        pos = torch.unique(cpos[fin].long())
+        row_bytes = 4 * d if rows.dtype == torch.float32 else 2 * d + 8
+        nbytes = (cd.numel() * 12 + pos.numel() * (row_bytes + 4) + q.shape[0] * (4 * d + 4)
+                  + q.shape[0] * kw["k"] * 8)
+        return _bound(nbytes, 2 * d * int(fin.sum()), FP32_OPS)
+    if name == "hnsw_serve_beam_wide":
+        codes, q, si = a[0], a[4], a[9]
+        b, deg, d = q.shape[0], codes.shape[1], codes.shape[2]
+        r = min(kw["rerank"] or kw["ef"], kw["ef"])
+        tot = got[2].long().sum(0)
+        nbytes = (int(tot[0]) * deg * 16 + int(tot[1]) * d + b * r * (4 * d + 4)
+                  + b * (5 * d + 12) + si.numel() * 8 + b * kw["k"] * 8)
+        return _bound(nbytes, [(2 * d * int(tot[1]), INT8_OPS), (2 * d * b * r, FP32_OPS)])
+    if name.startswith("hnsw_graph_beam"):
+        adj, rows, q, si = a[0], a[1], a[3], a[5]
+        b, s = si.shape
+        deg, d = adj.shape[1], q.shape[1]
+        row_bytes = 4 * d + 4 if name == "hnsw_graph_beam_wide" else d * rows.bits // 8 + 12
+        tot = got.stats.long().sum(0)
+        kr = 0 if got.res_d is None else got.res_d.shape[1]
+        nbytes = (int(tot[0]) * deg * 4 + int(tot[1]) * row_bytes + b * (4 * d + 4) + b * s * 8
+                  + b * kw["ef"] * 8 + b * kr * 8 + b * 8)
+        return _bound(nbytes, 2 * d * int(tot[1]), FP32_OPS)
+    if name == "hnsw_greedy_wide":
+        adjs, rows, q = a[0], a[1], a[3]
+        deg = (adjs if isinstance(adjs, torch.Tensor) else adjs[0]).shape[1]
+        d = q.shape[1]
+        row_bytes = 4 * d if isinstance(rows, torch.Tensor) else d * rows.bits // 8 + 8
+        return _greedy_bound(got[2], q.shape[0], deg, row_bytes, d)
+    # K7: the distinct valid candidates' rows once, the candidate lists,
+    # the outputs; a distance and a sum of squares a valid candidate and a
+    # pair a counted pair
+    sorted_mode = name == "hnsw_select_sorted_wide"
+    vectors = a[0]
+    cand = a[1] if sorted_mode else a[3]
+    d = vectors.shape[1]
+    u, w = cand.shape
+    deg = kw["deg"]
+    valid = cand >= 0
+    n_rows = int(torch.unique(cand[valid]).numel())
+    nbytes = n_rows * (4 * d + 4) + u * w * (8 if sorted_mode else 4) + u * deg * 8 + u * 8
+    return _bound(nbytes, 2 * d * (2 * int(valid.sum()) + int(got[2].sum())), FP32_OPS)
+
+
+def _wide_library_ms(name, a, kw):
+    """`torch.topk` at the write-then-select step's shape (the probes' [B,
+    P*L] distances, the rerank's [B, r]), the library's yardstick for the
+    selection; None where no PyTorch call does the kernel's work."""
+    if name in ("ivf_probe_f32_wide", "ivf_probe_sq8_wide"):
+        cells = a[2] if name == "ivf_probe_f32_wide" else a[4]
+        members = a[5] if name == "ivf_probe_f32_wide" else a[9]
+        shape, k = (cells.shape[0], cells.shape[1] * members.shape[1]), kw["m"]
+    elif name == "ivf_rerank_wide":
+        shape, k = tuple(a[2].shape), kw["k"]
+    else:
+        return None
+    x = torch.rand(shape, device=a[0].device)
+    return _median_ms(lambda: torch.topk(x, k, dim=1, largest=False, sorted=True))
+
+
+def wide_check(calls):
+    """Each wide kernel form on the emb path's own first call of it: the
+    wrapper (its wide kernel, counted here) against the same wrapper
+    through the plain versions on the same CUDA tensors. K4 bit-equal; K1,
+    K5, K6, K8, K8-SQ and K9 as their fast forms' checks hold them
+    (distances within DOT_RTOL of their scale, ids apart only inside that
+    band, K6's beam work equal); K7 as k7_check does (rows equal on 98 %,
+    the rest within 4x the fp32 disagreement of an fp64 tie). Timed: one
+    call (`ms`, the median of 5), ten back to back (`loop_ms`), the plain
+    versions once (`plain_ms`, the comparison's own call)."""
+    from turdb_tpu_torch import kernels
+
+    out = {}
+    for name in kernels.WIDE:
+        check(name in calls, f"{name}: the emb path made no call of it")
+        fn, a, kw = calls[name]
+        before = kernels.launches[name]
+        got = fn(*a, **kw)
+        torch.cuda.synchronize()
+        check(kernels.launches[name] > before, f"{name}: its replay launched no wide kernel")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        with _PlainVersions():
+            want = fn(*a, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        # the plain versions (tens of seconds for a deep beam) are timed once
+        row = {"launches_a_call": kernels.launches[name] - before,
+               "plain_ms": start.elapsed_time(end)}
+        if name == "ivf_probe_sq8_wide":
+            check(all(torch.equal(x, y) for x, y in zip(got, want)),
+                  f"{name}: not bit-equal to the plain version")
+            row["max_abs_err"], row["id_diff"] = 0.0, 0.0
+        elif name.startswith("hnsw_select"):
+            sorted_mode = name == "hnsw_select_sorted_wide"
+            ki, kd, kp = got
+            pi, pd, pp = want
+            same = (ki == pi).all(1)
+            frac = float(same.float().mean())
+            check(frac >= 0.98, f"{name}: only {frac} of the rows equal the plain version's")
+            fin = torch.isfinite(pd[same])
+            err = float((kd[same][fin] - pd[same][fin]).abs().max()) if bool(fin.any()) else 0.0
+            rows = torch.nonzero(~(same & (kp == pp)))[:, 0]
+            vectors, alpha, deg = a[0], kw["alpha"], kw["deg"]
+            if sorted_mode:
+                margins = _select_margins(vectors, None, a[1][rows], deg, alpha,
+                                          cand_d=a[2][rows])
+            else:
+                margins = _select_margins(vectors, a[2][rows], a[3][rows], deg, alpha)
+            # the margins are L2 ones: twice the COSINE distances of unit rows
+            tol = (2.0 if kw["metric"] == 1 else 1.0) * 4.0 * max(
+                err, 2e-7 * float((vectors * vectors).sum(1).max()))
+            check(bool((margins <= tol).all()),
+                  f"{name}: a row differs with no decision within {tol} of a tie")
+            row.update(rows_equal=frac, max_abs_err=err, tie_tol=tol,
+                       max_margin_of_differing=float(margins.max()) if len(rows) else 0.0)
+        else:
+            if name == "hnsw_serve_beam_wide":
+                check(torch.equal(got[2], want[2]), f"{name}: the beam's work differs")
+            err, id_diff = _near_equal(*_wide_outputs(name, got), *_wide_outputs(name, want),
+                                       DOT_RTOL, name)
+            check(id_diff <= 0.01, f"{name}: {id_diff} of the ids differ")
+            row.update(max_abs_err=err, id_diff=id_diff)
+        row["shape"] = {f"arg{i}": list(t.shape) for i, t in enumerate(a)
+                        if isinstance(t, torch.Tensor)}
+        row["options"] = {k: v for k, v in kw.items() if isinstance(v, (int, float, bool))}
+        row.update(ms=_median_ms(lambda: fn(*a, **kw)), loop_ms=_loop_ms(lambda: fn(*a, **kw)),
+                   library_ms=_wide_library_ms(name, a, kw), **_wide_bound(name, fn, a, kw, got))
+        out[name] = row
+        log(f"wide {name}: {json.dumps(row)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 KERNELS = {
     "ivf_probe_f32": ("turdb_tpu_torch/kernels/csrc/ivf_probe.cu",
@@ -2783,6 +3329,25 @@ KERNELS = {
                      "turdb_tpu/models/ivf.py:225"),
     "sq8_scan": ("turdb_tpu_torch/kernels/csrc/sq8_scan.cu",
                  "turdb_tpu/ops/quantize.py:42"),
+    # the wide forms, past the fast forms' widths
+    "ivf_probe_f32_wide": ("turdb_tpu_torch/kernels/csrc/probe_wide.cu",
+                           "turdb_tpu/models/ivf.py:286"),
+    "ivf_probe_sq8_wide": ("turdb_tpu_torch/kernels/csrc/probe_wide.cu",
+                           "turdb_tpu/models/ivf.py:291"),
+    "ivf_rerank_wide": ("turdb_tpu_torch/kernels/csrc/probe_wide.cu",
+                        "turdb_tpu/models/ivf.py:333"),
+    "hnsw_serve_beam_wide": ("turdb_tpu_torch/kernels/csrc/graph_wide.cu",
+                             "turdb_tpu/models/hnsw_serve.py:137"),
+    "hnsw_select_wide": ("turdb_tpu_torch/kernels/csrc/hnsw_select_wide.cu",
+                         "turdb_tpu/models/hnsw.py:568"),
+    "hnsw_graph_beam_wide": ("turdb_tpu_torch/kernels/csrc/graph_wide.cu",
+                             "turdb_tpu/models/hnsw.py:234"),
+    "hnsw_greedy_wide": ("turdb_tpu_torch/kernels/csrc/graph_wide.cu",
+                         "turdb_tpu/models/hnsw.py:192"),
+    "hnsw_graph_beam_sq_wide": ("turdb_tpu_torch/kernels/csrc/graph_wide.cu",
+                                "turdb_tpu/models/hnsw.py:130"),
+    "hnsw_select_sorted_wide": ("turdb_tpu_torch/kernels/csrc/hnsw_select_wide.cu",
+                                "turdb_tpu/models/hnsw.py:471"),
 }
 # the kernels each main path must launch
 PATH_KERNELS = {
@@ -2806,6 +3371,11 @@ PATH_KERNELS = {
     "sql": ("ivf_probe_f32", "topk_rows", "kmeans_assign", "ivf_probe_sq8", "ivf_rerank",
             "hnsw_serve_beam", "hnsw_select", "hnsw_graph_beam", "hnsw_greedy",
             "hnsw_select_sorted"),
+    "emb": ("ivf_probe_f32", "topk_rows", "kmeans_assign", "ivf_probe_sq8", "ivf_rerank",
+            "hnsw_serve_beam", "hnsw_select", "hnsw_graph_beam", "hnsw_select_sorted",
+            "ivf_probe_f32_wide", "ivf_probe_sq8_wide", "ivf_rerank_wide", "hnsw_serve_beam_wide",
+            "hnsw_select_wide", "hnsw_graph_beam_wide", "hnsw_select_sorted_wide",
+            "hnsw_graph_beam_sq_wide", "hnsw_greedy_wide"),
 }
 
 
@@ -2826,6 +3396,7 @@ def kernel_rows(launches):
         "hnsw_select_sorted": REPORT["k7s"],
         "dense_blocks": REPORT["k10"],
         "sq8_scan": REPORT["k11"],
+        **REPORT["wide"],
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # where measured: ten calls back to back (the host's launch path hidden),
@@ -2849,9 +3420,11 @@ def run_paths(dev, launches):
     from turdb_tpu_torch.utils.timing import device_profile
 
     def counted(name, fn):
+        t = time.perf_counter()
         kernels.reset_launches()
         result = fn()
         launches[name] = dict(kernels.launches)
+        REPORT.setdefault("path_s", {})[name] = time.perf_counter() - t
         log(f"launches on the {name} path: {json.dumps(launches[name])}")
         for k in PATH_KERNELS[name]:
             check(launches[name][k] > 0, f"{k} never launched on the {name} path")
@@ -2874,6 +3447,7 @@ def run_paths(dev, launches):
         out, idx, batches = headline_phase(dev, x, queries, truth)
         REPORT["headline"] = out
         REPORT["maintenance"] = maintenance_phase(idx, queries, out["gate_nprobe"], n=len(x))
+        REPORT["fast_build"] = fast_build_phase(dev, x, queries, truth, out["gate_nprobe"])
         return idx, batches, out["gate_nprobe"]
 
     idx, batches, gate = counted("f32", f32)
@@ -2998,6 +3572,15 @@ def run_paths(dev, launches):
     profile("hard", idx, batches, REPORT["hard"]["gate_nprobe"])
     del idx
     torch.cuda.empty_cache()
+
+    def emb():
+        REPORT["emb"], calls = emb_phase(dev)
+        return calls
+
+    calls = counted("emb", emb)
+    REPORT["wide"] = wide_check(calls)
+    del calls
+    torch.cuda.empty_cache()
     REPORT["widths"] = width_check(dev)
     torch.cuda.empty_cache()
 
@@ -3053,7 +3636,7 @@ def main() -> int:
     REPORT["total_s"] = time.perf_counter() - t0
     (OUT / "chip_smoke_report.json").write_text(json.dumps(REPORT, indent=1))
     for name in ("headline", "sq8", "compact", "hard", "probe_only", "hnsw", "hnsw_insert",
-                 "hnsw_wave", "mesh_ivf", "mesh_hnsw", "dense_ivf", "sq8_search", "sql"):
+                 "hnsw_wave", "mesh_ivf", "mesh_hnsw", "dense_ivf", "sq8_search", "sql", "emb"):
         log(f"{name}: {json.dumps({k: v for k, v in REPORT[name].items() if k != 'build_profile'})}")
 
     rows = kernel_rows(launches)

@@ -111,9 +111,11 @@ def test_slice_on_cuda_matches_cpu(cuda):
 
 def test_kernel_limits_raise_and_leave_no_error_behind(cuda):
     """A selection wider than SEL_MAX runs K2's wide form, one launch,
-    bit-equal to the plain version; a shape past the card's shared memory
-    comes back from the C entry point as an error and raises (nothing runs
-    in its place); the next launch is not charged with it."""
+    bit-equal to the plain version; rows past the query row K1 and K5 keep
+    in shared memory (d = 60,000) run their wide forms and agree with the
+    plain versions; an argument a C entry point refuses comes back as an
+    error and raises (nothing runs in its place), and the next launch is
+    not charged with it."""
     x = torch.randn(4, 5000, device=cuda)
     before = kernels.launches["topk_rows"]
     vw, pw = kernels.topk_rows(x, kernels.SEL_MAX + 1)
@@ -125,21 +127,34 @@ def test_kernel_limits_raise_and_leave_no_error_behind(cuda):
     members = torch.arange(c * lcap, device=cuda, dtype=torch.int32).reshape(c, lcap)
     cells = torch.arange(c, device=cuda, dtype=torch.int32)[None, :]
     q = torch.randn(1, d, device=cuda)
+    alive = torch.ones(c, lcap, dtype=torch.bool, device=cuda)
+    pnorms = (pvecs * pvecs).sum(-1)
+    before = kernels.launches["ivf_probe_f32_wide"]
+    dk, ik = kernels.ivf_probe_f32(q, (q * q).sum(1), cells, pvecs, pnorms, members, alive,
+                                   metric=0, k=10, m=10, replicated=False)
+    assert kernels.launches["ivf_probe_f32_wide"] == before + 1
+    dp, ip = kernels.ivf_probe_f32_plain(q, (q * q).sum(1), cells, pvecs, pnorms, members,
+                                         alive, None, 0, 10, 10, False)
+    _assert_near(dk, ik, dp, ip, 1e-4 * float(dp.abs().max()), 0.9)
+    q = torch.randn(2, d, device=cuda)
+    cand = torch.arange(8, dtype=torch.int32, device=cuda).reshape(2, 4)
+    cd = torch.zeros(2, 4, device=cuda)
+    before = kernels.launches["ivf_rerank_wide"]
+    dk, ik = kernels.ivf_rerank(q, (q * q).sum(1), cd, cand, cand, pvecs, pnorms, k=2,
+                                replicated=False)
+    assert kernels.launches["ivf_rerank_wide"] == before + 1
+    dp, ip = kernels.ivf_rerank_plain(q, (q * q).sum(1), cd, cand, cand, pvecs, pnorms, None,
+                                      None, 2, False)
+    _assert_near(dk, ik, dp, ip, 1e-4 * float(dp.abs().max()), 0.5)
+    # an entry point's refusal (a tail with no rows) raises; the next
+    # launch runs clean
+    out = torch.empty(4, dtype=torch.int32, device=cuda)
     with pytest.raises(RuntimeError):
-        kernels.ivf_probe_f32(q, (q * q).sum(1), cells, pvecs, (pvecs * pvecs).sum(-1),
-                              members, torch.ones(c, lcap, dtype=torch.bool, device=cuda),
-                              metric=0, k=10, m=10, replicated=False)
+        kernels._launch("ivf_probe_tail_wide", cuda, cells.data_ptr(), 0, c, members.data_ptr(),
+                        lcap, cd.data_ptr(), out.data_ptr(), 1, 1, 0, 0, out.data_ptr(),
+                        out.data_ptr(), cd.data_ptr(), out.data_ptr(), None, counter=None)
     vk, _ = kernels.topk_rows(x, 5)
     vp, _ = kernels.topk_rows_plain(x, 5)
-    assert torch.equal(vk, vp)
-    # K5 stages its rows beside the query row: a row past shared memory
-    # raises, and the next launch is not charged with it
-    q = torch.randn(2, d, device=cuda)
-    cand = torch.zeros(2, 4, dtype=torch.int32, device=cuda)
-    with pytest.raises(RuntimeError):
-        kernels.ivf_rerank(q, (q * q).sum(1), torch.zeros(2, 4, device=cuda), cand, cand,
-                           pvecs, (pvecs * pvecs).sum(-1), k=2, replicated=False)
-    vk, _ = kernels.topk_rows(x, 5)
     assert torch.equal(vk, vp)
     # K6 at the widest rows the beams take (d 4096): its stages shrink to
     # fit (fewer code rows a warp, one rerank row a chunk)
@@ -600,9 +615,14 @@ def test_hnsw_graph_beam_at_its_limits(cuda):
                 assert bool(allowed[got.res_i[got.res_i >= 0].long()].all())
             else:
                 assert (got.exp_ids == want.exp_ids).float().mean() >= 0.95
-    with pytest.raises(ValueError):
-        kernels.hnsw_graph_beam(adj, x, norms, q, qn, seeds, sd, ef=kernels.EF_MAX,
-                                iters=kernels.EXP_MAX + expand, metric=0, expand=expand)
+    # one expansion step past EXP_MAX: the wide form, the same buffers
+    opts = dict(ef=kernels.EF_MAX, iters=kernels.EXP_MAX + expand, metric=0, expand=expand)
+    before = kernels.launches["hnsw_graph_beam_wide"]
+    got = kernels.hnsw_graph_beam(adj, x, norms, q, qn, seeds, sd, **opts)
+    assert kernels.launches["hnsw_graph_beam_wide"] == before + 1
+    want = kernels.hnsw_graph_beam_plain(adj, x, norms, q, qn, seeds, sd, **opts)
+    torch.testing.assert_close(got.cand_d, want.cand_d, rtol=1e-5, atol=atol)
+    assert (got.cand_i == want.cand_i).float().mean() >= 0.99
 
 
 def test_hnsw_select_at_select_w_max(cuda):
@@ -822,17 +842,29 @@ def test_ivf_probe_f32_rows_in_flight_match_plain(cuda, d):
 
 
 def test_hnsw_limits_raise(cuda):
-    x = torch.randn(2048, 32, device=cuda)
-    n = (x * x).sum(1)
-    adj = torch.zeros(2048, 16, dtype=torch.int32, device=cuda)
-    seed = torch.zeros(4, 1, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError):
-        kernels.hnsw_graph_beam(adj, x, n, x[:4], n[:4], seed, n[:4, None], ef=kernels.EF_MAX + 1,
-                                iters=8, metric=0)
-    with pytest.raises(ValueError):
-        kernels.hnsw_select(x, n, seed[:, 0], torch.zeros(4, kernels.SELECT_W_MAX + 1,
-                                                          dtype=torch.int32, device=cuda),
-                            deg=16, metric=0, alpha=1.0)
+    """Past the fast forms' widths K8 (ef = EF_MAX + 1) and K7 (W =
+    SELECT_W_MAX + 1) run their wide forms, one launch each, and answer as
+    the plain versions (which, on CPU tensors, take any width)."""
+    g = torch.Generator(device=cuda).manual_seed(31)
+    x, n, adj = _graph(g, 2048, 32, 16, cuda)
+    seed = torch.randint(0, 2048, (4, 1), dtype=torch.int32, device=cuda, generator=g)
+    sd = (n[:4] + n[seed[:, 0].long()] - 2 * (x[:4] * x[seed[:, 0].long()]).sum(1))[:, None]
+    sd = sd.clamp_min(0).contiguous()
+    opts = dict(ef=kernels.EF_MAX + 1, iters=8, metric=0)
+    before = kernels.launches["hnsw_graph_beam_wide"]
+    got = kernels.hnsw_graph_beam(adj, x, n, x[:4], n[:4], seed, sd, **opts)
+    assert kernels.launches["hnsw_graph_beam_wide"] == before + 1
+    want = kernels.hnsw_graph_beam_plain(adj, x, n, x[:4], n[:4], seed, sd, **opts)
+    torch.testing.assert_close(got.cand_d, want.cand_d, rtol=1e-5, atol=1e-3)
+    assert (got.cand_i == want.cand_i).float().mean() >= 0.99
+    cand = torch.randint(0, 2048, (4, kernels.SELECT_W_MAX + 1), dtype=torch.int32,
+                         device=cuda, generator=g)
+    before = kernels.launches["hnsw_select_wide"]
+    ki, kd, kp = kernels.hnsw_select(x, n, seed[:, 0], cand, deg=16, metric=0, alpha=1.0)
+    assert kernels.launches["hnsw_select_wide"] == before + 1
+    pi, pd, pp = kernels.hnsw_select_plain(x, n, seed[:, 0], cand, deg=16, metric=0, alpha=1.0)
+    assert torch.equal(ki, pi) and torch.equal(kp, pp)
+    torch.testing.assert_close(kd, pd, rtol=1e-5, atol=1e-3)
 
 
 def test_hnsw_slice_on_cuda_matches_cpu(cuda):
@@ -1052,19 +1084,24 @@ def test_hnsw_greedy_launches_once_a_wave_and_once_a_search(cuda):
 
 
 def test_hnsw_wave_limits_raise_and_leave_no_error_behind(cuda):
-    """K7's presorted mode past SELECT_W_MAX and K8-SQ past EF_MAX:
-    ValueError before a launch; K9 on rows of 30 (not a multiple of 4)
-    reads a zero-padded copy; the next launches run and agree with their
-    plain versions."""
+    """K7's presorted mode past SELECT_W_MAX and K8-SQ past EF_MAX run
+    their wide forms and agree with the plain versions; K9 on rows of 30
+    (not a multiple of 4) reads a zero-padded copy; the next launches run
+    and agree with their plain versions."""
     from turdb_tpu_torch.ops.quantize import sq_rows_encode
 
     x = torch.randn(2048, 32, device=cuda)
     n = (x * x).sum(1)
     adj = torch.randint(0, 2048, (2048, 16), dtype=torch.int32, device=cuda)
     w = kernels.SELECT_W_MAX + 1
-    with pytest.raises(ValueError):
-        kernels.hnsw_select_sorted(x, torch.zeros(4, w, dtype=torch.int32, device=cuda),
-                                   torch.zeros(4, w, device=cuda), deg=16, metric=0, alpha=1.0)
+    cand_i = torch.randperm(2048, device=cuda)[:4 * w].reshape(4, w).to(torch.int32)
+    cand_d = torch.sort(torch.rand(4, w, device=cuda), dim=1).values
+    before = kernels.launches["hnsw_select_sorted_wide"]
+    ki, kd, kp = kernels.hnsw_select_sorted(x, cand_i, cand_d, deg=16, metric=0, alpha=1.0)
+    assert kernels.launches["hnsw_select_sorted_wide"] == before + 1
+    pi, pd, pp = kernels.hnsw_select_sorted_plain(x, cand_i, cand_d, deg=16, metric=0,
+                                                  alpha=1.0)
+    assert torch.equal(ki, pi) and torch.equal(kd, pd) and torch.equal(kp, pp)
     cur = torch.zeros(4, dtype=torch.int32, device=cuda)
     x30 = torch.randn(2048, 30, device=cuda)      # rows read from a zero-padded copy
     n30 = (x30 * x30).sum(1)
@@ -1072,9 +1109,15 @@ def test_hnsw_wave_limits_raise_and_leave_no_error_behind(cuda):
     pi, pd, _ = kernels.hnsw_greedy_plain(adj, x30, n30, x30[:4], n30[:4], cur, n30[:4], metric=0)
     torch.testing.assert_close(kd, pd, rtol=1e-5, atol=1e-3)
     rows = sq_rows_encode(x, 8)
-    with pytest.raises(ValueError):
-        kernels.hnsw_graph_beam(adj, rows, n, x[:4], n[:4], cur[:, None], n[:4, None],
-                                   ef=kernels.EF_MAX + 1, iters=8, metric=0)
+    opts = dict(ef=kernels.EF_MAX + 1, iters=8, metric=0)
+    sd = kernels._gathered_epilogue((x[:4] * rows[cur.long()]).sum(1), 0, n[:4],
+                                    n[cur.long()])[:, None].contiguous()
+    before = kernels.launches["hnsw_graph_beam_sq_wide"]
+    got = kernels.hnsw_graph_beam(adj, rows, n, x[:4], n[:4], cur[:, None], sd, **opts)
+    assert kernels.launches["hnsw_graph_beam_sq_wide"] == before + 1
+    want = kernels.hnsw_graph_beam_plain(adj, rows, n, x[:4], n[:4], cur[:, None], sd, **opts)
+    torch.testing.assert_close(got.cand_d, want.cand_d, rtol=1e-5, atol=1e-3)
+    assert (got.cand_i == want.cand_i).float().mean() >= 0.99
     ki, kd, _ = kernels.hnsw_greedy(adj, rows, n, x[:4], n[:4], cur, n[:4], metric=0)
     pi, pd, _ = kernels.hnsw_greedy_plain(adj, rows, n, x[:4], n[:4], cur, n[:4], metric=0)
     torch.testing.assert_close(kd, pd, rtol=1e-5, atol=1e-3)
@@ -1194,10 +1237,12 @@ def test_mesh_across_cards_answers_as_one_card(cuda):
 
 def test_widths_past_the_kernels(cuda):
     """k = 3000 takes K2's wide form (one launch, bit-equal to the plain
-    version, and with K10 fused, bit-equal blocks); the widths no kernel
-    holds raise on the card before any launch: the IVF rerank past
-    SEL_MAX, ef = 1500 in K8 and K6, K7 at W = 100, d = 512; a wave insert
-    past SELECT_W_MAX refuses before any write."""
+    version, and with K10 fused, bit-equal blocks); past the fast forms'
+    widths the wide forms answer through the entry points as the same index
+    does on the CPU: the IVF rerank past SEL_MAX (K5 wide), ef = 1500 in
+    the graph search (K8 wide) and the serving search (K6 wide), K7 at
+    W = 100, d = 512, and wave inserts past SELECT_W_MAX (K7's presorted
+    mode, wide)."""
     from turdb_tpu_torch.models import hnsw as th
 
     g = torch.Generator(device=cuda).manual_seed(20)
@@ -1218,26 +1263,42 @@ def test_widths_past_the_kernels(cuda):
     pool = make_pool(np.random.default_rng(3), 20_256, 32, n_clusters=64)
     ivf = IvfIndex(dim=32, device=cuda, n_clusters=16, sq8=True, rerank=2500)
     ivf.add(pool[:20_000])
-    with pytest.raises(ValueError, match="SEL_MAX|2048"):
-        ivf.search(pool[20_000:], 10, nprobe=8)
+    before = kernels.launches["ivf_rerank_wide"]
+    dg, ig = ivf.search(pool[20_000:], 10, nprobe=8)
+    assert kernels.launches["ivf_rerank_wide"] > before
+    dc, ic = _cpu_ivf(ivf).search(pool[20_000:], 10, nprobe=8)
+    assert np.mean(ig == ic) >= 0.99
+    np.testing.assert_allclose(dg, dc, rtol=1e-4, atol=1e-3)
     hn = th.HnswIndex(dim=32, device=cuda, ef_construction=64)
     hn.add(pool[:12_000])
     hq = torch.as_tensor(pool[20_000:20_064], device=cuda)
-    with pytest.raises(ValueError, match="ef"):
-        hn.search(hq, 10, ef=1500)
+    flat = FlatIndex(dim=32, capacity=12_000, device=cuda)
+    flat.add(pool[:12_000])
+    _, truth = flat.search(pool[20_000:20_064], k=10)
+    before = kernels.launches["hnsw_graph_beam_wide"]
+    _, ids = hn.search(hq, 10, ef=1500)
+    assert kernels.launches["hnsw_graph_beam_wide"] > before and recall_of(ids, truth) >= 0.99
     hn.pack_serving()
-    with pytest.raises(ValueError, match="ef"):
-        hn.search_serve(hq, 10, ef=1500)
+    before = kernels.launches["hnsw_serve_beam_wide"]
+    _, ids = hn.search_serve(hq, 10, ef=1500)
+    assert kernels.launches["hnsw_serve_beam_wide"] > before and recall_of(ids, truth) >= 0.99
     x5 = torch.randn(4000, 512, device=cuda, generator=g)
     cand = torch.randint(0, 4000, (64, 100), dtype=torch.int32, device=cuda, generator=g)
-    with pytest.raises(ValueError, match="W\\*dim"):
-        kernels.hnsw_select(x5, (x5 * x5).sum(1), torch.arange(64, dtype=torch.int32,
-                                                               device=cuda), cand,
-                            deg=16, metric=0, alpha=1.0)
+    t5 = torch.arange(64, dtype=torch.int32, device=cuda)
+    before = kernels.launches["hnsw_select_wide"]
+    ki, kd, kp = kernels.hnsw_select(x5, (x5 * x5).sum(1), t5, cand, deg=16, metric=0,
+                                     alpha=1.0)
+    assert kernels.launches["hnsw_select_wide"] == before + 1
+    pi, pd, pp = kernels.hnsw_select_plain(x5, (x5 * x5).sum(1), t5, cand, deg=16, metric=0,
+                                           alpha=1.0)
+    assert (ki == pi).all(1).float().mean() >= 0.98
     wide = th.HnswIndex(dim=32, device=cuda, ef_construction=kernels.SELECT_W_MAX + 1)
-    with pytest.raises(ValueError, match="ef_construction"):
-        wide.add(pool[:100])
-    assert len(wide) == 0
+    before = kernels.launches["hnsw_select_sorted_wide"]
+    wide.add(pool[:300])
+    wide.add(pool[300:400])
+    assert len(wide) == 400 and kernels.launches["hnsw_select_sorted_wide"] > before
+    _, ids = wide.search(pool[:50], 1, ef=64)
+    assert np.mean(ids[:, 0] == np.arange(50)) >= 0.98
     vk, _ = kernels.topk_rows(x[:4, :100].contiguous(), 5)
     assert torch.equal(vk, kernels.topk_rows_plain(x[:4, :100], 5)[0])
 
@@ -1395,23 +1456,240 @@ def test_sql_on_cuda_answers_as_on_cpu(cuda, tmp_path, using, opts):
     assert (ic == ig).mean() >= 0.98
 
 
-@pytest.mark.parametrize("using,limit,bound", (("IVF", 513, "2048"), ("HNSW", 129, "1024")))
-def test_sql_limits_past_the_kernels_raise_on_cuda(cuda, tmp_path, using, limit, bound):
+@pytest.mark.parametrize("using,limit,wide", (("IVF", 513, "ivf_probe_f32_wide"),
+                                              ("HNSW", 129, "hnsw_graph_beam_wide")))
+def test_sql_limits_past_the_kernels_raise_on_cuda(cuda, tmp_path, using, limit, wide):
     """SQL asks the index for max(4 LIMIT, LIMIT + 8) rows (and HNSW for ef =
     max(64, 2 fetch)): LIMIT 513 on IVF passes the probes' m <= 2048, LIMIT
-    129 on HNSW the beams' ef <= 1024. On the card the kernel's ValueError
-    reaches the caller of db.query, naming the limit; on the CPU the plain
-    versions answer, as the reference does."""
+    129 on HNSW the beams' ef <= 1024. On the card the wide forms answer
+    (counted), with LIMIT rows, as the CPU's plain versions do: the same
+    ids on 98 % of the places."""
     pool = make_pool(np.random.default_rng(4), 4_001, 32, n_clusters=64)
     x, q = pool[:4000], pool[4000]
     sql = f"SELECT id FROM docs ORDER BY emb <-> {_vec(q)} LIMIT {limit}"
+    out = {}
     for dev in ("cpu", "cuda"):
         db = _sql_docs(tmp_path / dev, dev, x)
         db.execute(f"CREATE INDEX ix ON docs USING {using} (emb)")
-        if dev == "cpu":
-            assert len(db.query(sql)) == limit
-        else:
-            with pytest.raises(ValueError, match=bound):
-                db.query(sql)
-            assert len(db.query(sql.replace(f"LIMIT {limit}", "LIMIT 10"))) == 10
+        before = kernels.launches[wide]
+        out[dev] = [r[0] for r in db.query(sql)]
+        assert len(out[dev]) == limit
+        if dev == "cuda":
+            assert kernels.launches[wide] > before
         db.close()
+    assert np.mean(np.array(out["cpu"]) == np.array(out["cuda"])) >= 0.98
+
+
+# ---------------------------------------------------------------------------
+# the wide forms (csrc/probe_wide.cu, graph_wide.cu, hnsw_select_wide.cu)
+# against their plain versions
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("route", ["f32", "sq8_query", "sq8_cell"])
+def test_probe_wide_forms_match_plain(cuda, route):
+    """K1 and K4 past m = SEL_MAX (2,500 winners of 4,096 or 8,192 lanes):
+    every lane's distance, one K2 selection and the wide dedup tail, both
+    modes, with replicas and `allowed`, one counted launch a call. K4's
+    integer dots make it bit-equal to its plain version on both routes;
+    K1's distances are its fast form's fp32 sums: within 1e-5 of their
+    size, ids and positions equal on 99 %."""
+    from turdb_tpu_torch.ops.quantize import quantize_queries
+
+    g = torch.Generator(device=cuda).manual_seed(30)
+    lcap, p = (128, 64) if route == "sq8_cell" else (256, 16)
+    pvecs, pnorms, members, alive, allowed = _store(g, 300, lcap, 64, 20_000, cuda)
+    q = torch.randn(12, 64, device=cuda, generator=g)
+    qn = (q * q).sum(1)
+    cells = torch.rand(12, 300, device=cuda, generator=g).topk(p).indices.to(torch.int32)
+    name = "ivf_probe_f32_wide" if route == "f32" else "ivf_probe_sq8_wide"
+    if route != "f32":
+        codes, mins, scales, _ = _sq8_store(pvecs)
+        qc, qs, qsum = quantize_queries(q)
+        assert kernels.probe_route(p, lcap, 64, cuda) == route[4:]
+    m = 2500
+    for mode, k in ((kernels.MODE_TOPK, 2100), (kernels.MODE_CAND, m)):
+        for allow in (None, allowed):
+            kw = dict(k=k, m=m, replicated=True, mode=mode)
+            before = kernels.launches[name]
+            if route == "f32":
+                args = (q, qn, cells, pvecs, pnorms, members, alive, allow)
+                got = kernels.ivf_probe_f32(*args, metric=0, **kw)
+                want = kernels.ivf_probe_f32_plain(*args, metric=0, **kw)
+            else:
+                args = (qc, qs, qsum, qn, cells, codes, mins, scales, pnorms, members, alive,
+                        allow)
+                got = kernels.ivf_probe_sq8(*args, **kw)
+                want = kernels.ivf_probe_sq8_plain(*args, **kw)
+            assert kernels.launches[name] == before + 1
+            if route == "f32":
+                torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-4)
+                for a, b in zip(got[1:], want[1:]):
+                    assert (a == b).float().mean() >= 0.99
+            else:
+                for a, b in zip(got, want):
+                    assert torch.equal(a, b)
+
+
+def test_rerank_wide_form_matches_plain(cuda):
+    """K5 past r = SEL_MAX (2,500 candidates) over the f32 and the SQ16
+    store, with and without replicas: one counted launch writes the exact
+    distances in K5's order and K2 selects; within DOT_RTOL (and 1e-4),
+    ids apart only inside that band and equal on 99 %."""
+    g = torch.Generator(device=cuda).manual_seed(32)
+    pvecs, pnorms, members, alive, _ = _store(g, 300, 256, 64, 3000, cuda)
+    _, mins, scales, u16 = _sq8_store(pvecs)
+    q = torch.randn(16, 64, device=cuda, generator=g)
+    qn = (q * q).sum(1)
+    cells = torch.rand(16, 300, device=cuda, generator=g).topk(16).indices.to(torch.int32)
+    r = 2500
+    cd, ci, cpos = kernels.ivf_probe_f32(q, qn, cells, pvecs, pnorms, members, alive, metric=0,
+                                         k=r, m=r, replicated=True, mode=kernels.MODE_CAND)
+    for store, meta in ((pvecs, ()), (u16, (mins, scales))):
+        for replicated in (True, False):
+            args = (q, qn, cd, ci, cpos, store, pnorms, *meta)
+            before = kernels.launches["ivf_rerank_wide"]
+            dk, ik = kernels.ivf_rerank(*args, k=50, replicated=replicated)
+            assert kernels.launches["ivf_rerank_wide"] == before + 1
+            dp, ip = kernels.ivf_rerank_plain(*args, *(None, None)[len(meta):], k=50,
+                                              replicated=replicated)
+            _assert_near(dk, ik, dp, ip, 1e-4, 0.99)
+
+
+@pytest.mark.parametrize("store", ["f32", "sq8", "sq16"])
+def test_graph_beam_wide_form_matches_plain(cuda, store):
+    """K8 (f32 rows) and K8-SQ (u8 / u16 codes) past the fast forms'
+    widths: ef = 1,500 at iters 2,250 (past EF_MAX and EXP_MAX) with the
+    expanded ids, with the filtered result buffer at k_res 1,100, and 40 x
+    32 slots a step (past SLOTS_MAX): one counted launch a call, the plain
+    version's buffers but at near ties of the fp32 dots (ids equal on 99 %)."""
+    g = torch.Generator(device=cuda).manual_seed(33)
+    x, norms, adj = _graph(g, 8000, 32, 32, cuda)
+    rows = dict(_sq_stores(x))[store]
+    q = (x[torch.randint(0, 8000, (16,), device=cuda, generator=g)]
+         + 0.5 * torch.randn(16, 32, device=cuda, generator=g)).contiguous()
+    qn = (q * q).sum(1)
+    allowed = torch.rand(8000, device=cuda, generator=g) < 0.5
+    seeds = torch.rand(16, 8000, device=cuda, generator=g).topk(8).indices.to(torch.int32)
+    sd = kernels._gathered_epilogue(torch.einsum("bd,bsd->bs", q, rows[seeds.long()]), 0,
+                                    qn[:, None], norms[seeds.long()]).contiguous()
+    atol = 1e-5 * float(qn.max() + norms.max())
+    name = "hnsw_graph_beam_wide" if store == "f32" else "hnsw_graph_beam_sq_wide"
+    for kw in (dict(return_expanded=True), dict(allowed=allowed, k_res=1100),
+               dict(expand=40)):
+        opts = dict(ef=1500, iters=2250, metric=0, **kw)
+        before = kernels.launches[name]
+        got = kernels.hnsw_graph_beam(adj, rows, norms, q, qn, seeds, sd, **opts)
+        assert kernels.launches[name] == before + 1
+        want = kernels.hnsw_graph_beam_plain(adj, rows, norms, q, qn, seeds, sd, **opts)
+        torch.testing.assert_close(got.cand_d, want.cand_d, rtol=1e-5, atol=atol)
+        assert (got.cand_i == want.cand_i).float().mean() >= 0.99, kw
+        assert (got.stats == want.stats).all(1).float().mean() >= 0.9
+        if "k_res" in kw:
+            torch.testing.assert_close(got.res_d, want.res_d, rtol=1e-5, atol=atol)
+            assert bool(allowed[got.res_i[got.res_i >= 0].long()].all())
+        if "return_expanded" in kw:
+            assert (got.exp_ids == want.exp_ids).float().mean() >= 0.95
+
+
+def test_serve_beam_wide_form_matches_plain(cuda):
+    """K6 past EF_MAX and EXP_MAX: ef 1,500 at iters 2,250, the rerank of
+    all 1,500 and of 1,100 under `allowed`, every metric: one counted
+    launch; its int8 dots are exact, so the beams are the plain version's
+    (equal stats); the rerank's fp32 dots differ in the last bits."""
+    from turdb_tpu_torch.models.hnsw_serve import pack_serving
+    from turdb_tpu_torch.ops.distance import Metric
+    from turdb_tpu_torch.ops.quantize import quantize_queries
+
+    g = torch.Generator(device=cuda).manual_seed(34)
+    x, norms, adj = _graph(g, 6000, 64, 32, cuda)
+    pack = pack_serving(x, norms, adj, 6000, Metric.L2)
+    q = (x[:32] + 0.5 * torch.randn(32, 64, device=cuda, generator=g)).contiguous()
+    qn = (q * q).sum(1)
+    qc, qs, qsum = quantize_queries(q)
+    seeds = torch.rand(32, 6000, device=cuda, generator=g).topk(16).indices.to(torch.int32)
+    seed_d = torch.arange(16, device=cuda, dtype=torch.float32).expand(32, 16).contiguous()
+    allowed = torch.rand(6000, device=cuda, generator=g) < 0.6
+    atol = 1e-5 * float(qn.max() + norms.max())
+    for metric in (0, 1, 2):
+        for rerank, allow in ((0, None), (1100, allowed)):
+            args = (pack.nbr_codes, pack.nbr_meta, x, norms, q, qn, qc, qs, qsum, seeds, seed_d,
+                    allow)
+            opts = dict(ef=1500, iters=2250, expand=4, rerank=rerank, k=100, metric=metric)
+            before = kernels.launches["hnsw_serve_beam_wide"]
+            dk, ik, sk = kernels.hnsw_serve_beam(*args, **opts)
+            assert kernels.launches["hnsw_serve_beam_wide"] == before + 1
+            dp, ip, sp = kernels.hnsw_serve_beam_plain(*args, **opts)
+            assert torch.equal(sk, sp)
+            torch.testing.assert_close(dk, dp, rtol=1e-5, atol=atol)
+            assert (ik == ip).float().mean() >= 0.999
+
+
+def test_greedy_wide_form_matches_plain(cuda):
+    """K9 on rows past DIM_MAX (d = 4,100) over the f32 rows and the SQ8 /
+    SQ16 store, three levels in one launch: one counted launch a call, each
+    neighbour's sum in the fast form's order, so the plain version's ends
+    (distances within 1e-5 of their scale, ids equal on 99 %)."""
+    g = torch.Generator(device=cuda).manual_seed(35)
+    n, d = 3000, 4100
+    x = torch.randn(n, d, device=cuda, generator=g)
+    norms = (x * x).sum(1)
+    adjs = [torch.randint(0, n, (n, 16), device=cuda, generator=g, dtype=torch.int32)
+            for _ in range(3)]
+    q = (x[:64] + 0.5 * torch.randn(64, d, device=cuda, generator=g)).contiguous()
+    qn = (q * q).sum(1)
+    cur = torch.randint(0, n, (64,), device=cuda, generator=g, dtype=torch.int32)
+    for name, rows in _sq_stores(x):
+        cd = kernels._gathered_epilogue((q * rows[cur.long()]).sum(1), 0, qn,
+                                        norms[cur.long()]).contiguous()
+        before = kernels.launches["hnsw_greedy_wide"]
+        ki, kd, ks = kernels.hnsw_greedy(adjs, rows, norms, q, qn, cur, cd, metric=0)
+        assert kernels.launches["hnsw_greedy_wide"] == before + 1
+        pi, pd, ps = kernels.hnsw_greedy_plain(adjs, rows, norms, q, qn, cur, cd, metric=0)
+        torch.testing.assert_close(kd, pd, rtol=1e-5, atol=1e-5 * float(pd.abs().max()))
+        assert (ki == pi).float().mean() >= 0.99, name
+
+
+@pytest.mark.parametrize("w, d", [(300, 128), (128, 384), (64, 768)])
+def test_select_wide_form_matches_plain(cuda, w, d):
+    """K7 and its presorted mode past the fast form's widths: W = 300 (past
+    SELECT_W_MAX) and the bulk build's W·d·4 = 196,608 bytes of rows at d =
+    384 (upper levels, W = 8 x 16) and d = 768 (level 0, W = 2 x 32), every
+    metric, alpha 1.0 and 1.2: one counted launch a call; rows equal the
+    plain version's on >= 98 % (the rest at near ties of the fp32 dots),
+    their distances within DOT_RTOL of the distance scale (the L2
+    epilogue cancels norms of 2 x 10^4 at d = 768), n_pairs with them."""
+    g = torch.Generator(device=cuda).manual_seed(36)
+    x, _, adj = _graph(g, 6000, d, 32, cuda)
+    targets = torch.randperm(6000, device=cuda, generator=g)[:400].to(torch.int32)
+    cand = torch.randint(0, 6000, (400, w), device=cuda, generator=g, dtype=torch.int32)
+    cand[:, :32] = adj[targets.long()]
+    cand[:, w // 2] = cand[:, 7]
+    cand[:, w - 1] = targets
+    cand[::5, w - w // 4:] = -1
+    earlier = torch.tril(torch.ones((w, w), dtype=torch.bool, device=cuda), -1)
+    drop = (torch.any((cand[:, :, None] == cand[:, None, :]) & earlier, -1)
+            | (cand == targets[:, None]) | (cand < 0))
+    for metric in (0, 1, 2):
+        xm = (x / x.norm(dim=1, keepdim=True) if metric == 1 else x).contiguous()
+        nm = (xm * xm).sum(1)
+        atol = DOT_RTOL * float(2 * nm.max())
+        sd = kernels._gathered_epilogue(torch.einsum("ud,uwd->uw", xm[targets.long()],
+                                                     xm[cand.clamp_min(0).long()]),
+                                        metric, nm[targets.long()][:, None],
+                                        nm[cand.clamp_min(0).long()])
+        sd, order = torch.where(drop, float("inf"), sd).sort(dim=1, stable=True)
+        cs = torch.gather(torch.where(drop, -1, cand), 1, order).contiguous()
+        for alpha in (1.0, 1.2):
+            for name, fn, plain, args in (
+                    ("hnsw_select", kernels.hnsw_select, kernels.hnsw_select_plain,
+                     (xm, nm, targets, cand)),
+                    ("hnsw_select_sorted", kernels.hnsw_select_sorted,
+                     kernels.hnsw_select_sorted_plain, (xm, cs, sd.contiguous()))):
+                before = kernels.launches[name + "_wide"]
+                ki, kd, kp = fn(*args, deg=32, metric=metric, alpha=alpha)
+                assert kernels.launches[name + "_wide"] == before + 1
+                pi, pd, pp = plain(*args, deg=32, metric=metric, alpha=alpha)
+                same = (ki == pi).all(1)
+                assert same.float().mean() >= 0.98, (name, metric, alpha)
+                torch.testing.assert_close(kd[same], pd[same], rtol=DOT_RTOL, atol=atol)
+                assert (kp[same] == pp[same]).float().mean() >= 0.99, (name, metric, alpha)

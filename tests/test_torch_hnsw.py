@@ -324,8 +324,8 @@ def test_unported_paths_raise(data):
     below bulk_threshold and into a non-empty index take the waves, and
     quantize, dequantize and vacuum run. No width raises on the CPU: the
     waves select from the ef_construction beam, and at ef_construction =
-    300, past K7's SELECT_W_MAX (on the card the waves refuse it before any
-    write), wave inserts build the reference's graph."""
+    300, past K7's SELECT_W_MAX (on the card K7's wide form takes it), wave
+    inserts build the reference's graph."""
     base, _, _ = data
     efc = 300
     assert efc > SELECT_W_MAX

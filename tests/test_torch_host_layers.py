@@ -5,10 +5,12 @@ file after the `turdb_tpu` -> `turdb_tpu_torch` rewrite but for the files
 changed on purpose, the C reverse-edge lists equal the numpy branch, and
 the CLI answers on the CPU."""
 
+import io
 import os
 import re
 import subprocess
 import sys
+import tokenize
 from pathlib import Path
 
 import numpy as np
@@ -25,7 +27,17 @@ HOST_DIRS = ("types", "records", "mvcc", "memory", "sql", "storage", "native", "
 # walk over the package does, runs nothing)
 CHANGED = {"database/api.py", "database/indexes.py", "storage/hnsw_io.py", "native/build.py",
            "cli/repl.py", "cli/__main__.py"}
+# held to the reference by their code alone: the port's config.py words a
+# comment differently, and its constants stay checked
+CODE_ONLY = {"config.py"}
 _REWRITE = re.compile(r"\bturdb_tpu\b(?!_)")
+
+
+def _code(text: str) -> list[str]:
+    """The source's tokens but its `#` comments and line breaks."""
+    toks = tokenize.generate_tokens(io.StringIO(text).readline)
+    return [t.string for t in toks if t.type not in (tokenize.COMMENT, tokenize.NL,
+                                                         tokenize.NEWLINE)]
 
 
 def _vendored() -> list[str]:
@@ -52,6 +64,8 @@ def test_copy_matches_reference(rel):
     want = _REWRITE.sub("turdb_tpu_torch", (REF / rel).read_text())
     if rel in CHANGED:
         assert port.read_text() != want, f"{rel} is listed as changed but equals the copy"
+    elif rel in CODE_ONLY:
+        assert _code(port.read_text()) == _code(want), f"{rel}'s code drifted from the reference"
     else:
         assert port.read_text() == want, f"{rel} drifted from the reference"
 

@@ -2,8 +2,7 @@
 own search: ids equal on every finite entry (except near ties), the same
 number of +inf entries, distances within rtol 1e-4 — for L2, COSINE, IP,
 with and without replicas, an `allowed` mask, C > 1024 and pad cells.
-Plus the build pieces: assignment agreement and the NotImplementedError
-surface."""
+Plus the build pieces: assignment agreement and the build options."""
 
 import dataclasses
 
@@ -188,20 +187,19 @@ def test_kmeans_and_two_means_track_reference():
 
 
 def test_unported_paths_raise():
-    """fast_build is still to port (ROADMAP queue 1 item 14): the index
-    refuses it. Dense block packing is ported (tests/test_torch_dense.py):
-    the index takes dense_pack / nblocks."""
-    with pytest.raises(NotImplementedError, match="fast_build"):
-        tivf.IvfIndex(dim=8, fast_build=True, device="cpu")
+    """No build option is left unported: the index takes fast_build (held
+    against the reference in tests/test_torch_fast_build.py) and dense
+    block packing (tests/test_torch_dense.py), and refuses neither."""
+    assert tivf.IvfIndex(dim=8, fast_build=True, device="cpu").fast_build
     idx = tivf.IvfIndex(dim=8, dense_pack=True, nblocks=4, device="cpu")
     assert idx.dense_pack and idx.nblocks == 4
     assert Metric.L2.value == 0
 
 
 def test_rerank_past_the_selection_width():
-    """sq8 with rerank = 2500 candidate lanes (past SEL_MAX = 2048, which
-    the probe's candidate selection and K5 refuse on the card): the
-    reference's answers on its own state."""
+    """sq8 with rerank = 2500 candidate lanes (past SEL_MAX = 2048, where
+    on the card the probe and K5 run their wide forms): the reference's
+    answers on its own state."""
     rng = np.random.default_rng(25)
     x = _clustered(rng, 3000)
     q = x[:16] + 0.05 * rng.standard_normal((16, DIM)).astype(np.float32)

@@ -213,7 +213,11 @@ def test_cpu_wrappers_leave_launch_counters_at_zero():
                                      "ivf_probe_sq8", "ivf_rerank", "hnsw_serve_beam",
                                      "hnsw_select", "hnsw_graph_beam", "hnsw_select_sorted",
                                      "hnsw_graph_beam_sq", "hnsw_greedy", "dense_blocks",
-                                     "sq8_scan"}
+                                     "sq8_scan", "ivf_probe_f32_wide", "ivf_probe_sq8_wide",
+                                     "ivf_rerank_wide", "hnsw_serve_beam_wide",
+                                     "hnsw_select_wide", "hnsw_graph_beam_wide",
+                                     "hnsw_select_sorted_wide", "hnsw_graph_beam_sq_wide",
+                                     "hnsw_greedy_wide"}
     assert not any(kernels.launches.values()), kernels.launches
 
 
@@ -221,11 +225,12 @@ def test_wrappers_never_fall_back():
     """Tensors off the CPU and off CUDA (here: meta) are refused, as are
     mixed devices: the plain version runs only for CPU tensors, at any
     width. On CUDA no width routes to it: K2 and K11 take any k (and K11
-    any d) in kernels of their own, and a width past what a kernel holds (m
-    or r past SEL_MAX in the probes and the rerank, the beams past EF_MAX /
-    SLOTS_MAX / EXP_MAX or DIM_MAX, K7 past SELECT_W_MAX / SELECT_SMEM_MAX,
-    K9 past DIM_MAX) raises before any launch. A failed build or launch
-    raises; nothing falls back after it. A k past the row still raises."""
+    any d) in kernels of their own, and a width past what a fast kernel
+    holds (m or r past SEL_MAX in the probes and the rerank, the beams past
+    EF_MAX / SLOTS_MAX / EXP_MAX or DIM_MAX, K7 past SELECT_W_MAX /
+    SELECT_SMEM_MAX, K9 past DIM_MAX) runs that kernel's wide form. A
+    failed build or launch raises; nothing falls back after it. A k past
+    the row still raises."""
     x = torch.empty((4, 64), device="meta")
     with pytest.raises(ValueError):
         kernels.topk_rows(x, 3)

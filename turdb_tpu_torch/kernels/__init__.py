@@ -21,13 +21,17 @@ and the launch counters.
 
 A wrapper given CPU tensors runs the plain version below, at any width;
 given CUDA tensors it launches its kernel (built at first use) or raises.
-There is no fallback after a failed build or launch, and none by shape:
-a width past what a kernel holds (SEL_MAX for the probes and the rerank,
-EF_MAX / SLOTS_MAX / EXP_MAX for the beams, SELECT_W_MAX and
-SELECT_SMEM_MAX for K7, DIM_MAX for the row readers) raises on CUDA; each
-wrapper's docstring names its limits. K2 takes any k (past SEL_MAX its
-wide form), K11 any k and any d (d-slices), and a caller walks more
-levels than K9 holds in launches of at most GREEDY_LEVELS_MAX.
+There is no fallback after a failed build or launch, and none by shape.
+Every kernel answers at any width a caller can index: past what a fast
+form holds in shared memory or registers (SEL_MAX for the probes and the
+rerank, EF_MAX / SLOTS_MAX / EXP_MAX for the beams, SELECT_W_MAX and
+SELECT_SMEM_MAX for K7, DIM_MAX for the row readers) the wrapper launches
+the kernel's wide form (csrc/hnsw_select_wide.cu, graph_wide.cu,
+probe_wide.cu: state in a global scratch, rows read from device memory),
+counted under its own name (`<kernel>_wide`). K2 takes any k (past
+SEL_MAX its wide form), K11 any k and any d (d-slices), and a caller walks
+more levels than K9 holds in launches of at most GREEDY_LEVELS_MAX. Only
+inputs no kernel can index (int32 lane positions) raise.
 `launches[name]` counts kernel launches only.
 
 Dims. The row kernels read rows 4 elements at a time: a row store whose
@@ -63,11 +67,18 @@ CELL_DIST_BYTES = 1 << 29
 # probe output modes: the final top-k, or the r best lanes for the rerank
 MODE_TOPK, MODE_CAND = 0, 1
 
+# the wide forms, each counted under its own name
+WIDE = ("ivf_probe_f32_wide", "ivf_probe_sq8_wide", "ivf_rerank_wide", "hnsw_serve_beam_wide",
+        "hnsw_select_wide", "hnsw_graph_beam_wide", "hnsw_select_sorted_wide",
+        "hnsw_graph_beam_sq_wide", "hnsw_greedy_wide")
 launches = {"ivf_probe_f32": 0, "topk_rows": 0, "kmeans_assign": 0,
             "ivf_probe_sq8": 0, "ivf_rerank": 0, "hnsw_serve_beam": 0,
             "hnsw_select": 0, "hnsw_graph_beam": 0, "hnsw_select_sorted": 0,
             "hnsw_graph_beam_sq": 0, "hnsw_greedy": 0, "dense_blocks": 0,
-            "sq8_scan": 0}
+            "sq8_scan": 0, **{name: 0 for name in WIDE}}
+# blocks of a wide beam or selection launch at most (each walks its share of
+# the queries over its own scratch slice)
+WIDE_BLOCKS = 512
 # widest row a row-reading kernel (K6-K9) keeps in its buffers
 DIM_MAX = 4096
 
@@ -120,13 +131,6 @@ def _check(t, name, dtype, shape):
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
-
-
-def _past_limit(name: str, limits: str, got: str):
-    """The error of a CUDA call past what its kernel holds (the plain
-    version, on CPU tensors, takes any width)."""
-    return ValueError(f"{name}: on CUDA the kernel takes {limits}; got {got} (CPU tensors take "
-                      f"any width)")
 
 
 # the C entry points, looked up in the library once each
@@ -426,6 +430,56 @@ def _probe_result(out_d, out_i, out_pos):
     return (out_d, out_i) if out_pos is None else (out_d, out_i, out_pos)
 
 
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """`t`, or a copy of it when its data is not 16-byte aligned (a wide
+    form reads its rows as float4)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _probe_tail(cells, members, sel_d, sel_pos, k, m, replicated, mode, out, scratch,
+                counter=""):
+    """The probe's outputs `out` (rows of it) from K2's selection of m
+    winners a row: the fast tail (m <= SEL_MAX, a block's shared memory)
+    or the wide one (winners in `scratch`, [2, rows, m] int32)."""
+    rows, p = cells.shape
+    lcap = members.shape[1]
+    out_d, out_i, out_pos = out
+    if m <= SEL_MAX:
+        _launch("ivf_probe_cells_finish", cells.device, cells.data_ptr(), rows, p,
+                members.data_ptr(), lcap, sel_d.data_ptr(), sel_pos.data_ptr(), k, m,
+                int(replicated), mode, out_d.data_ptr(), out_i.data_ptr(), _ptr(out_pos),
+                counter=None)
+    else:
+        _launch("ivf_probe_tail_wide", cells.device, cells.data_ptr(), rows, p,
+                members.data_ptr(), lcap, sel_d.data_ptr(), sel_pos.data_ptr(), k, m,
+                int(replicated), mode, scratch[0].data_ptr(), scratch[1].data_ptr(),
+                out_d.data_ptr(), out_i.data_ptr(), _ptr(out_pos), counter=counter)
+
+
+def _probe_wide(name, dist_args, cells, members, k, m, replicated, mode):
+    """A probe past SEL_MAX winners or past DIM_MAX (K1, K4 query-major):
+    for each slice of queries whose [rows, P*L] f32 distances fit
+    CELL_DIST_BYTES, one launch writes every lane's distance
+    (`<name>_dist`, counted as `<name>_wide`; `dist_args(s, e, dist)` gives
+    its arguments for queries s:e), K2 selects each row's m best by
+    (distance, position), and the tail drops later copies of an id and
+    writes the outputs."""
+    b, p = cells.shape
+    lcap = members.shape[1]
+    dev = cells.device
+    rows = max(1, min(b, CELL_DIST_BYTES // (4 * p * lcap)))
+    dist = torch.empty((rows, p * lcap), dtype=torch.float32, device=dev)
+    scratch = torch.empty((2, rows, m), dtype=torch.int32, device=dev)
+    out = _probe_outputs(b, k, m, mode, dev)
+    for s in range(0, b, rows):
+        e = min(b, s + rows)
+        _launch(f"{name}_dist", dev, *dist_args(s, e, dist), counter=f"{name}_wide")
+        sel_d, sel_pos = topk_rows(dist[:e - s], m)
+        _probe_tail(cells[s:e], members, sel_d, sel_pos, k, m, replicated, mode,
+                    [None if t is None else t[s:] for t in out], scratch, counter=None)
+    return _probe_result(*out)
+
+
 def ivf_probe_f32(q, qn, cells, pvecs, pnorms, members, alive, allowed=None, *,
                   metric: int, k: int, m: int, replicated: bool, mode: int = MODE_TOPK):
     """Score the probed cells of each query and select from them.
@@ -443,7 +497,10 @@ def ivf_probe_f32(q, qn, cells, pvecs, pnorms, members, alive, allowed=None, *,
     where +inf).
     MODE_CAND (k == m): the m smallest lanes, before any dedup, as
     ([B, m] distances, [B, m] ids, [B, m] int32 flat positions cell*L + lane).
-    On CUDA m > SEL_MAX raises."""
+    On CUDA m > SEL_MAX or d > DIM_MAX (the query row the fast form keeps in
+    shared memory) runs the wide form (`_probe_wide`: every lane's distance
+    written, one K2 selection, the dedup tail; counted as
+    `ivf_probe_f32_wide`)."""
     b, p = cells.shape
     nb, lcap, d = pvecs.shape
     _probe_checks("ivf_probe_f32", cells, members, alive, allowed, k, m, replicated, mode)
@@ -452,8 +509,6 @@ def ivf_probe_f32(q, qn, cells, pvecs, pnorms, members, alive, allowed=None, *,
     if not _on_cuda(q, qn, cells, pvecs, pnorms, members, alive, allowed):
         return ivf_probe_f32_plain(q, qn, cells, pvecs, pnorms, members,
                                    alive, allowed, metric, k, m, replicated, mode)
-    if m > SEL_MAX:
-        raise _past_limit("ivf_probe_f32", f"m <= {SEL_MAX}", f"m={m}")
     q, pvecs = pad_dim(q), _rows4(pvecs)
     d = pvecs.shape[2]
     _check(q, "q", torch.float32, (b, d))
@@ -463,6 +518,13 @@ def ivf_probe_f32(q, qn, cells, pvecs, pnorms, members, alive, allowed=None, *,
     if pvecs.data_ptr() % 16:
         raise ValueError("ivf_probe_f32: rows are read as float4, so pvecs must be 16-byte "
                          "aligned")
+    if m > SEL_MAX or d > DIM_MAX:
+        q = _aligned16(q)
+        return _probe_wide("ivf_probe_f32", lambda s, e, dist: (
+            q[s:].data_ptr(), qn[s:].data_ptr(), cells[s:].data_ptr(), e - s, p,
+            pvecs.data_ptr(), pnorms.data_ptr(), members.data_ptr(), _ptr(_as_u8(alive)),
+            _ptr(_as_u8(allowed)), lcap, d, metric, dist.data_ptr()),
+                           cells, members, k, m, replicated, mode)
     out_d, out_i, out_pos = _probe_outputs(b, k, m, mode, q.device)
     scratch = _probe_scratch(b, p, lcap, m, q.device)
     if b:
@@ -523,8 +585,11 @@ def ivf_probe_sq8(qc, qs, qsum, qn, cells, codes, mins, scales, pnorms, members,
     2·(m′·qsum + scale·(qs·(qc·code))) + pnorms`; 1 and 2 are the HNSW
     serving pack's COSINE and IP seeding. Selection, modes and returns as
     `ivf_probe_f32`. On CUDA a probe wider than one chunk of lanes runs
-    cell-major (`probe_route`), and its selection is a K2 launch; m >
-    SEL_MAX raises."""
+    cell-major (`probe_route`), and its selection is a K2 launch. Past
+    m = SEL_MAX the tail is the wide one (counted as `ivf_probe_sq8_wide`),
+    and the query-major route writes every lane's distance for K2 to select
+    from (`_probe_wide`) in place of its in-block selection, as it does past
+    d = DIM_MAX."""
     b, p = cells.shape
     nb, lcap, d = codes.shape
     _probe_checks("ivf_probe_sq8", cells, members, alive, allowed, k, m, replicated, mode)
@@ -534,8 +599,6 @@ def ivf_probe_sq8(qc, qs, qsum, qn, cells, codes, mins, scales, pnorms, members,
                     allowed):
         return ivf_probe_sq8_plain(qc, qs, qsum, qn, cells, codes, mins, scales, pnorms,
                                    members, alive, allowed, k, m, replicated, mode, metric)
-    if m > SEL_MAX:
-        raise _past_limit("ivf_probe_sq8", f"m <= {SEL_MAX}", f"m={m}")
     qc, codes = pad_dim(qc), _rows4(codes)
     d = codes.shape[2]
     _check(qc, "qc", torch.int8, (b, d))
@@ -550,6 +613,13 @@ def ivf_probe_sq8(qc, qs, qsum, qn, cells, codes, mins, scales, pnorms, members,
     if b and probe_route(p, lcap, d, qc.device) == "cell":
         return _probe_sq8_cells(qc, qs, qsum, qn, cells, codes, mins, scales, pnorms, members,
                                 alive, allowed, k, m, replicated, mode, metric)
+    if m > SEL_MAX or d > DIM_MAX:
+        return _probe_wide("ivf_probe_sq8", lambda s, e, dist: (
+            qc[s:].data_ptr(), qs[s:].data_ptr(), qsum[s:].data_ptr(), qn[s:].data_ptr(),
+            cells[s:].data_ptr(), e - s, p, codes.data_ptr(), mins.data_ptr(), scales.data_ptr(),
+            pnorms.data_ptr(), members.data_ptr(), _ptr(_as_u8(alive)), _ptr(_as_u8(allowed)),
+            lcap, d, metric, dist.data_ptr()),
+                           cells, members, k, m, replicated, mode)
     out_d, out_i, out_pos = _probe_outputs(b, k, m, mode, qc.device)
     scratch = _probe_scratch(b, p, lcap, m, qc.device)
     if b:
@@ -568,7 +638,8 @@ def _probe_sq8_cells(qc, qs, qsum, qn, cells, codes, mins, scales, pnorms, membe
     distances fit CELL_DIST_BYTES: the pairs grouped by cell and every
     lane's distance written (one launch a slice, counted as K4's), the m
     best of each row by (distance, position) from K2, and the tail that
-    turns them into the probe's outputs."""
+    turns them into the probe's outputs (past SEL_MAX the wide tail,
+    counted as `ivf_probe_sq8_wide`)."""
     b, p = cells.shape
     nb, lcap, d = codes.shape
     dev = qc.device
@@ -578,6 +649,8 @@ def _probe_sq8_cells(qc, qs, qsum, qn, cells, codes, mins, scales, pnorms, membe
     rows = min(b, max(1, CELL_DIST_BYTES // (4 * p * lcap)))
     work = torch.empty(2 * nb + rows * p, dtype=torch.int32, device=dev)
     dist = torch.empty((rows, p * lcap), dtype=torch.float32, device=dev)
+    scratch = (torch.empty((2, rows, m), dtype=torch.int32, device=dev) if m > SEL_MAX
+               else None)
     out = _probe_outputs(b, k, m, mode, dev)
     for s in range(0, b, rows):
         e = min(b, s + rows)
@@ -587,11 +660,9 @@ def _probe_sq8_cells(qc, qs, qsum, qn, cells, codes, mins, scales, pnorms, membe
                 members.data_ptr(), _ptr(_as_u8(alive)), _ptr(_as_u8(allowed)), nb, lcap, d,
                 metric, work.data_ptr(), dist.data_ptr(), counter="ivf_probe_sq8")
         sel_d, sel_pos = topk_rows(dist[:e - s], m)
-        out_d, out_i, out_pos = (None if t is None else t[s:] for t in out)
-        _launch("ivf_probe_cells_finish", dev, cells[s:].data_ptr(), e - s, p,
-                members.data_ptr(), lcap, sel_d.data_ptr(), sel_pos.data_ptr(), k, m,
-                int(replicated), mode, out_d.data_ptr(), out_i.data_ptr(), _ptr(out_pos),
-                counter=None)
+        _probe_tail(cells[s:e], members, sel_d, sel_pos, k, m, replicated, mode,
+                    [None if t is None else t[s:] for t in out], scratch,
+                    counter="ivf_probe_sq8_wide")
     return _probe_result(*out)
 
 
@@ -630,7 +701,10 @@ def ivf_rerank(q, qn, cand_d, cand_i, cand_pos, pvecs, pnorms, mins=None, scales
     distance is ±inf stays +inf; under `replicated` later copies of an id
     (and id -1) are dropped. Returns the k smallest by (distance,
     candidate index): ([B, k] f32 ascending, [B, k] int32 ids, -1 where +inf).
-    On CUDA r > SEL_MAX raises."""
+    On CUDA r > SEL_MAX or d > DIM_MAX runs the wide form: one launch
+    writes the [B, r] exact distances (dropped copies +inf; counted as
+    `ivf_rerank_wide`), K2 selects the k smallest, and their ids are
+    gathered."""
     b, r = cand_d.shape
     nb, lcap, d = pvecs.shape
     sq16 = pvecs.dtype == torch.int16
@@ -642,8 +716,6 @@ def ivf_rerank(q, qn, cand_d, cand_i, cand_pos, pvecs, pnorms, mins=None, scales
     if not _on_cuda(q, qn, cand_d, cand_i, cand_pos, pvecs, pnorms, *store_meta):
         return ivf_rerank_plain(q, qn, cand_d, cand_i, cand_pos, pvecs, pnorms, mins,
                                 scales, k, replicated)
-    if r > SEL_MAX:
-        raise _past_limit("ivf_rerank", f"r <= {SEL_MAX}", f"r={r}")
     q, pvecs = pad_dim(q), _rows4(pvecs)
     d = pvecs.shape[2]
     _check(q, "q", torch.float32, (b, d))
@@ -658,6 +730,16 @@ def ivf_rerank(q, qn, cand_d, cand_i, cand_pos, pvecs, pnorms, mins=None, scales
     if pvecs.data_ptr() % 16:
         raise ValueError("ivf_rerank: rows are read 4 elements at a time, so pvecs must be "
                          "16-byte aligned")
+    if (r > SEL_MAX or d > DIM_MAX) and b:
+        q = _aligned16(q)
+        ex = torch.empty((b, r), dtype=torch.float32, device=q.device)
+        _launch("ivf_rerank_dist", q.device, q.data_ptr(), qn.data_ptr(), cand_d.data_ptr(),
+                cand_i.data_ptr(), cand_pos.data_ptr(), b, r, pvecs.data_ptr(), int(sq16),
+                pnorms.data_ptr(), _ptr(mins if sq16 else None), _ptr(scales if sq16 else None),
+                d, int(replicated), ex.data_ptr(), counter="ivf_rerank_wide")
+        dk, pos = topk_rows(ex, k)
+        ik = torch.gather(cand_i, 1, pos.long())
+        return dk, torch.where(torch.isinf(dk), -1, ik)
     out_d = torch.empty((b, k), dtype=torch.float32, device=q.device)
     out_i = torch.empty((b, k), dtype=torch.int32, device=q.device)
     if b:
@@ -743,9 +825,10 @@ def kmeans_assign(x, cents, xn, cn, r: int = 1):
 # ---------------------------------------------------------------------------
 
 # widest beam buffer, neighbour slots a step (expand * deg) and expanded-id
-# list a beam kernel keeps in shared memory (csrc/hnsw_beam.cu), with a hash
-# table of at least twice their sum; the callers' iters = ef + ef // 2
-# stays within EXP_MAX at every ef up to EF_MAX
+# list the fast beam kernels keep in shared memory (csrc/hnsw_beam.cu), with
+# a hash table of at least twice their sum; the callers' iters = ef + ef // 2
+# stays within EXP_MAX at every ef up to EF_MAX. Past any of them (or
+# DIM_MAX) a beam runs its wide form (csrc/graph_wide.cu)
 EF_MAX, SLOTS_MAX, EXP_MAX = 1024, 1024, 2048
 
 
@@ -888,17 +971,20 @@ def _beam_checks(name, b, s, ef, iters, expand, deg, d, seed_i, seed_d):
     _check(seed_d, "seed_d", torch.float32, (b, s))
 
 
-def _beam_limits(name, ef, iters, expand, deg, d, k_res=0):
-    """Raise unless a beam kernel keeps these widths in shared memory: ef
+def beam_fast(ef, iters, expand, deg, d, k_res=0) -> bool:
+    """Whether a fast beam kernel keeps these widths in shared memory: ef
     and k_res <= EF_MAX, expand·deg <= SLOTS_MAX, at most EXP_MAX
-    expansions and d (rounded up to 4) <= DIM_MAX."""
+    expansions and d (rounded up to 4) <= DIM_MAX. Else the wide form runs."""
     _, exp_cap = _loops(iters, expand)
-    if not (ef <= EF_MAX and k_res <= EF_MAX and expand * deg <= SLOTS_MAX
-            and exp_cap <= EXP_MAX and d <= DIM_MAX):
-        raise _past_limit(name, f"ef, k_res <= {EF_MAX}, expand*deg <= {SLOTS_MAX}, at most "
-                          f"{EXP_MAX} expansions and dim <= {DIM_MAX}",
-                          f"ef={ef}, k_res={k_res}, expand*deg={expand * deg}, "
-                          f"{exp_cap} expansions, dim={d}")
+    return (ef <= EF_MAX and k_res <= EF_MAX and expand * deg <= SLOTS_MAX
+            and exp_cap <= EXP_MAX and _d4(d) <= DIM_MAX)
+
+
+def _wide_scratch(bytes_a_block: int, b: int, device):
+    """(scratch, grid) of a wide launch over b queries or targets: at most
+    WIDE_BLOCKS blocks, each with its slice of bytes_a_block."""
+    grid = max(1, min(b, WIDE_BLOCKS))
+    return torch.empty(grid * bytes_a_block, dtype=torch.uint8, device=device), grid
 
 
 def _d4(d: int) -> int:
@@ -925,8 +1011,9 @@ def hnsw_graph_beam(adj, vectors, norms, q, qn, seed_i, seed_d, allowed=None, *,
     ceil(iters / expand) steps; a query stops when nothing is left to
     expand. With `allowed`, nodes outside it are traversed and kept out of
     a second result buffer of width `k_res` (default ef). On CUDA widths
-    past `_beam_limits` (ef or k_res > EF_MAX, expand·deg > SLOTS_MAX, more
-    than EXP_MAX expansions, d > DIM_MAX) raise."""
+    past `beam_fast` (ef or k_res > EF_MAX, expand·deg > SLOTS_MAX, more
+    than EXP_MAX expansions, d > DIM_MAX) run the wide form, counted as
+    `hnsw_graph_beam_wide` / `hnsw_graph_beam_sq_wide`."""
     b, s = seed_i.shape
     cap, deg = adj.shape
     d = vectors.shape[1]
@@ -941,7 +1028,7 @@ def hnsw_graph_beam(adj, vectors, norms, q, qn, seed_i, seed_d, allowed=None, *,
                                      ef=ef, iters=iters, metric=metric, expand=expand,
                                      k_res=k_res, active=active,
                                      return_expanded=return_expanded)
-    _beam_limits("hnsw_graph_beam", ef, iters, expand, deg, _d4(d), kr)
+    fast = beam_fast(ef, iters, expand, deg, d, kr)
     vectors, q = _rows4_store(vectors), pad_dim(q)
     d = vectors.shape[1]
     _, exp_cap = _loops(iters, expand)
@@ -971,11 +1058,16 @@ def hnsw_graph_beam(adj, vectors, norms, q, qn, seed_i, seed_d, allowed=None, *,
                      torch.empty((b, 2), dtype=torch.int32, device=dev))
     rows = ((vectors.codes.data_ptr(), vectors.bits, vectors.mins.data_ptr(),
              vectors.scales.data_ptr()) if sq else (vectors.data_ptr(),))
-    if b:
-        _launch("hnsw_graph_beam_sq" if sq else "hnsw_graph_beam", adj.device, adj.data_ptr(), *rows,
-                norms.data_ptr(), q.data_ptr(), qn.data_ptr(), seed_i.data_ptr(),
-                seed_d.data_ptr(), b, s, _ptr(_as_u8(allowed)), d, deg, ef, iters, expand, kr,
-                metric, *(_ptr(t) for t in out[:5]), out.stats.data_ptr())
+    name = "hnsw_graph_beam_sq" if sq else "hnsw_graph_beam"
+    args = (adj.data_ptr(), *rows, norms.data_ptr(), q.data_ptr(), qn.data_ptr(),
+            seed_i.data_ptr(), seed_d.data_ptr(), b, s, _ptr(_as_u8(allowed)), d, deg, ef, iters,
+            expand, kr, metric, *(_ptr(t) for t in out[:5]), out.stats.data_ptr())
+    if b and fast:
+        _launch(name, adj.device, *args)
+    elif b:
+        scratch, grid = _wide_scratch(
+            build.library().hnsw_beam_wide_bytes(deg, ef, iters, expand, kr, 0), b, dev)
+        _launch(f"{name}_wide", adj.device, *args, scratch.data_ptr(), grid)
     return out
 
 
@@ -1081,9 +1173,11 @@ def hnsw_greedy(adj, vectors, norms, q, qn, cur_i, cur_d, *, metric: int, lowest
     level, each level from where the last one ended, so the result is the
     chain of one-level walks. Returns (cur_i [B] int32, cur_d [B] f32,
     stats [B, 2] int32: the lists each query read and the neighbours it
-    scored, over its levels). On CUDA d > DIM_MAX raises; more levels
-    than GREEDY_LEVELS_MAX raise everywhere (a caller walks them in
-    launches of at most that many, top first: the walk is a chain)."""
+    scored, over its levels). On CUDA d > DIM_MAX runs the wide form (each
+    neighbour scored by a lane from device memory, the same sums; counted
+    as `hnsw_greedy_wide`); more levels than GREEDY_LEVELS_MAX raise
+    everywhere (a caller walks them in launches of at most that many, top
+    first: the walk is a chain)."""
     adjs = _greedy_adjs(adj)
     b = cur_i.shape[0]
     cap, deg = adjs[0].shape
@@ -1095,8 +1189,6 @@ def hnsw_greedy(adj, vectors, norms, q, qn, cur_i, cur_d, *, metric: int, lowest
     if not _on_cuda(*adjs, *store, norms, q, qn, cur_i, cur_d, lowest):
         return hnsw_greedy_plain(adjs, vectors, norms, q, qn, cur_i, cur_d, metric=metric,
                                  lowest=lowest)
-    if _d4(d) > DIM_MAX:
-        raise _past_limit("hnsw_greedy", f"dim <= {DIM_MAX}", f"dim={d}")
     vectors, q = _rows4_store(vectors), pad_dim(q)
     d = vectors.shape[1]
     for a in adjs:
@@ -1120,7 +1212,8 @@ def hnsw_greedy(adj, vectors, norms, q, qn, cur_i, cur_d, *, metric: int, lowest
     if b:
         levels = build.GreedyLevels((ctypes.c_void_p * GREEDY_LEVELS_MAX)(
             *(a.data_ptr() for a in adjs)), len(adjs))
-        _launch("hnsw_greedy", q.device, levels, None if sq else vectors.data_ptr(),
+        _launch("hnsw_greedy" if d <= DIM_MAX else "hnsw_greedy_wide", q.device, levels,
+                None if sq else vectors.data_ptr(),
                 vectors.codes.data_ptr() if sq else None, vectors.bits if sq else 0,
                 vectors.mins.data_ptr() if sq else None,
                 vectors.scales.data_ptr() if sq else None, norms.data_ptr(), q.data_ptr(),
@@ -1181,8 +1274,8 @@ def hnsw_serve_beam(nbr_codes, nbr_meta, vectors, norms, q, qn, qc, qs, qsum, se
     get their exact distance (L2 `(qn + norm) − 2·dot` unclamped, COS, IP),
     +inf outside `allowed` [cap], and the k smallest are returned:
     ([B, k] f32 ascending, [B, k] int32 ids, -1 where +inf, and the
-    [B, 2] int32 stats of `BeamResult`). On CUDA widths past `_beam_limits`
-    raise."""
+    [B, 2] int32 stats of `BeamResult`). On CUDA widths past `beam_fast`
+    run the wide form, counted as `hnsw_serve_beam_wide`."""
     b, s = seed_i.shape
     cap, deg, d = nbr_codes.shape
     _beam_checks("hnsw_serve_beam", b, s, ef, iters, expand, deg, d, seed_i, seed_d)
@@ -1196,7 +1289,7 @@ def hnsw_serve_beam(nbr_codes, nbr_meta, vectors, norms, q, qn, qc, qs, qsum, se
         return hnsw_serve_beam_plain(nbr_codes, nbr_meta, vectors, norms, q, qn, qc, qs, qsum,
                                      seed_i, seed_d, allowed, ef=ef, iters=iters, expand=expand,
                                      rerank=rerank, k=k, metric=metric)
-    _beam_limits("hnsw_serve_beam", ef, iters, expand, deg, _d4(d))
+    fast = beam_fast(ef, iters, expand, deg, d)
     nbr_codes, vectors, q, qc = _rows4(nbr_codes), _rows4(vectors), pad_dim(q), pad_dim(qc)
     d = vectors.shape[1]
     _check(nbr_codes, "nbr_codes", torch.int8, (cap, deg, d))
@@ -1216,12 +1309,16 @@ def hnsw_serve_beam(nbr_codes, nbr_meta, vectors, norms, q, qn, qc, qs, qsum, se
     out_d = torch.empty((b, k), dtype=torch.float32, device=q.device)
     out_i = torch.empty((b, k), dtype=torch.int32, device=q.device)
     stats = torch.empty((b, 2), dtype=torch.int32, device=q.device)
-    if b:
-        _launch("hnsw_serve_beam", nbr_codes.device, nbr_codes.data_ptr(), nbr_meta.data_ptr(),
-                vectors.data_ptr(), norms.data_ptr(), q.data_ptr(), qn.data_ptr(),
-                qc.data_ptr(), qs.data_ptr(), qsum.data_ptr(), seed_i.data_ptr(),
-                seed_d.data_ptr(), b, s, _ptr(_as_u8(allowed)), d, deg, ef, iters, expand,
-                r, k, metric, out_d.data_ptr(), out_i.data_ptr(), stats.data_ptr())
+    args = (nbr_codes.data_ptr(), nbr_meta.data_ptr(), vectors.data_ptr(), norms.data_ptr(),
+            q.data_ptr(), qn.data_ptr(), qc.data_ptr(), qs.data_ptr(), qsum.data_ptr(),
+            seed_i.data_ptr(), seed_d.data_ptr(), b, s, _ptr(_as_u8(allowed)), d, deg, ef, iters,
+            expand, r, k, metric, out_d.data_ptr(), out_i.data_ptr(), stats.data_ptr())
+    if b and fast:
+        _launch("hnsw_serve_beam", nbr_codes.device, *args)
+    elif b:
+        scratch, grid = _wide_scratch(
+            build.library().hnsw_beam_wide_bytes(deg, ef, iters, expand, 0, r), b, q.device)
+        _launch("hnsw_serve_beam_wide", nbr_codes.device, *args, scratch.data_ptr(), grid)
     return out_d, out_i, stats
 
 
@@ -1245,16 +1342,17 @@ def serve_beam_stage(b, s, d, deg, *, ef, iters, expand, rerank, device=None):
 # K7: the HNSW diversity selection
 # ---------------------------------------------------------------------------
 
-SELECT_W_MAX = 256   # candidates a selection kernel holds (csrc/hnsw_select.cu)
+SELECT_W_MAX = 256   # candidates the fast selection kernel holds (csrc/hnsw_select.cu)
 SELECT_SMEM_MAX = 160 << 10   # bytes of the candidates' rows (W·d·4) it stages
 
 
-def _select_limits(name: str, w: int, d: int):
-    """Raise unless K7 holds W candidates' rows of width d (rounded up to 4)
-    in shared memory."""
-    if not (w <= SELECT_W_MAX and d <= DIM_MAX and w * d * 4 <= SELECT_SMEM_MAX):
-        raise _past_limit(name, f"W <= {SELECT_W_MAX}, dim <= {DIM_MAX} and W*dim*4 <= "
-                          f"{SELECT_SMEM_MAX}", f"W={w}, dim={d}")
+def select_fast(w: int, d: int) -> bool:
+    """Whether K7's fast form holds W candidates' rows of width d (rounded
+    up to 4) in shared memory; else its wide form runs
+    (csrc/hnsw_select_wide.cu: the candidates' scalars in a global scratch,
+    the rows read from device memory)."""
+    d = _d4(d)
+    return w <= SELECT_W_MAX and d <= DIM_MAX and w * d * 4 <= SELECT_SMEM_MAX
 
 
 def select_cap(w: int, deg: int, alpha: float) -> int:
@@ -1335,7 +1433,8 @@ def hnsw_select(vectors, norms, targets, cand, *, deg: int, metric: int, alpha: 
     then the others as backfill, both in distance order, -1 padded; sel_d
     [U, deg] their distances, +inf padded; n_pairs [U] int32, the pair
     distances the scan needed). On CUDA W > SELECT_W_MAX, d > DIM_MAX or
-    W·d·4 > SELECT_SMEM_MAX raise."""
+    W·d·4 > SELECT_SMEM_MAX (`select_fast`) run the wide form, counted as
+    `hnsw_select_wide`."""
     u, w = cand.shape
     cap, d = vectors.shape
     if not 1 <= deg:
@@ -1345,7 +1444,6 @@ def hnsw_select(vectors, norms, targets, cand, *, deg: int, metric: int, alpha: 
     if not _on_cuda(vectors, norms, targets, cand):
         return hnsw_select_plain(vectors, norms, targets, cand, deg=deg, metric=metric,
                                  alpha=alpha)
-    _select_limits("hnsw_select", w, _d4(d))
     vectors = _rows4(vectors)
     d = vectors.shape[1]
     _check(vectors, "vectors", torch.float32, (cap, d))
@@ -1357,10 +1455,15 @@ def hnsw_select(vectors, norms, targets, cand, *, deg: int, metric: int, alpha: 
     out_i = torch.empty((u, deg), dtype=torch.int32, device=cand.device)
     out_d = torch.empty((u, deg), dtype=torch.float32, device=cand.device)
     n_pairs = torch.empty(u, dtype=torch.int32, device=cand.device)
-    if u:
-        _launch("hnsw_select", vectors.device, vectors.data_ptr(), norms.data_ptr(), targets.data_ptr(),
-                cand.data_ptr(), u, w, d, deg, select_cap(w, deg, alpha), float(alpha),
-                metric, out_i.data_ptr(), out_d.data_ptr(), n_pairs.data_ptr())
+    args = (vectors.data_ptr(), norms.data_ptr(), targets.data_ptr(), cand.data_ptr(), u, w, d,
+            deg, select_cap(w, deg, alpha), float(alpha), metric)
+    outs = (out_i.data_ptr(), out_d.data_ptr(), n_pairs.data_ptr())
+    if u and select_fast(w, d):
+        _launch("hnsw_select", vectors.device, *args, *outs)
+    elif u:
+        scratch, grid = _wide_scratch(build.library().hnsw_select_wide_bytes(w), u,
+                                      vectors.device)
+        _launch("hnsw_select_wide", vectors.device, *args, scratch.data_ptr(), grid, *outs)
     return out_i, out_d, n_pairs
 
 
@@ -1380,8 +1483,8 @@ def hnsw_select_sorted(vectors, cand_i, cand_d, *, deg: int, metric: int, alpha:
     window: the scan of `hnsw_select` over all W in the given order (pair
     distances from the rows), then the taken and the others as backfill
     in that order. Returns (sel_i [U, deg], sel_d [U, deg], n_pairs [U])
-    as `hnsw_select`. On CUDA the widths past `_select_limits` raise, as in
-    `hnsw_select`."""
+    as `hnsw_select`. On CUDA the widths past `select_fast` run the wide
+    form, counted as `hnsw_select_sorted_wide`."""
     u, w = cand_i.shape
     cap, d = vectors.shape
     if not 1 <= deg:
@@ -1391,7 +1494,6 @@ def hnsw_select_sorted(vectors, cand_i, cand_d, *, deg: int, metric: int, alpha:
     if not _on_cuda(vectors, cand_i, cand_d):
         return hnsw_select_sorted_plain(vectors, cand_i, cand_d, deg=deg, metric=metric,
                                         alpha=alpha)
-    _select_limits("hnsw_select_sorted", w, _d4(d))
     vectors = _rows4(vectors)
     d = vectors.shape[1]
     _check(vectors, "vectors", torch.float32, (cap, d))
@@ -1402,10 +1504,16 @@ def hnsw_select_sorted(vectors, cand_i, cand_d, *, deg: int, metric: int, alpha:
     out_i = torch.empty((u, deg), dtype=torch.int32, device=cand_i.device)
     out_d = torch.empty((u, deg), dtype=torch.float32, device=cand_i.device)
     n_pairs = torch.empty(u, dtype=torch.int32, device=cand_i.device)
-    if u:
-        _launch("hnsw_select_sorted", vectors.device, vectors.data_ptr(), cand_i.data_ptr(), cand_d.data_ptr(),
-                u, w, d, deg, float(alpha), metric, out_i.data_ptr(), out_d.data_ptr(),
-                n_pairs.data_ptr())
+    args = (vectors.data_ptr(), cand_i.data_ptr(), cand_d.data_ptr(), u, w, d, deg,
+            float(alpha), metric)
+    outs = (out_i.data_ptr(), out_d.data_ptr(), n_pairs.data_ptr())
+    if u and select_fast(w, d):
+        _launch("hnsw_select_sorted", vectors.device, *args, *outs)
+    elif u:
+        scratch, grid = _wide_scratch(build.library().hnsw_select_wide_bytes(w), u,
+                                      vectors.device)
+        _launch("hnsw_select_sorted_wide", vectors.device, *args, scratch.data_ptr(), grid,
+                *outs)
     return out_i, out_d, n_pairs
 
 

@@ -103,6 +103,42 @@ SIGNATURES = {
     # scales, d, k, replicated, out_d, out_i, stream
     "ivf_rerank": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _P,
                    _P, _I, _I, _I, _P, _P, _P],
+    # the wide forms (csrc/hnsw_select_wide.cu, graph_wide.cu, probe_wide.cu):
+    # the fast form's arguments, then a global scratch of `grid` blocks
+    # vectors, norms, targets, cand, U, W, d, deg, sel_cap, alpha, metric,
+    # scratch, grid, out_i, out_d, out_pairs, stream
+    "hnsw_select_wide": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I,
+                         _P, _I, _P, _P, _P, _P],
+    # vectors, cand, cand_d, U, W, d, deg, alpha, metric, scratch, grid,
+    # out_i, out_d, out_pairs, stream
+    "hnsw_select_sorted_wide": [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I,
+                                _P, _I, _P, _P, _P, _P],
+    "hnsw_graph_beam_wide": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I,
+                             _I, _I, _I, _I, _I, _P, _P, _P,
+                             _P, _P, _P, _P, _I, _P],
+    "hnsw_graph_beam_sq_wide": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                                _P, _P, _P, _P, _P, _P, _I, _P],
+    "hnsw_serve_beam_wide": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                             _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                             _P, _P, _P, _I, _P],
+    "hnsw_greedy_wide": [GreedyLevels, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                         _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    # q, qn, cells, B, P, pvecs, pnorms, members, alive, allowed, L, d,
+    # metric, dist, stream
+    "ivf_probe_f32_dist": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # qc, qs, qsum, qn, cells, B, P, codes, mins, scales, pnorms, members,
+    # alive, allowed, L, d, metric, dist, stream
+    "ivf_probe_sq8_dist": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
+                           _P, _P, _I, _I, _I, _P, _P],
+    # cells, B, P, members, L, sel_d, sel_pos, k, m, replicated, mode, wid,
+    # flag, out_d, out_i, out_pos, stream
+    "ivf_probe_tail_wide": [_P, _I, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P,
+                            _P, _P, _P, _P, _P],
+    # q, qn, cand_d, cand_i, cand_pos, B, r, rows, sq16, pnorms, mins,
+    # scales, d, replicated, ex, stream
+    "ivf_rerank_dist": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _I,
+                        _I, _P, _P],
     # x (bf16), xn, n, cents (bf16), cn, C, d (a multiple of 16), r, out_i,
     # out_d, stream
     "kmeans_assign": [_P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P],
@@ -110,6 +146,13 @@ SIGNATURES = {
     # out_d, out_i, dist, ld_dist, rec, rec_ready, part, stream
     "sq8_scan": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                  _P, _P, _P, ctypes.c_longlong, _P, _I, _I, _P],
+}
+
+# queries of the library that return a byte count: a wide form's scratch a
+# block (W; deg, ef, iters, expand, k_res, rerank)
+SIZES = {
+    "hnsw_select_wide_bytes": [_I],
+    "hnsw_beam_wide_bytes": [_I, _I, _I, _I, _I, _I],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -181,6 +224,10 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        for name, argtypes in SIZES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_longlong
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -51,7 +51,6 @@ from turdb_tpu_torch.kernels import (
     EPI_IP,
     EPI_L2,
     GREEDY_LEVELS_MAX,
-    SELECT_W_MAX,
     hnsw_graph_beam,
     hnsw_greedy,
     hnsw_select,
@@ -692,11 +691,6 @@ class HnswIndex:
         vecs = np.atleast_2d(np.asarray(vecs, np.float32))
         n = vecs.shape[0]
         bulk = self.size == 0 and n >= self.bulk_threshold
-        if n and not bulk and self.device.type == "cuda" and self.cfg.ef_construction > SELECT_W_MAX:
-            # before any write: K7 holds the ef_construction beam up to
-            # SELECT_W_MAX (on the CPU the waves take any ef_construction)
-            raise ValueError(f"the insert waves select from the ef_construction beam, which K7 "
-                             f"holds up to {SELECT_W_MAX} on CUDA; got {self.cfg.ef_construction}")
         if isinstance(self.state.vectors, Sq8Rows):
             self.dequantize()   # writes need the f32 store
         self.serve = None   # graph mutation invalidates the serving pack

@@ -227,9 +227,6 @@ class IvfIndex:
         *,
         device="cuda",
     ):
-        if fast_build:
-            raise NotImplementedError(
-                "not ported yet: fast_build (ROADMAP queue 1 item 14)")
         self.dim = dim
         self.metric = metric
         self.device = torch.device(device)
@@ -243,6 +240,10 @@ class IvfIndex:
         self.replica_rank = max(1, replica_rank)
         self.dense_pack = dense_pack
         self.nblocks = nblocks
+        # the candidate-generator profile (the reference's fast_build): 4
+        # Lloyd rounds on at most 262,144 sampled rows, 2 rebalance rounds,
+        # and no split cascade (overflow spills to the runner-up cell)
+        self.fast_build = fast_build
         self.cfg: IvfConfig | None = None
         self.state: IvfState | None = None
         self.size = 0
@@ -304,7 +305,9 @@ class IvfIndex:
         seed_idx = rng.choice(n, size=c, replace=False)
         n_train = min(n, max(c * 64, 100_000), 4_194_304)
         if iters is None:
-            iters = 8
+            iters = 4 if self.fast_build else 8
+        if self.fast_build:
+            n_train = min(n_train, 262_144)
         tr_idx = (rng.choice(n, size=n_train, replace=False) if n_train < n
                   else np.arange(n))
         if _pre is None:
@@ -323,7 +326,7 @@ class IvfIndex:
             assign = _assign_all(xd, cents, _masked_cn(cents, c), xb=xdb).cpu().numpy()
         # balance repair: re-seed starved centroids as perturbed copies of
         # oversized donors, then a couple more Lloyd's iterations
-        for rnd in range(6):
+        for rnd in range(2 if self.fast_build else 6):
             counts = np.bincount(assign, minlength=c)
             over = np.flatnonzero(counts > cap)
             if len(over) == 0:
@@ -344,8 +347,12 @@ class IvfIndex:
             cents = _kmeans(xt, self._dev(cents_np), 2, xb=xtb)
             assign = _assign_all(xd, cents, _masked_cn(cents, c), xb=xdb).cpu().numpy()
         # split oversized clusters (local 2-means) instead of spilling rows
-        # to far clusters, which centroid probing would never reach
-        cents_np, assign = _split_oversized(cents.cpu().numpy()[:c], assign, xd, cap)
+        # to far clusters, which centroid probing would never reach; the
+        # fast build skips the cascade and spills below
+        if self.fast_build:
+            cents_np = cents.cpu().numpy()[:c]
+        else:
+            cents_np, assign = _split_oversized(cents.cpu().numpy()[:c], assign, xd, cap)
         c = cents_np.shape[0]
         # balanced packing: stable-sort by cluster, lane = rank within the
         # run; lanes past the cap spill to the nearest cluster with room
