@@ -2451,11 +2451,15 @@ def width_check(dev):
     q = torch.randn(64, 16, device=dev, generator=gen)
     dots = q @ x.T
     kw = dict(rown=(q * q).sum(1), coln=(x * x).sum(1), epilogue=EPI_L2)
-    got = launched("topk_rows k=3000", lambda: kernels.topk_rows(dots, 3000, **kw), "topk_rows", 1)
+    got = launched("topk_rows k=3000", lambda: kernels.topk_rows(dots, 3000, **kw),
+                   "topk_rows_wide", 1)
     want = kernels.topk_rows_plain(dots, 3000, **kw)
     check(all(torch.equal(a, b) for a, b in zip(got, want)), "K2's wide form: not bit-equal")
     cell_block = torch.randint(0, 700, (5000,), device=dev, generator=gen, dtype=torch.int32)
-    _, top, blk = kernels.topk_rows(dots, 3000, cell_block=cell_block, u=2100, **kw)
+    _, top, blk = launched(
+        "topk_rows k=3000 + K10",
+        lambda: kernels.topk_rows(dots, 3000, cell_block=cell_block, u=2100, **kw),
+        "topk_rows_wide", 1)
     check(torch.equal(blk, kernels.dense_blocks_plain(cell_block, top, 2100)),
           "K10 in K2's wide form: not bit-equal")
     out["topk_rows k=3000"] = {"shape": list(dots.shape), "max_abs_err": 0.0,
@@ -2825,23 +2829,28 @@ N_WIDE_ROWS, WIDE_ROWS_DIM = 4_096, 4_608   # rows past DIM_MAX (4096): waves fr
 
 class _WideCalls:
     """The first call of each wide kernel form on a path: the wrappers the
-    model modules call are wrapped for the run, and a call after which a
+    model modules call (and K2, which the wide probes call inside the
+    kernels module) are wrapped for the run, and a call after which a
     `<kernel>_wide` count rose is kept (wrapper, arguments) for
-    wide_check to replay outside the counts."""
+    wide_check to replay outside the counts; an inner call is kept before
+    the call around it."""
 
-    WRAPPERS = {"ivf": ("ivf_probe_f32", "ivf_probe_sq8", "ivf_rerank"),
-                "hnsw_serve": ("hnsw_serve_beam", "ivf_probe_sq8"),
-                "hnsw": ("hnsw_graph_beam", "hnsw_greedy", "hnsw_select", "hnsw_select_sorted")}
+    WRAPPERS = {"kernels": ("topk_rows",),
+                "models.ivf": ("ivf_probe_f32", "ivf_probe_sq8", "ivf_rerank"),
+                "models.hnsw_serve": ("hnsw_serve_beam", "ivf_probe_sq8"),
+                "models.hnsw": ("hnsw_graph_beam", "hnsw_greedy", "hnsw_select",
+                                "hnsw_select_sorted")}
 
     def __init__(self):
         self.calls, self.saved = {}, []
 
     def __enter__(self):
-        from turdb_tpu_torch import kernels, models
-        from turdb_tpu_torch.models import hnsw, hnsw_serve, ivf  # noqa: F401
+        import importlib
+
+        from turdb_tpu_torch import kernels
 
         for mod, names in self.WRAPPERS.items():
-            mod = getattr(models, mod)
+            mod = importlib.import_module(f"turdb_tpu_torch.{mod}")
             for name in names:
                 fn = getattr(mod, name)
                 self.saved.append((mod, name, fn))
@@ -3152,6 +3161,11 @@ def _wide_bound(name, fn, a, kw, got):
     """The bound of one wide call on its own inputs (each input byte read
     once, each output byte written once; the operations the inputs need),
     as the fast forms' checks count them."""
+    if name == "topk_rows_wide":
+        (b, n), k = a[0].shape, a[1]
+        side = sum(t.numel() * t.element_size() for t in (kw.get("rown"), kw.get("coln"),
+                                                          kw.get("colvalid")) if t is not None)
+        return _bound(4 * b * n + side + 8 * b * k, 3 * b * n, FP32_OPS)
     if name in ("ivf_probe_f32_wide", "ivf_probe_sq8_wide"):
         f32 = name == "ivf_probe_f32_wide"
         # the places of cells, members, alive, allowed and the store
@@ -3214,7 +3228,15 @@ def _wide_bound(name, fn, a, kw, got):
 def _wide_library_ms(name, a, kw):
     """`torch.topk` at the write-then-select step's shape (the probes' [B,
     P*L] distances, the rerank's [B, r]), the library's yardstick for the
-    selection; None where no PyTorch call does the kernel's work."""
+    selection; None where no PyTorch call does the kernel's work. K2's own
+    call: `torch.topk` of the same values after its epilogue."""
+    if name == "topk_rows_wide":
+        from turdb_tpu_torch.kernels import EPI_NONE, _row_values
+
+        x, k = a[0], a[1]
+        vals = _row_values(x, kw.get("rown"), kw.get("coln"), kw.get("colvalid"),
+                           kw.get("epilogue", EPI_NONE), kw.get("clamp", False))
+        return _median_ms(lambda: torch.topk(vals, k, dim=1, largest=False, sorted=True))
     if name in ("ivf_probe_f32_wide", "ivf_probe_sq8_wide"):
         cells = a[2] if name == "ivf_probe_f32_wide" else a[4]
         members = a[5] if name == "ivf_probe_f32_wide" else a[9]
@@ -3230,10 +3252,10 @@ def _wide_library_ms(name, a, kw):
 def wide_check(calls):
     """Each wide kernel form on the emb path's own first call of it: the
     wrapper (its wide kernel, counted here) against the same wrapper
-    through the plain versions on the same CUDA tensors. K4 bit-equal; K1,
-    K5, K6, K8, K8-SQ and K9 as their fast forms' checks hold them
-    (distances within DOT_RTOL of their scale, ids apart only inside that
-    band, K6's beam work equal); K7 as k7_check does (rows equal on 98 %,
+    through the plain versions on the same CUDA tensors. K2 and K4
+    bit-equal; K1, K5, K6, K8, K8-SQ and K9 as their fast forms' checks
+    hold them (distances within DOT_RTOL of their scale, ids apart only
+    inside that band, K6's beam work equal); K7 as k7_check does (rows equal on 98 %,
     the rest within 4x the fp32 disagreement of an fp64 tie). Timed: one
     call (`ms`, the median of 5), ten back to back (`loop_ms`), the plain
     versions once (`plain_ms`, the comparison's own call)."""
@@ -3256,7 +3278,7 @@ def wide_check(calls):
         # the plain versions (tens of seconds for a deep beam) are timed once
         row = {"launches_a_call": kernels.launches[name] - before,
                "plain_ms": start.elapsed_time(end)}
-        if name == "ivf_probe_sq8_wide":
+        if name in ("ivf_probe_sq8_wide", "topk_rows_wide"):
             check(all(torch.equal(x, y) for x, y in zip(got, want)),
                   f"{name}: not bit-equal to the plain version")
             row["max_abs_err"], row["id_diff"] = 0.0, 0.0
@@ -3330,6 +3352,8 @@ KERNELS = {
     "sq8_scan": ("turdb_tpu_torch/kernels/csrc/sq8_scan.cu",
                  "turdb_tpu/ops/quantize.py:42"),
     # the wide forms, past the fast forms' widths
+    "topk_rows_wide": ("turdb_tpu_torch/kernels/csrc/topk_rows.cu",
+                       "turdb_tpu/ops/topk.py:45"),
     "ivf_probe_f32_wide": ("turdb_tpu_torch/kernels/csrc/probe_wide.cu",
                            "turdb_tpu/models/ivf.py:286"),
     "ivf_probe_sq8_wide": ("turdb_tpu_torch/kernels/csrc/probe_wide.cu",
@@ -3373,9 +3397,9 @@ PATH_KERNELS = {
             "hnsw_select_sorted"),
     "emb": ("ivf_probe_f32", "topk_rows", "kmeans_assign", "ivf_probe_sq8", "ivf_rerank",
             "hnsw_serve_beam", "hnsw_select", "hnsw_graph_beam", "hnsw_select_sorted",
-            "ivf_probe_f32_wide", "ivf_probe_sq8_wide", "ivf_rerank_wide", "hnsw_serve_beam_wide",
-            "hnsw_select_wide", "hnsw_graph_beam_wide", "hnsw_select_sorted_wide",
-            "hnsw_graph_beam_sq_wide", "hnsw_greedy_wide"),
+            "topk_rows_wide", "ivf_probe_f32_wide", "ivf_probe_sq8_wide", "ivf_rerank_wide",
+            "hnsw_serve_beam_wide", "hnsw_select_wide", "hnsw_graph_beam_wide",
+            "hnsw_select_sorted_wide", "hnsw_graph_beam_sq_wide", "hnsw_greedy_wide"),
 }
 
 

@@ -178,9 +178,24 @@ def _store(g, c, lcap, d, n_ids, cuda):
     return pvecs.contiguous(), pnorms, members.to(torch.int32), alive, allowed
 
 
+# K2's wide routes at their boundary widths: (rows, n, k, CTAs a row; 0 is
+# the global form): a cluster of a CTA per 8,192 columns or 1,024 winners
+# (3 at k = 2,049 or 3,000 at any batch, 8 at the wide probes' and the
+# flat chunk's widths and at k = n = 8,192, 9 non-portable where 8 cannot
+# hold the keys), the global form past 16 CTAs and past 227 KB of winners
+K2_WIDE_ROUTES = ((64, 5000, 3000, 3), (8, 8192, 2049, 3), (8, 8193, 2049, 3),
+                  (8, 8192, 8192, 8), (4, 2400, 2400, 3), (256, 5000, 3000, 3),
+                  (2, 76_800, 4_800, 8), (2, 76_800, 2_400, 8), (4, 131_072, 3_000, 8),
+                  (1, 400_000, 3_000, 9), (1, 200_000, 16_384, 9), (1, 800_000, 3_000, 0),
+                  (1, 50_000, 20_000, 0))
+
+
 def test_wide_selections_match_plain(cuda):
-    """K2 at k = 300 and 2048; K1 at P*L = 32768 (chunked) and at m = 600
-    with replicas, in both output modes."""
+    """K2 at k = 300 and 2048, and each wide route at its boundary widths
+    (K2_WIDE_ROUTES) with ties across its CTAs' boundaries, +inf lanes and
+    K10 fused: bit-equal, one launch counted as `topk_rows_wide` too; K1 at
+    P*L = 32768 (chunked) and at m = 600 with replicas, in both output
+    modes."""
     g = torch.Generator(device=cuda).manual_seed(4)
     x = torch.randn(32, 20_000, device=cuda, generator=g)
     x[:, 5000:10_000] = x[:, :5000]                  # exact ties
@@ -188,6 +203,28 @@ def test_wide_selections_match_plain(cuda):
         vk, pk = kernels.topk_rows(x, k)
         vp, pp = kernels.topk_rows_plain(x, k)
         assert torch.equal(vk, vp) and torch.equal(pk, pp)
+    for b, n, k, ctas in K2_WIDE_ROUTES:
+        assert kernels.topk_wide_ctas(n, k) == ctas
+        # values on a coarse grid, each CTA's first 64 columns copying the
+        # 64 before them: the threshold ties across the boundaries
+        xw = torch.round(torch.randn(b, n, device=cuda, generator=g) * 4) / 4
+        w = -(-n // max(ctas, 1))
+        for s0 in range(w, n, w):
+            xw[:, s0:s0 + 64] = xw[:, s0 - 64:s0]
+        rown = torch.rand(b, device=cuda, generator=g)
+        coln = torch.rand(n, device=cuda, generator=g)
+        valid = torch.rand(n, device=cuda, generator=g) < 0.9
+        cell_block = torch.randint(0, n // 3, (n,), device=cuda, generator=g, dtype=torch.int32)
+        for kw in (dict(), dict(rown=rown, coln=coln, colvalid=valid, epilogue=kernels.EPI_L2,
+                                clamp=True)):
+            before = kernels.launches["topk_rows_wide"]
+            vk, pk = kernels.topk_rows(xw, k, **kw)
+            assert kernels.launches["topk_rows_wide"] == before + 1
+            vp, pp = kernels.topk_rows_plain(xw, k, **kw)
+            assert torch.equal(vk, vp) and torch.equal(pk, pp), (n, k, kw.keys())
+        _, top, blk = kernels.topk_rows(xw, k, cell_block=cell_block, u=k - 7, **kw)
+        assert torch.equal(top, pp)
+        assert torch.equal(blk, kernels.dense_blocks_plain(cell_block, top, k - 7)), (n, k)
     pvecs, pnorms, members, alive, allowed = _store(g, 600, 256, 32, 5000, cuda)
     q = torch.randn(40, 32, device=cuda, generator=g)
     qn = (q * q).sum(1)
@@ -1560,8 +1597,11 @@ def test_graph_beam_wide_form_matches_plain(cuda, store):
     """K8 (f32 rows) and K8-SQ (u8 / u16 codes) past the fast forms'
     widths: ef = 1,500 at iters 2,250 (past EF_MAX and EXP_MAX) with the
     expanded ids, with the filtered result buffer at k_res 1,100, and 40 x
-    32 slots a step (past SLOTS_MAX): one counted launch a call, the plain
-    version's buffers but at near ties of the fp32 dots (ids equal on 99 %)."""
+    32 slots a step (past SLOTS_MAX), all with their state in shared
+    memory; then the widest ef whose state fits there and the next, in the
+    global scratch; and 96 seeds in falling distance order: one counted
+    launch a call, the plain version's buffers but at near ties of the fp32
+    dots (ids equal on 99 %)."""
     g = torch.Generator(device=cuda).manual_seed(33)
     x, norms, adj = _graph(g, 8000, 32, 32, cuda)
     rows = dict(_sq_stores(x))[store]
@@ -1574,13 +1614,32 @@ def test_graph_beam_wide_form_matches_plain(cuda, store):
                                     qn[:, None], norms[seeds.long()]).contiguous()
     atol = 1e-5 * float(qn.max() + norms.max())
     name = "hnsw_graph_beam_wide" if store == "f32" else "hnsw_graph_beam_sq_wide"
-    for kw in (dict(return_expanded=True), dict(allowed=allowed, k_res=1100),
-               dict(expand=40)):
-        opts = dict(ef=1500, iters=2250, metric=0, **kw)
+    lib = kernels.build.library()
+    # the SQL LIMIT 200 shape runs in shared memory; the widest ef that does
+    # (iters 1.5 ef) and the next, the first in the global scratch
+    assert lib.hnsw_beam_wide_bytes(32, 1600, 2400, 4, 800, 0) == 0
+    ef_lo = next(ef for ef in range(3000, 8000, 4)
+                 if lib.hnsw_beam_wide_bytes(32, ef + 4, (ef + 4) * 3 // 2, 4, 0, 0) > 0)
+    # 96 seeds in falling distance order: their ranks cross warps, so each
+    # lands after every warp has initialised the buffer
+    many = torch.rand(16, 8000, device=cuda, generator=g).topk(96).indices.to(torch.int32)
+    many_d = kernels._gathered_epilogue(torch.einsum("bd,bsd->bs", q, rows[many.long()]), 0,
+                                        qn[:, None], norms[many.long()])
+    order = many_d.argsort(1, descending=True)
+    many, many_d = many.gather(1, order).contiguous(), many_d.gather(1, order).contiguous()
+    for s_i, s_d, kw in (
+            (seeds, sd, dict(return_expanded=True)), (seeds, sd, dict(allowed=allowed, k_res=1100)),
+            (seeds, sd, dict(expand=40)),
+            (seeds, sd, dict(ef=ef_lo, iters=ef_lo * 3 // 2, return_expanded=True)),
+            (seeds, sd, dict(ef=ef_lo + 4, iters=(ef_lo + 4) * 3 // 2, return_expanded=True)),
+            (many, many_d, dict(return_expanded=True)),
+            (many, many_d, dict(allowed=allowed, k_res=1100))):
+        opts = dict(ef=1500, iters=2250, metric=0)
+        opts.update(kw)
         before = kernels.launches[name]
-        got = kernels.hnsw_graph_beam(adj, rows, norms, q, qn, seeds, sd, **opts)
+        got = kernels.hnsw_graph_beam(adj, rows, norms, q, qn, s_i, s_d, **opts)
         assert kernels.launches[name] == before + 1
-        want = kernels.hnsw_graph_beam_plain(adj, rows, norms, q, qn, seeds, sd, **opts)
+        want = kernels.hnsw_graph_beam_plain(adj, rows, norms, q, qn, s_i, s_d, **opts)
         torch.testing.assert_close(got.cand_d, want.cand_d, rtol=1e-5, atol=atol)
         assert (got.cand_i == want.cand_i).float().mean() >= 0.99, kw
         assert (got.stats == want.stats).all(1).float().mean() >= 0.9
@@ -1593,9 +1652,11 @@ def test_graph_beam_wide_form_matches_plain(cuda, store):
 
 def test_serve_beam_wide_form_matches_plain(cuda):
     """K6 past EF_MAX and EXP_MAX: ef 1,500 at iters 2,250, the rerank of
-    all 1,500 and of 1,100 under `allowed`, every metric: one counted
-    launch; its int8 dots are exact, so the beams are the plain version's
-    (equal stats); the rerank's fp32 dots differ in the last bits."""
+    all 1,500 and of 1,100 under `allowed`, every metric, in shared memory;
+    then the widest ef whose state fits there and the next, in the global
+    scratch; 96 seeds in falling distance order: one counted launch; its
+    int8 dots are exact, so the beams are the plain version's (equal
+    stats); the rerank's fp32 dots differ in the last bits."""
     from turdb_tpu_torch.models.hnsw_serve import pack_serving
     from turdb_tpu_torch.ops.distance import Metric
     from turdb_tpu_torch.ops.quantize import quantize_queries
@@ -1610,18 +1671,28 @@ def test_serve_beam_wide_form_matches_plain(cuda):
     seed_d = torch.arange(16, device=cuda, dtype=torch.float32).expand(32, 16).contiguous()
     allowed = torch.rand(6000, device=cuda, generator=g) < 0.6
     atol = 1e-5 * float(qn.max() + norms.max())
-    for metric in (0, 1, 2):
-        for rerank, allow in ((0, None), (1100, allowed)):
-            args = (pack.nbr_codes, pack.nbr_meta, x, norms, q, qn, qc, qs, qsum, seeds, seed_d,
-                    allow)
-            opts = dict(ef=1500, iters=2250, expand=4, rerank=rerank, k=100, metric=metric)
-            before = kernels.launches["hnsw_serve_beam_wide"]
-            dk, ik, sk = kernels.hnsw_serve_beam(*args, **opts)
-            assert kernels.launches["hnsw_serve_beam_wide"] == before + 1
-            dp, ip, sp = kernels.hnsw_serve_beam_plain(*args, **opts)
-            assert torch.equal(sk, sp)
-            torch.testing.assert_close(dk, dp, rtol=1e-5, atol=atol)
-            assert (ik == ip).float().mean() >= 0.999
+    lib = kernels.build.library()
+    # the widest ef whose state (with the rerank of all ef) fits shared
+    # memory, and the next, in the global scratch
+    ef_lo = next(ef for ef in range(2500, 8000, 4)
+                 if lib.hnsw_beam_wide_bytes(32, ef + 4, (ef + 4) * 3 // 2, 4, 0, ef + 4) > 0)
+    # and 96 seeds in falling distance order, whose ranks cross warps
+    many = torch.rand(32, 6000, device=cuda, generator=g).topk(96).indices.to(torch.int32)
+    many_d = torch.arange(95, -1, -1, device=cuda, dtype=torch.float32).expand(32, 96).contiguous()
+    cases = [(metric, 1500, rerank, allow, seeds, seed_d) for metric in (0, 1, 2)
+             for rerank, allow in ((0, None), (1100, allowed))]
+    cases += [(0, ef, 0, None, seeds, seed_d) for ef in (ef_lo, ef_lo + 4)]
+    cases += [(0, 1500, rerank, allow, many, many_d) for rerank, allow in ((0, None), (1100, allowed))]
+    for metric, ef, rerank, allow, s_i, s_d in cases:
+        args = (pack.nbr_codes, pack.nbr_meta, x, norms, q, qn, qc, qs, qsum, s_i, s_d, allow)
+        opts = dict(ef=ef, iters=ef * 3 // 2, expand=4, rerank=rerank, k=100, metric=metric)
+        before = kernels.launches["hnsw_serve_beam_wide"]
+        dk, ik, sk = kernels.hnsw_serve_beam(*args, **opts)
+        assert kernels.launches["hnsw_serve_beam_wide"] == before + 1
+        dp, ip, sp = kernels.hnsw_serve_beam_plain(*args, **opts)
+        assert torch.equal(sk, sp)
+        torch.testing.assert_close(dk, dp, rtol=1e-5, atol=atol)
+        assert (ik == ip).float().mean() >= 0.999
 
 
 def test_greedy_wide_form_matches_plain(cuda):

@@ -213,7 +213,8 @@ def test_cpu_wrappers_leave_launch_counters_at_zero():
                                      "ivf_probe_sq8", "ivf_rerank", "hnsw_serve_beam",
                                      "hnsw_select", "hnsw_graph_beam", "hnsw_select_sorted",
                                      "hnsw_graph_beam_sq", "hnsw_greedy", "dense_blocks",
-                                     "sq8_scan", "ivf_probe_f32_wide", "ivf_probe_sq8_wide",
+                                     "sq8_scan", "topk_rows_wide", "ivf_probe_f32_wide",
+                                     "ivf_probe_sq8_wide",
                                      "ivf_rerank_wide", "hnsw_serve_beam_wide",
                                      "hnsw_select_wide", "hnsw_graph_beam_wide",
                                      "hnsw_select_sorted_wide", "hnsw_graph_beam_sq_wide",

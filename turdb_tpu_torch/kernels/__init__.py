@@ -27,10 +27,12 @@ form holds in shared memory or registers (SEL_MAX for the probes and the
 rerank, EF_MAX / SLOTS_MAX / EXP_MAX for the beams, SELECT_W_MAX and
 SELECT_SMEM_MAX for K7, DIM_MAX for the row readers) the wrapper launches
 the kernel's wide form (csrc/hnsw_select_wide.cu, graph_wide.cu,
-probe_wide.cu: state in a global scratch, rows read from device memory),
-counted under its own name (`<kernel>_wide`). K2 takes any k (past
-SEL_MAX its wide form), K11 any k and any d (d-slices), and a caller walks
-more levels than K9 holds in launches of at most GREEDY_LEVELS_MAX. Only
+probe_wide.cu: state in a global scratch, or in shared memory where a
+beam's fits, rows read from device memory), counted under its own name
+(`<kernel>_wide`). K2 takes any k (past SEL_MAX its wide form, counted as
+`topk_rows_wide` too: a row's keys in a thread block cluster's shared
+memory, `topk_wide_ctas`), K11 any k and any d (d-slices), and a caller
+walks more levels than K9 holds in launches of at most GREEDY_LEVELS_MAX. Only
 inputs no kernel can index (int32 lane positions) raise.
 `launches[name]` counts kernel launches only.
 
@@ -68,9 +70,9 @@ CELL_DIST_BYTES = 1 << 29
 MODE_TOPK, MODE_CAND = 0, 1
 
 # the wide forms, each counted under its own name
-WIDE = ("ivf_probe_f32_wide", "ivf_probe_sq8_wide", "ivf_rerank_wide", "hnsw_serve_beam_wide",
-        "hnsw_select_wide", "hnsw_graph_beam_wide", "hnsw_select_sorted_wide",
-        "hnsw_graph_beam_sq_wide", "hnsw_greedy_wide")
+WIDE = ("topk_rows_wide", "ivf_probe_f32_wide", "ivf_probe_sq8_wide", "ivf_rerank_wide",
+        "hnsw_serve_beam_wide", "hnsw_select_wide", "hnsw_graph_beam_wide",
+        "hnsw_select_sorted_wide", "hnsw_graph_beam_sq_wide", "hnsw_greedy_wide")
 launches = {"ivf_probe_f32": 0, "topk_rows": 0, "kmeans_assign": 0,
             "ivf_probe_sq8": 0, "ivf_rerank": 0, "hnsw_serve_beam": 0,
             "hnsw_select": 0, "hnsw_graph_beam": 0, "hnsw_select_sorted": 0,
@@ -212,10 +214,18 @@ def topk_segments(n: int) -> int:
     return -(-n // TOPK_SEG_W) if n > TOPK_SHORT_MAX else 1
 
 
+def topk_wide_ctas(n: int, k: int) -> int:
+    """CTAs a row of K2's wide form (k > SEL_MAX) over rows of n columns on
+    the current card: a thread block cluster of 3 to 16, an equal segment
+    of the row each; 0 for the global form (csrc/topk_rows.cu
+    `topk_rows_wide_ctas` holds the rule)."""
+    return int(build.library().topk_rows_wide_ctas(n, k))
+
+
 def _topk_scratch(b, n, k, device):
     """(candidate keys, candidate positions, row counters) of a segmented
-    launch; for the wide form (k > SEL_MAX) the rows' keys [B, N] and their
-    [B, pow2(k)] 64-bit winners; else Nones."""
+    launch; for the global wide form (k > SEL_MAX, `topk_wide_ctas` 0) the
+    rows' keys [B, N] and their [B, pow2(k)] 64-bit winners; else Nones."""
     if k > SEL_MAX:
         return (torch.empty(b * n, dtype=torch.int32, device=device),
                 torch.empty(b * 2 * (1 << (k - 1).bit_length()), dtype=torch.int32,
@@ -239,8 +249,9 @@ def topk_rows(x: torch.Tensor, k: int, *, rown=None, coln=None, colvalid=None,
     `clamp`), COS `1 − x`, IP `−x`; lanes where `colvalid` [N] is False
     become +inf. Returns ([B, k] values ascending, [B, k] int32 column
     positions); ties go to the lower position, as `lax.top_k` does. On
-    CUDA one launch a call, at any k: past SEL_MAX its wide form (a block
-    a row, over the keys in a scratch row; a correctness path).
+    CUDA one launch a call, at any k: past SEL_MAX its wide form, counted
+    as `topk_rows_wide` too (a row's keys in a cluster's shared memory,
+    `topk_wide_ctas`; past that in a scratch row).
 
     With `cell_block` [C] int32 (the dense IVF map, C = N) and `u`, K10
     runs in the same launch on each row's winners: a third output [B,
@@ -271,14 +282,20 @@ def topk_rows(x: torch.Tensor, k: int, *, rown=None, coln=None, colvalid=None,
     out_i = torch.empty((b, k), dtype=torch.int32, device=x.device)
     out_b = (None if cell_block is None else
              torch.empty((b, min(u, k)), dtype=torch.int32, device=x.device))
+    ctas = topk_wide_ctas(n, k) if k > SEL_MAX else 0
     if b:
-        _launch("topk_rows", x.device, x.data_ptr(), b, n,
-                _ptr(rown) if epilogue == EPI_L2 else None,
-                _ptr(coln) if epilogue == EPI_L2 else None,
-                _ptr(_as_u8(colvalid)), epilogue, int(clamp), k,
-                out_d.data_ptr(), out_i.data_ptr(),
-                *map(_ptr, _topk_scratch(b, n, k, x.device)),
-                _ptr(cell_block), u or 0, _ptr(out_b))
+        args = (x.data_ptr(), b, n, _ptr(rown) if epilogue == EPI_L2 else None,
+                _ptr(coln) if epilogue == EPI_L2 else None, _ptr(_as_u8(colvalid)), epilogue,
+                int(clamp), k)
+        blocks = (_ptr(cell_block), u or 0, _ptr(out_b))
+        if ctas:
+            _launch("topk_rows_wide", x.device, *args, ctas, out_d.data_ptr(),
+                    out_i.data_ptr(), *blocks, counter="topk_rows")
+        else:
+            _launch("topk_rows", x.device, *args, out_d.data_ptr(), out_i.data_ptr(),
+                    *map(_ptr, _topk_scratch(b, n, k, x.device)), *blocks)
+        if k > SEL_MAX:
+            launches["topk_rows_wide"] += 1
         if cell_block is not None:
             launches["dense_blocks"] += 1
     return (out_d, out_i) if cell_block is None else (out_d, out_i, out_b)

@@ -42,6 +42,9 @@ SIGNATURES = {
     # cand_key, cand_pos, counters, cell_block, u, out_blocks, stream
     "topk_rows": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P,
                   _P],
+    # vals, B, N, rown, coln, colvalid, epilogue, clamp, k, ctas, out_d, out_i,
+    # cell_block, u, out_blocks, stream
+    "topk_rows_wide": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P],
     # q, qn, cells, B, P, pvecs, pnorms, members, alive, allowed, L, d,
     # metric, k, m, replicated, mode, chunk, sc_key, sc_pos, sc_id,
     # out_d, out_i, out_pos, stream
@@ -148,11 +151,13 @@ SIGNATURES = {
                  _P, _P, _P, ctypes.c_longlong, _P, _I, _I, _P],
 }
 
-# queries of the library that return a byte count: a wide form's scratch a
-# block (W; deg, ef, iters, expand, k_res, rerank)
+# queries of the library that return a size: a wide form's scratch a block
+# (W; deg, ef, iters, expand, k_res, rerank; a beam's 0 where its state fits
+# shared memory) and K2's wide form's CTAs a row (n, k; 0: the global form)
 SIZES = {
     "hnsw_select_wide_bytes": [_I],
     "hnsw_beam_wide_bytes": [_I, _I, _I, _I, _I, _I],
+    "topk_rows_wide_ctas": [_I, _I],
 }
 
 _lib: ctypes.CDLL | None = None

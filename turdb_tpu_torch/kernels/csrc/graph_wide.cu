@@ -8,49 +8,67 @@
 // Replaces, as the fast forms do: turdb_tpu/models/hnsw.py _beam_level and
 // _greedy_level, turdb_tpu/models/hnsw_serve.py serve_search_impl (stage 1b
 // and the rerank). Reached by SQL `ORDER BY emb <-> ... LIMIT 129` and
-// deeper on a USING HNSW index (fetch = 4*LIMIT at ef = 2*fetch), by
-// searches with ef > 1024, and by rows wider than 4096.
+// deeper on a USING HNSW index (fetch = 4*LIMIT at ef = 2*fetch: LIMIT 200
+// is B = 1, ef 1,600, k_res 800, 600 steps of expand 4), by searches with
+// ef > 1024, and by rows wider than 4096.
 //
-// What bounds it on an H100: the latency of the beam's dependent steps, as
-// the fast form, plus the step's bookkeeping in device memory (L2). A
-// correctness path, not tuned.
+// What bounds it on an H100: the latency of the beam's dependent steps (a
+// step reads its nodes' lists, then their rows), as the fast form's; a
+// step's own work is O(expand·deg) beyond the merge's shift.
 //
-// Design: the fast form's loop and step order, with every buffer in a global
-// scratch slice of the block (one 128-thread block per query, a grid of at
-// most `grid` blocks walking the queries): the sorted candidate buffer and
-// its expanded flags (double-buffered), the filtered result buffer, the
-// expanded ids, the step's claim table (graph_util.cuh), the slots' ids,
-// distances and claims, the survivors' keys. A step: warp 0 takes the first
-// `expand` unflagged finite entries of the sorted buffer while the other
-// warps insert the buffer's ids and every earlier expanded id into the
-// table; each slot claims its neighbour (the lowest slot of an id wins, a
-// member is dropped); the kept slots are scored and those below the
-// buffer's worst (and, with `allowed`, the allowed ones below the result
-// buffer's worst) become (f2key(distance) << 32 | slot) keys, sorted by a
-// bitonic network; each old entry moves by the keys below it and each key
-// to its rank plus the old entries at or below it. The scores are the fast
-// forms' to the bit: K8 by lane groups of 8 in K8's order
-// (graph_scorer.cuh group_scores), K8-SQ and K9 by one thread a row in the
-// row's own fmaf order (what staged_score computes), K6 by the exact int8
-// dot and its epilogue; K6's rerank is one fmaf chain a row, as
+// Design: one 256-thread block a query, its state in the block's dynamic
+// shared memory (opted in up to 227 KB: at iters = 1.5·ef about ef 4,000,
+// 73 KB at the LIMIT 200 shape), past that in a global scratch slice of the
+// block (`hnsw_beam_wide_bytes` > 0; a grid of at most `grid` blocks
+// walking the queries): the sorted candidate buffer and its expanded
+// flags, the filtered result buffer, the member set, the step's claim
+// table, the slots' ids, distances and claims, the survivors' keys, the
+// expanded ids. The loop (wide_beam) keeps the fast form's step order and
+// sums, with the bookkeeping made incremental:
+// - one member set across steps (open addressing with tombstones): the
+//   ids that enter the buffer join it, the ones the merge evicts
+//   unexpanded leave it, expanded ids stay; rebuilt from the buffer and
+//   the expanded ids before its entries in use pass three quarters of it.
+//   A slot drops a member and claims the others in a claim table of
+//   2·slots entries, reset entry by entry after the claims are read;
+// - a cursor of the first unexpanded entry, so warp 0's ballot scan starts
+//   there;
+// - the merge in place from the first place a new key takes (each key's
+//   place by binary searches of the warp-sorted runs of 32 and of the
+//   buffer, then the old entries moved up a block at a time from the top);
+// - K8's rows scored by lane groups of 8 with 4 rows each in flight: every
+//   kept slot of a step (of 128 at expand 4, deg 32) in one round, the kept
+//   slots compacted first so that no group takes more rows than it must;
+//   K8-SQ's and K6's one thread a slot, where the slot lies.
+// The scores are the fast forms' to the bit: K8 by lane groups of 8 in
+// K8's order (graph_scorer.cuh group_scores), K8-SQ and K9 by one thread a
+// row in the row's own fmaf order (what staged_score computes), K6 by the
+// exact int8 dot and its epilogue; K6's rerank is one fmaf chain a row, as
 // staged_exact. K9 wide is one warp a query with each neighbour scored by
-// one lane from device memory.
+// one lane from device memory. A seed list that repeats an id is not
+// supported (an evicted copy would leave the member set), as in the fast
+// forms; the system's seeds never repeat.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "graph_scorer.cuh"
+#include "launch_util.cuh"
 #include "wide_util.cuh"
 
-#define WB_THREADS 128
+#define WB_THREADS 256
 #define WB_WARPS (WB_THREADS / 32)
+#define WB_ROWS 4           // rows a lane group of K8 wide scores at once
 #define WG_THREADS 128
 #define WG_WARPS (WG_THREADS / 32)
 #define WG_CAP 128          // steps of one level's walk (kernels.GREEDY_CAP)
 #define WG_LEVELS_MAX 8     // kernels/build.py GREEDY_LEVELS_MAX
+#define MSET_TOMB 0xfffffffeu   // a member set entry whose id left the set
 
 struct WideArgs {
     int B, S, d, deg, ef, loops, expand, exp_cap, slots, k_res, metric;
-    int hbits;                 // the claim table holds 1 << hbits entries
+    int mbits;                 // the member set holds 1 << mbits entries
+    int cbits;                 // the step's claim table 1 << cbits
+    int ins;                   // ids a step can add to the member set: min(slots, ef)
     int rpow;                  // K6: the rerank's sort keys (0: none)
     const int* seed_i;         // [B, S]
     const float* seed_d;       // [B, S]
@@ -58,51 +76,103 @@ struct WideArgs {
     const float* qn;           // [B]
 };
 
-// One block's scratch, laid out in this order.
+// One query's state, laid out in this order, in the block's shared memory
+// or (past it) in the block's slice of a global scratch.
 struct WideBufs {
-    u64* kc; u64* kr;          // [pow2(slots)] survivors' keys: buffer, results
+    u64* kc; u64* kr;          // [slots] survivors' keys: buffer, results
     u64* rk;                   // [rpow] K6's rerank keys
-    unsigned* hid; unsigned* htag;          // [1 << hbits] the step's table
-    float* cd[2]; int* ci[2]; int* cx[2];   // [ef] x 2 the buffer: distance, id, expanded
-    float* rd[2]; int* ri[2];               // [k_res] x 2 the filtered results
-    int* nid; float* nd; int* ppos; int* kept;   // [slots] id, distance, claim, kept slots
+    unsigned* mid;             // [1 << mbits] the member set
+    unsigned* cid; unsigned* ctag;   // [1 << cbits] the step's claim table
+    float* cd; int* ci; int* cx;     // [ef] the buffer: distance, id, expanded
+    float* rd; int* ri;              // [k_res] the filtered results
+    int* nid; float* nd; int* ppos; int* kept;   // [slots] id, distance, claim, K8's kept slots
+    int* crank; int* rrank;    // [slots] a new key's place in the buffer / results
     int* sel;                  // [expand] ids expanded this step (-1: none)
     int* exp;                  // [exp_cap] expanded ids
-    int* misc;                 // [8]: 0 found, 1 kept, 2 / 3 survivors (buffer / results)
+    int* misc;                 // [8]: 0 found, 1 kept, 2 / 3 survivors (buffer / results),
+                               // 4 / 5 the first place a new key takes (buffer / results),
+                               // 6 member set entries in use, 7 the cursor
 };
 
 __host__ __device__ inline size_t wide_beam_bytes(const WideArgs& a) {
-    const size_t words = (size_t)2 * (1 << a.hbits) + 6 * (size_t)a.ef + 4 * (size_t)a.k_res +
-                         4 * (size_t)a.slots + a.expand + a.exp_cap + 8;
-    return wide_align16((size_t)8 * (2 * pow2_ge(a.slots) + a.rpow) + 4 * words);
+    const size_t words = ((size_t)1 << a.mbits) + ((size_t)2 << a.cbits) + 3 * (size_t)a.ef +
+                         2 * (size_t)a.k_res + 6 * (size_t)a.slots + a.expand + a.exp_cap + 8;
+    return wide_align16((size_t)8 * (2 * (size_t)a.slots + a.rpow) + 4 * words);
 }
 
 __device__ inline WideBufs wide_carve(unsigned char* p, const WideArgs& a) {
     WideBufs s;
     u64* w = reinterpret_cast<u64*>(p);
-    const int sp = pow2_ge(a.slots);
-    s.kc = w; w += sp;
-    s.kr = w; w += sp;
+    s.kc = w; w += a.slots;
+    s.kr = w; w += a.slots;
     s.rk = w; w += a.rpow;
     unsigned* u = reinterpret_cast<unsigned*>(w);
-    s.hid = u; u += 1 << a.hbits;
-    s.htag = u; u += 1 << a.hbits;
+    s.mid = u; u += 1 << a.mbits;
+    s.cid = u; u += 1 << a.cbits;
+    s.ctag = u; u += 1 << a.cbits;
     float* f = reinterpret_cast<float*>(u);
-    for (int h = 0; h < 2; ++h) {
-        s.cd[h] = f; f += a.ef;
-        s.ci[h] = reinterpret_cast<int*>(f); f += a.ef;
-        s.cx[h] = reinterpret_cast<int*>(f); f += a.ef;
-        s.rd[h] = f; f += a.k_res;
-        s.ri[h] = reinterpret_cast<int*>(f); f += a.k_res;
-    }
+    s.cd = f; f += a.ef;
+    s.ci = reinterpret_cast<int*>(f); f += a.ef;
+    s.cx = reinterpret_cast<int*>(f); f += a.ef;
+    s.rd = f; f += a.k_res;
+    s.ri = reinterpret_cast<int*>(f); f += a.k_res;
     s.nid = reinterpret_cast<int*>(f); f += a.slots;
     s.nd = f; f += a.slots;
     s.ppos = reinterpret_cast<int*>(f); f += a.slots;
     s.kept = reinterpret_cast<int*>(f); f += a.slots;
+    s.crank = reinterpret_cast<int*>(f); f += a.slots;
+    s.rrank = reinterpret_cast<int*>(f); f += a.slots;
     s.sel = reinterpret_cast<int*>(f); f += a.expand;
     s.exp = reinterpret_cast<int*>(f); f += a.exp_cap;
     s.misc = reinterpret_cast<int*>(f);
     return s;
+}
+
+// The member set: open addressing over ids (linear probing from the
+// multiplicative hash, graph_util.cuh's), an id that leaves it overwritten
+// by MSET_TOMB, which a lookup probes past and an insert never reuses, so
+// two inserts of one id meet at one entry. `used` counts the entries that
+// are no longer empty; the set is rebuilt from its members before it
+// passes three quarters of its size.
+__device__ __forceinline__ int mset_home(int id, int bits) {
+    return (int)(((unsigned)id * 0x9E3779B1u) >> (32 - bits));
+}
+
+__device__ __forceinline__ bool mset_has(const unsigned* ids, int bits, int id) {
+    const int mask = (1 << bits) - 1;
+    for (int p = mset_home(id, bits);; p = (p + 1) & mask) {
+        const unsigned k = ids[p];
+        if (k == (unsigned)id) return true;
+        if (k == EMPTY_ID) return false;
+    }
+}
+
+__device__ __forceinline__ void mset_add(unsigned* ids, int bits, int id, int* used) {
+    const int mask = (1 << bits) - 1;
+    for (int p = mset_home(id, bits);; p = (p + 1) & mask) {
+        const unsigned k = *reinterpret_cast<volatile unsigned*>(ids + p);
+        if (k == (unsigned)id) return;
+        if (k == EMPTY_ID) {
+            const unsigned old = atomicCAS(ids + p, EMPTY_ID, (unsigned)id);
+            if (old == EMPTY_ID) {
+                atomicAdd(used, 1);
+                return;
+            }
+            if (old == (unsigned)id) return;
+        }
+    }
+}
+
+__device__ __forceinline__ void mset_del(unsigned* ids, int bits, int id) {
+    const int mask = (1 << bits) - 1;
+    for (int p = mset_home(id, bits);; p = (p + 1) & mask) {
+        const unsigned k = ids[p];
+        if (k == (unsigned)id) {
+            ids[p] = MSET_TOMB;
+            return;
+        }
+        if (k == EMPTY_ID) return;
+    }
 }
 
 // f32 rows scored one thread a row (K9 wide): x . q in order j = 0 .. d-1,
@@ -190,10 +260,8 @@ struct BeamServe {
     }
 };
 
-// n (distance, id) seed pairs sorted by (distance, position) into od / oi.
-// This helper and wide_merge repeat hnsw_beam.cu's sorted_seeds and
-// merge_into over global buffers; they are copies so that the fast beam
-// kernels' code (and registers) stay as they are.
+// n (distance, id) seed pairs sorted by (distance, position) into od / oi:
+// hnsw_beam.cu's sorted_seeds over the wide form's buffers
 __device__ void wide_sorted_seeds(const float* d, const int* id, int n, float* od, int* oi) {
     for (int j = threadIdx.x; j < n; j += blockDim.x) {
         const float v = d[j];
@@ -204,90 +272,148 @@ __device__ void wide_sorted_seeds(const float* d, const int* id, int n, float* o
     }
 }
 
-// The sorted buffer (od, oi, ox)[n] merged with the sorted keys[0, nk)
-// (distance, slot), keeping its n smallest by (distance, position), every
-// old entry before every new one of the same distance: into (td, ti, tx)
-__device__ void wide_merge(const float* od, const int* oi, const int* ox, int n, const u64* keys,
-                           int nk, const int* nid, const float* nd, float* td, int* ti, int* tx) {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        const int r = i + count_below(keys, nk, (u64)f2key(od[i]) << 32);
-        if (r < n) {
-            td[r] = od[i];
-            ti[r] = oi[i];
-            if (tx) tx[r] = ox[i];
-        }
-    }
+// Each new key's place in the sorted buffer (od, n entries) once the keys
+// [0, nk) (runs of 32, each sorted) merge into it: its rank among the keys
+// plus the old entries at or below its distance (an old entry stays ahead
+// of a new one of the same distance); into rank[j] (n or more: it does not
+// enter), and the least place into *first. All threads.
+__device__ void wide_new_places(const float* od, int n, const u64* keys, int nk, const float* nd,
+                                int* rank, int* first) {
     for (int j = threadIdx.x; j < nk; j += blockDim.x) {
-        const int t = (int)(keys[j] & 0xffffffffu);
-        const float v = nd[t];
-        int lo = 0, hi = n;  // old entries <= v
-        while (lo < hi) {
-            const int mid = (lo + hi) >> 1;
-            if (od[mid] <= v) lo = mid + 1; else hi = mid;
-        }
-        const int r = j + lo;
+        const u64 key = keys[j];
+        int r = j & 31;   // its place in its own run
+        for (int base = 0; base < nk && r < n; base += 32)
+            if (base != (j & ~31)) r += count_below(keys + base, min(32, nk - base), key);
         if (r < n) {
-            td[r] = v;
-            ti[r] = nid[t];
-            if (tx) tx[r] = 0;
+            const float v = nd[(int)(key & 0xffffffffu)];
+            int lo = 0, hi = n;
+            while (lo < hi) {
+                const int mid = (lo + hi) >> 1;
+                if (od[mid] <= v) lo = mid + 1; else hi = mid;
+            }
+            r += lo;
         }
+        rank[j] = r;
+        if (r < n) atomicMin(first, r);
     }
 }
 
-// The beam of query b over the block's scratch; leaves the buffer and the
-// results in half `*cur_out`, returns (expanded nodes, scored neighbours).
-template <class Sc>
-__device__ int2 wide_beam(const WideArgs& a, const Sc& sc, const WideBufs& s, size_t b,
-                          int* cur_out) {
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int T = 1 << a.hbits;
-    table_clear(s.hid, s.htag, a.hbits);
-    for (int j = tid; j < a.ef; j += WB_THREADS) {
-        s.cd[0][j] = WIDE_INF; s.ci[0][j] = -1; s.cx[0][j] = 0;
-    }
-    for (int j = tid; j < a.k_res; j += WB_THREADS) { s.rd[0][j] = WIDE_INF; s.ri[0][j] = -1; }
-    for (int j = tid; j < a.exp_cap; j += WB_THREADS) s.exp[j] = -1;
-    __syncthreads();
-    const int* si = a.seed_i + b * a.S;
-    const float* sd = a.seed_d + b * a.S;
-    wide_sorted_seeds(sd, si, a.S, s.cd[0], s.ci[0]);
-    if (a.k_res) {
-        const int sk = a.S < a.k_res ? a.S : a.k_res;
-        for (int j = tid; j < sk; j += WB_THREADS) {
-            const bool ok = si[j] >= 0 && a.allowed[si[j]];
-            s.rd[1][j] = ok ? sd[j] : WIDE_INF;
-            s.ri[1][j] = ok ? si[j] : -1;
+// The merge in place, old entries first: each entry at or past `first`
+// moves up by the new keys below it, a block of WIDE_SHIFT entries a thread
+// at a time from the top (an entry only moves up, past the ones above it
+// that have moved already), and an entry pushed past n is dropped:
+// evicted(id, flag). Then the caller writes the new keys at their places.
+// All threads.
+#define WIDE_SHIFT 4
+template <class Evicted>
+__device__ void wide_shift(float* od, int* oi, int* ox, int n, int first, const u64* keys, int nk,
+                           Evicted evicted) {
+    const int span = WIDE_SHIFT * (int)blockDim.x;
+    for (int hi = n; hi > first; hi -= span) {
+        float v[WIDE_SHIFT];
+        int id[WIDE_SHIFT], x[WIDE_SHIFT], r[WIDE_SHIFT];
+#pragma unroll
+        for (int e = 0; e < WIDE_SHIFT; ++e) {
+            const int i = hi - span + e * (int)blockDim.x + (int)threadIdx.x;
+            r[e] = -1;
+            if (i >= first) {
+                v[e] = od[i];
+                id[e] = oi[i];
+                x[e] = ox ? ox[i] : 0;
+                r[e] = i + count_below_runs(keys, nk, (u64)f2key(v[e]) << 32);
+            }
         }
         __syncthreads();
-        wide_sorted_seeds(s.rd[1], s.ri[1], sk, s.rd[0], s.ri[0]);
+#pragma unroll
+        for (int e = 0; e < WIDE_SHIFT; ++e) {
+            if (r[e] < 0) continue;
+            if (r[e] < n) {
+                od[r[e]] = v[e];
+                oi[r[e]] = id[e];
+                if (ox) ox[r[e]] = x[e];
+            } else {
+                evicted(id[e], x[e]);
+            }
+        }
+        __syncthreads();
     }
-    *cur_out = 0;
+}
+
+// The beam of query b over its state `s` (shared memory or the block's
+// global slice): leaves the buffer, the results and the expanded ids there,
+// returns (expanded nodes, scored neighbours). A step:
+//  1. warp 0 takes the `expand` first unflagged finite entries from the
+//     cursor on (every entry before the cursor is expanded or no candidate);
+//  2. each slot drops a neighbour that is in the member set (the buffer's
+//     ids and every id expanded before) and claims the others in the step's
+//     claim table (the lowest slot of an id wins, graph_util.cuh);
+//  3. the kept slots are scored, and those below the buffer's worst (and,
+//     with `allowed`, the allowed ones below the result buffer's worst)
+//     become (f2key(distance) << 32 | slot) keys, sorted by warps in runs
+//     of 32 once the claims are reset (an entry per claiming slot);
+//  4. each key's place (its rank plus the old entries at or below it), then
+//     the merge in place from the first place a key takes: the entries the
+//     merge evicts unexpanded leave the member set, the keys that enter
+//     join it, the cursor falls back to that first place. The filtered
+//     results merge the same way.
+// The member set is rebuilt (the buffer's ids and the expanded ones) when
+// its entries in use could pass three quarters of it in the next step.
+template <class Sc>
+__device__ int2 wide_beam(const WideArgs& a, const Sc& sc, const WideBufs& s, size_t b) {
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int MT = 1 << a.mbits;
+    const int* si = a.seed_i + b * a.S;
+    const float* sd = a.seed_d + b * a.S;
+    for (int j = tid; j < (1 << a.cbits); j += WB_THREADS) {
+        s.cid[j] = EMPTY_ID;
+        s.ctag[j] = 0xffffffffu;
+    }
+    for (int j = tid; j < a.ef; j += WB_THREADS) { s.cd[j] = WIDE_INF; s.ci[j] = -1; s.cx[j] = 0; }
+    for (int j = tid; j < a.k_res; j += WB_THREADS) { s.rd[j] = WIDE_INF; s.ri[j] = -1; }
+    for (int j = tid; j < a.exp_cap; j += WB_THREADS) s.exp[j] = -1;
+    if (tid < 8) s.misc[tid] = 0;
+    __syncthreads();   // the seeds land at their ranks, any thread's entries
+    if (a.k_res) {
+        // the allowed seeds, sorted, through the member set's room
+        const int sk = a.S < a.k_res ? a.S : a.k_res;
+        float* td = reinterpret_cast<float*>(s.mid);
+        int* ti = reinterpret_cast<int*>(s.mid) + sk;
+        for (int j = tid; j < sk; j += WB_THREADS) {
+            const bool ok = si[j] >= 0 && a.allowed[si[j]];
+            td[j] = ok ? sd[j] : WIDE_INF;
+            ti[j] = ok ? si[j] : -1;
+        }
+        __syncthreads();
+        wide_sorted_seeds(td, ti, sk, s.rd, s.ri);
+    }
+    wide_sorted_seeds(sd, si, a.S, s.cd, s.ci);
+    __syncthreads();
+    for (int j = tid; j < MT; j += WB_THREADS) s.mid[j] = EMPTY_ID;
     bool any_seed = false;
     for (int j = tid; j < a.S; j += WB_THREADS) any_seed |= si[j] >= 0;
     if (!__syncthreads_or(any_seed)) return make_int2(0, 0);
+    for (int j = tid; j < a.S; j += WB_THREADS)
+        if (s.ci[j] >= 0) mset_add(s.mid, a.mbits, s.ci[j], s.misc + 6);
+    __syncthreads();
 
     const float qnb = a.qn[b];
-    int n_exp = 0, n_kept = 0, cur = 0;
+    int n_exp = 0, n_kept = 0;
     for (int it = 0; it < a.loops; ++it) {
-        const float* cd = s.cd[cur];
-        const int* ci = s.ci[cur];
-        int* cx = s.cx[cur];
-        // 1. warp 0: the `expand` nearest unexpanded candidates (the first
-        // unflagged finite entries); the others: the buffer's ids and every
-        // id expanded before into the table
+        // 1. warp 0: the nodes to expand
         if (warp == 0) {
-            int found = 0;
-            for (int base = 0; base < a.ef && found < a.expand; base += 32) {
+            int found = 0, last = 0;
+            for (int base = s.misc[7]; base < a.ef && found < a.expand; base += 32) {
                 const int j = base + lane;
-                const bool c = j < a.ef && ci[j] >= 0 && !cx[j] && cd[j] < WIDE_INF;
+                const bool c = j < a.ef && s.ci[j] >= 0 && !s.cx[j] && s.cd[j] < WIDE_INF;
                 unsigned m = __ballot_sync(WIDE_FULL, c);
                 while (m && found < a.expand) {
                     const int l = __ffs(m) - 1;
                     m &= m - 1;
                     if (lane == 0) {
-                        s.sel[found] = ci[base + l];
-                        cx[base + l] = 1;
+                        s.sel[found] = s.ci[base + l];
+                        s.cx[base + l] = 1;
                     }
+                    last = base + l;
                     ++found;
                 }
             }
@@ -298,35 +424,31 @@ __device__ int2 wide_beam(const WideArgs& a, const Sc& sc, const WideBufs& s, si
             if (lane == 0) {
                 s.misc[0] = found;
                 s.misc[1] = s.misc[2] = s.misc[3] = 0;
+                s.misc[4] = a.ef;
+                s.misc[5] = a.k_res;
+                s.misc[7] = found == a.expand ? last + 1 : a.ef;
             }
             n_exp += found;
-        } else {
-            const int n_mem = a.ef + it * a.expand;
-            for (int j = tid - 32; j < n_mem; j += WB_THREADS - 32) {
-                const int id = j < a.ef ? ci[j] : s.exp[j - a.ef];
-                if (id >= 0) table_member(s.hid, s.htag, a.hbits, id);
-            }
         }
         __syncthreads();
         if (s.misc[0] == 0) break;
-        // 2. each slot claims its neighbour: not a member, the lowest slot
+        // 2. each slot: a member drops out, the others claim their id
         for (int t = tid; t < a.slots; t += WB_THREADS) {
             const int node = s.sel[t / a.deg];
             const int id = node >= 0 ? sc.neighbour(node, t % a.deg, a.deg) : -1;
             s.nid[t] = id;
-            s.ppos[t] = id >= 0 ? table_claim(s.hid, s.htag, a.hbits, id, t) : -1;
+            s.ppos[t] = id >= 0 && !mset_has(s.mid, a.mbits, id)
+                            ? table_claim(s.cid, s.ctag, a.cbits, id, t) : -1;
         }
         __syncthreads();
-        for (int t = tid; t < a.slots; t += WB_THREADS) {
+        // 3. the kept slots (each the lowest claim of its id) scored; the
+        // survivors' keys
+        const float worst_c = s.cd[a.ef - 1];
+        const float worst_r = a.k_res ? s.rd[a.k_res - 1] : 0.0f;
+        auto kept = [&](int t) {
             const int p = s.ppos[t];
-            if (p >= 0 && s.htag[p] == (unsigned)(t + 1)) s.kept[atomicAdd(s.misc + 1, 1)] = t;
-        }
-        __syncthreads();
-        // 3. score the kept slots; the survivors' keys
-        const int nk = s.misc[1];
-        n_kept += nk;
-        const float worst_c = cd[a.ef - 1];
-        const float worst_r = a.k_res ? s.rd[cur][a.k_res - 1] : 0.0f;
+            return p >= 0 && s.ctag[p] == (unsigned)(t + 1);
+        };
         auto survive = [&](int t, int id, float v) {
             s.nd[t] = v;
             const u64 key = ((u64)f2key(v) << 32) | (unsigned)t;
@@ -334,91 +456,161 @@ __device__ int2 wide_beam(const WideArgs& a, const Sc& sc, const WideBufs& s, si
             if (a.k_res && v < worst_r && a.allowed[id]) s.kr[atomicAdd(s.misc + 3, 1)] = key;
         };
         if constexpr (Sc::GROUPS) {
-            const int grp = lane / GROUP, sub = lane % GROUP;
+            // the kept slots compacted, then lane groups of 8 with WB_ROWS
+            // rows each in flight: every kept row of a step at once, as few
+            // as can be a group (K8's sums, R rows or one)
+            for (int t = tid; t < a.slots; t += WB_THREADS)
+                if (kept(t)) s.kept[atomicAdd(s.misc + 1, 1)] = t;
+            __syncthreads();
+            const int nk = s.misc[1];
+            constexpr int NG = WB_WARPS * (32 / GROUP);
+            const int gi = warp * (32 / GROUP) + lane / GROUP, sub = lane % GROUP;
             const unsigned char* qrow =
                 reinterpret_cast<const unsigned char*>(sc.sc.q + b * (size_t)a.d);
-            for (int base = warp * (32 / GROUP); base < nk; base += WB_WARPS * (32 / GROUP)) {
-                const int row = base + grp;
-                const int t = row < nk ? s.kept[row] : 0;
-                int id[1] = {row < nk ? s.nid[t] : -1};
-                int node[1] = {row < nk ? s.sel[t / a.deg] : 0};
-                int g[1] = {t % a.deg};
-                float v[1];
-                sc.sc.template group_scores<1>(qrow, node, g, id, a.d, a.deg, sub, qnb, a.metric,
-                                               v);
-                if (sub == 0 && row < nk) survive(t, id[0], v[0]);
+            for (int base = 0; base < nk; base += NG * WB_ROWS) {
+                int t[WB_ROWS], id[WB_ROWS], node[WB_ROWS], g[WB_ROWS];
+#pragma unroll
+                for (int r = 0; r < WB_ROWS; ++r) {
+                    const int row = base + r * NG + gi;
+                    t[r] = row < nk ? s.kept[row] : 0;
+                    id[r] = row < nk ? s.nid[t[r]] : -1;
+                    node[r] = row < nk ? s.sel[t[r] / a.deg] : 0;
+                    g[r] = t[r] % a.deg;
+                }
+                float v[WB_ROWS];
+                sc.sc.template group_scores<WB_ROWS>(qrow, node, g, id, a.d, a.deg, sub, qnb,
+                                                     a.metric, v);
+#pragma unroll
+                for (int r = 0; r < WB_ROWS; ++r)
+                    if (sub == 0 && id[r] >= 0) survive(t[r], id[r], v[r]);
             }
         } else {
-            for (int i = tid; i < nk; i += WB_THREADS) {
-                const int t = s.kept[i];
-                const int id = s.nid[t];
-                survive(t, id, sc.score(id, s.sel[t / a.deg], t % a.deg, b, a.d, a.deg, qnb,
-                                        a.metric));
+            // one thread a slot: a kept slot is scored where it lies
+            for (int t = tid; t < a.slots; t += WB_THREADS)
+                if (kept(t)) {
+                    atomicAdd(s.misc + 1, 1);
+                    const int id = s.nid[t];
+                    survive(t, id, sc.score(id, s.sel[t / a.deg], t % a.deg, b, a.d, a.deg, qnb,
+                                            a.metric));
+                }
+        }
+        __syncthreads();
+        // the claims reset, an entry a claiming slot; the keys in runs
+        for (int t = tid; t < a.slots; t += WB_THREADS) {
+            const int p = s.ppos[t];
+            if (p >= 0) {
+                s.cid[p] = EMPTY_ID;
+                s.ctag[p] = 0xffffffffu;
             }
         }
-        __syncthreads();
+        n_kept += s.misc[1];
         const int nc = s.misc[2], nr = s.misc[3];
-        block_sort_keys(s.kc, nc);
-        block_sort_keys(s.kr, nr);
-        // 4. merge into the other halves; clear the table for the next step
-        const int nxt = cur ^ 1;
-        wide_merge(cd, ci, cx, a.ef, s.kc, nc, s.nid, s.nd, s.cd[nxt], s.ci[nxt], s.cx[nxt]);
-        if (a.k_res)
-            wide_merge(s.rd[cur], s.ri[cur], nullptr, a.k_res, s.kr, nr, s.nid, s.nd, s.rd[nxt],
-                       s.ri[nxt], nullptr);
-        for (int j = tid; j < T; j += WB_THREADS) {
-            s.hid[j] = EMPTY_ID;
-            s.htag[j] = 0xffffffffu;
-        }
+        for (int base = warp * 32; base < nc; base += WB_THREADS)
+            warp_sort_run(s.kc + base, min(32, nc - base), lane);
+        for (int base = warp * 32; base < nr; base += WB_THREADS)
+            warp_sort_run(s.kr + base, min(32, nr - base), lane);
         __syncthreads();
-        cur = nxt;
+        // 4. the merges in place, from the first place a new key takes
+        wide_new_places(s.cd, a.ef, s.kc, nc, s.nd, s.crank, s.misc + 4);
+        if (a.k_res) wide_new_places(s.rd, a.k_res, s.kr, nr, s.nd, s.rrank, s.misc + 5);
+        __syncthreads();
+        wide_shift(s.cd, s.ci, s.cx, a.ef, s.misc[4], s.kc, nc, [&](int id, int x) {
+            if (!x && id >= 0) mset_del(s.mid, a.mbits, id);
+        });
+        if (a.k_res)
+            wide_shift(s.rd, s.ri, nullptr, a.k_res, s.misc[5], s.kr, nr, [](int, int) {});
+        for (int j = tid; j < nc; j += WB_THREADS) {
+            const int r = s.crank[j];
+            if (r < a.ef) {
+                const int t = (int)(s.kc[j] & 0xffffffffu);
+                s.cd[r] = s.nd[t];
+                s.ci[r] = s.nid[t];
+                s.cx[r] = 0;
+                mset_add(s.mid, a.mbits, s.nid[t], s.misc + 6);
+            }
+        }
+        for (int j = tid; j < nr; j += WB_THREADS) {
+            const int r = s.rrank[j];
+            if (r < a.k_res) {
+                const int t = (int)(s.kr[j] & 0xffffffffu);
+                s.rd[r] = s.nd[t];
+                s.ri[r] = s.nid[t];
+            }
+        }
+        if (tid == 0 && s.misc[4] < s.misc[7]) s.misc[7] = s.misc[4];
+        __syncthreads();
+        if (s.misc[6] > 3 * (MT >> 2) - a.ins) {
+            // the member set from its members: the buffer's ids and the
+            // expanded ones (the claim table is empty)
+            __syncthreads();
+            for (int j = tid; j < MT; j += WB_THREADS) s.mid[j] = EMPTY_ID;
+            if (tid == 0) s.misc[6] = 0;
+            __syncthreads();
+            for (int j = tid; j < a.ef; j += WB_THREADS)
+                if (s.ci[j] >= 0) mset_add(s.mid, a.mbits, s.ci[j], s.misc + 6);
+            for (int j = tid; j < (it + 1) * a.expand; j += WB_THREADS)
+                if (s.exp[j] >= 0) mset_add(s.mid, a.mbits, s.exp[j], s.misc + 6);
+            __syncthreads();
+        }
     }
-    *cur_out = cur;
     return make_int2(n_exp, n_kept);
 }
 
+extern __shared__ __align__(16) unsigned char wide_state[];
+
+// a block's state: its slice of the global scratch, or (scratch null) its
+// dynamic shared memory
+__device__ __forceinline__ WideBufs wide_state_of(unsigned char* scratch, size_t stride,
+                                                  const WideArgs& a) {
+    return wide_carve(scratch ? scratch + blockIdx.x * stride : wide_state, a);
+}
+
+// At least one block an SM, so up to 255 registers a thread: K8's four rows
+// a lane group in flight stay in registers. Capped at 128 (two blocks an
+// SM) K8 wide spilled and took 3.25 ms in place of 2.99-3.09 at the SQL
+// LIMIT 200 shape on an H100, and 16.6 in place of 23.2 at B = 1,024
+// (PERF.md §6).
 template <class Sc>
-__global__ void __launch_bounds__(WB_THREADS)
-graph_beam_wide_kernel(WideArgs a, Sc sc, unsigned char* scratch, size_t stride, float* out_d,
-                       int* out_i, float* out_rd, int* out_ri, int* out_exp, int* out_stats) {
-    const WideBufs s = wide_carve(scratch + blockIdx.x * stride, a);
+__global__ void __launch_bounds__(WB_THREADS, 1)
+graph_beam_wide_kernel(WideArgs a, Sc sc, float* out_d, int* out_i, float* out_rd, int* out_ri,
+                       int* out_exp, int* out_stats, unsigned char* scratch, size_t stride) {
+    const WideBufs s = wide_state_of(scratch, stride, a);
     for (size_t b = blockIdx.x; b < (size_t)a.B; b += gridDim.x) {
-        int cur = 0;
-        const int2 stats = wide_beam(a, sc, s, b, &cur);
+        const int2 stats = wide_beam(a, sc, s, b);
         __syncthreads();
         for (int j = threadIdx.x; j < a.ef; j += WB_THREADS) {
-            out_d[b * a.ef + j] = s.cd[cur][j];
-            out_i[b * a.ef + j] = s.ci[cur][j];
+            out_d[b * a.ef + j] = s.cd[j];
+            out_i[b * a.ef + j] = s.ci[j];
         }
         for (int j = threadIdx.x; j < a.k_res; j += WB_THREADS) {
-            out_rd[b * a.k_res + j] = s.rd[cur][j];
-            out_ri[b * a.k_res + j] = s.ri[cur][j];
+            out_rd[b * a.k_res + j] = s.rd[j];
+            out_ri[b * a.k_res + j] = s.ri[j];
         }
         if (out_exp)
             for (int j = threadIdx.x; j < a.exp_cap; j += WB_THREADS)
                 out_exp[b * a.exp_cap + j] = s.exp[j];
         if (threadIdx.x == 0) reinterpret_cast<int2*>(out_stats)[b] = stats;
-        __syncthreads();   // the scratch is the next query's
+        __syncthreads();   // the state is the next query's
     }
 }
 
 // K6 wide: the beam, then the exact rerank of the r best (one fmaf chain a
-// row, unclamped L2, +inf outside `allowed`) and the k smallest by
+// row, unclamped L2, +inf outside `allowed`; their distances and ids over
+// the member set, which holds at least 2·ef words) and the k smallest by
 // (distance, position)
 __global__ void __launch_bounds__(WB_THREADS)
 serve_beam_wide_kernel(WideArgs a, BeamServe sc, const uint8_t* allowed, int r, int k,
-                       unsigned char* scratch, size_t stride, float* out_d, int* out_i,
-                       int* out_stats) {
-    const WideBufs s = wide_carve(scratch + blockIdx.x * stride, a);
+                       float* out_d, int* out_i, int* out_stats, unsigned char* scratch,
+                       size_t stride) {
+    const WideBufs s = wide_state_of(scratch, stride, a);
     for (size_t b = blockIdx.x; b < (size_t)a.B; b += gridDim.x) {
-        int cur = 0;
-        const int2 stats = wide_beam(a, sc, s, b, &cur);
+        const int2 stats = wide_beam(a, sc, s, b);
         __syncthreads();
         const float qnb = a.qn[b];
         const float* qb = sc.q + b * a.d;
-        const int* best = s.ci[cur];
-        float* td = s.cd[cur ^ 1];
-        int* ti = s.ci[cur ^ 1];
+        const int* best = s.ci;
+        float* td = reinterpret_cast<float*>(s.mid);
+        int* ti = reinterpret_cast<int*>(s.mid) + r;
         for (int j = threadIdx.x; j < r; j += WB_THREADS) {
             const int id = best[j];
             const bool bad = id < 0 || (allowed != nullptr && !allowed[id]);
@@ -457,7 +649,12 @@ static WideArgs wide_args(int B, int S, int d, int deg, int ef, int iters, int e
     a.exp_cap = a.loops * expand;
     a.slots = expand * deg;
     a.k_res = k_res; a.metric = metric;
-    a.hbits = table_bits(ef + a.exp_cap + a.slots);
+    // members: at most the buffer's ef ids and every expanded id, at most
+    // half the set, with room for a step's inserts
+    a.ins = a.slots < ef ? a.slots : ef;
+    a.mbits = 1;
+    while ((1ll << a.mbits) < 2ll * (ef + a.exp_cap) + a.ins) ++a.mbits;
+    a.cbits = table_bits(a.slots);
     a.rpow = rerank > 0 ? pow2_ge(rerank) : 0;
     a.seed_i = seed_i; a.seed_d = seed_d; a.allowed = allowed; a.qn = qn;
     return a;
@@ -467,27 +664,58 @@ static bool wide_args_ok(const WideArgs& a) {
     return a.B >= 1 && a.S >= 1 && a.S <= a.ef && a.expand >= 1 && a.expand <= a.ef &&
            a.loops >= 1 && a.d >= 4 && a.d % 4 == 0 && a.deg >= 1 && a.k_res >= 0 &&
            (a.k_res == 0 || a.allowed != nullptr) && a.metric >= 0 && a.metric <= 2 &&
-           a.hbits < 30;
+           a.mbits < 30;
 }
 
-// bytes of one block's scratch (the wrapper allocates grid x this); rerank
-// 0 for K8 / K8-SQ, K6's rerank width otherwise
+// bytes of one block's global scratch (the wrapper allocates grid x this),
+// 0 where a query's state fits a block's shared memory; rerank 0 for K8 /
+// K8-SQ, K6's rerank width otherwise
 extern "C" long long hnsw_beam_wide_bytes(int deg, int ef, int iters, int expand, int k_res,
                                           int rerank) {
     const WideArgs a = wide_args(1, 1, 4, deg, ef, iters, expand, k_res, 0, rerank, nullptr,
                                  nullptr, nullptr, nullptr);
-    return (long long)wide_beam_bytes(a);
+    const size_t bytes = wide_beam_bytes(a);
+    return bytes <= launch_util::smem_optin() ? 0 : (long long)bytes;
+}
+
+// How a wide beam launches: a block a query over its state in shared
+// memory where it fits, else `grid` blocks over their slices of `scratch`,
+// each walking its share of the queries.
+struct WideLaunch {
+    unsigned blocks;
+    size_t smem, stride;
+    unsigned char* scratch;
+    int err;
+};
+
+template <class K>
+static WideLaunch wide_launch(K kernel, const WideArgs& a, unsigned char* scratch, int grid) {
+    WideLaunch l{0u, 0, 0, nullptr, 0};
+    const size_t bytes = wide_beam_bytes(a);
+    if (bytes <= launch_util::smem_optin()) {
+        l.err = raise_smem(kernel, bytes);
+        l.blocks = (unsigned)a.B;
+        l.smem = bytes;
+    } else if (scratch == nullptr || grid < 1) {
+        l.err = (int)cudaErrorInvalidValue;
+    } else {
+        l.blocks = (unsigned)grid;
+        l.stride = bytes;
+        l.scratch = scratch;
+    }
+    return l;
 }
 
 template <class Sc>
 static int launch_beam_wide(const WideArgs& a, const Sc& sc, unsigned char* scratch, int grid,
                             float* out_d, int* out_i, float* out_rd, int* out_ri, int* out_exp,
                             int* out_stats, void* stream) {
-    if (!wide_args_ok(a) || grid < 1 || scratch == nullptr ||
-        (a.k_res && (out_rd == nullptr || out_ri == nullptr)))
+    if (!wide_args_ok(a) || (a.k_res && (out_rd == nullptr || out_ri == nullptr)))
         return (int)cudaErrorInvalidValue;
-    graph_beam_wide_kernel<Sc><<<grid, WB_THREADS, 0, (cudaStream_t)stream>>>(
-        a, sc, scratch, wide_beam_bytes(a), out_d, out_i, out_rd, out_ri, out_exp, out_stats);
+    const WideLaunch l = wide_launch(graph_beam_wide_kernel<Sc>, a, scratch, grid);
+    if (l.err) return l.err;
+    graph_beam_wide_kernel<Sc><<<l.blocks, WB_THREADS, l.smem, (cudaStream_t)stream>>>(
+        a, sc, out_d, out_i, out_rd, out_ri, out_exp, out_stats, l.scratch, l.stride);
     return (int)cudaGetLastError();
 }
 
@@ -536,12 +764,14 @@ extern "C" int hnsw_serve_beam_wide(const int8_t* codes, const int* meta, const 
                                     void* stream) {
     const WideArgs a = wide_args(B, S, d, deg, ef, iters, expand, 0, metric, rerank, seed_i,
                                  seed_d, nullptr, qn);
-    if (!wide_args_ok(a) || rerank < 1 || rerank > ef || k < 1 || k > rerank || grid < 1 ||
-        scratch == nullptr || (size_t)meta % 16 || (size_t)codes % 4 || (size_t)qc % 4)
+    if (!wide_args_ok(a) || rerank < 1 || rerank > ef || k < 1 || k > rerank ||
+        (size_t)meta % 16 || (size_t)codes % 4 || (size_t)qc % 4)
         return (int)cudaErrorInvalidValue;
     const BeamServe sc{codes, reinterpret_cast<const int4*>(meta), vectors, norms, q, qc, qs, qsum};
-    serve_beam_wide_kernel<<<grid, WB_THREADS, 0, (cudaStream_t)stream>>>(
-        a, sc, allowed, rerank, k, scratch, wide_beam_bytes(a), out_d, out_i, out_stats);
+    const WideLaunch l = wide_launch(serve_beam_wide_kernel, a, scratch, grid);
+    if (l.err) return l.err;
+    serve_beam_wide_kernel<<<l.blocks, WB_THREADS, l.smem, (cudaStream_t)stream>>>(
+        a, sc, allowed, rerank, k, out_d, out_i, out_stats, l.scratch, l.stride);
     return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,7 @@
 // Host-side launch helpers of the kernels with a dynamic shared-memory size
 // that depends on the call: K5 (ivf_rerank.cu), K6 / K8 / K8-SQ
-// (hnsw_beam.cu).
+// (hnsw_beam.cu), K2's and the beams' wide forms (topk_rows.cu,
+// graph_wide.cu).
 //
 // `raise_smem` sets a kernel's dynamic shared-memory limit on the current
 // device only when a launch asks for more than every launch before it there
@@ -82,6 +83,14 @@ inline int sm_blocks(const void* fn, int threads, size_t bytes) {
     std::lock_guard<std::mutex> lock(table_lock());
     if (n < TABLE) seen[n++] = OccEntry{fn, dev, threads, blocks, bytes};
     return blocks;
+}
+
+// a block's dynamic shared memory on the current device, opted in
+inline size_t smem_optin() {
+    int dev = 0, bytes = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    return (size_t)bytes;
 }
 
 // SMs of the current device

@@ -40,13 +40,30 @@
 //   lane) and a warp bitonic sort orders them, with no radix passes.
 // Ties go to the lower position, as lax.top_k does; the winners of a long
 // row are sorted in shared memory (k <= SEL_MAX = 2048: 16 KB).
-// - Wide k (k > SEL_MAX: a flat search or an SQ8 scan asked for thousands
-//   of neighbours): a 256-thread block a row, in global memory. It writes
-//   the row's keys once to a scratch row, runs the same radix select and
-//   collect over them (read back from L2), and sorts its k winners by a
-//   bitonic sort in a second scratch row of pow2(k) (key, position)
-//   pairs. A correctness path: each pass reads the row again, and the
-//   sort takes log²(pow2(k)) / 2 block barriers.
+// - Wide k (k > SEL_MAX: the wide probes' [B, P·L] distances, K5 wide's
+//   [B, r], a flat search or an SQ8 scan asked for thousands of
+//   neighbours): `topk_cluster_kernel`, the row's keys in shared memory
+//   over a thread block cluster of `ctas` CTAs (topk_rows_wide_ctas picks
+//   it: a CTA per 8,192 columns or 1,024 winners, so at least 3, up to 8
+//   portable, 16 where a row needs them to fit; cudaLaunchKernelEx with a
+//   cluster dimension), each CTA an equal segment of the row. One CTA a
+//   row lost to 3 at [64, 5000] k = 3000 and is not taken at any batch.
+//   The row is read from device memory once. Every radix pass histograms each CTA's keys
+//   in its own shared memory and sums the cluster's histograms through
+//   distributed shared memory after a cluster barrier (two histogram
+//   buffers, by pass parity, so one barrier a pass keeps a CTA from
+//   clearing a histogram another still reads), so each CTA finds the same
+//   threshold, the tie among equal keys included (its positions are the
+//   row's). Each CTA then collects and sorts its own winners (a bitonic
+//   sort of a few hundred to a thousand, 512 threads), copies the other
+//   CTAs' sorted lists through distributed shared memory into its winners'
+//   room after its own, and writes each of its winners at its place there
+//   plus the other CTAs' winners below it (a binary search of each list):
+//   no CTA sorts the row's k. Past what 16 CTAs hold (k >
+//   16,384: the winners' room alone passes 227 KB; or more than 16 x
+//   ~48k columns at k = 3000) the row runs the global form: a 256-thread
+//   block a row writes its keys to a scratch row and reads them back from
+//   L2 for each pass, and sorts its winners in a second scratch row.
 // - K10 `dense_blocks`, fused (the dense IVF path's cell selection): given
 //   `cell_block`, the block (or warp) that holds a row's sorted winners maps
 //   them to their physical blocks and keeps the first u distinct ones
@@ -54,11 +71,18 @@
 //   trip through device memory and the dense path makes one launch fewer.
 //   A long row's blocks go through the keys' shared memory (free once the
 //   winners are sorted); a short row's through 2·k ints a warp of dynamic
-//   shared memory.
+//   shared memory; a wide row's, read back from the row it wrote, through
+//   CTA 0's winners' room.
 // Shared memory of a long-row block: 1.1 KB + 32 KB of keys + 8·pow2(k),
-// past the 48 KB default from k = 2048 (the entry point opts in).
+// past the 48 KB default from k = 2048 (the entry point opts in); of a wide
+// CTA, 3.5 KB + 4 bytes a column of its segment + 8·pow2(k) (its winners'
+// room, which CTA 0 reuses for K10).
+#include <cooperative_groups.h>
+
 #include "launch_util.cuh"
 #include "select.cuh"
+
+namespace cg = cooperative_groups;
 
 typedef unsigned long long u64;
 
@@ -67,6 +91,11 @@ typedef unsigned long long u64;
 #define SEG_W (SEG_THREADS * SEG_ITEMS)   // columns of one segment
 #define SHORT_MAX 2048
 #define SHORT_WARPS 4                     // rows of one short-row block
+#define WIDE_THREADS 512                  // a wide-k CTA
+#define WIDE_SEG_COLS 8192                // columns a wide CTA takes at most by choice
+#define WIDE_WIN 1024                     // winners a wide CTA sorts about, by choice
+#define WIDE_CLUSTER 8                    // CTAs of a wide row's cluster by choice (portable)
+#define WIDE_CTAS_MAX 16                  // and where its keys need them (non-portable)
 
 // The distance the epilogue makes of x[row, j], as its order-preserving key:
 // rounded as the reference (and the plain version) round it.
@@ -87,19 +116,20 @@ __device__ __forceinline__ uint32_t epi_key(float v, float rn, const float* __re
 }
 
 // 16-byte aligned: the keys and the u64 winners follow it in shared memory
-struct __align__(16) TopkShared {
+template <int WARPS>
+struct __align__(16) TopkSharedW {
     int hist[256];
-    uint32_t st[5][SEG_THREADS / 32];   // per-warp partial statistics
+    uint32_t st[5][WARPS];   // per-warp partial statistics
     int misc[4];
     int count;
 };
+typedef TopkSharedW<SEG_THREADS / 32> TopkShared;
 
 __device__ __forceinline__ uint32_t shr(uint32_t v, int s) { return s >= 32 ? 0u : v >> s; }
 
 // The block's sum / min / max of each v[j] (op[j] = 0, 1, 2), in every thread.
-template <int NV>
-__device__ __forceinline__ void block_combine(uint32_t (&v)[NV], const int (&op)[NV],
-                                              TopkShared* sh) {
+template <int NV, class Sh>
+__device__ __forceinline__ void block_combine(uint32_t (&v)[NV], const int (&op)[NV], Sh* sh) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
     for (int j = 0; j < NV; ++j) {
@@ -121,6 +151,21 @@ __device__ __forceinline__ void block_combine(uint32_t (&v)[NV], const int (&op)
     __syncthreads();
 }
 
+// Where a selection's items live: one block holds them all (BlockSet), or
+// each CTA of a cluster holds a segment (ClusterSet, topk_cluster_kernel).
+// hist() is this pass's histogram of the block's own items, total(h) the
+// set's histogram once every block's is in, combine() the set's sum / min
+// / max of each block's values.
+struct BlockSet {
+    template <class Sh>
+    __device__ __forceinline__ int* hist(Sh* sh) { return sh->hist; }
+    __device__ __forceinline__ const int* total(int* h) { return h; }
+    template <int NV, class Sh>
+    __device__ __forceinline__ void combine(uint32_t (&v)[NV], const int (&op)[NV], Sh* sh) {
+        block_combine(v, op, sh);
+    }
+};
+
 // Radix select over 32-bit values: `val(key, pos, v)` says whether an item
 // belongs to the set and gives its value v in [0, span]; `want` >= 1 of
 // the set's smallest are wanted. 8-bit digits from the top bit of `span`
@@ -129,9 +174,9 @@ __device__ __forceinline__ void block_combine(uint32_t (&v)[NV], const int (&op)
 // v >> rem <= prefix wins) or every bit is fixed (returns false: the
 // want-th value is `prefix` and more than `want` items hold it). All
 // threads call it; `want` ends as the number still wanted from the last bin.
-template <class Items, class Val>
+template <class Items, class Val, class Sh, class Set>
 __device__ bool radix_narrow(const Items& items, Val val, uint32_t span, int& want,
-                             uint32_t& prefix, int& rem, TopkShared* sh) {
+                             uint32_t& prefix, int& rem, Sh* sh, Set& set) {
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     rem = 32 - __clz(span);
     prefix = 0;
@@ -139,18 +184,20 @@ __device__ bool radix_narrow(const Items& items, Val val, uint32_t span, int& wa
         const int w = rem < 8 ? rem : 8;
         const int shift = rem - w;
         const uint32_t dmask = (1u << w) - 1u;
-        for (int i = tid; i < 256; i += blockDim.x) sh->hist[i] = 0;
+        int* hist = set.hist(sh);
+        for (int i = tid; i < 256; i += blockDim.x) hist[i] = 0;
         __syncthreads();
         items.each([&](uint32_t key, uint32_t pos, bool ok) {
             uint32_t v;
             if (ok && val(key, pos, v) && shr(v, rem) == prefix)
-                atomicAdd(&sh->hist[(v >> shift) & dmask], 1);
+                atomicAdd(&hist[(v >> shift) & dmask], 1);
         });
         __syncthreads();
+        const int* tot = set.total(hist);
         if (warp == 0) {
             int cnt = 0;
 #pragma unroll
-            for (int i = 0; i < 8; ++i) cnt += sh->hist[lane * 8 + i];
+            for (int i = 0; i < 8; ++i) cnt += tot[lane * 8 + i];
             int incl = cnt;
 #pragma unroll
             for (int o = 1; o < 32; o <<= 1) {
@@ -161,10 +208,10 @@ __device__ bool radix_narrow(const Items& items, Val val, uint32_t span, int& wa
             if (lane == __ffs(hit) - 1) {   // want <= the set's size: hit != 0
                 int before = incl - cnt;
                 int bin = lane * 8;
-                while (before + sh->hist[bin] < want) before += sh->hist[bin++];
+                while (before + tot[bin] < want) before += tot[bin++];
                 sh->misc[0] = bin;
                 sh->misc[1] = before;
-                sh->misc[2] = sh->hist[bin];
+                sh->misc[2] = tot[bin];
             }
         }
         __syncthreads();
@@ -208,8 +255,8 @@ struct Threshold {
 // runs on the +inf (and NaN) keys for the rest. The key range is taken
 // from the set's smallest and largest key, so the first digit spreads the
 // set over the histogram. All threads call it.
-template <class Items>
-__device__ Threshold radix_select(const Items& items, int want, TopkShared* sh) {
+template <class Items, class Sh, class Set>
+__device__ Threshold radix_select(const Items& items, int want, Sh* sh, Set& set) {
     uint32_t st[5] = {0u, ~0u, 0u, ~0u, 0u};   // finite: count, min, max; others: min, max
     items.each([&](uint32_t key, uint32_t, bool ok) {
         if (!ok) return;
@@ -223,7 +270,7 @@ __device__ Threshold radix_select(const Items& items, int want, TopkShared* sh) 
         }
     });
     const int ops5[5] = {0, 1, 2, 1, 2};
-    block_combine(st, ops5, sh);
+    set.combine(st, ops5, sh);
     Threshold t;
     t.finite_set = (int)st[0] >= want;
     if (!t.finite_set) want -= (int)st[0];
@@ -235,7 +282,7 @@ __device__ Threshold radix_select(const Items& items, int want, TopkShared* sh) 
     const uint32_t lo = t.lo, span = t.span;
     t.by_pos = !radix_narrow(
         items, [=](uint32_t key, uint32_t, uint32_t& v) { v = key - lo; return v <= span; },
-        span, want, t.prefix, t.rem, sh);
+        span, want, t.prefix, t.rem, sh, set);
     if (t.by_pos) {
         // more keys equal T than are wanted: the lowest positions of them
         const uint32_t T = lo + t.prefix;
@@ -247,21 +294,20 @@ __device__ Threshold radix_select(const Items& items, int want, TopkShared* sh) 
             }
         });
         const int ops2[2] = {1, 2};
-        block_combine(ps, ops2, sh);
+        set.combine(ps, ops2, sh);
         const uint32_t plo = ps[0];
         t.plo = plo;
         radix_narrow(
             items, [=](uint32_t key, uint32_t pos, uint32_t& v) { v = pos - plo; return key == T; },
-            ps[1] - plo, want, t.pprefix, t.prem, sh);
+            ps[1] - plo, want, t.pprefix, t.prem, sh, set);
     }
     return t;
 }
 
 // Append the winners to `out` (warp-aggregated slots from sh->count, which
 // the caller zeroed): out(slot, key, pos) for each.
-template <class Items, class Out>
-__device__ __forceinline__ void collect(const Items& items, const Threshold& t, TopkShared* sh,
-                                        Out out) {
+template <class Items, class Sh, class Out>
+__device__ __forceinline__ void collect(const Items& items, const Threshold& t, Sh* sh, Out out) {
     const int lane = threadIdx.x & 31;
     items.each([&](uint32_t key, uint32_t pos, bool ok) {
         const bool w = ok && t.win(key, pos);
@@ -390,7 +436,8 @@ topk_seg_kernel(const float* __restrict__ vals, int n, const float* __restrict__
     __syncthreads();
     const SegItems items{s_key, sn};
     const int kp = min(k, sn);
-    const Threshold t = radix_select(items, kp, sh);
+    BlockSet block;
+    const Threshold t = radix_select(items, kp, sh, block);
     if (tid == 0) sh->count = 0;
     __syncthreads();
     if (nseg == 1) {
@@ -421,7 +468,7 @@ topk_seg_kernel(const float* __restrict__ vals, int n, const float* __restrict__
         sh->count = 0;
     }
     const CandItems cand{cand_key + cbase, cand_pos + cbase, nseg * k};
-    const Threshold t2 = radix_select(cand, k, sh);
+    const Threshold t2 = radix_select(cand, k, sh, block);
     collect(cand, t2, sh, [&](int slot, uint32_t key, uint32_t pos) {
         win[slot] = ((u64)key << 32) | pos;
     });
@@ -476,6 +523,19 @@ topk_short_kernel(const float* __restrict__ vals, int B, int n, const float* __r
     }
 }
 
+// K10 on a wide row's written winners, through its winners' array win
+// (2·pow2(k) ints, free once the row is written)
+__device__ void wide_blocks(u64* win, int k, size_t row, const int* out_i,
+                            const int* __restrict__ cell_block, int u,
+                            int* __restrict__ out_blocks) {
+    __syncthreads();
+    int* blk = reinterpret_cast<int*>(win);
+    for (int i = threadIdx.x; i < k; i += blockDim.x) blk[i] = cell_block[out_i[row * k + i]];
+    __syncthreads();
+    if (threadIdx.x < 32)
+        dense_ranks(blk, blk + k, k, u, out_blocks + row * (size_t)min(u, k), threadIdx.x);
+}
+
 // A row's keys in its scratch row, written by this block before; read
 // from L2.
 struct RowItems {
@@ -509,7 +569,8 @@ topk_wide_kernel(const float* __restrict__ vals, int n, const float* __restrict_
         rk[i] = epi_key(__ldcs(rp + i), rn, coln, valid, i, epi, clamp);
     __syncthreads();
     const RowItems items{rk, n};
-    const Threshold t = radix_select(items, k, &sh);
+    BlockSet block;
+    const Threshold t = radix_select(items, k, &sh, block);
     if (threadIdx.x == 0) sh.count = 0;
     __syncthreads();
     collect(items, t, &sh, [&](int slot, uint32_t key, uint32_t pos) {
@@ -517,15 +578,213 @@ topk_wide_kernel(const float* __restrict__ vals, int n, const float* __restrict_
     });
     __syncthreads();
     sort_and_write(w, k, row, out_d, out_i);
-    if (cell_block == nullptr) return;
-    // K10 on the written winners, through the sort's scratch row (2·pow2(k)
-    // ints, free now)
+    if (cell_block != nullptr) wide_blocks(w, k, row, out_i, cell_block, u, out_blocks);
+}
+
+// ---------------------------------------------------------------------------
+// K2's wide form over shared memory: one block a row, or a cluster a row
+// ---------------------------------------------------------------------------
+
+// A wide block's shared memory ahead of its keys: the block's selection
+// state, the second histogram buffer and the cluster's sums (16-byte
+// aligned: read 16 bytes at a time across the cluster), what the block
+// hands the others (its partials of a combine) and the CTAs' winner counts.
+struct __align__(16) WideShared {
+    TopkSharedW<WIDE_THREADS / 32> sh;
+    int hist1[256];
+    int tot[256];
+    uint32_t part[8];
+    uint32_t red[8];
+    int cnt[WIDE_CTAS_MAX];   // the CTAs' winners
+};
+
+__host__ __device__ inline size_t wide_key_bytes(int segw) {
+    return ((size_t)segw * 4 + 15) & ~(size_t)15;
+}
+__host__ __device__ inline size_t wide_smem(int segw, int k) {
+    return sizeof(WideShared) + wide_key_bytes(segw) + (size_t)sel_pow2(k) * sizeof(u64);
+}
+
+// A CTA's segment of a row in shared memory; positions are the row's.
+struct WideItems {
+    const uint32_t* keys;
+    int sn;
+    uint32_t c0;   // the segment's first column
+    template <class F>
+    __device__ __forceinline__ void each(F f) const {
+        for (int base = 0; base < sn; base += WIDE_THREADS) {
+            const int i = base + (int)threadIdx.x;
+            const bool ok = i < sn;
+            f(ok ? keys[i] : 0u, c0 + (uint32_t)i, ok);
+        }
+    }
+};
+
+// The row's segments over the `ranks` CTAs of a cluster: histograms and
+// combines summed across the cluster through distributed shared memory,
+// each CTA computing the same sums.
+struct ClusterSet {
+    WideShared* ws;
+    int ranks;
+    int pass;   // histogram buffer of the next pass: a CTA may still read
+                // the other one (the last pass's) until the next barrier
+    template <class Sh>
+    __device__ __forceinline__ int* hist(Sh*) {
+        return (pass & 1) ? ws->hist1 : ws->sh.hist;
+    }
+    __device__ const int* total(int* h) {
+        ++pass;
+        cg::cluster_group cluster = cg::this_cluster();
+        cluster.sync();   // every CTA's histogram is in
+        if (threadIdx.x < 64) {
+            int4 x[WIDE_CTAS_MAX];   // every CTA's four bins in flight at once
+#pragma unroll
+            for (int r = 0; r < WIDE_CTAS_MAX; ++r)
+                if (r < ranks)
+                    x[r] = reinterpret_cast<const int4*>(cluster.map_shared_rank(h, r))
+                        [threadIdx.x];
+            int4 acc = make_int4(0, 0, 0, 0);
+#pragma unroll
+            for (int r = 0; r < WIDE_CTAS_MAX; ++r)
+                if (r < ranks) {
+                    acc.x += x[r].x; acc.y += x[r].y; acc.z += x[r].z; acc.w += x[r].w;
+                }
+            reinterpret_cast<int4*>(ws->tot)[threadIdx.x] = acc;
+        }
+        __syncthreads();
+        return ws->tot;
+    }
+    template <int NV, class Sh>
+    __device__ void combine(uint32_t (&v)[NV], const int (&op)[NV], Sh* sh) {
+        block_combine(v, op, sh);
+        cg::cluster_group cluster = cg::this_cluster();
+        if (threadIdx.x == 0)
+            for (int j = 0; j < NV; ++j) ws->part[j] = v[j];
+        cluster.sync();
+        if (threadIdx.x < 32) {
+            const int lane = threadIdx.x;
+#pragma unroll
+            for (int j = 0; j < NV; ++j) {
+                const uint32_t id = op[j] == 1 ? ~0u : 0u;
+                const uint32_t x = lane < ranks ? cluster.map_shared_rank(ws->part, lane)[j] : id;
+                const uint32_t r = op[j] == 0 ? __reduce_add_sync(0xffffffffu, x)
+                                 : op[j] == 1 ? __reduce_min_sync(0xffffffffu, x)
+                                              : __reduce_max_sync(0xffffffffu, x);
+                if (lane == 0) ws->red[j] = r;
+            }
+        }
+        cluster.sync();   // every CTA has read the parts before any rewrites them
+#pragma unroll
+        for (int j = 0; j < NV; ++j) v[j] = ws->red[j];
+    }
+};
+
+// Row blockIdx.x / ctas; this CTA's segment is columns [rank·segw, +segw).
+// Each CTA sorts its own winners, copies the others' sorted lists after
+// them, and writes each of its winners at its place there plus the other
+// CTAs' winners below it. Two CTAs an SM (64 registers a thread).
+__global__ void __launch_bounds__(WIDE_THREADS, 2)
+topk_cluster_kernel(const float* __restrict__ vals, int n, const float* __restrict__ rown,
+                    const float* __restrict__ coln, const uint8_t* __restrict__ valid, int epi,
+                    int clamp, int k, int ctas, int segw, float* __restrict__ out_d,
+                    int* __restrict__ out_i, const int* __restrict__ cell_block, int u,
+                    int* __restrict__ out_blocks) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    WideShared* ws = reinterpret_cast<WideShared*>(smem);
+    TopkSharedW<WIDE_THREADS / 32>* sh = &ws->sh;
+    uint32_t* s_key = reinterpret_cast<uint32_t*>(ws + 1);
+    u64* win = reinterpret_cast<u64*>(smem + sizeof(WideShared) + wide_key_bytes(segw));
+    const int tid = threadIdx.x;
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = (int)cluster.block_rank();
+    const size_t row = blockIdx.x / ctas;
+    const int c0 = rank * segw;
+    const int sn = min(segw, n - c0);
+    const float* rp = vals + row * (size_t)n + c0;
+    const float rn = epi == 1 ? rown[row] : 0.0f;
+    // the one read of the segment, four loads in flight a thread
+    for (int base = 0; base < sn; base += 4 * WIDE_THREADS) {
+        float v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int i = base + j * WIDE_THREADS + tid;
+            v[j] = i < sn ? __ldcs(rp + i) : 0.0f;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int i = base + j * WIDE_THREADS + tid;
+            if (i < sn) s_key[i] = epi_key(v[j], rn, coln, valid, c0 + i, epi, clamp);
+        }
+    }
     __syncthreads();
-    int* blk = reinterpret_cast<int*>(w);
-    for (int i = threadIdx.x; i < k; i += blockDim.x) blk[i] = cell_block[out_i[row * k + i]];
+    const WideItems items{s_key, sn, (uint32_t)c0};
+    ClusterSet set{ws, ctas, 0};
+    const Threshold t = radix_select(items, k, sh, set);
+    // this CTA's winners, sorted here
+    if (tid == 0) sh->count = 0;
     __syncthreads();
-    if (threadIdx.x < 32)
-        dense_ranks(blk, blk + k, k, u, out_blocks + row * (size_t)min(u, k), threadIdx.x);
+    collect(items, t, sh, [&](int slot, uint32_t key, uint32_t pos) {
+        win[slot] = ((u64)key << 32) | pos;
+    });
+    __syncthreads();
+    const int c = sh->count;
+    const int size = sel_pow2(c);
+    for (int i = c + tid; i < size; i += WIDE_THREADS) win[i] = ~0ull;
+    __syncthreads();
+    bitonic_sort64(win, size);
+    if (tid == 0) ws->part[0] = (uint32_t)c;
+    cluster.sync();   // every CTA's winners sorted, its count out
+    if (tid < ctas) ws->cnt[tid] = (int)cluster.map_shared_rank(ws->part, tid)[0];
+    __syncthreads();
+    // the other CTAs' lists, in rank order, after this one's: [c, k) of the
+    // winners' room, four remote loads in flight a thread
+    const int rest = k - c;
+    for (int j0 = 0; j0 < rest; j0 += 4 * WIDE_THREADS) {
+        u64 v[4] = {0ull, 0ull, 0ull, 0ull};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            int j = j0 + q * WIDE_THREADS + tid, r = 0;
+            if (j >= rest) continue;
+            for (;; ++r) {
+                if (r == rank) continue;
+                if (j < ws->cnt[r]) break;
+                j -= ws->cnt[r];
+            }
+            v[q] = cluster.map_shared_rank(win, r)[j];
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            const int j = j0 + q * WIDE_THREADS + tid;
+            if (j < rest) win[c + j] = v[q];
+        }
+    }
+    __syncthreads();
+    // each winner's place: its own plus the other CTAs' winners below it
+    for (int i = tid; i < c; i += WIDE_THREADS) {
+        const u64 x = win[i];
+        int place = i;
+        for (int r = 0, at = c; r < ctas; ++r) {
+            if (r == rank) continue;
+            int lo = 0, hi = ws->cnt[r];
+            while (lo < hi) {
+                const int mid = (lo + hi) >> 1;
+                if (win[at + mid] < x) lo = mid + 1; else hi = mid;
+            }
+            place += lo;
+            at += ws->cnt[r];
+        }
+        out_d[row * k + place] = key2f((uint32_t)(x >> 32));
+        out_i[row * k + place] = (int)(uint32_t)x;
+    }
+    if (cell_block == nullptr) {
+        cluster.sync();   // no CTA leaves while another copies its list
+        return;
+    }
+    // K10 on the written row, by CTA 0 through its winners' room (2·pow2(k)
+    // ints)
+    __threadfence();
+    cluster.sync();
+    if (rank == 0) wide_blocks(win, k, row, out_i, cell_block, u, out_blocks);
 }
 
 // The segments of a long row: as many as SEG_W needs, of equal width.
@@ -540,8 +799,9 @@ extern "C" int topk_rows(const float* vals, int B, int N, const float* rown,
     if (cell_block != nullptr && (u < 1 || out_blocks == nullptr)) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     if (k > SEL_MAX) {
-        // the wide form: cand_key holds [B, N] keys and cand_pos the [B,
-        // pow2(k)] 64-bit winners (2·pow2(k) ints a row, 8-byte aligned)
+        // the global wide form (rows past what a cluster holds): cand_key
+        // holds [B, N] keys and cand_pos the [B, pow2(k)] 64-bit winners
+        // (2·pow2(k) ints a row, 8-byte aligned)
         if (cand_key == nullptr || cand_pos == nullptr || ((uintptr_t)cand_pos & 7))
             return (int)cudaErrorInvalidValue;
         topk_wide_kernel<<<(unsigned)B, SEG_THREADS, 0, s>>>(
@@ -586,6 +846,65 @@ extern "C" int topk_rows(const float* vals, int B, int N, const float* rown,
     topk_seg_kernel<<<(unsigned)((size_t)B * nseg), SEG_THREADS, smem, s>>>(
         vals, N, rown, coln, valid, epi, clamp, k, nseg, segw, out_d, out_i, cand_key,
         cand_pos, counters, cell_block, u, out_blocks);
+    return (int)cudaGetLastError();
+}
+
+// CTAs a row of K2's wide form over a row of N columns and k > SEL_MAX
+// winners (kernels.topk_wide_ctas asks): one per WIDE_SEG_COLS columns or
+// WIDE_WIN winners, at most WIDE_CLUSTER; more, up to WIDE_CTAS_MAX, where
+// a CTA's segment and the winners' room would pass a block's opted-in
+// shared memory on the current device; 0 past that (the global form).
+extern "C" long long topk_rows_wide_ctas(int N, int k) {
+    if (k <= SEL_MAX || k > N) return 0;
+    const size_t room = launch_util::smem_optin();
+    const int by_cols = (N + WIDE_SEG_COLS - 1) / WIDE_SEG_COLS;
+    const int by_win = (k + WIDE_WIN - 1) / WIDE_WIN;
+    const int want = by_cols > by_win ? by_cols : by_win;
+    for (int ctas = want < WIDE_CLUSTER ? want : WIDE_CLUSTER; ctas <= WIDE_CTAS_MAX; ++ctas)
+        if (wide_smem((N + ctas - 1) / ctas, k) <= room) return ctas;
+    return 0;
+}
+
+// K2's wide form over shared memory (k > SEL_MAX): a cluster of `ctas`
+// CTAs a row (topk_rows_wide_ctas), each a segment of ceil(N / ctas)
+// columns; refused where a CTA would hold no column or its segment and the
+// winners pass a block's opted-in shared memory.
+extern "C" int topk_rows_wide(const float* vals, int B, int N, const float* rown,
+                              const float* coln, const uint8_t* valid, int epi, int clamp, int k,
+                              int ctas, float* out_d, int* out_i, const int* cell_block, int u,
+                              int* out_blocks, void* stream) {
+    if (k <= SEL_MAX || k > N || ctas < 2 || ctas > WIDE_CTAS_MAX)
+        return (int)cudaErrorInvalidValue;
+    if (cell_block != nullptr && (u < 1 || out_blocks == nullptr))
+        return (int)cudaErrorInvalidValue;
+    const int segw = (N + ctas - 1) / ctas;
+    if ((long long)(ctas - 1) * segw >= N) return (int)cudaErrorInvalidValue;
+    const size_t smem = wide_smem(segw, k);
+    if (smem > launch_util::smem_optin()) return (int)cudaErrorInvalidValue;
+    const int err = raise_smem(topk_cluster_kernel, smem);
+    if (err) return err;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (ctas > WIDE_CLUSTER) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            topk_cluster_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (e != cudaSuccess) return (int)e;
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)B * (unsigned)ctas);
+    cfg.blockDim = dim3(WIDE_THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)ctas;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t e = cudaLaunchKernelEx(&cfg, topk_cluster_kernel, vals, N, rown, coln, valid,
+                                             epi, clamp, k, ctas, segw, out_d, out_i, cell_block,
+                                             u, out_blocks);
+    if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }
 

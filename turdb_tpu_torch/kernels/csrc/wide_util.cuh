@@ -2,8 +2,8 @@
 // probe_wide.cu): the kernels that answer past the widths their fast forms
 // keep in shared memory or registers. A wide form keeps its per-query (or
 // per-target) state in a global scratch slice of its block, which the
-// wrapper allocates, and reads rows from device memory at any width: a
-// correctness path, simple before fast.
+// wrapper allocates (the wide beams: in the block's shared memory where it
+// fits, graph_wide.cu), and reads rows from device memory at any width.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
