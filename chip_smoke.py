@@ -11,7 +11,8 @@
    reader, K9 hnsw_greedy, K10 dense_blocks (inside K2's launch), K11
    sq8_scan, and the wide forms of K1, K4, K5, K6, K7, K8 and K9: the
    `<kernel>_wide` kernels of probe_wide.cu, graph_wide.cu and
-   hnsw_select_wide.cu) from
+   hnsw_select_wide.cu, K7's a thread block cluster a target where its
+   window fits, `ctas` in its wide_check row) from
    `turdb_tpu_torch/kernels/csrc`, one nvcc
    per source, and prints the build seconds;
 3. kernel phase: each kernel against its plain PyTorch version on the same
@@ -2541,15 +2542,68 @@ def width_check(dev):
         with _PlainVersions():
             want = fn()
         near(name, got, want)
-    before = kernels.launches["hnsw_select_wide"]
-    ki, _, _ = kernels.hnsw_select(x5, (x5 * x5).sum(1), t5, cand, deg=16, metric=0, alpha=1.0)
-    check(kernels.launches["hnsw_select_wide"] == before + 1, "K7 W=100 d=512: not its wide form")
-    pi, _, _ = kernels.hnsw_select_plain(x5, (x5 * x5).sum(1), t5, cand, deg=16, metric=0,
-                                         alpha=1.0)
-    frac = float((ki == pi).all(1).float().mean())
-    check(frac >= 0.98, f"K7 W=100 d=512: only {frac} of the rows equal the plain version's")
-    out["hnsw_select W=100 d=512"] = {"rows_equal": frac}
-    log(f"width hnsw_select W=100 d=512: rows equal {frac}")
+    kw7 = dict(deg=16, metric=0, alpha=1.0)
+    a7 = (x5, (x5 * x5).sum(1), t5, cand)
+    got = launched("hnsw_select W=100 d=512", lambda: kernels.hnsw_select(*a7, **kw7),
+                   "hnsw_select_wide", 1)
+    out["hnsw_select W=100 d=512"] = _select_agreement(
+        "K7 W=100 d=512", got, kernels.hnsw_select_plain(*a7, **kw7), a7, kw7)
+    log(f"width hnsw_select W=100 d=512: {out['hnsw_select W=100 d=512']}")
+    # past a cluster's 16 CTAs (W = 300 x 4,100-d: 4.9 MB a window) both
+    # modes keep the global-scratch form
+    out.update(_select_global_check(dev, gen, launched))
+    # K1 wide past the 8,192 winners a block's shared memory holds: the
+    # dedup tail's global scratch
+    st = synthetic_f32_store(dev, gen, cells=2048, lanes=128)
+    top = torch.rand(4, 2048, device=dev, generator=gen).topk(96).indices.to(torch.int32)
+    kw1 = dict(metric=0, k=3000, m=9000, replicated=True)
+    a1 = (st["q"][:4], st["qn"][:4], top, st["pvecs"], st["pnorms"], st["members"],
+          st["alive"], None)
+    check(_tail_form(kw1) == "global scratch", "K1 m=9000: its tail fits shared memory")
+    got = launched("ivf_probe_f32 m=9000", lambda: kernels.ivf_probe_f32(*a1, **kw1),
+                   "ivf_probe_f32_wide", 1)
+    near("ivf_probe_f32 m=9000", got, kernels.ivf_probe_f32_plain(*a1, **kw1))
+    out["ivf_probe_f32 m=9000"].update(tail=_tail_form(kw1),
+                                       padded_rows=int((got[1] < 0).any(1).sum()))
+    return out
+
+
+def _select_global_check(dev, gen, launched):
+    """K7 and K7s at W = 300, d = 4,100, a window past a cluster of 16
+    CTAs: the route picks the global form, and both modes agree with their
+    plain versions as wide_check holds them (256 targets; duplicates, -1
+    and the target itself among the candidates)."""
+    from turdb_tpu_torch import kernels
+
+    w, d, u = 300, 4100, 256
+    x = torch.randn(1500, d, device=dev, generator=gen)
+    nm = (x * x).sum(1)
+    t = torch.randperm(1500, device=dev, generator=gen)[:u].to(torch.int32)
+    cand = torch.randint(0, 1500, (u, w), device=dev, generator=gen, dtype=torch.int32)
+    cand[:, w // 2] = cand[:, 7]
+    cand[:, w - 1] = t
+    cand[::5, w - w // 4:] = -1
+    # the presorted mode's inputs: duplicates, the target and -1 dropped,
+    # the rest in ascending L2 distance, as a beam's buffer arrives
+    earlier = torch.tril(torch.ones((w, w), dtype=torch.bool, device=dev), -1)
+    drop = (torch.any((cand[:, :, None] == cand[:, None, :]) & earlier, -1)
+            | (cand == t[:, None]) | (cand < 0))
+    dist = nm[t.long()][:, None] + nm[cand.clamp_min(0).long()] - 2.0 * torch.einsum(
+        "ud,uwd->uw", x[t.long()], x[cand.clamp_min(0).long()])
+    sd, order = torch.where(drop, float("inf"), dist).sort(dim=1, stable=True)
+    si = torch.gather(torch.where(drop, -1, cand), 1, order).contiguous()
+    kw = dict(deg=16, metric=0, alpha=1.2)
+    out = {}
+    for name, fn, plain, a in (
+            ("hnsw_select", kernels.hnsw_select, kernels.hnsw_select_plain, (x, nm, t, cand)),
+            ("hnsw_select_sorted", kernels.hnsw_select_sorted, kernels.hnsw_select_sorted_plain,
+             (x, si, sd.contiguous()))):
+        what = f"{name} W={w} d={d}"
+        check(kernels.select_wide_ctas(w, d, name.endswith("sorted")) == 0,
+              f"{what}: a cluster holds the window")
+        got = launched(what, lambda: fn(*a, **kw), name + "_wide", 1)
+        out[what] = _select_agreement(what, got, plain(*a, **kw), a, kw)
+        log(f"width {what}: {out[what]}")
     return out
 
 
@@ -3249,6 +3303,51 @@ def _wide_library_ms(name, a, kw):
     return _median_ms(lambda: torch.topk(x, k, dim=1, largest=False, sorted=True))
 
 
+def _select_agreement(name, got, want, a, kw):
+    """K7's wide form (args (vectors, norms, targets, cand)) or K7s'
+    (args (vectors, cand_i, cand_d)) against its plain version, as
+    k7_check holds K7: rows equal on >= 98 %, and every row that differs
+    in its ids or its n_pairs has a decision within 4x the fp32
+    disagreement of an fp64 tie. Returns the row's numbers and the form
+    that ran (`ctas` a target of the cluster form, 0 the global form)."""
+    from turdb_tpu_torch import kernels
+
+    sorted_mode = len(a) == 3
+    ki, kd, kp = got
+    pi, pd, pp = want
+    same = (ki == pi).all(1)
+    frac = float(same.float().mean())
+    check(frac >= 0.98, f"{name}: only {frac} of the rows equal the plain version's")
+    fin = torch.isfinite(pd[same])
+    err = float((kd[same][fin] - pd[same][fin]).abs().max()) if bool(fin.any()) else 0.0
+    rows = torch.nonzero(~(same & (kp == pp)))[:, 0]
+    vectors, alpha, deg = a[0], kw["alpha"], kw["deg"]
+    if sorted_mode:
+        margins = _select_margins(vectors, None, a[1][rows], deg, alpha, cand_d=a[2][rows])
+    else:
+        margins = _select_margins(vectors, a[2][rows], a[3][rows], deg, alpha)
+    # the margins are L2 ones: twice the COSINE distances of unit rows
+    tol = (2.0 if kw["metric"] == 1 else 1.0) * 4.0 * max(
+        err, 2e-7 * float((vectors * vectors).sum(1).max()))
+    check(bool((margins <= tol).all()),
+          f"{name}: a row differs with no decision within {tol} of a tie")
+    w, d = a[1 if sorted_mode else 3].shape[1], vectors.shape[1]
+    ctas = kernels.select_wide_ctas(w, d + (-d % 4), sorted_mode)
+    return {"rows_equal": frac, "max_abs_err": err, "tie_tol": tol,
+            "max_margin_of_differing": float(margins.max()) if len(rows) else 0.0,
+            "ctas": ctas, "form": "cluster" if ctas else "global"}
+
+
+def _tail_form(kw):
+    """Where K1 / K4 wide's dedup tail keeps a row's m winners at this
+    call's options: a block's shared memory or the global scratch."""
+    from turdb_tpu_torch import kernels
+
+    words = kernels.build.library().ivf_probe_tail_wide_words(
+        kw["m"], int(kw["replicated"]), kw.get("mode", kernels.MODE_TOPK))
+    return "global scratch" if words else "shared memory"
+
+
 def wide_check(calls):
     """Each wide kernel form on the emb path's own first call of it: the
     wrapper (its wide kernel, counted here) against the same wrapper
@@ -3283,28 +3382,7 @@ def wide_check(calls):
                   f"{name}: not bit-equal to the plain version")
             row["max_abs_err"], row["id_diff"] = 0.0, 0.0
         elif name.startswith("hnsw_select"):
-            sorted_mode = name == "hnsw_select_sorted_wide"
-            ki, kd, kp = got
-            pi, pd, pp = want
-            same = (ki == pi).all(1)
-            frac = float(same.float().mean())
-            check(frac >= 0.98, f"{name}: only {frac} of the rows equal the plain version's")
-            fin = torch.isfinite(pd[same])
-            err = float((kd[same][fin] - pd[same][fin]).abs().max()) if bool(fin.any()) else 0.0
-            rows = torch.nonzero(~(same & (kp == pp)))[:, 0]
-            vectors, alpha, deg = a[0], kw["alpha"], kw["deg"]
-            if sorted_mode:
-                margins = _select_margins(vectors, None, a[1][rows], deg, alpha,
-                                          cand_d=a[2][rows])
-            else:
-                margins = _select_margins(vectors, a[2][rows], a[3][rows], deg, alpha)
-            # the margins are L2 ones: twice the COSINE distances of unit rows
-            tol = (2.0 if kw["metric"] == 1 else 1.0) * 4.0 * max(
-                err, 2e-7 * float((vectors * vectors).sum(1).max()))
-            check(bool((margins <= tol).all()),
-                  f"{name}: a row differs with no decision within {tol} of a tie")
-            row.update(rows_equal=frac, max_abs_err=err, tie_tol=tol,
-                       max_margin_of_differing=float(margins.max()) if len(rows) else 0.0)
+            row.update(_select_agreement(name, got, want, a, kw))
         else:
             if name == "hnsw_serve_beam_wide":
                 check(torch.equal(got[2], want[2]), f"{name}: the beam's work differs")
@@ -3312,6 +3390,8 @@ def wide_check(calls):
                                        DOT_RTOL, name)
             check(id_diff <= 0.01, f"{name}: {id_diff} of the ids differ")
             row.update(max_abs_err=err, id_diff=id_diff)
+        if name.startswith("ivf_probe"):
+            row["tail"] = _tail_form(kw)
         row["shape"] = {f"arg{i}": list(t.shape) for i, t in enumerate(a)
                         if isinstance(t, torch.Tensor)}
         row["options"] = {k: v for k, v in kw.items() if isinstance(v, (int, float, bool))}

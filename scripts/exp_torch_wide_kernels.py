@@ -1,11 +1,11 @@
-"""K2's wide form and the wide beams on one card: two builds side by side.
+"""The wide forms on one card: two builds side by side.
 
 A is compiled from the `csrc/` of another checkout of the repository (an
 older commit, unpacked with `git archive`; its own `build.py` builds it and
-gives its argtypes), B from this one. While A is in use this checkout's K2
-wrapper takes its global route (`topk_wide_ctas` gives 0: `topk_rows` with
-the rows' keys in a global scratch, the launch the older wrapper made past
-SEL_MAX), so A is the older kernels throughout. Each case runs A B B A;
+gives its argtypes), B from this one. Where A's library has no cluster
+form of K2 or K7 (no `topk_rows_wide_ctas`, no `hnsw_select_wide_ctas`),
+this checkout's wrappers take the global route while A is in use (the
+launch the older wrappers made), so A is the older kernels throughout. Each case runs A B B A;
 each time is `ms` (one call between CUDA events, the host's launch path
 included), `loop_ms` (ten calls back to back, a tenth of the time) and
 `device_ms` (a trace's device time of the kernel, a call). Every output of
@@ -26,18 +26,30 @@ B must equal A's bit for bit; K2's must equal the plain version's too.
 3. unless `--no-sql`: the emb path's deep SQL statements (chip_smoke
    _emb_sql's table and statement text, N_SQL a store) with A and B in
    turns: p50 / p99 ms of HNSW graph LIMIT 200, IVF LIMIT 600 and IVF WITH
-   (sq8, rerank = 2400) LIMIT 600.
+   (sq8, rerank = 2400) LIMIT 600;
+4. the probes' and the selection's wide forms: K1 wide at the SQL LIMIT
+   600 statement's own call on USING IVF (B = 1, P = 600, L = 128, d =
+   384, m = 4,800) and K4 wide at the WITH (sq8, rerank = 2400) one, each
+   with its launches' device times apart (the distance pass, K2, the
+   tail); K7 wide at the 384-d bulk build's level-1 call (U = 16,384, W =
+   128, deg 16) and the 768-d build's level-0 call (W = 64), K7s wide at
+   the 768-d wave's U = 512, W = 100 call, each captured from the index's
+   own build, with the CTAs of a target on each side and, for B, at
+   `FORCE_CTAS` forced as well (outputs bit-equal to the routed ones);
+   and the 384-d bulk build's seconds with A and B in turns.
 
-Run on a CUDA card (about five minutes on an H100):
+Run on a CUDA card (about seven minutes on an H100):
 
-    python3 scripts/exp_torch_wide_kernels.py OTHER_CHECKOUT [--no-sql | --k2-only | --beams-only]
+    python3 scripts/exp_torch_wide_kernels.py OTHER_CHECKOUT [--no-sql | --k2-only |
+        --beams-only | --probe-select-only]
 
 `--k2-only` runs part 1 alone (about a minute), `--beams-only` part 2
-alone (about two minutes). It prints one JSON
-object and writes it to
+alone (about two minutes), `--probe-select-only` part 4 alone (about three
+minutes). It prints one JSON object and writes it to
 chiprun_out/exp_torch_wide_kernels.json; ptxas reports land in
 chiprun_out/ptxas_A.txt / ptxas_B.txt. Exits 1 unless every output of B
-equals A's (and K2's the plain version's).
+equals A's (K7's cluster form is bit for bit A's K7 wide, at every CTA
+count forced too) and K2's the plain version's.
 """
 
 import json
@@ -60,6 +72,11 @@ from turdb_tpu_torch.kernels import build  # noqa: E402
 
 N_SQL = 16          # deep statements a store and turn
 TURNS = ("A", "B", "B", "A")
+FORCE_CTAS = (1, 2, 4)   # K7 wide's CTAs a target, forced beside the routed ones
+
+
+def _old_tail_scratch(rows, m, replicated, mode, device):
+    return tuple(torch.empty((2, rows, m), dtype=torch.int32, device=device))
 
 
 class Libraries:
@@ -70,11 +87,20 @@ class Libraries:
         self.other_build = build_module(other)
         self.a = self.other_build.library()
         self.ctas = kernels.topk_wide_ctas
+        self.sel_ctas = kernels.select_wide_ctas
+        self.tail_scratch = kernels._tail_scratch
 
     def use(self, name):
-        build._lib = self.a if name == "A" else self.b
+        a = name == "A"
+        build._lib = self.a if a else self.b
         kernels._entry.clear()
-        kernels.topk_wide_ctas = (lambda n, k: 0) if name == "A" else self.ctas
+        old_k2 = a and not hasattr(self.a, "topk_rows_wide_ctas")
+        old_k7 = a and not hasattr(self.a, "hnsw_select_wide_ctas")
+        kernels.topk_wide_ctas = (lambda n, k: 0) if old_k2 else self.ctas
+        kernels.select_wide_ctas = (lambda w, d, s: 0) if old_k7 else self.sel_ctas
+        # an older tail keeps its winners in a [2, rows, m] global scratch
+        old_tail = a and not hasattr(self.a, "ivf_probe_tail_wide_words")
+        kernels._tail_scratch = (_old_tail_scratch if old_tail else self.tail_scratch)
 
 
 def _times(fn, kernel, calls=20):
@@ -254,6 +280,182 @@ def sql_run(libs, dev):
     return out
 
 
+def _split(fn, calls=20):
+    """Device ms a call of each launch of a wide probe: the distance pass
+    (`dist`), K2 (`select`), the tail (`tail`), anything else (`other`)."""
+    prof = cs._traced(fn, calls, top=16)
+    out = {"dist": 0.0, "select": 0.0, "tail": 0.0, "other": 0.0}
+    for t in prof["top"]:
+        part = next((p for p, key in (("tail", "probe_tail"), ("select", "topk"),
+                                      ("dist", "probe")) if key in t["name"]), "other")
+        out[part] += t["ms"] / t["calls"]
+    return out
+
+
+class _SelectCalls:
+    """The first K7 / K7s call of each (U, W, d) past the fast form's
+    widths, kept (wrapper, arguments) from the model module's calls."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def __enter__(self):
+        from turdb_tpu_torch.models import hnsw as mh
+
+        self.mod, self.saved = mh, (mh.hnsw_select, mh.hnsw_select_sorted)
+        mh.hnsw_select = self._wrapped("K7 wide", mh.hnsw_select, 3)
+        mh.hnsw_select_sorted = self._wrapped("K7s wide", mh.hnsw_select_sorted, 1)
+        return self
+
+    def _wrapped(self, name, fn, at):
+        def wrapped(*a, **kw):
+            (u, w), d = a[at].shape, a[0].shape[1]
+            if not kernels.select_fast(w, d):
+                self.calls.setdefault((name, u, w, d), (fn, a, kw))
+            return fn(*a, **kw)
+        return wrapped
+
+    def __exit__(self, *exc):
+        self.mod.hnsw_select, self.mod.hnsw_select_sorted = self.saved
+
+
+def probe_select_run(libs, dev):
+    """Part 4: K1 / K4 wide at the deep SQL statements' own calls, K7 / K7s
+    wide at the emb builds' own calls, and the 384-d bulk build's seconds,
+    A B B A."""
+    import shutil
+    import tempfile
+
+    from turdb_tpu_torch import Database
+    from turdb_tpu_torch.utils.datasets import emb_pool
+
+    xe, qe = emb_pool(np.random.default_rng(0), cs.N_EMB, n_queries=cs.N_QUERIES)
+    out = {"probes": {}, "select": {}}
+    tmp = tempfile.mkdtemp(prefix="turdb_wide_probe_")
+    try:
+        db = Database.create(f"{tmp}/db")
+        db.execute(f"CREATE TABLE docs (id BIGINT PRIMARY KEY, emb VECTOR({cs.EMB_DIM}))")
+        db.bulk_insert("docs", {"id": np.arange(len(xe)), "emb": xe})
+        lit = cs._sql_vec(cs._parsed(qe[:1])[0])
+        for name, opts in (("ivf_probe_f32_wide", ""),
+                           ("ivf_probe_sq8_wide",
+                            f" WITH (sq8 = true, rerank = {4 * cs.EMB_DEEP_IVF})")):
+            db.execute(f"CREATE INDEX ix ON docs USING IVF (emb){opts}")
+            with cs._WideCalls() as wide:
+                db.query(cs._sql_ann(lit, cs.EMB_DEEP_IVF))
+            cs.check(name in wide.calls, f"the LIMIT {cs.EMB_DEEP_IVF} statement made no {name}")
+            fn, a, kw = wide.calls[name]
+            call = lambda: fn(*a, **kw)  # noqa: E731
+            runs, outs = {}, {}
+            for turn in TURNS:
+                libs.use(turn)
+                outs[turn] = [t.clone() for t in call()]
+                runs.setdefault(turn, []).append({**_times(call, None, calls=20),
+                                                  "split": _split(call)})
+            libs.use("B")
+            got = call()
+            out["probes"][name] = {"A": runs["A"], "B": runs["B"],
+                                   "equal_A_B": _equal(outs["A"], outs["B"]),
+                                   "options": {k: v for k, v in kw.items()
+                                               if isinstance(v, (int, bool))},
+                                   **cs._wide_bound(name, fn, a, kw, got)}
+            cs.log(f"{name}: {json.dumps(out['probes'][name])}")
+            del wide, fn, a, got, outs
+            db.execute("DROP INDEX ix")
+            torch.cuda.empty_cache()
+        db.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    calls, out["build_s"] = select_calls(libs, dev, xe)
+    for case, (key, (fn, a, kw)) in _select_cases(calls).items():
+        kind, _, w, d = key
+        sorted_mode = kind == "K7s wide"
+        call = lambda: fn(*a, **kw)  # noqa: E731
+        runs, outs = {}, {}
+        for turn in TURNS:
+            libs.use(turn)
+            outs[turn] = [t.clone() for t in call()]
+            runs.setdefault(turn, []).append(_times(call, "select", calls=5))
+        libs.use("B")
+        routed = kernels.select_wide_ctas(w, d, sorted_mode)
+        forced = {}
+        for ctas in FORCE_CTAS:
+            kernels.select_wide_ctas = lambda w_, d_, s_, c=ctas: c  # noqa: E731
+            try:
+                got = [t.clone() for t in call()]
+                forced[ctas] = {**_times(call, "select", calls=5),
+                                "equal_routed": _equal(got, outs["B"])}
+            except RuntimeError as e:   # a CTA count whose share passes shared memory
+                forced[ctas] = {"refused": str(e)}
+            kernels.select_wide_ctas = libs.sel_ctas
+        got = call()
+        plain = kernels.hnsw_select_sorted_plain if sorted_mode else kernels.hnsw_select_plain
+        pi = plain(*a, **kw)[0]
+        out["select"][case] = {"U": key[1], "A": runs["A"], "B": runs["B"], "ctas": routed,
+                               "forced": forced, "equal_A_B": _equal(outs["A"], outs["B"]),
+                               "rows_equal_plain": float((got[0] == pi).all(1).float().mean()),
+                               "options": {k: v for k, v in kw.items()
+                                           if isinstance(v, (int, float))},
+                               **cs._wide_bound("hnsw_select_sorted_wide" if sorted_mode
+                                                else "hnsw_select_wide", fn, a, kw, got)}
+        cs.log(f"{case}: {json.dumps(out['select'][case])}")
+    del calls
+    torch.cuda.empty_cache()
+    return out
+
+
+SELECT_CASES = {"K7 wide U=16384 W=128 d=384": ("K7 wide", 16_384, 128, 384),
+                "K7 wide W=64 d=768": ("K7 wide", None, 64, 768),
+                "K7s wide U=512 W=100 d=768": ("K7s wide", 512, 100, 768)}
+
+
+def _select_cases(calls):
+    """{case: (key, call)} of SELECT_CASES among the captured calls."""
+    out = {}
+    for case, (kind, u, w, d) in SELECT_CASES.items():
+        key = next((k for k in calls if k[0] == kind and k[2:] == (w, d)
+                    and (u is None or k[1] == u)), None)
+        cs.check(key is not None, f"{case}: no such call in the builds")
+        out[case] = (key, calls[key])
+    return out
+
+
+def select_calls(libs, dev, xe):
+    """The 384-d bulk build's seconds in TURNS, the K7 / K7s calls past
+    the fast form's widths of its last B build, and those of a 768-d bulk
+    build and wave add (with B)."""
+    from turdb_tpu_torch.models.hnsw import HnswIndex
+    from turdb_tpu_torch.ops.distance import Metric
+    from turdb_tpu_torch.utils.datasets import emb_pool
+
+    def hnsw(x, dim):
+        return HnswIndex(dim=dim, metric=Metric.COSINE, ef_construction=100, build_batch=512,
+                         capacity=len(x), device=dev)
+
+    build_s, calls = {}, {}
+    for turn in TURNS:
+        libs.use(turn)
+        idx = hnsw(xe, cs.EMB_DIM)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with _SelectCalls() as sel:
+            idx.add(xe)
+        torch.cuda.synchronize()
+        build_s.setdefault(turn, []).append(time.perf_counter() - t)
+        if turn == "B":
+            calls = sel.calls
+    libs.use("B")
+    x7, _ = emb_pool(np.random.default_rng(1), cs.N_768 + cs.N_768_WAVE, n_queries=1, dim=768)
+    i7 = hnsw(x7, 768)
+    with _SelectCalls() as sel7:
+        i7.add(x7[:cs.N_768])
+        i7.add(x7[cs.N_768:])
+    calls.update(sel7.calls)
+    cs.log(f"K7 wide calls captured: {sorted(k[:4] for k in calls)}")
+    return calls, build_s
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -268,19 +470,27 @@ def main() -> int:
     (cs.OUT / "ptxas_A.txt").write_text(libs.other_build.build_log)
     out = {"card": card, "other": str(other)}
     flags = set(sys.argv[2:])
-    out["k2"] = {} if "--beams-only" in flags else k2_run(libs, k2_cases(dev))
+    only = {"--k2-only", "--beams-only", "--probe-select-only"} & flags
+    out["k2"] = k2_run(libs, k2_cases(dev)) if only <= {"--k2-only"} else {}
     out["beams"] = {}
-    if "--k2-only" not in flags:
+    if only <= {"--beams-only"}:
         calls, out["setup"] = beam_calls(dev)
         out["beams"] = beam_run(libs, calls)
         del calls
         torch.cuda.empty_cache()
-    if not {"--no-sql", "--k2-only", "--beams-only"} & flags:
+    if not only and "--no-sql" not in flags:
         out["sql"] = sql_run(libs, dev)
+    out["probe_select"] = (probe_select_run(libs, dev) if only <= {"--probe-select-only"}
+                           else {})
     print(json.dumps(out))
     (cs.OUT / "exp_torch_wide_kernels.json").write_text(json.dumps(out, indent=1))
+    part4 = out["probe_select"]
     ok = (all(v["equal_A_B"] and v["equal_plain"] for v in out["k2"].values())
-          and all(v["equal_A_B"] for v in out["beams"].values()))
+          and all(v["equal_A_B"] for v in out["beams"].values())
+          and all(v["equal_A_B"] for v in part4.get("probes", {}).values())
+          and all(v["equal_A_B"] and all(f.get("equal_routed", True)
+                                         for f in v["forced"].values())
+                  for v in part4.get("select", {}).values()))
     return 0 if ok else 1
 
 

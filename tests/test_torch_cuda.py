@@ -5,6 +5,9 @@ the slices (IVF, HNSW) on CUDA against the same slices on the CPU. Marked
     python -m pytest tests/test_torch_cuda.py -q
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -1764,3 +1767,187 @@ def test_select_wide_form_matches_plain(cuda, w, d):
                 assert same.float().mean() >= 0.98, (name, metric, alpha)
                 torch.testing.assert_close(kd[same], pd[same], rtol=DOT_RTOL, atol=atol)
                 assert (kp[same] == pp[same]).float().mean() >= 0.99, (name, metric, alpha)
+
+
+# ---------------------------------------------------------------------------
+# the redesigned wide forms: K1 wide's distance pass and dedup tail
+# (csrc/probe_wide.cu), K7 wide's cluster form (csrc/hnsw_select_wide.cu)
+# ---------------------------------------------------------------------------
+
+def _f32_probe(cuda, seed, p, lcap, d, n_ids, b=6):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    pvecs, pnorms, members, alive, allowed = _store(g, 300, lcap, d, n_ids, cuda)
+    q = torch.randn(b, d, device=cuda, generator=g)
+    cells = torch.rand(b, 300, device=cuda, generator=g).topk(p).indices.to(torch.int32)
+    return q, (q * q).sum(1), cells, pvecs, pnorms, members, alive, allowed
+
+
+def _probe_wide_f32(q, qn, cells, pvecs, pnorms, members, alive, allowed, *, metric, k, m,
+                    replicated, mode):
+    """K1's wide form at any m: the distance pass, K2, the tail (the wide
+    tail past SEL_MAX, the fast one below)."""
+    b, p = cells.shape
+    nb, lcap, d = pvecs.shape
+    return kernels._probe_wide("ivf_probe_f32", lambda s, e, dist: (
+        q[s:].data_ptr(), qn[s:].data_ptr(), cells[s:].data_ptr(), e - s, p, pvecs.data_ptr(),
+        pnorms.data_ptr(), members.data_ptr(), kernels._ptr(kernels._as_u8(alive)),
+        kernels._ptr(kernels._as_u8(allowed)), lcap, d, metric, dist.data_ptr()),
+        cells, members, k, m, replicated, mode)
+
+
+@pytest.mark.parametrize("d", [64, 384])
+def test_probe_wide_distance_pass_is_the_fast_forms_bit_for_bit(cuda, d):
+    """K1 wide's distance pass sums each row in K1's order (a fmaf chain a
+    lane over float4 lane, lane + 32, ..., the rows' sums meeting in
+    reduce_rows), as K1's fast form and the earlier wide pass did: at m <= 2048,
+    where the fast form also runs, the wide form's outputs (the fast tail)
+    equal the fast form's bit for bit, every metric, with `allowed`, in
+    both modes."""
+    q, qn, cells, pvecs, pnorms, members, alive, allowed = _f32_probe(cuda, 40, 16, 128, d, 3000)
+    for metric in (0, 1, 2):
+        for mode, k, m in ((kernels.MODE_TOPK, 1000, 2000), (kernels.MODE_CAND, 2000, 2000)):
+            for allow in (None, allowed):
+                args = (q, qn, cells, pvecs, pnorms, members, alive, allow)
+                kw = dict(metric=metric, k=k, m=m, replicated=True, mode=mode)
+                fast = kernels.ivf_probe_f32(*args, **kw)
+                wide = _probe_wide_f32(*args, **kw)
+                for a, b in zip(fast, wide):
+                    assert torch.equal(a, b), (metric, mode, allow is None)
+
+
+@pytest.mark.parametrize("m", [4800, 9000])
+def test_probe_tail_wide_dedup_is_mask_duplicates_exactly(cuda, m):
+    """The wide tail's claim-table dedup and prefix-count compaction: the
+    top-k mode's outputs are mask_duplicates (the first copy of an id
+    wins) and a stable top-k over the candidate mode's m winners, bit for
+    bit, with many repeated ids, k below and above the survivors, +inf
+    lanes; m = 4,800 (the SQL LIMIT 600 call's) holds a row's winners in
+    shared memory, m = 9,000 takes the global scratch. One counted launch
+    a call."""
+    q, qn, cells, pvecs, pnorms, members, alive, allowed = _f32_probe(cuda, 41, 96, 128,
+                                                                       64, 2500)
+    assert (kernels.build.library().ivf_probe_tail_wide_words(m, 1, kernels.MODE_TOPK) == 0) \
+        == (m == 4800)
+    args = (q, qn, cells, pvecs, pnorms, members, alive, allowed)
+    cd, ci, _ = kernels.ivf_probe_f32(*args, metric=0, k=m, m=m, replicated=True,
+                                      mode=kernels.MODE_CAND)
+    assert bool(torch.isinf(cd).any()) and bool(torch.isfinite(cd).any())
+    i0, d0 = kernels.mask_duplicates(ci, cd)
+    survivors = torch.isfinite(d0).sum(1)
+    for k in (m // 8, m // 2):
+        before = kernels.launches["ivf_probe_f32_wide"]
+        dk, ik = kernels.ivf_probe_f32(*args, metric=0, k=k, m=m, replicated=True)
+        assert kernels.launches["ivf_probe_f32_wide"] == before + 1
+        want_d, pos = kernels.topk_rows_plain(d0, k)
+        want_i = torch.where(torch.isinf(want_d), -1, torch.gather(i0, 1, pos.long()))
+        assert torch.equal(dk, want_d) and torch.equal(ik, want_i), k
+        if k == m // 2:
+            assert bool((survivors < k).any())     # padded rows
+
+
+def _chip_smoke():
+    """chip_smoke.py at the repository's root, for the checks it shares with
+    these tests."""
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+
+    return chip_smoke
+
+
+def _select_case(cuda, seed, n, w, d, u):
+    """Targets and W candidates with duplicates, -1 and the target itself."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x, _, adj = _graph(g, n, d, 32, cuda)
+    targets = torch.randperm(n, device=cuda, generator=g)[:u].to(torch.int32)
+    cand = torch.randint(0, n, (u, w), device=cuda, generator=g, dtype=torch.int32)
+    cand[:, :32] = adj[targets.long()]
+    cand[:, w // 2] = cand[:, 7]
+    cand[:, w - 1] = targets
+    cand[::5, w - w // 4:] = -1
+    return x, targets, cand
+
+
+def _sorted_inputs(xm, nm, targets, cand, metric):
+    """The presorted mode's inputs: the candidates deduplicated and sorted
+    by their distance to the target, as a beam's buffer arrives."""
+    w = cand.shape[1]
+    earlier = torch.tril(torch.ones((w, w), dtype=torch.bool, device=cand.device), -1)
+    drop = (torch.any((cand[:, :, None] == cand[:, None, :]) & earlier, -1)
+            | (cand == targets[:, None]) | (cand < 0))
+    sd = kernels._gathered_epilogue(torch.einsum("ud,uwd->uw", xm[targets.long()],
+                                                 xm[cand.clamp_min(0).long()]),
+                                    metric, nm[targets.long()][:, None],
+                                    nm[cand.clamp_min(0).long()])
+    sd, order = torch.where(drop, float("inf"), sd).sort(dim=1, stable=True)
+    return torch.gather(torch.where(drop, -1, cand), 1, order).contiguous(), sd.contiguous()
+
+
+@pytest.mark.parametrize("w, d", [(128, 384), (64, 768), (100, 768), (300, 128)])
+def test_select_cluster_form_is_the_global_forms_bit_for_bit(cuda, w, d, monkeypatch):
+    """K7's cluster form keeps the global form's arithmetic (the wide
+    form's first design: every dot in warp_dot's order, the same epilogues): at the bulk
+    build's windows (W = 128 at d = 384, W = 64 at d = 768), the waves'
+    (W = 100 at d = 768) and W = 300, forced through the cluster form at
+    every CTA count from the one its route picks to 4 (W = 128 splits 43 /
+    43 / 42 over 3) and through the global form, ids, distances and
+    n_pairs are equal bit for bit, both modes, every metric, alpha 1.0 and
+    1.2; each call one counted launch of the wide form."""
+    x, targets, cand = _select_case(cuda, 50, 3000, w, d, 96)
+    least = kernels.select_wide_ctas(w, d, False)
+    assert 1 <= least <= 2
+    for metric in (0, 1, 2):
+        xm = (x / x.norm(dim=1, keepdim=True) if metric == 1 else x).contiguous()
+        nm = (xm * xm).sum(1)
+        cs, sd = _sorted_inputs(xm, nm, targets, cand, metric)
+        for alpha in (1.0, 1.2):
+            for name, fn, args in (("hnsw_select", kernels.hnsw_select, (xm, nm, targets, cand)),
+                                   ("hnsw_select_sorted", kernels.hnsw_select_sorted,
+                                    (xm, cs, sd))):
+                kw = dict(deg=32 if metric else 16, metric=metric, alpha=alpha)
+                outs = {}
+                for ctas in (0, *range(least, 5)):
+                    with monkeypatch.context() as mp:
+                        mp.setattr(kernels, "select_wide_ctas", lambda w_, d_, s_, c=ctas: c)
+                        before = kernels.launches[name + "_wide"]
+                        outs[ctas] = fn(*args, **kw)
+                        assert kernels.launches[name + "_wide"] == before + 1
+                for ctas, got in outs.items():
+                    for a, b in zip(got, outs[0]):
+                        assert torch.equal(a, b), (name, metric, alpha, ctas)
+
+
+@pytest.mark.parametrize("w, d, route", [(128, 384, "one"), (64, 768, "one"),
+                                         (100, 768, "cluster"), (100, 4608, "non-portable"),
+                                         (300, 4100, "global")])
+def test_select_wide_routes_by_shape(cuda, w, d, route):
+    """The wide form's route at the bulk build's windows (196,608 B: one
+    CTA of 227 KB a target), K7s' wave window (307,200 B: two CTAs), a
+    window that needs a non-portable cluster (W 100 x 4,608-d: more than 8
+    CTAs) and one past 16 CTAs, which keeps the global scratch: the route
+    `select_wide_ctas` picks, then both modes against their plain versions
+    as chip_smoke's wide_check holds them (rows equal on >= 98 %, and every
+    row that differs in its ids or n_pairs has a decision within 4x the
+    fp32 disagreement of an fp64 tie), one counted launch a call."""
+    ctas = kernels.select_wide_ctas(w, d + (-d % 4), False)
+    want = {"one": ctas == 1, "cluster": 2 <= ctas <= 8, "non-portable": 8 < ctas <= 16,
+            "global": ctas == 0}
+    assert want[route], ctas
+    x, targets, cand = _select_case(cuda, 51, 1500 if d > 1000 else 4000, w, d, u=256)
+    nm = (x * x).sum(1)
+    cs, sd = _sorted_inputs(x, nm, targets, cand, 0)
+    kw = dict(deg=16, metric=0, alpha=1.2)
+    for name, fn, plain, args in (
+            ("hnsw_select", kernels.hnsw_select, kernels.hnsw_select_plain, (x, nm, targets, cand)),
+            ("hnsw_select_sorted", kernels.hnsw_select_sorted, kernels.hnsw_select_sorted_plain,
+             (x, cs, sd))):
+        before = kernels.launches[name + "_wide"]
+        got = fn(*args, **kw)
+        assert kernels.launches[name + "_wide"] == before + 1
+        want = plain(*args, **kw)
+        row = _chip_smoke()._select_agreement(name, got, want, args, kw)
+        assert (row["ctas"] == 0) == (route == "global"), (name, row["ctas"])
+        same = (got[0] == want[0]).all(1)
+        torch.testing.assert_close(got[1][same], want[1][same], rtol=DOT_RTOL,
+                                   atol=DOT_RTOL * float(2 * nm.max()))

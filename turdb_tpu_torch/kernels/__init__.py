@@ -28,8 +28,10 @@ rerank, EF_MAX / SLOTS_MAX / EXP_MAX for the beams, SELECT_W_MAX and
 SELECT_SMEM_MAX for K7, DIM_MAX for the row readers) the wrapper launches
 the kernel's wide form (csrc/hnsw_select_wide.cu, graph_wide.cu,
 probe_wide.cu: state in a global scratch, or in shared memory where a
-beam's fits, rows read from device memory), counted under its own name
-(`<kernel>_wide`). K2 takes any k (past SEL_MAX its wide form, counted as
+beam's or a probe tail's fits, rows read from device memory; K7's window
+of rows in a thread block cluster's shared memory, `select_wide_ctas`),
+counted under its own name (`<kernel>_wide`). K2 takes any k (past
+SEL_MAX its wide form, counted as
 `topk_rows_wide` too: a row's keys in a thread block cluster's shared
 memory, `topk_wide_ctas`), K11 any k and any d (d-slices), and a caller
 walks more levels than K9 holds in launches of at most GREEDY_LEVELS_MAX. Only
@@ -453,11 +455,23 @@ def _aligned16(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _tail_scratch(rows, m, replicated, mode, device):
+    """The wide tail's global scratch for `rows` rows of m winners: (claim
+    table [rows, words], ids [rows, m]) where a row's winners pass a
+    block's shared memory, else (None, None) (csrc/probe_wide.cu
+    `ivf_probe_tail_wide_words` holds the rule)."""
+    words = int(build.library().ivf_probe_tail_wide_words(m, int(replicated), mode))
+    if not words:
+        return None, None
+    return (torch.empty(rows * words, dtype=torch.int32, device=device),
+            torch.empty(rows * m, dtype=torch.int32, device=device))
+
+
 def _probe_tail(cells, members, sel_d, sel_pos, k, m, replicated, mode, out, scratch,
                 counter=""):
     """The probe's outputs `out` (rows of it) from K2's selection of m
     winners a row: the fast tail (m <= SEL_MAX, a block's shared memory)
-    or the wide one (winners in `scratch`, [2, rows, m] int32)."""
+    or the wide one (`scratch` from `_tail_scratch`)."""
     rows, p = cells.shape
     lcap = members.shape[1]
     out_d, out_i, out_pos = out
@@ -469,8 +483,8 @@ def _probe_tail(cells, members, sel_d, sel_pos, k, m, replicated, mode, out, scr
     else:
         _launch("ivf_probe_tail_wide", cells.device, cells.data_ptr(), rows, p,
                 members.data_ptr(), lcap, sel_d.data_ptr(), sel_pos.data_ptr(), k, m,
-                int(replicated), mode, scratch[0].data_ptr(), scratch[1].data_ptr(),
-                out_d.data_ptr(), out_i.data_ptr(), _ptr(out_pos), counter=counter)
+                int(replicated), mode, *map(_ptr, scratch), out_d.data_ptr(),
+                out_i.data_ptr(), _ptr(out_pos), counter=counter)
 
 
 def _probe_wide(name, dist_args, cells, members, k, m, replicated, mode):
@@ -486,7 +500,7 @@ def _probe_wide(name, dist_args, cells, members, k, m, replicated, mode):
     dev = cells.device
     rows = max(1, min(b, CELL_DIST_BYTES // (4 * p * lcap)))
     dist = torch.empty((rows, p * lcap), dtype=torch.float32, device=dev)
-    scratch = torch.empty((2, rows, m), dtype=torch.int32, device=dev)
+    scratch = _tail_scratch(rows, m, replicated, mode, dev)
     out = _probe_outputs(b, k, m, mode, dev)
     for s in range(0, b, rows):
         e = min(b, s + rows)
@@ -666,8 +680,7 @@ def _probe_sq8_cells(qc, qs, qsum, qn, cells, codes, mins, scales, pnorms, membe
     rows = min(b, max(1, CELL_DIST_BYTES // (4 * p * lcap)))
     work = torch.empty(2 * nb + rows * p, dtype=torch.int32, device=dev)
     dist = torch.empty((rows, p * lcap), dtype=torch.float32, device=dev)
-    scratch = (torch.empty((2, rows, m), dtype=torch.int32, device=dev) if m > SEL_MAX
-               else None)
+    scratch = _tail_scratch(rows, m, replicated, mode, dev) if m > SEL_MAX else None
     out = _probe_outputs(b, k, m, mode, dev)
     for s in range(0, b, rows):
         e = min(b, s + rows)
@@ -1366,10 +1379,31 @@ SELECT_SMEM_MAX = 160 << 10   # bytes of the candidates' rows (W·d·4) it stage
 def select_fast(w: int, d: int) -> bool:
     """Whether K7's fast form holds W candidates' rows of width d (rounded
     up to 4) in shared memory; else its wide form runs
-    (csrc/hnsw_select_wide.cu: the candidates' scalars in a global scratch,
-    the rows read from device memory)."""
+    (csrc/hnsw_select_wide.cu: the window's rows over the shared memory of
+    `select_wide_ctas` CTAs, or past that a global scratch)."""
     d = _d4(d)
     return w <= SELECT_W_MAX and d <= DIM_MAX and w * d * 4 <= SELECT_SMEM_MAX
+
+
+def select_wide_ctas(w: int, d: int, presorted: bool) -> int:
+    """CTAs a target of K7's wide form at W candidates of width d (a
+    multiple of 4) on the current card: a thread block cluster of 1 to 16
+    holding the window's rows in shared memory; 0 for the global form
+    (csrc/hnsw_select_wide.cu `hnsw_select_wide_ctas` holds the rule)."""
+    return int(build.library().hnsw_select_wide_ctas(w, d, int(presorted)))
+
+
+def _select_wide(name, vectors, args, outs, u, w, d, presorted):
+    """K7's wide form (`name` hnsw_select or hnsw_select_sorted, counted as
+    `<name>_wide`): the cluster form at `select_wide_ctas` CTAs a target,
+    else the global form over a scratch of WIDE_BLOCKS blocks."""
+    ctas = select_wide_ctas(w, d, presorted)
+    if ctas:
+        _launch(f"{name}_cluster", vectors.device, *args, ctas, *outs, counter=f"{name}_wide")
+    else:
+        scratch, grid = _wide_scratch(build.library().hnsw_select_wide_bytes(w), u,
+                                      vectors.device)
+        _launch(f"{name}_wide", vectors.device, *args, scratch.data_ptr(), grid, *outs)
 
 
 def select_cap(w: int, deg: int, alpha: float) -> int:
@@ -1478,9 +1512,7 @@ def hnsw_select(vectors, norms, targets, cand, *, deg: int, metric: int, alpha: 
     if u and select_fast(w, d):
         _launch("hnsw_select", vectors.device, *args, *outs)
     elif u:
-        scratch, grid = _wide_scratch(build.library().hnsw_select_wide_bytes(w), u,
-                                      vectors.device)
-        _launch("hnsw_select_wide", vectors.device, *args, scratch.data_ptr(), grid, *outs)
+        _select_wide("hnsw_select", vectors, args, outs, u, w, d, False)
     return out_i, out_d, n_pairs
 
 
@@ -1527,10 +1559,7 @@ def hnsw_select_sorted(vectors, cand_i, cand_d, *, deg: int, metric: int, alpha:
     if u and select_fast(w, d):
         _launch("hnsw_select_sorted", vectors.device, *args, *outs)
     elif u:
-        scratch, grid = _wide_scratch(build.library().hnsw_select_wide_bytes(w), u,
-                                      vectors.device)
-        _launch("hnsw_select_sorted_wide", vectors.device, *args, scratch.data_ptr(), grid,
-                *outs)
+        _select_wide("hnsw_select_sorted", vectors, args, outs, u, w, d, True)
     return out_i, out_d, n_pairs
 
 

@@ -116,6 +116,14 @@ SIGNATURES = {
     # out_i, out_d, out_pairs, stream
     "hnsw_select_sorted_wide": [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I,
                                 _P, _I, _P, _P, _P, _P],
+    # vectors, norms, targets, cand, U, W, d, deg, sel_cap, alpha, metric,
+    # ctas, out_i, out_d, out_pairs, stream (the cluster form)
+    "hnsw_select_cluster": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I,
+                            _I, _P, _P, _P, _P],
+    # vectors, cand, cand_d, U, W, d, deg, alpha, metric, ctas, out_i,
+    # out_d, out_pairs, stream
+    "hnsw_select_sorted_cluster": [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I,
+                                   _I, _P, _P, _P, _P],
     "hnsw_graph_beam_wide": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I,
                              _I, _I, _I, _I, _I, _P, _P, _P,
                              _P, _P, _P, _P, _I, _P],
@@ -153,11 +161,15 @@ SIGNATURES = {
 
 # queries of the library that return a size: a wide form's scratch a block
 # (W; deg, ef, iters, expand, k_res, rerank; a beam's 0 where its state fits
-# shared memory) and K2's wide form's CTAs a row (n, k; 0: the global form)
+# shared memory), K2's and K7's wide forms' CTAs a row or target (n, k; W,
+# d, presorted; 0: the global form) and the wide tail's table words a row
+# (m, replicated, mode; 0: in shared memory)
 SIZES = {
     "hnsw_select_wide_bytes": [_I],
     "hnsw_beam_wide_bytes": [_I, _I, _I, _I, _I, _I],
     "topk_rows_wide_ctas": [_I, _I],
+    "hnsw_select_wide_ctas": [_I, _I, _I],
+    "ivf_probe_tail_wide_words": [_I, _I, _I],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -62,6 +62,7 @@
 // Every path ends in probe_tail: it either drops later copies of an id
 // (the first copy wins) and writes the first k survivors, or writes all m
 // winners with their flat store positions cell*L + lane.
+#include "row_sums.cuh"
 #include "select.cuh"
 
 #include <climits>
@@ -138,40 +139,6 @@ struct ProbeArgs {
     int* out_i;
     int* out_pos;              // [B, m] flat positions (candidates)
 };
-
-template <int R>
-struct Log2 {
-    static_assert(R == 1 || R == 2 || R == 4 || R == 8 || R == 16 || R == 32,
-                  "a power of two <= 32");
-    static constexpr int value = R == 1 ? 0 : R == 2 ? 1 : R == 4 ? 2 : R == 8 ? 3 : R == 16 ? 4 : 5;
-};
-
-// The sums of R rows over groups of W lanes (W = 32: the warp), each lane
-// holding a partial v[r] of every row of its group. The offsets run W/2,
-// ..., 2, 1 as in a plain butterfly; at the first log2(R) of them a lane
-// keeps half of its rows (the upper half when its offset bit is set) and
-// adds its partner's copy of those, so each addition is own + partner's of
-// the same row and lane group: the plain butterfly's value, bit for bit.
-// Returns the sum of row (lane % W) >> (log2(W) - log2(R)).
-template <int R, int W, class T>
-__device__ __forceinline__ T reduce_rows(T (&v)[R], int lane) {
-    constexpr int LOG = Log2<R>::value;
-#pragma unroll
-    for (int s = 0; s < LOG; ++s) {
-        const int n = R >> s, o = (W / 2) >> s;
-        const bool upper = (lane & o) != 0;
-#pragma unroll
-        for (int i = 0; i < n / 2; ++i) {
-            const T send = upper ? v[i] : v[i + n / 2];
-            const T keep = upper ? v[i + n / 2] : v[i];
-            v[i] = keep + __shfl_xor_sync(FULL_MASK, send, o);
-        }
-    }
-    T s = v[0];
-#pragma unroll
-    for (int o = (W / 2) >> LOG; o > 0; o >>= 1) s += __shfl_xor_sync(FULL_MASK, s, o);
-    return s;
-}
 
 // A scorer reads a batch of R rows with the lanes of a warp in groups of W:
 // a lane takes SLOTS = R * W / 32 of them (slot i: batch row slot_row(i)),

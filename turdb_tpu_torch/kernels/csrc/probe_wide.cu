@@ -5,26 +5,39 @@
 // select inside one block over shared memory, m or r at most SEL_MAX.
 //
 // Replaces, as the fast forms do: turdb_tpu/models/ivf.py ivf_search_impl
-// (the probe, mask_duplicates and the top-k; the rerank branch). Reached by
-// an IVF search with k or rerank past 2048 and by SQL `ORDER BY emb <-> ...
-// LIMIT 513` and deeper on a USING IVF index (fetch = 4*LIMIT).
+// (the probe, mask_duplicates and the top-k; the rerank branch; ops/topk.py
+// mask_duplicates). Reached by an IVF search with k or rerank past 2048 and
+// by SQL `ORDER BY emb <-> ... LIMIT 513` and deeper on a USING IVF index
+// (fetch = 4*LIMIT).
 //
 // What bounds it on an H100: the rows read (P*L of 4d or d bytes a query;
 // r rows for the rerank) and the [rows, P*L] or [B, r] f32 distances
-// written and read back by the selection. A correctness path, not tuned.
+// written and read back by the selection. At B = 1 (a SQL statement) the
+// latency of dependent trips to device memory, and how many SMs a row's
+// work spreads over, decide the time.
 //
 // Design: write-then-select, as K4's cell-major pass already runs.
-//  - probe_dist_*_kernel: one block a (query, probe), a warp a lane: every
-//    lane's distance, +inf for empty, dead and unallowed lanes, to
-//    dist[b, p*L + lane], the query's own lane order. K1's dot is its fast
-//    form's (lane j over float4 j, j + 32, ... in one fmaf chain, an xor
-//    butterfly) and epilogue, K4's the exact int8 dot and its epilogue, so
-//    the distances are the fast forms' bit for bit.
+//  - probe_dist_f32_kernel: one 128-thread block a (query, probe); a warp
+//    takes a run of 32 lanes and reads their member ids and flags in one
+//    coalesced step, writes +inf for the dead ones (their rows are never
+//    read), and scores the live ones PD_R rows in flight at a time, as K1's
+//    fast form does: lane j sums float4 j, j + 32, ... of each row in one
+//    fmaf chain and the rows' sums meet in reduce_rows (row_sums.cuh), so
+//    every distance is the one warp_dot (wide_util.cuh) gave, bit for bit.
+//  - probe_dist_sq8_kernel: one block a (query, probe), a warp a lane: K4's
+//    exact int8 dot and epilogue.
 //  - K2 (topk_rows.cu) selects each row's m best by (value, position).
-//  - probe_tail_wide_kernel: one block a row, the fast tail over the
-//    selection (ivf_probe.cu probe_tail) with its winners in global
-//    scratch: the first copy of an id wins, then the first k survivors; or
-//    all m with their flat positions cell*L + lane.
+//  - probe_tail_wide_kernel: one 1024-thread block a row. Every winner's id
+//    is looked up at once; under replicas every winner claims its id in a
+//    table (graph_util.cuh: atomicMin of the winner's rank, so the first
+//    copy wins, O(m) in all) and a finite winner holding its claim
+//    survives; the survivors' places come from a
+//    block-wide prefix count (a ballot and popc a warp, one scan of the
+//    warps' counts a tile of 1024 winners), and every thread writes its
+//    own. The ids and the table live in shared memory where the row's m
+//    winners fit a block's opted-in shared memory (m <= 8,192 on an H100),
+//    else in a global scratch (`ivf_probe_tail_wide_words`). Or, in
+//    candidate mode, all m with their flat positions cell*L + lane.
 //  - rerank_dist_wide_kernel: one block a query, a warp a candidate: K5's
 //    exact distance in K5's order, +inf where the probe's was, and under
 //    replicas +inf on later copies of an id and on id -1. K2 then selects
@@ -32,6 +45,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_util.cuh"
+#include "row_sums.cuh"
 #include "wide_util.cuh"
 
 #define PW_THREADS 256
@@ -51,8 +66,12 @@ __device__ __forceinline__ bool lane_live(const ProbeCells& c, size_t row) {
     return c.members[row] >= 0 && c.alive[row] != 0 && (c.allowed == nullptr || c.allowed[row] != 0);
 }
 
-// K1's distances: block (b, p), warps over the cell's lanes
-__global__ void __launch_bounds__(PW_THREADS)
+#define PD_THREADS 128   // K1's distance pass: four warps a (query, probe) block
+#define PD_R 4           // live rows in flight a warp
+#define PD_J 4           // float4 columns of each a lane loads at once (512 floats a row)
+
+// K1's distances: block (b, p); a warp takes a run of 32 lanes at a time
+__global__ void __launch_bounds__(PD_THREADS)
 probe_dist_f32_kernel(ProbeCells c, const float* __restrict__ q, const float* __restrict__ qn,
                       const float* __restrict__ pvecs, const float* __restrict__ pnorms, int d,
                       int metric, float* __restrict__ dist) {
@@ -61,17 +80,78 @@ probe_dist_f32_kernel(ProbeCells c, const float* __restrict__ q, const float* __
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const size_t cell = (size_t)c.cells[b * c.P + p];
     const float qnb = qn[b];
+    const float4* q4 = reinterpret_cast<const float4*>(q + b * d);
+    const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const int d4 = d >> 2;
     float* out = dist + (b * c.P + p) * (size_t)c.L;
-    for (int l = warp; l < c.L; l += PW_WARPS) {
+    for (int base = warp * 32; base < c.L; base += PD_THREADS) {
+        // the run's member ids and flags in one step; dead lanes are +inf
+        const int l = base + lane;
         const size_t row = cell * c.L + l;
-        float v = WIDE_INF;
-        if (lane_live(c, row)) {
-            const float dot = warp_dot(pvecs + row * d, q + b * d, d, lane);
-            if (metric == 0) v = __fsub_rn(__fadd_rn(qnb, pnorms[row]), __fmul_rn(2.0f, dot));
-            else if (metric == 1) v = __fsub_rn(1.0f, dot);
-            else v = -dot;
+        bool live = false;
+        float pn = 0.0f;
+        if (l < c.L) {
+            const int mem = c.members[row];
+            const uint8_t al = c.alive[row];
+            const uint8_t ok = c.allowed == nullptr ? (uint8_t)1 : c.allowed[row];
+            live = mem >= 0 && al != 0 && ok != 0;
+            if (live && metric == 0) pn = pnorms[row];
+            if (!live) out[l] = WIDE_INF;
         }
-        if (lane == 0) out[l] = v;
+        unsigned left = __ballot_sync(WIDE_FULL, live);
+        while (left) {
+            // the next PD_R live lanes of the run, in order
+            int src[PD_R];
+            const float4* r4[PD_R];
+#pragma unroll
+            for (int r = 0; r < PD_R; ++r) {
+                src[r] = left ? __ffs(left) - 1 : -1;
+                left &= left - 1;
+                r4[r] = reinterpret_cast<const float4*>(
+                    pvecs + (cell * c.L + base + (src[r] < 0 ? 0 : src[r])) * d);
+            }
+            // lane j sums float4 j, j + 32, ... of each row in one fmaf chain,
+            // PD_J of them a row loaded before any is summed
+            float v[PD_R];
+#pragma unroll
+            for (int r = 0; r < PD_R; ++r) v[r] = 0.0f;
+            for (int j0 = lane; j0 < d4; j0 += 32 * PD_J) {
+                float4 x[PD_J][PD_R], y[PD_J];
+#pragma unroll
+                for (int u = 0; u < PD_J; ++u) {
+                    const int j = j0 + 32 * u;
+                    y[u] = j < d4 ? __ldg(q4 + j) : zero;
+#pragma unroll
+                    for (int r = 0; r < PD_R; ++r)
+                        x[u][r] = src[r] >= 0 && j < d4 ? __ldg(r4[r] + j) : zero;
+                }
+#pragma unroll
+                for (int u = 0; u < PD_J; ++u)
+                    if (j0 + 32 * u < d4) {
+#pragma unroll
+                        for (int r = 0; r < PD_R; ++r) {
+                            v[r] = fmaf(x[u][r].x, y[u].x, v[r]);
+                            v[r] = fmaf(x[u][r].y, y[u].y, v[r]);
+                            v[r] = fmaf(x[u][r].z, y[u].z, v[r]);
+                            v[r] = fmaf(x[u][r].w, y[u].w, v[r]);
+                        }
+                    }
+            }
+            const float dot = reduce_rows<PD_R, 32>(v, lane);
+            // lane t holds slot t / (32 / PD_R)'s sum; its first lane writes it
+            const int h = lane / (32 / PD_R);
+            int s = -1;
+#pragma unroll
+            for (int r = 0; r < PD_R; ++r)
+                if (r == h) s = src[r];
+            const float pnh = __shfl_sync(WIDE_FULL, pn, s < 0 ? 0 : s);
+            if (lane % (32 / PD_R) == 0 && s >= 0) {
+                float val = -dot;
+                if (metric == 0) val = __fsub_rn(__fadd_rn(qnb, pnh), __fmul_rn(2.0f, dot));
+                else if (metric == 1) val = __fsub_rn(1.0f, dot);
+                out[base + s] = val;
+            }
+        }
     }
 }
 
@@ -108,54 +188,97 @@ probe_dist_sq8_kernel(ProbeCells c, const int8_t* __restrict__ qc, const float* 
     }
 }
 
+#define PT_THREADS 1024   // the tail: one block a row
+#define PT_WARPS (PT_THREADS / 32)
+
+// Shared bytes of the tail's block when a row's m winners live there: their
+// ids, under replicas the claim table (ids and tags, graph_util.cuh's size
+// for m), and the warps' counts.
+__host__ __device__ inline size_t tail_smem(int m, int replicated) {
+    return wide_align16((size_t)4 * m) + (replicated ? (size_t)8 << table_bits(m) : 0) +
+           4 * (PT_WARPS + 1);
+}
+
 // The m winners of row b (K2's selection: sel_d ascending, sel_pos their
-// columns p*L + lane) -> the probe's outputs, as ivf_probe.cu probe_tail.
-// wid / flag: [B, m] scratch.
-__global__ void __launch_bounds__(PW_THREADS)
+// columns p*L + lane) -> the probe's outputs, as ivf_probe.cu probe_tail:
+// under replicas the first copy of an id wins (an id claims with id + 1,
+// so -1 claims too, as the reference's mask_duplicates compares it), then
+// the first k survivors, +inf / -1 past them. in_smem 0: the ids in
+// wid_ids [B, m] and the table in table [B, 2 << table_bits(m)].
+__global__ void __launch_bounds__(PT_THREADS)
 probe_tail_wide_kernel(ProbeCells c, const float* __restrict__ sel_d,
                        const int* __restrict__ sel_pos, int k, int m, int replicated, int mode,
-                       int* __restrict__ wid, int* __restrict__ flag, float* __restrict__ out_d,
+                       int in_smem, int* table, int* wid_ids, float* __restrict__ out_d,
                        int* __restrict__ out_i, int* __restrict__ out_pos) {
+    extern __shared__ __align__(16) unsigned char smem[];
     const size_t b = blockIdx.x;
-    const int tid = threadIdx.x;
-    int* ids = wid + b * m;
-    int* keep = flag + b * m;
-    for (int i = tid; i < m; i += PW_THREADS) {
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int bits = table_bits(m);
+    int* ids = in_smem ? reinterpret_cast<int*>(smem) : wid_ids + b * m;
+    unsigned* hid = in_smem ? reinterpret_cast<unsigned*>(smem + wide_align16((size_t)4 * m))
+                            : reinterpret_cast<unsigned*>(table) + b * ((size_t)2 << bits);
+    unsigned* htag = hid + (1 << bits);
+    int* wsum = in_smem ? reinterpret_cast<int*>(smem + tail_smem(m, replicated)) - (PT_WARPS + 1)
+                        : reinterpret_cast<int*>(smem);
+    for (int i = tid; i < m; i += PT_THREADS) {
         const int col = sel_pos[b * m + i];
         const int p = col / c.L, l = col - p * c.L;
         const int cell = c.cells[b * c.P + p];
         const int id = c.members[(size_t)cell * c.L + l];
-        const uint32_t key = f2key(sel_d[b * m + i]);
         if (mode == PW_CAND) {
-            out_d[b * m + i] = key2f(key);
+            out_d[b * m + i] = key2f(f2key(sel_d[b * m + i]));
             out_i[b * m + i] = id;
             out_pos[b * m + i] = cell * c.L + l;
+        } else {
+            ids[i] = id;
         }
-        ids[i] = id;
-        keep[i] = key < INF_KEY;
     }
     if (mode == PW_CAND) return;
+    if (replicated) {
+        table_clear(hid, htag, bits);
+        __syncthreads();
+        for (int i = tid; i < m; i += PT_THREADS) table_claim(hid, htag, bits, ids[i] + 1, i);
+    }
     __syncthreads();
-    if (replicated)
-        for (int i = tid; i < m; i += PW_THREADS) {
-            bool k1 = keep[i] != 0;
-            const int id = ids[i];
-            for (int j = 0; j < i && k1; ++j) k1 = ids[j] != id;
-            keep[i] = k1;   // a later copy reads only earlier entries' ids
+    // the survivors in order, a tile of PT_THREADS winners at a time
+    int base = 0;
+    for (int t0 = 0; t0 < m && base < k; t0 += PT_THREADS) {
+        const int i = t0 + tid;
+        bool keep = false;
+        float v = 0.0f;
+        int id = -1;
+        if (i < m) {
+            const uint32_t key = f2key(sel_d[b * m + i]);
+            id = ids[i];
+            keep = key < INF_KEY &&
+                   (!replicated || htag[table_insert(hid, bits, id + 1)] == (unsigned)(i + 1));
+            v = key2f(key);
         }
-    __syncthreads();
-    if (tid == 0) {
-        int o = 0;
-        for (int i = 0; i < m && o < k; ++i)
-            if (keep[i]) {
-                out_d[b * k + o] = key2f(f2key(sel_d[b * m + i]));
-                out_i[b * k + o] = ids[i];
-                ++o;
+        const unsigned bal = __ballot_sync(WIDE_FULL, keep);
+        if (lane == 0) wsum[warp] = __popc(bal);
+        __syncthreads();
+        if (warp == 0) {
+            const int n = wsum[lane];
+            int incl = n;
+            for (int o = 1; o < 32; o <<= 1) {
+                const int x = __shfl_up_sync(WIDE_FULL, incl, o);
+                if (lane >= o) incl += x;
             }
-        for (; o < k; ++o) {
-            out_d[b * k + o] = WIDE_INF;
-            out_i[b * k + o] = -1;
+            wsum[lane] = incl - n;
+            if (lane == 31) wsum[PT_WARPS] = incl;
         }
+        __syncthreads();
+        const int o = base + wsum[warp] + __popc(bal & ((1u << lane) - 1u));
+        if (keep && o < k) {
+            out_d[b * k + o] = v;
+            out_i[b * k + o] = id;
+        }
+        base += wsum[PT_WARPS];
+        __syncthreads();   // wsum is the next tile's
+    }
+    for (int o = min(base, k) + tid; o < k; o += PT_THREADS) {
+        out_d[b * k + o] = WIDE_INF;
+        out_i[b * k + o] = -1;
     }
 }
 
@@ -223,7 +346,7 @@ extern "C" int ivf_probe_f32_dist(const float* q, const float* qn, const int* ce
                                   int metric, float* dist, void* stream) {
     if (!ProbeWideCheck::ok(B, P, L, d, metric) || (size_t)pvecs % 16 || (size_t)q % 16)
         return (int)cudaErrorInvalidValue;
-    probe_dist_f32_kernel<<<B * P, PW_THREADS, 0, (cudaStream_t)stream>>>(
+    probe_dist_f32_kernel<<<B * P, PD_THREADS, 0, (cudaStream_t)stream>>>(
         ProbeCells{cells, P, L, members, alive, allowed}, q, qn, pvecs, pnorms, d, metric, dist);
     return (int)cudaGetLastError();
 }
@@ -243,6 +366,17 @@ extern "C" int ivf_probe_sq8_dist(const int8_t* qc, const float* qs, const float
     return (int)cudaGetLastError();
 }
 
+// Where the tail keeps a row's winners: 0 in the block's shared memory
+// (candidate mode needs none), else the words a row of the global claim
+// table (the `wid` scratch [B, words]; the ids go to `flag` [B, m]).
+static bool tail_in_smem(int m, int replicated, int mode) {
+    return mode == PW_CAND || tail_smem(m, replicated) <= launch_util::smem_optin();
+}
+
+extern "C" long long ivf_probe_tail_wide_words(int m, int replicated, int mode) {
+    return m < 1 || tail_in_smem(m, replicated, mode) ? 0 : (long long)2 << table_bits(m);
+}
+
 // the probe's outputs from K2's selection of m winners a row (any m)
 extern "C" int ivf_probe_tail_wide(const int* cells, int B, int P, const int* members, int L,
                                    const float* sel_d, const int* sel_pos, int k, int m,
@@ -251,9 +385,16 @@ extern "C" int ivf_probe_tail_wide(const int* cells, int B, int P, const int* me
     if (B < 1 || P < 1 || L < 1 || k < 1 || m < k || (mode != PW_TOPK && mode != PW_CAND) ||
         (mode == PW_CAND && (m != k || out_pos == nullptr)))
         return (int)cudaErrorInvalidValue;
-    probe_tail_wide_kernel<<<B, PW_THREADS, 0, (cudaStream_t)stream>>>(
+    const bool in_smem = tail_in_smem(m, replicated, mode);
+    if (!in_smem && (wid == nullptr || flag == nullptr)) return (int)cudaErrorInvalidValue;
+    const size_t smem = mode == PW_CAND ? 0
+                        : in_smem       ? tail_smem(m, replicated)
+                                        : 4 * (PT_WARPS + 1);
+    const int err = raise_smem(probe_tail_wide_kernel, smem);
+    if (err) return err;
+    probe_tail_wide_kernel<<<B, PT_THREADS, smem, (cudaStream_t)stream>>>(
         ProbeCells{cells, P, L, members, nullptr, nullptr}, sel_d, sel_pos, k, m, replicated,
-        mode, wid, flag, out_d, out_i, out_pos);
+        mode, (int)in_smem, wid, flag, out_d, out_i, out_pos);
     return (int)cudaGetLastError();
 }
 
