@@ -3142,8 +3142,12 @@ def _emb_768(dev):
     out["recall@10"] = recall_of(ids, truth)
     idx.quantize_sq8()
     # batches of 32: wide_check replays the first against the plain beam
+    torch.cuda.synchronize()
+    t = time.perf_counter()
     ids = np.concatenate([idx.search(q[s:s + 32], K, ef=EMB_DEEP_EF)[1]
                           for s in range(0, len(q), 32)])
+    torch.cuda.synchronize()
+    out[f"sq8_search_s_ef{EMB_DEEP_EF}"] = time.perf_counter() - t
     out[f"sq8_recall@10_ef{EMB_DEEP_EF}"] = recall_of(ids, truth)
     log(f"emb 768: {json.dumps(out)}")
     check(out["reach_levels"] >= REACH_GATE,
@@ -3348,6 +3352,34 @@ def _tail_form(kw):
     return "global scratch" if words else "shared memory"
 
 
+def _rerank_form(a, kw):
+    """Where K5 wide's replica dedup keeps its claim table at this call:
+    each CTA's shared memory or a global table filled by a claim pass
+    (`ivf_rerank_dist_table_words`)."""
+    from turdb_tpu_torch import kernels
+
+    if not kw.get("replicated"):
+        return "no replicas"
+    words = kernels.build.library().ivf_rerank_dist_table_words(a[2].shape[1], 1)
+    return "global table" if words else "shared-memory table"
+
+
+def _beam_sq_form(a, kw):
+    """Where K8-SQ wide keeps a query's state at this call: beside its
+    query row and staged rows in the block's shared memory, or in the
+    global scratch (the stage still in shared memory)."""
+    from turdb_tpu_torch import kernels
+
+    adj, rows, q = a[0], a[1], a[3]
+    ef = kw["ef"]
+    allowed = a[7] if len(a) > 7 else kw.get("allowed")
+    k_res = (kw.get("k_res") or ef) if allowed is not None else 0
+    d = q.shape[1] + (-q.shape[1] % 4)
+    glob = kernels._beam_sq_wide_bytes(adj.shape[1], ef, kw["iters"], kw.get("expand", 4), k_res,
+                                       d, rows.bits)
+    return "global scratch" if glob else "shared memory"
+
+
 def wide_check(calls):
     """Each wide kernel form on the emb path's own first call of it: the
     wrapper (its wide kernel, counted here) against the same wrapper
@@ -3392,6 +3424,10 @@ def wide_check(calls):
             row.update(max_abs_err=err, id_diff=id_diff)
         if name.startswith("ivf_probe"):
             row["tail"] = _tail_form(kw)
+        elif name == "ivf_rerank_wide":
+            row["dedup"] = _rerank_form(a, kw)
+        elif name == "hnsw_graph_beam_sq_wide":
+            row["state"] = _beam_sq_form(a, kw)
         row["shape"] = {f"arg{i}": list(t.shape) for i, t in enumerate(a)
                         if isinstance(t, torch.Tensor)}
         row["options"] = {k: v for k, v in kw.items() if isinstance(v, (int, float, bool))}

@@ -5,7 +5,9 @@ older commit, unpacked with `git archive`; its own `build.py` builds it and
 gives its argtypes), B from this one. Where A's library has no cluster
 form of K2 or K7 (no `topk_rows_wide_ctas`, no `hnsw_select_wide_ctas`),
 this checkout's wrappers take the global route while A is in use (the
-launch the older wrappers made), so A is the older kernels throughout. Each case runs A B B A;
+launch the older wrappers made), and where it has no claim table for K5
+wide or no stage query for K8-SQ wide, they make the older launches, so A
+is the older kernels throughout. Each case runs A B B A;
 each time is `ms` (one call between CUDA events, the host's launch path
 included), `loop_ms` (ten calls back to back, a tenth of the time) and
 `device_ms` (a trace's device time of the kernel, a call). Every output of
@@ -20,9 +22,15 @@ B must equal A's bit for bit; K2's must equal the plain version's too.
    the bulk graph and its serving pack): K8 wide at the SQL LIMIT 200
    shape (B = 1, ef 1,600, k_res 800, every row allowed), K6 wide at the
    same on the pack, K8 wide at B = 1,024 and ef 1,500 (width_check's
-   search at a full batch), and K8-SQ wide over the 768-d SQ8 store at ef
-   1,600 (B = 32), each call captured from the index's own search
-   (chip_smoke._WideCalls);
+   search at a full batch), K8 wide over the 768-d f32 rows at ef 1,600
+   (B = 32: K8-SQ wide's yardstick, the same loop with K8's lane-group
+   scorer) and K8-SQ wide over the 768-d SQ8 store at the same shape, each
+   call captured from the index's own search (chip_smoke._WideCalls);
+   then K8-SQ wide over the SQ16 store made from the yardstick call's rows
+   (its seeds), and over the SQ8 store at B = 8 with an ef whose state
+   lies in the global scratch (`SQ_GLOBAL_EF`); and the 768-d SQ8 index's
+   search of 256 queries in batches of 32 (chip_smoke _emb_768's), its
+   wall seconds with A and B in turns;
 3. unless `--no-sql`: the emb path's deep SQL statements (chip_smoke
    _emb_sql's table and statement text, N_SQL a store) with A and B in
    turns: p50 / p99 ms of HNSW graph LIMIT 200, IVF LIMIT 600 and IVF WITH
@@ -36,6 +44,9 @@ B must equal A's bit for bit; K2's must equal the plain version's too.
    the 768-d wave's U = 512, W = 100 call, each captured from the index's
    own build, with the CTAs of a target on each side and, for B, at
    `FORCE_CTAS` forced as well (outputs bit-equal to the routed ones);
+   K5 wide at the WITH (sq8, rerank = 2400) LIMIT 600 statement's own
+   call (B = 1, r = 2,400, d = 384, f32 rows) with its launches' device
+   times apart (the distance pass with its dedup, K2, the id gather);
    and the 384-d bulk build's seconds with A and B in turns.
 
 Run on a CUDA card (about seven minutes on an H100):
@@ -43,9 +54,9 @@ Run on a CUDA card (about seven minutes on an H100):
     python3 scripts/exp_torch_wide_kernels.py OTHER_CHECKOUT [--no-sql | --k2-only |
         --beams-only | --probe-select-only]
 
-`--k2-only` runs part 1 alone (about a minute), `--beams-only` part 2
-alone (about two minutes), `--probe-select-only` part 4 alone (about three
-minutes). It prints one JSON object and writes it to
+`--k2-only` runs part 1 (about a minute), `--beams-only` part 2 (about
+three minutes), `--probe-select-only` part 4 (about three minutes); given
+together, the parts they name. It prints one JSON object and writes it to
 chiprun_out/exp_torch_wide_kernels.json; ptxas reports land in
 chiprun_out/ptxas_A.txt / ptxas_B.txt. Exits 1 unless every output of B
 equals A's (K7's cluster form is bit for bit A's K7 wide, at every CTA
@@ -69,10 +80,12 @@ import chip_smoke as cs  # noqa: E402
 from exp_torch_graph_kernels import build_module  # noqa: E402
 from turdb_tpu_torch import kernels  # noqa: E402
 from turdb_tpu_torch.kernels import build  # noqa: E402
+from turdb_tpu_torch.ops.quantize import sq_rows_encode  # noqa: E402
 
 N_SQL = 16          # deep statements a store and turn
 TURNS = ("A", "B", "B", "A")
 FORCE_CTAS = (1, 2, 4)   # K7 wide's CTAs a target, forced beside the routed ones
+SQ_GLOBAL_EF = 5_600     # K8-SQ wide with its state in the global scratch (B = 8)
 
 
 def _old_tail_scratch(rows, m, replicated, mode, device):
@@ -89,6 +102,8 @@ class Libraries:
         self.ctas = kernels.topk_wide_ctas
         self.sel_ctas = kernels.select_wide_ctas
         self.tail_scratch = kernels._tail_scratch
+        self.rerank_table = kernels._rerank_table
+        self.sq_bytes = kernels._beam_sq_wide_bytes
 
     def use(self, name):
         a = name == "A"
@@ -101,6 +116,18 @@ class Libraries:
         # an older tail keeps its winners in a [2, rows, m] global scratch
         old_tail = a and not hasattr(self.a, "ivf_probe_tail_wide_words")
         kernels._tail_scratch = (_old_tail_scratch if old_tail else self.tail_scratch)
+        # an older K5 wide takes no claim table; an older K8-SQ wide's state
+        # lies in shared memory by the beams' common rule
+        if a and not hasattr(self.a, "ivf_rerank_dist_table_words"):
+            kernels._rerank_table = lambda *x: None
+            kernels._entry["ivf_rerank_dist"] = (
+                lambda *args: self.a.ivf_rerank_dist(*args[:14], *args[15:]))
+        else:
+            kernels._rerank_table = self.rerank_table
+        old_sq = a and not hasattr(self.a, "hnsw_beam_sq_wide_bytes")
+        kernels._beam_sq_wide_bytes = (
+            (lambda deg, ef, it, ex, kr, d, bits:
+             self.a.hnsw_beam_wide_bytes(deg, ef, it, ex, kr, 0)) if old_sq else self.sq_bytes)
 
 
 def _times(fn, kernel, calls=20):
@@ -191,19 +218,34 @@ def beam_calls(dev):
                                      allowed=allowed))
     capture("K8 wide B=1024 ef 1500", "hnsw_graph_beam_wide",
             lambda: idx.search(qe[:1024], cs.K, ef=1500))
-    x7, q7 = emb_pool(np.random.default_rng(1), cs.N_768, n_queries=32, dim=768)
+    x7, q7 = emb_pool(np.random.default_rng(1), cs.N_768, n_queries=cs.N_ORACLE, dim=768)
     i7 = HnswIndex(dim=768, metric=Metric.COSINE, ef_construction=100, build_batch=512,
                    capacity=len(x7), device=dev)
     i7.add(x7)
+    yard = "K8 wide f32 768-d (B=32, ef 1600): K8-SQ's yardstick"
+    capture(yard, "hnsw_graph_beam_wide", lambda: i7.search(q7[:32], cs.K, ef=cs.EMB_DEEP_EF))
     i7.quantize_sq8()
-    capture("K8-SQ wide SQ8 768-d (B=32, ef 1600)", "hnsw_graph_beam_sq_wide",
-            lambda: i7.search(q7, cs.K, ef=cs.EMB_DEEP_EF))
+    sq8 = "K8-SQ wide SQ8 768-d (B=32, ef 1600)"
+    capture(sq8, "hnsw_graph_beam_sq_wide", lambda: i7.search(q7[:32], cs.K, ef=cs.EMB_DEEP_EF))
+    _, fn, a, kw = calls[yard]
+    calls["K8-SQ wide SQ16 768-d (B=32, ef 1600)"] = (
+        "hnsw_graph_beam_sq_wide", fn, (a[0], sq_rows_encode(a[1], 16), *a[2:]), kw)
+    _, fn, a, kw = calls[sq8]
+    deg = a[0].shape[1]
+    glob = dict(kw, ef=SQ_GLOBAL_EF, iters=SQ_GLOBAL_EF * 3 // 2)
+    cs.check(build.library().hnsw_beam_wide_bytes(deg, glob["ef"], glob["iters"],
+                                                  glob.get("expand", 4), 0, 0) > 0,
+             f"ef {SQ_GLOBAL_EF}: the beam's state fits shared memory")
+    calls[f"K8-SQ wide SQ8 768-d global state (B=8, ef {SQ_GLOBAL_EF})"] = (
+        "hnsw_graph_beam_sq_wide", fn, (*a[:3], *(t[:8] for t in a[3:7]), *a[7:]), glob)
+    setup["search_768"] = (i7, q7)
     return calls, setup
 
 
 def _in_shared_memory(kernel, a, kw):
-    """Whether this library runs the call with its state in shared memory
-    (its scratch query gives 0 bytes)."""
+    """Whether this checkout's library runs the call with its state in
+    shared memory (its scratch query gives 0 bytes; K8-SQ's counts the
+    query row and the staged rows too)."""
     ef, iters, expand = kw["ef"], kw["iters"], kw.get("expand", 4)
     deg = a[0].shape[1]
     if kernel == "hnsw_serve_beam_wide":
@@ -211,7 +253,33 @@ def _in_shared_memory(kernel, a, kw):
     else:
         allowed = a[7] if len(a) > 7 else kw.get("allowed")
         k_res, rerank = ((kw.get("k_res") or ef) if allowed is not None else 0), 0
+    if kernel == "hnsw_graph_beam_sq_wide":
+        d = a[3].shape[1]
+        return kernels._beam_sq_wide_bytes(deg, ef, iters, expand, k_res, d + (-d % 4),
+                                           a[1].bits) == 0
     return build.library().hnsw_beam_wide_bytes(deg, ef, iters, expand, k_res, rerank) == 0
+
+
+def search_768_run(libs, i7, q7):
+    """Wall seconds of the 768-d SQ8 index's search of its queries in
+    batches of 32 (chip_smoke _emb_768's), A B B A, and whether the ids
+    are the same."""
+    out, ids = {}, {}
+    for name in TURNS:
+        libs.use(name)
+        i7.search(q7[:32], cs.K, ef=cs.EMB_DEEP_EF)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = [i7.search(q7[s:s + 32], cs.K, ef=cs.EMB_DEEP_EF)[1]
+               for s in range(0, len(q7), 32)]
+        torch.cuda.synchronize()
+        out.setdefault(name, []).append(time.perf_counter() - t)
+        ids[name] = np.concatenate(got)
+    libs.use("B")
+    out["queries"] = len(q7)
+    out["same_ids_A_B"] = bool(np.array_equal(ids["A"], ids["B"]))
+    cs.log(f"768-d SQ8 search: {json.dumps(out)}")
+    return out
 
 
 def beam_run(libs, calls):
@@ -280,14 +348,20 @@ def sql_run(libs, dev):
     return out
 
 
-def _split(fn, calls=20):
-    """Device ms a call of each launch of a wide probe: the distance pass
-    (`dist`), K2 (`select`), the tail (`tail`), anything else (`other`)."""
+PROBE_PARTS = (("tail", "probe_tail"), ("select", "topk"), ("dist", "probe"))
+RERANK_PARTS = (("select", "topk"), ("dist", "rerank"), ("gather", "gather"))
+
+
+def _split(fn, parts=PROBE_PARTS, calls=20):
+    """Device ms a call of each launch of a wide form, by the first of
+    `parts` (name, key) whose key its kernel's name holds: a probe's
+    distance pass (`dist`), K2 (`select`), the tail (`tail`); K5's distance
+    pass with its dedup (`dist`), K2, the id gather (`gather`); anything
+    else (`other`)."""
     prof = cs._traced(fn, calls, top=16)
-    out = {"dist": 0.0, "select": 0.0, "tail": 0.0, "other": 0.0}
+    out = dict.fromkeys([p for p, _ in parts] + ["other"], 0.0)
     for t in prof["top"]:
-        part = next((p for p, key in (("tail", "probe_tail"), ("select", "topk"),
-                                      ("dist", "probe")) if key in t["name"]), "other")
+        part = next((p for p, key in parts if key in t["name"]), "other")
         out[part] += t["ms"] / t["calls"]
     return out
 
@@ -319,10 +393,10 @@ class _SelectCalls:
         self.mod.hnsw_select, self.mod.hnsw_select_sorted = self.saved
 
 
-def probe_select_run(libs, dev):
-    """Part 4: K1 / K4 wide at the deep SQL statements' own calls, K7 / K7s
-    wide at the emb builds' own calls, and the 384-d bulk build's seconds,
-    A B B A."""
+def probe_select_run(libs, dev, out):
+    """Part 4: K1 / K4 / K5 wide at the deep SQL statements' own calls, K7 /
+    K7s wide at the emb builds' own calls, and the 384-d bulk build's
+    seconds, A B B A, into `out` as they come."""
     import shutil
     import tempfile
 
@@ -330,7 +404,7 @@ def probe_select_run(libs, dev):
     from turdb_tpu_torch.utils.datasets import emb_pool
 
     xe, qe = emb_pool(np.random.default_rng(0), cs.N_EMB, n_queries=cs.N_QUERIES)
-    out = {"probes": {}, "select": {}}
+    out.update(probes={}, select={})
     tmp = tempfile.mkdtemp(prefix="turdb_wide_probe_")
     try:
         db = Database.create(f"{tmp}/db")
@@ -343,24 +417,12 @@ def probe_select_run(libs, dev):
             db.execute(f"CREATE INDEX ix ON docs USING IVF (emb){opts}")
             with cs._WideCalls() as wide:
                 db.query(cs._sql_ann(lit, cs.EMB_DEEP_IVF))
-            cs.check(name in wide.calls, f"the LIMIT {cs.EMB_DEEP_IVF} statement made no {name}")
-            fn, a, kw = wide.calls[name]
-            call = lambda: fn(*a, **kw)  # noqa: E731
-            runs, outs = {}, {}
-            for turn in TURNS:
-                libs.use(turn)
-                outs[turn] = [t.clone() for t in call()]
-                runs.setdefault(turn, []).append({**_times(call, None, calls=20),
-                                                  "split": _split(call)})
-            libs.use("B")
-            got = call()
-            out["probes"][name] = {"A": runs["A"], "B": runs["B"],
-                                   "equal_A_B": _equal(outs["A"], outs["B"]),
-                                   "options": {k: v for k, v in kw.items()
-                                               if isinstance(v, (int, bool))},
-                                   **cs._wide_bound(name, fn, a, kw, got)}
-            cs.log(f"{name}: {json.dumps(out['probes'][name])}")
-            del wide, fn, a, got, outs
+            names = [name] + (["ivf_rerank_wide"] if opts else [])
+            for wname in names:
+                cs.check(wname in wide.calls,
+                         f"the LIMIT {cs.EMB_DEEP_IVF} statement made no {wname}")
+                out["probes"][wname] = _probe_ab(libs, wname, *wide.calls[wname])
+            del wide
             db.execute("DROP INDEX ix")
             torch.cuda.empty_cache()
         db.close()
@@ -402,7 +464,28 @@ def probe_select_run(libs, dev):
         cs.log(f"{case}: {json.dumps(out['select'][case])}")
     del calls
     torch.cuda.empty_cache()
-    return out
+
+
+def _probe_ab(libs, name, fn, a, kw):
+    """One captured wide probe or rerank call, A B B A, with its launches'
+    device times apart."""
+    call = lambda: fn(*a, **kw)  # noqa: E731
+    parts = RERANK_PARTS if name == "ivf_rerank_wide" else PROBE_PARTS
+    runs, outs = {}, {}
+    for turn in TURNS:
+        libs.use(turn)
+        outs[turn] = [t.clone() for t in call()]
+        runs.setdefault(turn, []).append({**_times(call, None, calls=20),
+                                          "split": _split(call, parts)})
+    libs.use("B")
+    got = call()
+    row = {"A": runs["A"], "B": runs["B"], "equal_A_B": _equal(outs["A"], outs["B"]),
+           "options": {k: v for k, v in kw.items() if isinstance(v, (int, bool))},
+           **cs._wide_bound(name, fn, a, kw, got)}
+    if name == "ivf_rerank_wide":
+        row["route"] = cs._rerank_form(a, kw)
+    cs.log(f"{name}: {json.dumps(row)}")
+    return row
 
 
 SELECT_CASES = {"K7 wide U=16384 W=128 d=384": ("K7 wide", 16_384, 128, 384),
@@ -471,22 +554,33 @@ def main() -> int:
     out = {"card": card, "other": str(other)}
     flags = set(sys.argv[2:])
     only = {"--k2-only", "--beams-only", "--probe-select-only"} & flags
-    out["k2"] = k2_run(libs, k2_cases(dev)) if only <= {"--k2-only"} else {}
-    out["beams"] = {}
-    if only <= {"--beams-only"}:
-        calls, out["setup"] = beam_calls(dev)
-        out["beams"] = beam_run(libs, calls)
-        del calls
-        torch.cuda.empty_cache()
-    if not only and "--no-sql" not in flags:
-        out["sql"] = sql_run(libs, dev)
-    out["probe_select"] = (probe_select_run(libs, dev) if only <= {"--probe-select-only"}
-                           else {})
-    print(json.dumps(out))
-    (cs.OUT / "exp_torch_wide_kernels.json").write_text(json.dumps(out, indent=1))
+
+    def part(flag):
+        return not only or flag in only
+
+    out.update(k2={}, beams={}, probe_select={})
+    try:   # the parts done so far are written out whatever stops a later one
+        if part("--k2-only"):
+            out["k2"] = k2_run(libs, k2_cases(dev))
+        if part("--beams-only"):
+            calls, setup = beam_calls(dev)
+            i7, q7 = setup.pop("search_768")
+            out["setup"] = setup
+            out["beams"] = beam_run(libs, calls)
+            out["search_768"] = search_768_run(libs, i7, q7)
+            del calls, i7
+            torch.cuda.empty_cache()
+        if not only and "--no-sql" not in flags:
+            out["sql"] = sql_run(libs, dev)
+        if part("--probe-select-only"):
+            probe_select_run(libs, dev, out["probe_select"])
+    finally:
+        print(json.dumps(out))
+        (cs.OUT / "exp_torch_wide_kernels.json").write_text(json.dumps(out, indent=1))
     part4 = out["probe_select"]
     ok = (all(v["equal_A_B"] and v["equal_plain"] for v in out["k2"].values())
           and all(v["equal_A_B"] for v in out["beams"].values())
+          and out.get("search_768", {}).get("same_ids_A_B", True)
           and all(v["equal_A_B"] for v in part4.get("probes", {}).values())
           and all(v["equal_A_B"] and all(f.get("equal_routed", True)
                                          for f in v["forced"].values())

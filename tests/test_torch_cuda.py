@@ -1653,6 +1653,122 @@ def test_graph_beam_wide_form_matches_plain(cuda, store):
             assert (got.exp_ids == want.exp_ids).float().mean() >= 0.95
 
 
+
+def _rerank_case(cuda, seed, d, r, b=4, n_ids=None):
+    """A probe's r candidates a query over a store with repeated ids (every
+    copy of an id carries its row), +inf lanes and id -1, and the SQ16
+    copy of the store."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    pvecs, pnorms, members, alive, _ = _store(g, 300, 128, d, n_ids or r, cuda)
+    _, mins, scales, u16 = _sq8_store(pvecs)
+    q = torch.randn(b, d, device=cuda, generator=g)
+    qn = (q * q).sum(1)
+    cells = torch.rand(b, 300, device=cuda, generator=g).topk(r // 100 + 1).indices
+    cells = cells.to(torch.int32)
+    cd, ci, cpos = kernels.ivf_probe_f32(q, qn, cells, pvecs, pnorms, members, alive, metric=0,
+                                         k=r, m=r, replicated=False, mode=kernels.MODE_CAND)
+    ci = ci.clone()
+    ci[:, 7] = -1
+    assert bool(torch.isinf(cd).any())
+    return q, qn, cd, ci, cpos, ((pvecs, pnorms), (u16, pnorms, mins, scales))
+
+
+def _rerank_wide_at(q, qn, cd, ci, cpos, pvecs, pnorms, mins=None, scales=None, *, k, replicated):
+    """K5's wide form at any r (the wrapper takes it past SEL_MAX): the
+    distance pass, K2, the id gather."""
+    b, r = cd.shape
+    sq16 = pvecs.dtype == torch.int16
+    ex = torch.empty((b, r), dtype=torch.float32, device=q.device)
+    table = kernels._rerank_table(b, r, replicated, q.device)
+    kernels._launch("ivf_rerank_dist", q.device, q.data_ptr(), qn.data_ptr(), cd.data_ptr(),
+                    ci.data_ptr(), cpos.data_ptr(), b, r, pvecs.data_ptr(), int(sq16),
+                    pnorms.data_ptr(), kernels._ptr(mins), kernels._ptr(scales), pvecs.shape[2],
+                    int(replicated), kernels._ptr(table), ex.data_ptr(), counter=None)
+    dk, pos = kernels.topk_rows(ex, k)
+    return dk, torch.where(torch.isinf(dk), -1, torch.gather(ci, 1, pos.long()))
+
+
+@pytest.mark.parametrize("d", [64, 384])
+def test_rerank_wide_distances_are_the_fast_forms_bit_for_bit(cuda, d):
+    """K5 wide's distance pass (a grid of query chunks, PD_R rows in flight a
+    warp, the sums meeting in reduce_rows; the SQ16 decode) sums each row in
+    K5's order: at r <= SEL_MAX, where the fast form also runs, K2's
+    selection of its distances equals the fast form's outputs bit for bit,
+    f32 and SQ16, with and without replicas, at k = r and below."""
+    q, qn, cd, ci, cpos, stores = _rerank_case(cuda, 50, d, 2000, n_ids=700)
+    for store in stores:
+        for replicated in (True, False):
+            for k in (2000, 100):
+                args = (q, qn, cd, ci, cpos, *store)
+                fast = kernels.ivf_rerank(*args, k=k, replicated=replicated)
+                wide = _rerank_wide_at(*args, k=k, replicated=replicated)
+                for a, b in zip(fast, wide):
+                    assert torch.equal(a, b), (len(store), replicated, k)
+
+
+@pytest.mark.parametrize("d, r, n_ids", [(384, 2400, 900), (384, 9000, 3000), (4160, 2500, 900)])
+def test_rerank_wide_claims_match_plain(cuda, d, r, n_ids):
+    """K5 past SEL_MAX with many repeated ids: at the SQL LIMIT 600 call's
+    width (2,400: the claim table in each CTA's shared memory), past what a
+    CTA's table holds (9,000: the global table a claim pass fills) and past
+    DIM_MAX, f32 and SQ16: one counted launch a call, the same candidates
+    dropped as mask_duplicates drops (the finite ids at k = r are the plain
+    version's, as a set), distances within DOT_RTOL and ids apart only
+    inside that band."""
+    q, qn, cd, ci, cpos, stores = _rerank_case(cuda, 51, d, r, b=2, n_ids=n_ids)
+    words = kernels.build.library().ivf_rerank_dist_table_words(r, 1)
+    assert (words == 0) == (r <= 8192)
+    for store in stores:
+        for replicated in (True, False):
+            args = (q, qn, cd, ci, cpos, *store)
+            before = kernels.launches["ivf_rerank_wide"]
+            dk, ik = kernels.ivf_rerank(*args, k=r, replicated=replicated)
+            assert kernels.launches["ivf_rerank_wide"] == before + 1
+            dp, ip = kernels.ivf_rerank_plain(*args, *(None, None)[len(store) - 2:], k=r,
+                                              replicated=replicated)
+            _assert_near(dk, ik, dp, ip, 1e-4, 0.99)
+            for a, b in zip(ik, ip):
+                assert torch.equal(a[a >= 0].sort().values, b[b >= 0].sort().values)
+
+
+@pytest.mark.parametrize("d", [768, 36])
+def test_graph_beam_sq_wide_staged_routes_match_plain(cuda, d):
+    """K8-SQ wide scores from rows staged in shared memory: SQ8 and SQ16 at
+    ef 1,600 (the state in shared memory beside the query row and the
+    stage; at 768-d SQ16 a step's 128 slots take two batches), and at ef
+    5,600 (the state in the global scratch, the stage still in shared
+    memory), d = 36 with 4-byte copies: one counted launch a call, the
+    plain beam's buffers but at near ties of the fp32 dots."""
+    from turdb_tpu_torch.ops.quantize import sq_rows_encode
+
+    g = torch.Generator(device=cuda).manual_seed(52)
+    n = 6000
+    x, norms, adj = _graph(g, n, d, 32, cuda)
+    q = (x[torch.randint(0, n, (4,), device=cuda, generator=g)]
+         + 0.5 * torch.randn(4, d, device=cuda, generator=g)).contiguous()
+    qn = (q * q).sum(1)
+    seeds = torch.rand(4, n, device=cuda, generator=g).topk(8).indices.to(torch.int32)
+    atol = 1e-5 * float(qn.max() + norms.max())
+    d4 = d + (-d % 4)
+    for bits in (8, 16):
+        rows = sq_rows_encode(x, bits)
+        sd = kernels._gathered_epilogue(torch.einsum("bd,bsd->bs", q, rows[seeds.long()]), 0,
+                                        qn[:, None], norms[seeds.long()]).contiguous()
+        for ef in (1600, 5600):
+            glob = kernels._beam_sq_wide_bytes(32, ef, ef * 3 // 2, 4, 0, d4, bits) > 0
+            assert glob == (ef == 5600)
+            opts = dict(ef=ef, iters=ef * 3 // 2, metric=0, return_expanded=True)
+            sl = slice(None) if ef == 1600 else slice(0, 2)
+            args = (adj, rows, norms, q[sl], qn[sl], seeds[sl], sd[sl])
+            before = kernels.launches["hnsw_graph_beam_sq_wide"]
+            got = kernels.hnsw_graph_beam(*args, **opts)
+            assert kernels.launches["hnsw_graph_beam_sq_wide"] == before + 1
+            want = kernels.hnsw_graph_beam_plain(*args, **opts)
+            torch.testing.assert_close(got.cand_d, want.cand_d, rtol=1e-5, atol=atol)
+            assert (got.cand_i == want.cand_i).float().mean() >= 0.99, (bits, ef)
+            assert (got.stats == want.stats).all(1).float().mean() >= 0.5
+            assert (got.exp_ids == want.exp_ids).float().mean() >= 0.95
+
 def test_serve_beam_wide_form_matches_plain(cuda):
     """K6 past EF_MAX and EXP_MAX: ef 1,500 at iters 2,250, the rerank of
     all 1,500 and of 1,100 under `allowed`, every metric, in shared memory;

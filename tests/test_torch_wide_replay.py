@@ -262,11 +262,13 @@ def _shift(d, i_, x, runs, first, chunk, evicted):
 
 
 def _k8_wide_replay(adj, dist, seed_i, seed_d, *, ef, loops, expand, allowed=None, k_res=0,
-                    seed=0, chunk=WIDE_CHUNK, smaller_set=0):
+                    seed=0, chunk=WIDE_CHUNK, smaller_set=0, scorer=None):
     """wide_beam over numpy: adj [n, deg], dist [B, n] the neighbour
     distances; `smaller_set` halves the member set that many times below
-    the kernel's size (its rebuilds then come within a few steps). Returns
-    (cand_d, cand_i, res_d, res_i, exp_ids, stats, events)."""
+    the kernel's size (its rebuilds then come within a few steps);
+    `scorer(b, kept, ids)` -> {slot: distance} scores a step's kept slots
+    in place of the lookup in dist. Returns (cand_d, cand_i, res_d, res_i,
+    exp_ids, stats, events)."""
     rng = np.random.default_rng(seed)
     b_n, s = seed_i.shape
     deg = adj.shape[1]
@@ -333,7 +335,8 @@ def _k8_wide_replay(adj, dist, seed_i, seed_d, *, ef, loops, expand, allowed=Non
                         claims.ids[pos[t]], claims.tags[pos[t]] = EMPTY, EMPTY
                 assert all(i == EMPTY for i in claims.ids)
                 n_scored += len(kept)
-                v = {t: np.float32(dist[b, ids[t]]) for t in kept}
+                v = (scorer(b, kept, ids) if scorer else
+                     {t: np.float32(dist[b, ids[t]]) for t in kept})
                 keys_c = [(_f2key(v[t]) << 32) | t for t in kept if v[t] < cd[ef - 1]]
                 keys_r = [(_f2key(v[t]) << 32) | t for t in kept
                           if k_res and v[t] < rd[k_res - 1] and allowed[ids[t]]]

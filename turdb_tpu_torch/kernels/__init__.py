@@ -700,6 +700,14 @@ def _probe_sq8_cells(qc, qs, qsum, qn, cells, codes, mins, scales, pnorms, membe
 # K5: exact rerank
 # ---------------------------------------------------------------------------
 
+def _rerank_table(b, r, replicated, device):
+    """K5 wide's global claim table [b, words] where a CTA's shared memory
+    cannot hold one over r ids, else None (csrc/probe_wide.cu
+    `ivf_rerank_dist_table_words` holds the rule)."""
+    words = int(build.library().ivf_rerank_dist_table_words(r, int(replicated)))
+    return torch.empty((b, words), dtype=torch.int32, device=device) if words else None
+
+
 def ivf_rerank_plain(q, qn, cand_d, cand_i, cand_pos, pvecs, pnorms, mins, scales, k,
                      replicated):
     d = pvecs.shape[-1]
@@ -733,8 +741,9 @@ def ivf_rerank(q, qn, cand_d, cand_i, cand_pos, pvecs, pnorms, mins=None, scales
     candidate index): ([B, k] f32 ascending, [B, k] int32 ids, -1 where +inf).
     On CUDA r > SEL_MAX or d > DIM_MAX runs the wide form: one launch
     writes the [B, r] exact distances (dropped copies +inf; counted as
-    `ivf_rerank_wide`), K2 selects the k smallest, and their ids are
-    gathered."""
+    `ivf_rerank_wide`; under replicas past what a CTA's claim table holds,
+    a claim pass into a global table `_rerank_table` runs first), K2
+    selects the k smallest, and their ids are gathered."""
     b, r = cand_d.shape
     nb, lcap, d = pvecs.shape
     sq16 = pvecs.dtype == torch.int16
@@ -766,7 +775,8 @@ def ivf_rerank(q, qn, cand_d, cand_i, cand_pos, pvecs, pnorms, mins=None, scales
         _launch("ivf_rerank_dist", q.device, q.data_ptr(), qn.data_ptr(), cand_d.data_ptr(),
                 cand_i.data_ptr(), cand_pos.data_ptr(), b, r, pvecs.data_ptr(), int(sq16),
                 pnorms.data_ptr(), _ptr(mins if sq16 else None), _ptr(scales if sq16 else None),
-                d, int(replicated), ex.data_ptr(), counter="ivf_rerank_wide")
+                d, int(replicated), _ptr(_rerank_table(b, r, replicated, q.device)),
+                ex.data_ptr(), counter="ivf_rerank_wide")
         dk, pos = topk_rows(ex, k)
         ik = torch.gather(cand_i, 1, pos.long())
         return dk, torch.where(torch.isinf(dk), -1, ik)
@@ -1095,10 +1105,18 @@ def hnsw_graph_beam(adj, vectors, norms, q, qn, seed_i, seed_d, allowed=None, *,
     if b and fast:
         _launch(name, adj.device, *args)
     elif b:
-        scratch, grid = _wide_scratch(
-            build.library().hnsw_beam_wide_bytes(deg, ef, iters, expand, kr, 0), b, dev)
+        bytes_a_block = (_beam_sq_wide_bytes(deg, ef, iters, expand, kr, d, vectors.bits) if sq
+                         else build.library().hnsw_beam_wide_bytes(deg, ef, iters, expand, kr, 0))
+        scratch, grid = _wide_scratch(bytes_a_block, b, dev)
         _launch(f"{name}_wide", adj.device, *args, scratch.data_ptr(), grid)
     return out
+
+
+def _beam_sq_wide_bytes(deg, ef, iters, expand, k_res, d, bits):
+    """K8-SQ wide's global scratch a block: 0 where its state lies in
+    shared memory beside the query row and the staged rows (csrc/graph_wide.cu
+    `sq_stage` holds the rule)."""
+    return int(build.library().hnsw_beam_sq_wide_bytes(deg, ef, iters, expand, k_res, d, bits))
 
 
 def graph_beam_sq_stage(b, s, d, deg, *, ef, iters, expand, k_res, bits, device=None):

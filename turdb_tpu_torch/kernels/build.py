@@ -147,9 +147,9 @@ SIGNATURES = {
     "ivf_probe_tail_wide": [_P, _I, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P,
                             _P, _P, _P, _P, _P],
     # q, qn, cand_d, cand_i, cand_pos, B, r, rows, sq16, pnorms, mins,
-    # scales, d, replicated, ex, stream
+    # scales, d, replicated, table, ex, stream
     "ivf_rerank_dist": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _I,
-                        _I, _P, _P],
+                        _I, _P, _P, _P],
     # x (bf16), xn, n, cents (bf16), cn, C, d (a multiple of 16), r, out_i,
     # out_d, stream
     "kmeans_assign": [_P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P],
@@ -163,13 +163,18 @@ SIGNATURES = {
 # (W; deg, ef, iters, expand, k_res, rerank; a beam's 0 where its state fits
 # shared memory), K2's and K7's wide forms' CTAs a row or target (n, k; W,
 # d, presorted; 0: the global form) and the wide tail's table words a row
-# (m, replicated, mode; 0: in shared memory)
+# (m, replicated, mode; 0: in shared memory), K5 wide's global claim table
+# words a query (r, replicated; 0: each CTA's shared memory) and K8-SQ
+# wide's state bytes a block (deg, ef, iters, expand, k_res, d, bits; 0:
+# shared memory beside its query row and staged rows)
 SIZES = {
     "hnsw_select_wide_bytes": [_I],
     "hnsw_beam_wide_bytes": [_I, _I, _I, _I, _I, _I],
     "topk_rows_wide_ctas": [_I, _I],
     "hnsw_select_wide_ctas": [_I, _I, _I],
     "ivf_probe_tail_wide_words": [_I, _I, _I],
+    "ivf_rerank_dist_table_words": [_I, _I],
+    "hnsw_beam_sq_wide_bytes": [_I, _I, _I, _I, _I, _I, _I],
 }
 
 _lib: ctypes.CDLL | None = None

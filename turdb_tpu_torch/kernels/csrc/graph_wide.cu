@@ -39,13 +39,26 @@
 // - K8's rows scored by lane groups of 8 with 4 rows each in flight: every
 //   kept slot of a step (of 128 at expand 4, deg 32) in one round, the kept
 //   slots compacted first so that no group takes more rows than it must;
-//   K8-SQ's and K6's one thread a slot, where the slot lies.
+// - K8-SQ's kept slots compacted too, their code rows copied into a stage
+//   in the block's shared memory by cp.async (a warp a row, neighbouring
+//   lanes on neighbouring 16-byte words, stage_rows' layout of an odd word
+//   count a row, every copy of a batch issued before any is waited for,
+//   the rows' norms, mins and scales loaded meanwhile), then thread j
+//   scores staged row j against the query row, which the block copies into
+//   its shared memory once a query. The stage holds a step's slots where
+//   the state leaves room (128 rows of 784 bytes beside the 69 KB state at
+//   ef 1,600, 768-d SQ8), fewer rows a batch where less fits; where the
+//   state lies in the global scratch the stage still takes the block's
+//   shared memory (`sq_stage` sizes both before the launch);
+// - K6's one thread a slot, where the slot lies.
 // The scores are the fast forms' to the bit: K8 by lane groups of 8 in
-// K8's order (graph_scorer.cuh group_scores), K8-SQ and K9 by one thread a
-// row in the row's own fmaf order (what staged_score computes), K6 by the
-// exact int8 dot and its epilogue; K6's rerank is one fmaf chain a row, as
-// staged_exact. K9 wide is one warp a query with each neighbour scored by
-// one lane from device memory. A seed list that repeats an id is not
+// K8's order (graph_scorer.cuh group_scores), K8-SQ by one thread a row in
+// SqScorer::staged_dot's order (the fast form's staged_score; the sum order
+// is kept because lane-group sums moved one SQ16 query of the 1M check
+// past the tie band, graph_scorer.cuh), K6 by the exact int8 dot and its
+// epilogue; K6's rerank is one fmaf chain a row, as staged_exact. K9 wide
+// is one warp a query with each neighbour scored by one lane from device
+// memory in the staged order. A seed list that repeats an id is not
 // supported (an evicted copy would leave the member set), as in the fast
 // forms; the system's seeds never repeat.
 #include <cuda_runtime.h>
@@ -63,6 +76,10 @@
 #define WG_CAP 128          // steps of one level's walk (kernels.GREEDY_CAP)
 #define WG_LEVELS_MAX 8     // kernels/build.py GREEDY_LEVELS_MAX
 #define MSET_TOMB 0xfffffffeu   // a member set entry whose id left the set
+#define SQ_STAGE_MIN 32     // K8-SQ: the fewest rows a batch beside a state in shared memory
+
+// how a beam scores a step's kept slots
+enum { SCORE_GROUPS, SCORE_STAGED, SCORE_SLOT };
 
 struct WideArgs {
     int B, S, d, deg, ef, loops, expand, exp_cap, slots, k_res, metric;
@@ -188,11 +205,11 @@ struct RowsF32 {
     }
 };
 
-// the SQ store (u8 / u16 codes): each code dequantized as min + scale * code
-// by one fmaf, then the chain, in order (SqScorer::staged_dot's sum)
+// the SQ store (u8 / u16 codes) scored one thread a row (K9 wide): each
+// code dequantized as min + scale * code by one fmaf, then the chain, in
+// order (SqScorer::staged_dot's sum)
 template <class CodeT>
 struct RowsSq {
-    const int* adj;
     const CodeT* codes;
     const float* mins;
     const float* scales;
@@ -206,30 +223,29 @@ struct RowsSq {
     }
 };
 
-// The beam's scorers: neighbour(node, g) names slot g of node's list; a
-// scorer with GROUPS scores by lane groups (K8's order), else one thread a
-// slot by score(...)
+// The beam's scorers: neighbour(node, g) names slot g of node's list;
+// SCORE says how the kept slots are scored: by lane groups (K8's order),
+// from rows staged in shared memory (K8-SQ), or one thread a slot by
+// score(...) (K6)
 struct BeamF32 {
-    static constexpr bool GROUPS = true;
+    static constexpr int SCORE = SCORE_GROUPS;
     GraphScorer sc;
     __device__ int neighbour(int node, int g, int deg) const { return sc.neighbour(node, g, deg); }
 };
 
+// K8-SQ: sc.srows rows a batch of sc.sw 16-byte words each, staged at
+// `roff` bytes into the block's dynamic shared memory, the query row at
+// `qoff` (sq_stage)
 template <class CodeT>
 struct BeamSq {
-    static constexpr bool GROUPS = false;
-    RowsSq<CodeT> rows;
-    const float* q;            // [B, d]
-    __device__ int neighbour(int node, int g, int deg) const {
-        return rows.adj[(size_t)node * deg + g];
-    }
-    __device__ float score(int id, int, int, size_t b, int d, int, float qnb, int metric) const {
-        return rows.row_score(id, q + b * d, d, qnb, metric);
-    }
+    static constexpr int SCORE = SCORE_STAGED;
+    SqScorer<CodeT> sc;
+    unsigned qoff, roff;
+    __device__ int neighbour(int node, int g, int deg) const { return sc.neighbour(node, g, deg); }
 };
 
 struct BeamServe {
-    static constexpr bool GROUPS = false;
+    static constexpr int SCORE = SCORE_SLOT;
     const int8_t* codes;       // [cap, deg, d]
     const int4* meta;          // [cap, deg] (base, scale, norm bits, id)
     const float* vectors;      // [cap, d] the rerank store
@@ -339,6 +355,8 @@ __device__ void wide_shift(float* od, int* oi, int* ox, int n, int first, const 
     }
 }
 
+extern __shared__ __align__(16) unsigned char wide_state[];
+
 // The beam of query b over its state `s` (shared memory or the block's
 // global slice): leaves the buffer, the results and the expanded ids there,
 // returns (expanded nodes, scored neighbours). A step:
@@ -347,7 +365,8 @@ __device__ void wide_shift(float* od, int* oi, int* ox, int n, int first, const 
 //  2. each slot drops a neighbour that is in the member set (the buffer's
 //     ids and every id expanded before) and claims the others in the step's
 //     claim table (the lowest slot of an id wins, graph_util.cuh);
-//  3. the kept slots are scored, and those below the buffer's worst (and,
+//  3. the kept slots are scored (K8-SQ: in batches staged in shared
+//     memory), and those below the buffer's worst (and,
 //     with `allowed`, the allowed ones below the result buffer's worst)
 //     become (f2key(distance) << 32 | slot) keys, sorted by warps in runs
 //     of 32 once the claims are reset (an entry per claiming slot);
@@ -455,7 +474,7 @@ __device__ int2 wide_beam(const WideArgs& a, const Sc& sc, const WideBufs& s, si
             if (v < worst_c) s.kc[atomicAdd(s.misc + 2, 1)] = key;
             if (a.k_res && v < worst_r && a.allowed[id]) s.kr[atomicAdd(s.misc + 3, 1)] = key;
         };
-        if constexpr (Sc::GROUPS) {
+        if constexpr (Sc::SCORE == SCORE_GROUPS) {
             // the kept slots compacted, then lane groups of 8 with WB_ROWS
             // rows each in flight: every kept row of a step at once, as few
             // as can be a group (K8's sums, R rows or one)
@@ -483,6 +502,43 @@ __device__ int2 wide_beam(const WideArgs& a, const Sc& sc, const WideBufs& s, si
 #pragma unroll
                 for (int r = 0; r < WB_ROWS; ++r)
                     if (sub == 0 && id[r] >= 0) survive(t[r], id[r], v[r]);
+            }
+        } else if constexpr (Sc::SCORE == SCORE_STAGED) {
+            // the kept slots compacted; then a batch of rows at a time,
+            // copied into the stage (a warp a row, every copy of the batch
+            // issued before any is waited for, the first row's norm, min
+            // and scale loaded meanwhile), thread j scoring staged row j
+            for (int t = tid; t < a.slots; t += WB_THREADS)
+                if (kept(t)) s.kept[atomicAdd(s.misc + 1, 1)] = t;
+            __syncthreads();
+            const int nk = s.misc[1];
+            const auto& q = sc.sc;
+            const bool w16 = q.wide();
+            const int rw = q.row_bytes(a.d) / (w16 ? 16 : 4);   // copies a row
+            const size_t pitch = (size_t)q.sw << 4;
+            unsigned char* stage = wide_state + sc.roff;
+            const unsigned char* qs = wide_state + sc.qoff;
+            for (int base = 0; base < nk; base += q.srows) {
+                const int n = min(q.srows, nk - base);
+                for (int r = warp; r < n; r += WB_WARPS) {
+                    const unsigned char* src = q.row(s.nid[s.kept[base + r]], a.d);
+                    unsigned char* dst = stage + r * pitch;
+                    for (int w = lane; w < rw; w += 32) {
+                        if (w16) stage_copy16(dst + 16 * w, src + 16 * w);
+                        else stage_copy4(dst + 4 * w, src + 4 * w);
+                    }
+                }
+                RowMeta rm0{0.0f, 0.0f, 0.0f};
+                if (tid < n) rm0 = q.meta(s.nid[s.kept[base + tid]]);
+                stage_wait();
+                __syncthreads();
+                for (int j = tid; j < n; j += WB_THREADS) {
+                    const int t = s.kept[base + j], id = s.nid[t];
+                    const RowMeta rm = j == tid ? rm0 : q.meta(id);
+                    survive(t, id, gathered_epilogue(q.staged_dot(stage + j * pitch, qs, a.d, rm),
+                                                     qnb, rm.xn, a.metric));
+                }
+                __syncthreads();   // the stage is the next batch's
             }
         } else {
             // one thread a slot: a kept slot is scored where it lies
@@ -556,8 +612,6 @@ __device__ int2 wide_beam(const WideArgs& a, const Sc& sc, const WideBufs& s, si
     return make_int2(n_exp, n_kept);
 }
 
-extern __shared__ __align__(16) unsigned char wide_state[];
-
 // a block's state: its slice of the global scratch, or (scratch null) its
 // dynamic shared memory
 __device__ __forceinline__ WideBufs wide_state_of(unsigned char* scratch, size_t stride,
@@ -576,6 +630,9 @@ graph_beam_wide_kernel(WideArgs a, Sc sc, float* out_d, int* out_i, float* out_r
                        int* out_exp, int* out_stats, unsigned char* scratch, size_t stride) {
     const WideBufs s = wide_state_of(scratch, stride, a);
     for (size_t b = blockIdx.x; b < (size_t)a.B; b += gridDim.x) {
+        // K8-SQ scores against the query row in shared memory (wide_beam's
+        // first barrier comes before any score)
+        if constexpr (Sc::SCORE == SCORE_STAGED) sc.sc.load(b, a.d, wide_state + sc.qoff);
         const int2 stats = wide_beam(a, sc, s, b);
         __syncthreads();
         for (int j = threadIdx.x; j < a.ef; j += WB_THREADS) {
@@ -678,6 +735,41 @@ extern "C" long long hnsw_beam_wide_bytes(int deg, int ef, int iters, int expand
     return bytes <= launch_util::smem_optin() ? 0 : (long long)bytes;
 }
 
+// K8-SQ wide's shared memory: the state where it fits beside the query row
+// and at least min(slots, SQ_STAGE_MIN) staged rows (else the state lies in
+// the global scratch), then the query row, then the stage of as many rows
+// as fit, up to a step's slots.
+struct SqStage {
+    bool global_state;
+    size_t qoff, roff, smem;
+    int srows;
+};
+
+static SqStage sq_stage(const WideArgs& a, int row_bytes) {
+    const size_t optin = launch_util::smem_optin();
+    const size_t pitch = (size_t)stage_words(row_bytes) << 4;
+    const size_t qb = wide_align16((size_t)4 * a.d);
+    const size_t state = wide_beam_bytes(a);
+    const int least = a.slots < SQ_STAGE_MIN ? a.slots : SQ_STAGE_MIN;
+    SqStage st;
+    st.global_state = state + qb + least * pitch > optin;
+    st.qoff = st.global_state ? 0 : state;
+    st.roff = st.qoff + qb;
+    const long long fit = optin > st.roff ? (long long)((optin - st.roff) / pitch) : 0;
+    st.srows = (int)(fit < a.slots ? fit : a.slots);
+    st.smem = st.roff + (size_t)st.srows * pitch;
+    return st;
+}
+
+// K8-SQ wide's bytes of one block's global scratch, 0 where its state lies
+// in shared memory beside the query row and the stage (bits 8 or 16)
+extern "C" long long hnsw_beam_sq_wide_bytes(int deg, int ef, int iters, int expand, int k_res,
+                                             int d, int bits) {
+    const WideArgs a = wide_args(1, 1, d, deg, ef, iters, expand, k_res, 0, 0, nullptr, nullptr,
+                                 nullptr, nullptr);
+    return sq_stage(a, d * (bits / 8)).global_state ? (long long)wide_beam_bytes(a) : 0;
+}
+
 // How a wide beam launches: a block a query over its state in shared
 // memory where it fits, else `grid` blocks over their slices of `scratch`,
 // each walking its share of the queries.
@@ -733,6 +825,30 @@ extern "C" int hnsw_graph_beam_wide(const int* adj, const float* vectors, const 
                             out_d, out_i, out_rd, out_ri, out_exp, out_stats, stream);
 }
 
+template <class CodeT>
+static int launch_beam_sq_wide(const WideArgs& a, BeamSq<CodeT> sc, unsigned char* scratch,
+                               int grid, float* out_d, int* out_i, float* out_rd, int* out_ri,
+                               int* out_exp, int* out_stats, void* stream) {
+    if (!wide_args_ok(a) || (a.k_res && (out_rd == nullptr || out_ri == nullptr)))
+        return (int)cudaErrorInvalidValue;
+    const int row_bytes = SqScorer<CodeT>::row_bytes(a.d);
+    const SqStage st = sq_stage(a, row_bytes);
+    if (st.srows < 1 || (st.global_state && (scratch == nullptr || grid < 1)))
+        return (int)cudaErrorInvalidValue;
+    sc.sc.srows = st.srows;
+    sc.sc.sw = stage_words(row_bytes);
+    sc.qoff = (unsigned)st.qoff;
+    sc.roff = (unsigned)st.roff;
+    const int err = raise_smem(graph_beam_wide_kernel<BeamSq<CodeT>>, st.smem);
+    if (err) return err;
+    const size_t stride = st.global_state ? wide_beam_bytes(a) : 0;
+    graph_beam_wide_kernel<BeamSq<CodeT>>
+        <<<st.global_state ? (unsigned)grid : (unsigned)a.B, WB_THREADS, st.smem,
+           (cudaStream_t)stream>>>(a, sc, out_d, out_i, out_rd, out_ri, out_exp, out_stats,
+                                   st.global_state ? scratch : nullptr, stride);
+    return (int)cudaGetLastError();
+}
+
 extern "C" int hnsw_graph_beam_sq_wide(const int* adj, const void* codes, int bits,
                                        const float* mins, const float* scales, const float* norms,
                                        const float* q, const float* qn, const int* seed_i,
@@ -743,13 +859,20 @@ extern "C" int hnsw_graph_beam_sq_wide(const int* adj, const void* codes, int bi
                                        unsigned char* scratch, int grid, void* stream) {
     const WideArgs a = wide_args(B, S, d, deg, ef, iters, expand, k_res, metric, 0, seed_i,
                                  seed_d, allowed, qn);
+    if ((size_t)q % 16 || (size_t)codes % 4) return (int)cudaErrorInvalidValue;
+    // 16-byte copies where the rows are whole aligned 16-byte words
+    const int w16 = (size_t)codes % 16 == 0 && (size_t)d * (bits / 8) % 16 == 0;
     if (bits == 8)
-        return launch_beam_wide(
-            a, BeamSq<uint8_t>{{adj, static_cast<const uint8_t*>(codes), mins, scales, norms}, q},
+        return launch_beam_sq_wide(
+            a,
+            BeamSq<uint8_t>{{adj, static_cast<const uint8_t*>(codes), mins, scales, norms, q, w16},
+                            0u, 0u},
             scratch, grid, out_d, out_i, out_rd, out_ri, out_exp, out_stats, stream);
     if (bits == 16)
-        return launch_beam_wide(
-            a, BeamSq<uint16_t>{{adj, static_cast<const uint16_t*>(codes), mins, scales, norms}, q},
+        return launch_beam_sq_wide(
+            a, BeamSq<uint16_t>{{adj, static_cast<const uint16_t*>(codes), mins, scales, norms, q,
+                                 w16},
+                                0u, 0u},
             scratch, grid, out_d, out_i, out_rd, out_ri, out_exp, out_stats, stream);
     return (int)cudaErrorInvalidValue;
 }
@@ -862,12 +985,12 @@ extern "C" int hnsw_greedy_wide(GreedyLevelsWide levels, const float* vectors, c
                                   lowest, B, d, deg, metric, out_i, out_d, out_stats, stream);
     if (bits == 8)
         return launch_greedy_wide(
-            RowsSq<uint8_t>{nullptr, static_cast<const uint8_t*>(codes), mins, scales, norms},
+            RowsSq<uint8_t>{static_cast<const uint8_t*>(codes), mins, scales, norms},
             levels, q, qn, cur_i, cur_d, lowest, B, d, deg, metric, out_i, out_d, out_stats,
             stream);
     if (bits == 16)
         return launch_greedy_wide(
-            RowsSq<uint16_t>{nullptr, static_cast<const uint16_t*>(codes), mins, scales, norms},
+            RowsSq<uint16_t>{static_cast<const uint16_t*>(codes), mins, scales, norms},
             levels, q, qn, cur_i, cur_d, lowest, B, d, deg, metric, out_i, out_d, out_stats,
             stream);
     return (int)cudaErrorInvalidValue;

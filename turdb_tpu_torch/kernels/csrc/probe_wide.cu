@@ -38,12 +38,26 @@
 //    winners fit a block's opted-in shared memory (m <= 8,192 on an H100),
 //    else in a global scratch (`ivf_probe_tail_wide_words`). Or, in
 //    candidate mode, all m with their flat positions cell*L + lane.
-//  - rerank_dist_wide_kernel: one block a query, a warp a candidate: K5's
-//    exact distance in K5's order, +inf where the probe's was, and under
-//    replicas +inf on later copies of an id and on id -1. K2 then selects
-//    the k smallest by (distance, candidate index).
+//  - rerank_dist_chunk_kernel: K5's exact distance in K5's order, +inf
+//    where the probe's was, and under replicas +inf on later copies of an
+//    id and on id -1 (mask_duplicates: an earlier copy counts whether its
+//    probe distance is finite or not). A grid of (query, chunk of
+//    candidates), sized from the SM count so that one query spreads over
+//    the card (B = 1, r = 2,400: 75 CTAs of 32 candidates); a warp reads a
+//    run of 32 candidates' metadata in one step and skips the dead ones
+//    before touching their rows; the live ones go PD_R rows in flight a
+//    warp, the block's warps taking the groups in turn, the sums meeting
+//    in reduce_rows (warp_dot's bit for bit; the SQ16 decode and its
+//    butterfly likewise). The dedup is O(r) a CTA: its chunk's query's ids
+//    up to the chunk's end claim in a table in its shared memory (r <=
+//    8,192 on an H100), else in a global table that one claim pass fills
+//    (`ivf_rerank_dist_table_words`); a candidate keeps its row iff its
+//    claim is its own. K2 then selects the k smallest by (distance,
+//    candidate index).
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "launch_util.cuh"
 #include "row_sums.cuh"
@@ -282,53 +296,172 @@ probe_tail_wide_kernel(ProbeCells c, const float* __restrict__ sel_d,
     }
 }
 
-// K5's exact distances of query b's r candidates to ex[b, r]
+#define RD_THREADS 256   // K5 wide's distance pass: eight warps a (query, chunk) block
+#define RD_WARPS (RD_THREADS / 32)
+#define RD_CLAIM 256     // the global table's claim pass: a candidate a thread
+
+// The replica dedup's claim table: in each CTA's shared memory (the ids of
+// candidates [0, end) of its chunk's query, so every earlier copy claims),
+// or, past what a CTA holds, a global table [B, 2 << bits] filled once by
+// rerank_claim_kernel. Candidate i keeps its row iff its id is not -1 and
+// its claim (the lowest index of the id, graph_util.cuh) is its own.
+struct RerankDedup {
+    const unsigned* gtab;      // [B, 2 << gbits] or null: the table in shared memory
+    int gbits;
+};
+
+__device__ __forceinline__ bool first_copy(const unsigned* hid, const unsigned* htag, int bits,
+                                           int id, int i) {
+    const int mask = (1 << bits) - 1;
+    for (int p = (int)(((unsigned)id * 0x9E3779B1u) >> (32 - bits));; p = (p + 1) & mask) {
+        const unsigned k = hid[p];
+        if (k == (unsigned)id) return htag[p] == (unsigned)(i + 1);
+        if (k == EMPTY_ID) return false;   // unreachable: every id claimed
+    }
+}
+
+// every candidate's id claims its lowest index in query b's global table
+__global__ void __launch_bounds__(RD_CLAIM)
+rerank_claim_kernel(const int* __restrict__ cand_i, int r, int per, int bits, unsigned* table) {
+    const size_t b = blockIdx.x / per;
+    const int i = (int)(blockIdx.x - b * per) * RD_CLAIM + threadIdx.x;
+    if (i >= r) return;
+    const int id = cand_i[b * r + i];
+    unsigned* hid = table + b * ((size_t)2 << bits);
+    if (id != -1) table_claim(hid, hid + (1 << bits), bits, id, i);
+}
+
+// K5's exact distances of the candidates [c0, c1) of query b to ex[b, r]:
+// a warp reads a run of 32 candidates' probe distance, id and position in
+// one step; a dead one (+inf probe distance, id -1, a later copy of an id)
+// is +inf and its row never read; the live ones go in groups of PD_R, the
+// block's warps taking the groups in turn, each group's rows loaded before
+// any is summed. f32: lane j sums float4 j, j + 32, ... in one fmaf chain
+// and the rows' sums meet in reduce_rows, so every distance is warp_dot's
+// bit for bit; SQ16: the same over ushort4 words, each code decoded as
+// base + s16 * u, which is the earlier one-row kernel's order too.
 template <bool SQ16>
-__global__ void __launch_bounds__(PW_THREADS)
-rerank_dist_wide_kernel(const float* __restrict__ q, const float* __restrict__ qn,
-                        const float* __restrict__ cand_d, const int* __restrict__ cand_i,
-                        const int* __restrict__ cand_pos, int r, const void* __restrict__ rows,
-                        const float* __restrict__ pnorms, const float* __restrict__ mins,
-                        const float* __restrict__ scales, int d, int replicated,
-                        float* __restrict__ ex) {
-    const size_t b = blockIdx.x;
+__global__ void __launch_bounds__(RD_THREADS)
+rerank_dist_chunk_kernel(const float* __restrict__ q, const float* __restrict__ qn,
+                         const float* __restrict__ cand_d, const int* __restrict__ cand_i,
+                         const int* __restrict__ cand_pos, int r, int chunks, int chunk,
+                         const void* __restrict__ rows, const float* __restrict__ pnorms,
+                         const float* __restrict__ mins, const float* __restrict__ scales, int d,
+                         int replicated, RerankDedup dd, float* __restrict__ ex) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const size_t b = blockIdx.x / chunks;
+    const int c0 = (int)(blockIdx.x - b * chunks) * chunk, c1 = min(r, c0 + chunk);
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int* ids = cand_i + b * r;
+    int bits = dd.gbits;
+    const unsigned* hid = dd.gtab ? dd.gtab + b * ((size_t)2 << bits) : nullptr;
+    if (replicated && dd.gtab == nullptr) {
+        // the ids of [0, c1) claim in this CTA's table
+        bits = table_bits(c1);
+        unsigned* sid = reinterpret_cast<unsigned*>(smem);
+        table_clear(sid, sid + (1 << bits), bits);
+        __syncthreads();
+        for (int i = threadIdx.x; i < c1; i += RD_THREADS) {
+            const int id = ids[i];
+            if (id != -1) table_claim(sid, sid + (1 << bits), bits, id, i);
+        }
+        __syncthreads();
+        hid = sid;
+    }
     const float qnb = qn[b];
     const float4* q4 = reinterpret_cast<const float4*>(q + b * d);
+    const int d4 = d >> 2;
     const float s16_ratio = (float)(255.0 / 65535.0);
-    for (int i = warp; i < r; i += PW_WARPS) {
+    for (int base = c0; base < c1; base += 32) {
+        const int i = base + lane;
         const size_t o = b * r + i;
-        const int pos = isinf(cand_d[o]) ? -1 : cand_pos[o];
-        float v = WIDE_INF;
-        if (pos >= 0) {
-            float acc = 0.0f;
-            if (SQ16) {
-                const ushort4* u4 =
-                    reinterpret_cast<const ushort4*>(static_cast<const uint16_t*>(rows) + (size_t)pos * d);
-                const float sr = scales[pos];
-                const float base = __fsub_rn(mins[pos], __fmul_rn(128.0f, sr));
-                const float s16 = __fmul_rn(sr, s16_ratio);
-                for (int j = lane; j < (d >> 2); j += 32) {
-                    const ushort4 u = u4[j];
-                    const float4 y = q4[j];
-                    acc = fmaf(__fadd_rn(base, __fmul_rn(s16, (float)u.x)), y.x, acc);
-                    acc = fmaf(__fadd_rn(base, __fmul_rn(s16, (float)u.y)), y.y, acc);
-                    acc = fmaf(__fadd_rn(base, __fmul_rn(s16, (float)u.z)), y.z, acc);
-                    acc = fmaf(__fadd_rn(base, __fmul_rn(s16, (float)u.w)), y.w, acc);
-                }
-                for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(WIDE_FULL, acc, off);
-            } else {
-                acc = warp_dot(static_cast<const float*>(rows) + (size_t)pos * d, q + b * d, d, lane);
+        bool live = false;
+        int pos = 0;
+        float pn = 0.0f;
+        if (i < c1) {
+            live = !isinf(cand_d[o]);
+            if (replicated) {
+                const int id = ids[i];
+                live = live && id != -1 && first_copy(hid, hid + (1 << bits), bits, id, i);
             }
-            v = __fsub_rn(__fadd_rn(qnb, pnorms[pos]), __fmul_rn(2.0f, acc));
+            if (live) {
+                pos = cand_pos[o];
+                pn = pnorms[pos];
+            } else if (warp == 0) {
+                ex[o] = WIDE_INF;
+            }
         }
-        if (replicated) {  // mask_duplicates: later copies of an id, and id -1
-            const int id = cand_i[o];
-            bool dup = id == -1;
-            for (int j = lane; j < i && !dup; j += 32) dup = cand_i[b * r + j] == id;
-            if (__any_sync(WIDE_FULL, dup)) v = WIDE_INF;
+        unsigned left = __ballot_sync(WIDE_FULL, live);
+        for (int g = 0; left; ++g) {
+            // group g: the next PD_R live candidates of the run, in order
+            int src[PD_R];
+#pragma unroll
+            for (int k = 0; k < PD_R; ++k) {
+                src[k] = left ? __ffs(left) - 1 : -1;
+                left &= left - 1;
+            }
+            if (g % RD_WARPS != warp) continue;
+            // each row's words (f32: float4, SQ16: ushort4) and SQ16's decode
+            using Raw = typename std::conditional<SQ16, ushort4, float4>::type;
+            const Raw* xr[PD_R];
+            float rb[PD_R], rs[PD_R];
+#pragma unroll
+            for (int k = 0; k < PD_R; ++k) {
+                const int row = __shfl_sync(WIDE_FULL, pos, src[k] < 0 ? 0 : src[k]);
+                xr[k] = static_cast<const Raw*>(rows) + (size_t)row * d4;
+                if constexpr (SQ16) {
+                    const float sr = __ldg(scales + row);
+                    rb[k] = __fsub_rn(__ldg(mins + row), __fmul_rn(128.0f, sr));
+                    rs[k] = __fmul_rn(sr, s16_ratio);
+                }
+            }
+            float v[PD_R];
+#pragma unroll
+            for (int k = 0; k < PD_R; ++k) v[k] = 0.0f;
+            for (int j0 = lane; j0 < d4; j0 += 32 * PD_J) {
+                Raw x[PD_J][PD_R];
+                float4 y[PD_J];
+#pragma unroll
+                for (int u = 0; u < PD_J; ++u) {
+                    const int j = j0 + 32 * u;
+                    y[u] = j < d4 ? __ldg(q4 + j) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+                    for (int k = 0; k < PD_R; ++k)
+                        x[u][k] = src[k] >= 0 && j < d4 ? __ldg(xr[k] + j) : Raw{};
+                }
+#pragma unroll
+                for (int u = 0; u < PD_J; ++u)
+                    if (j0 + 32 * u < d4) {
+#pragma unroll
+                        for (int k = 0; k < PD_R; ++k) {
+                            float4 e;
+                            if constexpr (SQ16) {
+                                const ushort4 c = x[u][k];
+                                e = make_float4(__fadd_rn(rb[k], __fmul_rn(rs[k], (float)c.x)),
+                                                __fadd_rn(rb[k], __fmul_rn(rs[k], (float)c.y)),
+                                                __fadd_rn(rb[k], __fmul_rn(rs[k], (float)c.z)),
+                                                __fadd_rn(rb[k], __fmul_rn(rs[k], (float)c.w)));
+                            } else {
+                                e = x[u][k];
+                            }
+                            v[k] = fmaf(e.x, y[u].x, v[k]);
+                            v[k] = fmaf(e.y, y[u].y, v[k]);
+                            v[k] = fmaf(e.z, y[u].z, v[k]);
+                            v[k] = fmaf(e.w, y[u].w, v[k]);
+                        }
+                    }
+            }
+            const float dot = reduce_rows<PD_R, 32>(v, lane);
+            // lane t holds group slot t / (32 / PD_R)'s sum; its first lane writes it
+            const int h = lane / (32 / PD_R);
+            int sl = -1;
+#pragma unroll
+            for (int k = 0; k < PD_R; ++k)
+                if (k == h) sl = src[k];
+            const float pnh = __shfl_sync(WIDE_FULL, pn, sl < 0 ? 0 : sl);
+            if (lane % (32 / PD_R) == 0 && sl >= 0)
+                ex[b * r + base + sl] = __fsub_rn(__fadd_rn(qnb, pnh), __fmul_rn(2.0f, dot));
         }
-        if (lane == 0) ex[o] = v;
     }
 }
 
@@ -398,20 +531,71 @@ extern "C" int ivf_probe_tail_wide(const int* cells, int B, int P, const int* me
     return (int)cudaGetLastError();
 }
 
-// K5's exact distances ex [B, r] (any r); K2 selects from them
+// Where K5 wide's dedup keeps its claim table: 0 in each CTA's shared
+// memory (a table over r ids fits), else the words of a query's global
+// table (the wrapper's `table` [B, words]).
+static bool rerank_table_in_smem(int r) {
+    return ((size_t)8 << table_bits(r)) <= launch_util::smem_optin();
+}
+
+extern "C" long long ivf_rerank_dist_table_words(int r, int replicated) {
+    return r < 1 || !replicated || rerank_table_in_smem(r) ? 0 : (long long)2 << table_bits(r);
+}
+
+// Candidates a CTA of the distance pass takes: runs of 32, as few a CTA as
+// spread the batch's candidates over about two CTAs an SM
+static int rerank_chunk(int B, int r) {
+    const long long runs = (r + 31) / 32;
+    const long long want = 2LL * launch_util::sm_count();
+    long long per = (want + B - 1) / B;    // chunks a query
+    per = per < 1 ? 1 : per > runs ? runs : per;
+    return (int)((runs + per - 1) / per) * 32;
+}
+
+// K5's exact distances ex [B, r] (any r); K2 selects from them. Under
+// replicas past what a CTA's table holds, `table` [B, words] (words =
+// ivf_rerank_dist_table_words) is cleared and filled by a claim pass first.
 extern "C" int ivf_rerank_dist(const float* q, const float* qn, const float* cand_d,
                                const int* cand_i, const int* cand_pos, int B, int r,
                                const void* rows, int sq16, const float* pnorms, const float* mins,
-                               const float* scales, int d, int replicated, float* ex,
-                               void* stream) {
+                               const float* scales, int d, int replicated, unsigned* table,
+                               float* ex, void* stream) {
     if (B < 1 || r < 1 || d < 4 || d % 4 != 0 || (size_t)q % 16 || (size_t)rows % (sq16 ? 8 : 16) ||
         (sq16 && (mins == nullptr || scales == nullptr)))
         return (int)cudaErrorInvalidValue;
-    if (sq16)
-        rerank_dist_wide_kernel<true><<<B, PW_THREADS, 0, (cudaStream_t)stream>>>(
-            q, qn, cand_d, cand_i, cand_pos, r, rows, pnorms, mins, scales, d, replicated, ex);
-    else
-        rerank_dist_wide_kernel<false><<<B, PW_THREADS, 0, (cudaStream_t)stream>>>(
-            q, qn, cand_d, cand_i, cand_pos, r, rows, pnorms, mins, scales, d, replicated, ex);
+    const cudaStream_t st = (cudaStream_t)stream;
+    RerankDedup dd{nullptr, 0};
+    size_t smem = 0;
+    if (replicated && rerank_table_in_smem(r)) {
+        smem = (size_t)8 << table_bits(r);
+    } else if (replicated) {
+        if (table == nullptr) return (int)cudaErrorInvalidValue;
+        dd = RerankDedup{table, table_bits(r)};
+        // EMPTY_ID ids and 0xffffffff tags: every byte 0xff
+        cudaError_t e = cudaMemsetAsync(table, 0xff, (size_t)B * ((size_t)8 << dd.gbits), st);
+        if (e != cudaSuccess) return (int)e;
+        const int per = (r + RD_CLAIM - 1) / RD_CLAIM;
+        rerank_claim_kernel<<<(unsigned)((long long)B * per), RD_CLAIM, 0, st>>>(
+            cand_i, r, per, dd.gbits, table);
+        e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+    }
+    const int chunk = rerank_chunk(B, r);
+    const int chunks = (r + chunk - 1) / chunk;
+    const long long grid = (long long)B * chunks;
+    if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    if (sq16) {
+        const int err = raise_smem(rerank_dist_chunk_kernel<true>, smem);
+        if (err) return err;
+        rerank_dist_chunk_kernel<true><<<(unsigned)grid, RD_THREADS, smem, st>>>(
+            q, qn, cand_d, cand_i, cand_pos, r, chunks, chunk, rows, pnorms, mins, scales, d,
+            replicated, dd, ex);
+    } else {
+        const int err = raise_smem(rerank_dist_chunk_kernel<false>, smem);
+        if (err) return err;
+        rerank_dist_chunk_kernel<false><<<(unsigned)grid, RD_THREADS, smem, st>>>(
+            q, qn, cand_d, cand_i, cand_pos, r, chunks, chunk, rows, pnorms, mins, scales, d,
+            replicated, dd, ex);
+    }
     return (int)cudaGetLastError();
 }
