@@ -1771,12 +1771,48 @@ def hnsw_wave_phase(dev, x, queries):
     return out, idx
 
 
-def _greedy_bound(stats, b, deg, row_bytes, d):
-    """K9's bound on this run's inputs: per query, each list it read (deg
-    ids) and each neighbour it scored (its row and norm); the query, its
-    norm and start read once, the end written once; 2d ops a score."""
+def _greedy_reads(adjs, rows, norms, q, qn, cur_i, cur_d, metric, lowest=None):
+    """The lists and rows the plain chain of walks through `adjs` reads
+    (hnsw_greedy_plain's steps), each counted once: (distinct (level,
+    node) lists, distinct neighbours scored)."""
+    from turdb_tpu_torch.kernels import GREEDY_CAP, INF, _gathered_epilogue
+
+    adjs = [adjs] if isinstance(adjs, torch.Tensor) else list(adjs)
+    lists, ids = [], []
+    cur_i, cur_d = cur_i.clone(), cur_d.clone()
+    for j, adj in enumerate(adjs):
+        at = (torch.arange(len(cur_i), device=cur_i.device) if lowest is None
+              else torch.nonzero(lowest <= len(adjs) - 1 - j)[:, 0])
+        ci, cd, qj, qnj = cur_i[at], cur_d[at], q[at], qn[at]
+        live = torch.ones_like(ci, dtype=torch.bool)
+        for _ in range(GREEDY_CAP):
+            if not bool(live.any()):
+                break
+            node = ci.clamp_min(0).long()
+            nbrs = adj[node]
+            lists.append(node[live] + j * adj.shape[0])
+            ids.append(nbrs[live][nbrs[live] >= 0])
+            safe = nbrs.clamp_min(0).long()
+            nd = torch.where(nbrs >= 0, _gathered_epilogue(
+                torch.einsum("bd,bkd->bk", qj, rows[safe]), metric, qnj[:, None], norms[safe]),
+                INF)
+            best = torch.argmin(nd, 1, keepdim=True)
+            bd, bi = nd.gather(1, best)[:, 0], nbrs.gather(1, best)[:, 0]
+            live = live & (bd < cd)
+            ci, cd = torch.where(live, bi, ci), torch.where(live, bd, cd)
+        cur_i[at], cur_d[at] = ci, cd
+    return (int(torch.unique(torch.cat(lists)).numel()),
+            int(torch.unique(torch.cat(ids)).numel()) if ids else 0)
+
+
+def _greedy_bound(reads, stats, b, deg, row_bytes, d):
+    """K9's bound on this run's inputs: each list the walks read (deg ids)
+    and each row they scored (its bytes and norm) once (`_greedy_reads`);
+    the queries, their norms and starts read once, the ends written once;
+    2d ops a score."""
+    n_lists, n_rows = reads
     tot = stats.long().sum(0)
-    nbytes = int(tot[0]) * deg * 4 + int(tot[1]) * (row_bytes + 4) + b * (4 * d + 12) + b * 8
+    nbytes = n_lists * deg * 4 + n_rows * (row_bytes + 4) + b * (4 * d + 12) + b * 8
     return _bound(nbytes, 2 * d * int(tot[1]), FP32_OPS)
 
 
@@ -1813,7 +1849,9 @@ def _k9_case(adjs, st, q, qn, cur_i, cur_d, what, lowest=None, timed=False):
                    plain_ms=_median_ms(lambda: hnsw_greedy_plain(*args, metric=0,
                                                                  lowest=lowest), reps=3),
                    library_ms=None,
-                   **_greedy_bound(ks, q.shape[0], adjs[0].shape[1], 4 * DIM, q.shape[1]))
+                   **_greedy_bound(_greedy_reads(adjs, st.vectors, st.norms, q, qn, cur_i,
+                                                 cur_d, 0, lowest),
+                                   ks, q.shape[0], adjs[0].shape[1], 4 * DIM, q.shape[1]))
         out["step_ms"] = out["device_ms"] / out["longest_chain"]
     return out
 
@@ -2542,6 +2580,8 @@ def width_check(dev):
         with _PlainVersions():
             want = fn()
         near(name, got, want)
+    # K6 wide's stage routes that no emb shape takes
+    out.update(_serve_stage_check(dev, gen, launched))
     kw7 = dict(deg=16, metric=0, alpha=1.0)
     a7 = (x5, (x5 * x5).sum(1), t5, cand)
     got = launched("hnsw_select W=100 d=512", lambda: kernels.hnsw_select(*a7, **kw7),
@@ -2565,6 +2605,48 @@ def width_check(dev):
     near("ivf_probe_f32 m=9000", got, kernels.ivf_probe_f32_plain(*a1, **kw1))
     out["ivf_probe_f32 m=9000"].update(tail=_tail_form(kw1),
                                        padded_rows=int((got[1] < 0).any(1).sum()))
+    return out
+
+
+def _serve_stage_check(dev, gen, launched):
+    """K6 wide where a step's code blocks do not all fit its stage: two of
+    its four nodes a batch (2,048-d, ef 1,100, the state in shared memory),
+    and the state in the global scratch beside a whole step's stage (384-d,
+    ef 3,500), each on a pack of a random graph against the plain version
+    as wide_check holds K6 (the beam's work equal, distances within
+    DOT_RTOL, ids apart only inside that band)."""
+    from turdb_tpu_torch import kernels
+    from turdb_tpu_torch.models.hnsw_serve import pack_serving
+    from turdb_tpu_torch.ops.distance import Metric
+    from turdb_tpu_torch.ops.quantize import quantize_queries
+
+    out = {}
+    for d, ef, want in ((2048, 1100, (False, 64)), (384, 3500, (True, 128))):
+        what = f"hnsw_serve_beam d={d} ef={ef}"
+        n = 1500 if d > 1024 else 6000
+        x = torch.randn(n, d, device=dev, generator=gen)
+        norms = (x * x).sum(1)
+        adj = torch.randint(0, n, (n, 32), device=dev, generator=gen, dtype=torch.int32)
+        stage = kernels.serve_wide_stage(32, ef, ef * 3 // 2, 4, ef, d)
+        check(stage == want, f"{what}: stage {stage}, expected {want}")
+        pack = pack_serving(x, norms, adj, n, Metric.L2)
+        q = (x[:2] + 0.5 * torch.randn(2, d, device=dev, generator=gen)).contiguous()
+        qc, qs, qsum = quantize_queries(q)
+        seeds = torch.rand(2, n, device=dev, generator=gen).topk(16).indices.to(torch.int32)
+        seed_d = torch.arange(16, device=dev, dtype=torch.float32).expand(2, 16).contiguous()
+        args = (pack.nbr_codes, pack.nbr_meta, x, norms, q, (q * q).sum(1), qc, qs, qsum, seeds,
+                seed_d, None)
+        opts = dict(ef=ef, iters=ef * 3 // 2, expand=4, rerank=0, k=200, metric=0)
+        got = launched(what, lambda: kernels.hnsw_serve_beam(*args, **opts),
+                       "hnsw_serve_beam_wide", 1)
+        plain = kernels.hnsw_serve_beam_plain(*args, **opts)
+        check(torch.equal(got[2], plain[2]), f"{what}: the beam's work differs")
+        err, diff = _near_equal(got[0], got[1], plain[0], plain[1], DOT_RTOL, what)
+        check(diff <= 0.01, f"{what}: {diff} of the ids differ")
+        out[what] = {"global_state": stage[0], "rows_a_batch": stage[1], "max_abs_err": err,
+                     "id_diff": diff}
+        log(f"width {what}: {out[what]}")
+        del pack, x
     return out
 
 
@@ -3158,7 +3240,8 @@ def _emb_768(dev):
 def _emb_wide_rows(dev):
     """Rows past DIM_MAX (4,608 floats): 4,096 rows through the waves from
     empty (K9's wide form in each wave's descent, K8 and K7 wide), then a
-    search (K9 wide at descent_ef 1); recall@10 at ef 64 recorded."""
+    search (K9 wide at descent_ef 1); recall@10 at ef 64 and the
+    reachability over all levels held to their gates."""
     from turdb_tpu_torch.models.hnsw import HnswIndex
     from turdb_tpu_torch.ops.distance import Metric
     from turdb_tpu_torch.utils.datasets import emb_pool, recall_of
@@ -3176,6 +3259,10 @@ def _emb_wide_rows(dev):
     out["recall@10"] = recall_of(ids, truth)
     out["reach_levels"] = _reach(idx)
     log(f"emb rows past DIM_MAX: {json.dumps(out)}")
+    check(out["recall@10"] >= RECALL_GATE,
+          f"rows past DIM_MAX: recall@10 {out['recall@10']} under {RECALL_GATE}")
+    check(out["reach_levels"] >= REACH_GATE,
+          f"rows past DIM_MAX: only {out['reach_levels']} of the graph is reachable")
     return out
 
 
@@ -3267,7 +3354,9 @@ def _wide_bound(name, fn, a, kw, got):
         deg = (adjs if isinstance(adjs, torch.Tensor) else adjs[0]).shape[1]
         d = q.shape[1]
         row_bytes = 4 * d if isinstance(rows, torch.Tensor) else d * rows.bits // 8 + 8
-        return _greedy_bound(got[2], q.shape[0], deg, row_bytes, d)
+        reads = _greedy_reads(adjs, rows, a[2], q, a[4], a[5], a[6], kw["metric"],
+                              kw.get("lowest"))
+        return _greedy_bound(reads, got[2], q.shape[0], deg, row_bytes, d)
     # K7: the distinct valid candidates' rows once, the candidate lists,
     # the outputs; a distance and a sum of squares a valid candidate and a
     # pair a counted pair
@@ -3380,6 +3469,11 @@ def _beam_sq_form(a, kw):
     return "global scratch" if glob else "shared memory"
 
 
+# the wide forms whose wide_check row carries a trace's device time, by
+# their kernel's name
+WIDE_TRACED = {"hnsw_serve_beam_wide": "serve_beam_wide", "hnsw_greedy_wide": "greedy_wide"}
+
+
 def wide_check(calls):
     """Each wide kernel form on the emb path's own first call of it: the
     wrapper (its wide kernel, counted here) against the same wrapper
@@ -3389,7 +3483,9 @@ def wide_check(calls):
     inside that band, K6's beam work equal); K7 as k7_check does (rows equal on 98 %,
     the rest within 4x the fp32 disagreement of an fp64 tie). Timed: one
     call (`ms`, the median of 5), ten back to back (`loop_ms`), the plain
-    versions once (`plain_ms`, the comparison's own call)."""
+    versions once (`plain_ms`, the comparison's own call); K6 and K9 a
+    trace's device time too (`device_ms`), K9 its steps a query and the
+    device time a step of its longest chain (`step_ms`)."""
     from turdb_tpu_torch import kernels
 
     out = {}
@@ -3433,6 +3529,13 @@ def wide_check(calls):
         row["options"] = {k: v for k, v in kw.items() if isinstance(v, (int, float, bool))}
         row.update(ms=_median_ms(lambda: fn(*a, **kw)), loop_ms=_loop_ms(lambda: fn(*a, **kw)),
                    library_ms=_wide_library_ms(name, a, kw), **_wide_bound(name, fn, a, kw, got))
+        if name in WIDE_TRACED:
+            row["device_ms"] = _trace_ms(lambda: fn(*a, **kw), WIDE_TRACED[name], calls=20)
+        if name == "hnsw_greedy_wide":
+            # steps a query, and the device time a step of the longest chain
+            steps = got[2][:, 0].double()
+            row.update(steps_a_query=float(steps.mean()), longest_chain=int(steps.max()))
+            row["step_ms"] = row["device_ms"] / max(row["longest_chain"], 1)
         out[name] = row
         log(f"wide {name}: {json.dumps(row)}")
     return out
@@ -3542,7 +3645,8 @@ def kernel_rows(launches):
     # where measured: ten calls back to back (the host's launch path hidden),
     # K3's yardstick, the bf16 product of its operands alone, a trace's
     # device time, and K9's longest chain of steps and device time a step
-    extra = ("loop_ms", "gemm_ms", "device_ms", "longest_chain", "step_ms", "bound_fp32_ms")
+    extra = ("loop_ms", "gemm_ms", "device_ms", "longest_chain", "steps_a_query", "step_ms",
+             "bound_fp32_ms")
     return [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(counts.get(name, 0) for counts in launches.values()),

@@ -12,6 +12,11 @@ each time is `ms` (one call between CUDA events, the host's launch path
 included), `loop_ms` (ten calls back to back, a tenth of the time) and
 `device_ms` (a trace's device time of the kernel, a call). Every output of
 B must equal A's bit for bit; K2's must equal the plain version's too.
+Where a kernel's sum order changed on one side (K6 wide's rerank, K9
+wide's sums: `ORDER_CHANGED`), an output that differs from A's must agree
+with the plain version as chip_smoke's wide_check holds it (distances
+within DOT_RTOL, ids apart only inside that band, at most 1 % of them), and
+K6 wide's beam work (expansions, scored neighbours) must equal A's.
 
 1. K2 past SEL_MAX at [64, 5000] k = 3000 (chip_smoke width_check's, the L2
    epilogue), [1, 76,800] k = 4,800 and 2,400 (the wide probes' distances),
@@ -28,9 +33,17 @@ B must equal A's bit for bit; K2's must equal the plain version's too.
    call captured from the index's own search (chip_smoke._WideCalls);
    then K8-SQ wide over the SQ16 store made from the yardstick call's rows
    (its seeds), and over the SQ8 store at B = 8 with an ef whose state
-   lies in the global scratch (`SQ_GLOBAL_EF`); and the 768-d SQ8 index's
-   search of 256 queries in batches of 32 (chip_smoke _emb_768's), its
-   wall seconds with A and B in turns;
+   lies in the global scratch (`SQ_GLOBAL_EF`); K9 wide on chip_smoke's
+   rows past DIM_MAX (emb_pool 4,096 x 4,608, cosine, waves from empty):
+   the waves' first call (B = 1), the largest wave's descent and the
+   search's descent (B = 256, descent_ef 1), each with the steps a query
+   took and the device µs a step of its longest chain; and the 768-d SQ8
+   index's search of 256 queries in batches of 32 (chip_smoke _emb_768's),
+   its wall seconds with A and B in turns. A library built with K6 wide's
+   phase clocks (an `hnsw_beam_wide_clocks` entry point: cycles of thread
+   0 a block in the selection and claims, the scoring, the merges, the
+   rerank's distances, its sort and output) reports them for one call of
+   the K6 case;
 3. unless `--no-sql`: the emb path's deep SQL statements (chip_smoke
    _emb_sql's table and statement text, N_SQL a store) with A and B in
    turns: p50 / p99 ms of HNSW graph LIMIT 200, IVF LIMIT 600 and IVF WITH
@@ -59,8 +72,9 @@ three minutes), `--probe-select-only` part 4 (about three minutes); given
 together, the parts they name. It prints one JSON object and writes it to
 chiprun_out/exp_torch_wide_kernels.json; ptxas reports land in
 chiprun_out/ptxas_A.txt / ptxas_B.txt. Exits 1 unless every output of B
-equals A's (K7's cluster form is bit for bit A's K7 wide, at every CTA
-count forced too) and K2's the plain version's.
+equals A's or (`ORDER_CHANGED`) holds to the plain version (K7's cluster
+form is bit for bit A's K7 wide, at every CTA count forced too) and K2's
+equals the plain version's.
 """
 
 import json
@@ -86,6 +100,10 @@ N_SQL = 16          # deep statements a store and turn
 TURNS = ("A", "B", "B", "A")
 FORCE_CTAS = (1, 2, 4)   # K7 wide's CTAs a target, forced beside the routed ones
 SQ_GLOBAL_EF = 5_600     # K8-SQ wide with its state in the global scratch (B = 8)
+N_K9_SEARCH = 256        # queries of the 4,608-d search's descent
+# the wide kernels whose sums may come in another order on the two sides
+ORDER_CHANGED = ("hnsw_serve_beam_wide", "hnsw_greedy_wide")
+K6_PHASES = ("select_claims", "score", "merge", "rerank_dist", "sort_out")
 
 
 def _old_tail_scratch(rows, m, replicated, mode, device):
@@ -99,11 +117,16 @@ class Libraries:
         self.b = build.library()
         self.other_build = build_module(other)
         self.a = self.other_build.library()
+        # K9's levels go by value as this checkout's structure (the same layout)
+        for name in ("hnsw_greedy", "hnsw_greedy_wide"):
+            fn = getattr(self.a, name)
+            fn.argtypes = [build.GreedyLevels, *fn.argtypes[1:]]
         self.ctas = kernels.topk_wide_ctas
         self.sel_ctas = kernels.select_wide_ctas
         self.tail_scratch = kernels._tail_scratch
         self.rerank_table = kernels._rerank_table
         self.sq_bytes = kernels._beam_sq_wide_bytes
+        self.serve_bytes = kernels._serve_wide_bytes
 
     def use(self, name):
         a = name == "A"
@@ -128,6 +151,12 @@ class Libraries:
         kernels._beam_sq_wide_bytes = (
             (lambda deg, ef, it, ex, kr, d, bits:
              self.a.hnsw_beam_wide_bytes(deg, ef, it, ex, kr, 0)) if old_sq else self.sq_bytes)
+        # an older K6 wide stages nothing: its state lies in shared memory by
+        # the beams' common rule
+        old_serve = a and not hasattr(self.a, "hnsw_serve_beam_wide_bytes")
+        kernels._serve_wide_bytes = (
+            (lambda deg, ef, it, ex, r, d: self.a.hnsw_beam_wide_bytes(deg, ef, it, ex, 0, r))
+            if old_serve else self.serve_bytes)
 
 
 def _times(fn, kernel, calls=20):
@@ -239,25 +268,78 @@ def beam_calls(dev):
     calls[f"K8-SQ wide SQ8 768-d global state (B=8, ef {SQ_GLOBAL_EF})"] = (
         "hnsw_graph_beam_sq_wide", fn, (*a[:3], *(t[:8] for t in a[3:7]), *a[7:]), glob)
     setup["search_768"] = (i7, q7)
+    del i7
+    calls.update(k9_calls(dev, setup))
     return calls, setup
+
+
+class _GreedyCalls:
+    """Every K9 call past DIM_MAX that the model module makes, in order,
+    kept (wrapper, arguments)."""
+
+    def __enter__(self):
+        from turdb_tpu_torch.models import hnsw as mh
+
+        self.mod, self.saved, self.calls = mh, mh.hnsw_greedy, []
+
+        def wrapped(*a, **kw):
+            if a[3].shape[1] > kernels.DIM_MAX:
+                self.calls.append((self.saved, a, kw))
+            return self.saved(*a, **kw)
+        mh.hnsw_greedy = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.hnsw_greedy = self.saved
+
+
+def k9_calls(dev, setup):
+    """K9 wide's calls on chip_smoke's rows past DIM_MAX: the waves' first
+    call, the largest wave's descent, the search's descent at B = 256."""
+    from turdb_tpu_torch.models.hnsw import HnswIndex
+    from turdb_tpu_torch.ops.distance import Metric
+    from turdb_tpu_torch.utils.datasets import emb_pool
+
+    x, q = emb_pool(np.random.default_rng(2), cs.N_WIDE_ROWS, n_queries=N_K9_SEARCH,
+                    dim=cs.WIDE_ROWS_DIM)
+    idx = HnswIndex(dim=cs.WIDE_ROWS_DIM, metric=Metric.COSINE, capacity=len(x), device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with _GreedyCalls() as waves:
+        idx.add(x)
+    torch.cuda.synchronize()
+    setup["wide_rows_wave_s"] = time.perf_counter() - t
+    with _GreedyCalls() as search:
+        idx.search(q, cs.K, ef=cs.HNSW_GRAPH_EF)
+    cs.check(len(waves.calls) > 1 and len(search.calls) == 1,
+             f"K9 wide calls: {len(waves.calls)} in the waves, {len(search.calls)} in the search")
+    first = waves.calls[0]
+    largest = max(waves.calls, key=lambda c: c[1][3].shape[0])
+    out = {}
+    for case, (fn, a, kw) in ((f"K9 wide first wave call (B={first[1][3].shape[0]})", first),
+                              (f"K9 wide largest wave (B={largest[1][3].shape[0]})", largest),
+                              (f"K9 wide search descent (B={N_K9_SEARCH})", search.calls[0])):
+        out[case] = ("hnsw_greedy_wide", fn, a, kw)
+    return out
 
 
 def _in_shared_memory(kernel, a, kw):
     """Whether this checkout's library runs the call with its state in
-    shared memory (its scratch query gives 0 bytes; K8-SQ's counts the
-    query row and the staged rows too)."""
+    shared memory (its scratch query gives 0 bytes; K8-SQ's and K6's count
+    their stages too)."""
     ef, iters, expand = kw["ef"], kw["iters"], kw.get("expand", 4)
     deg = a[0].shape[1]
     if kernel == "hnsw_serve_beam_wide":
-        k_res, rerank = 0, min(kw.get("rerank") or ef, ef)
-    else:
-        allowed = a[7] if len(a) > 7 else kw.get("allowed")
-        k_res, rerank = ((kw.get("k_res") or ef) if allowed is not None else 0), 0
+        d = a[0].shape[2]
+        return kernels._serve_wide_bytes(deg, ef, iters, expand, min(kw.get("rerank") or ef, ef),
+                                         d + (-d % 4)) == 0
+    allowed = a[7] if len(a) > 7 else kw.get("allowed")
+    k_res = (kw.get("k_res") or ef) if allowed is not None else 0
     if kernel == "hnsw_graph_beam_sq_wide":
         d = a[3].shape[1]
         return kernels._beam_sq_wide_bytes(deg, ef, iters, expand, k_res, d + (-d % 4),
                                            a[1].bits) == 0
-    return build.library().hnsw_beam_wide_bytes(deg, ef, iters, expand, k_res, rerank) == 0
+    return build.library().hnsw_beam_wide_bytes(deg, ef, iters, expand, k_res, 0) == 0
 
 
 def search_768_run(libs, i7, q7):
@@ -282,8 +364,53 @@ def search_768_run(libs, i7, q7):
     return out
 
 
+def _k6_clocks(call):
+    """K6 wide's phase cycles (thread 0 of each block, summed) in one call,
+    where the library in use was built with them; else None."""
+    import ctypes
+
+    lib = build.library()
+    if not hasattr(lib, "hnsw_beam_wide_clocks"):
+        return None
+    buf = (ctypes.c_ulonglong * 8)()
+    torch.cuda.synchronize()
+    lib.hnsw_beam_wide_clocks(buf)
+    call()
+    torch.cuda.synchronize()
+    lib.hnsw_beam_wide_clocks(buf)
+    total = sum(buf[:5])
+    return {"cycles": dict(zip(K6_PHASES, buf[:5])), "steps": buf[5], "queries": buf[6],
+            "seeds": buf[7], "share": {k: v / total for k, v in zip(K6_PHASES, buf[:5])}}
+
+
+def _greedy_steps(times, stats):
+    """Steps a query and device µs a step of the longest chain."""
+    steps = stats[:, 0].double()
+    longest = int(steps.max())
+    return {"steps_a_query": float(steps.mean()), "longest_chain": longest,
+            "us_a_step": 1000.0 * times["device_ms"] / max(longest, 1)}
+
+
+def _near_plain(kernel, fn, a, kw, got):
+    """The wide call against its plain version as wide_check holds it."""
+    with cs._PlainVersions():
+        want = fn(*a, **kw)
+    torch.cuda.synchronize()
+    row = {}
+    try:
+        if kernel == "hnsw_serve_beam_wide":
+            cs.check(torch.equal(got[2], want[2]), f"{kernel}: the beam's work differs")
+        err, id_diff = cs._near_equal(*cs._wide_outputs(kernel, got),
+                                      *cs._wide_outputs(kernel, want), cs.DOT_RTOL, kernel)
+        cs.check(id_diff <= 0.01, f"{kernel}: {id_diff} of the ids differ")
+        row.update(ok=True, max_abs_err=err, id_diff=id_diff)
+    except cs.SmokeFailure as e:
+        row.update(ok=False, error=str(e))
+    return row
+
+
 def beam_run(libs, calls):
-    runs, outs = {}, {}
+    runs, outs, clocks = {}, {}, {}
     for name in TURNS:
         libs.use(name)
         for case, (kernel, fn, a, kw) in calls.items():
@@ -291,18 +418,38 @@ def beam_run(libs, calls):
             got = call()
             outs.setdefault(case, {})[name] = [t.clone() if isinstance(t, torch.Tensor) else t
                                                for t in got]
-            trace = "serve_beam_wide" if kernel == "hnsw_serve_beam_wide" else "graph_beam_wide"
-            runs.setdefault(case, {}).setdefault(name, []).append(_times(call, trace, calls=5))
+            times = _times(call, cs.WIDE_TRACED.get(kernel, "graph_beam_wide"), calls=5)
+            if kernel == "hnsw_greedy_wide":
+                times.update(_greedy_steps(times, got[2]))
+            runs.setdefault(case, {}).setdefault(name, []).append(times)
+            ck = _k6_clocks(call) if kernel == "hnsw_serve_beam_wide" else None
+            if ck is not None:
+                clocks.setdefault(case, {}).setdefault(name, []).append(ck)
     libs.use("B")
     out = {}
     for case, (kernel, fn, a, kw) in calls.items():
         got = fn(*a, **kw)
-        out[case] = {"A": runs[case]["A"], "B": runs[case]["B"],
-                     "equal_A_B": _equal(outs[case]["A"], outs[case]["B"]),
-                     "state_in_shared_memory": _in_shared_memory(kernel, a, kw),
+        same = _equal(outs[case]["A"], outs[case]["B"])
+        out[case] = {"A": runs[case]["A"], "B": runs[case]["B"], "equal_A_B": same,
                      **cs._wide_bound(kernel, fn, a, kw, got)}
+        if kernel != "hnsw_greedy_wide":
+            out[case]["state_in_shared_memory"] = _in_shared_memory(kernel, a, kw)
+        if case in clocks:
+            out[case]["phase_clocks"] = clocks[case]
+        if kernel == "hnsw_serve_beam_wide":
+            out[case]["work_equal_A_B"] = torch.equal(outs[case]["A"][2], outs[case]["B"][2])
+        if kernel in ORDER_CHANGED and not same:
+            out[case]["plain"] = _near_plain(kernel, fn, a, kw, got)
         cs.log(f"{case}: {json.dumps(out[case])}")
     return out
+
+
+def _beam_ok(row):
+    """B's output equals A's, or (a changed sum order) holds to the plain
+    version with K6's beam work equal to A's."""
+    if row["equal_A_B"]:
+        return True
+    return row.get("plain", {}).get("ok", False) and row.get("work_equal_A_B", True)
 
 
 def sql_run(libs, dev):
@@ -579,7 +726,7 @@ def main() -> int:
         (cs.OUT / "exp_torch_wide_kernels.json").write_text(json.dumps(out, indent=1))
     part4 = out["probe_select"]
     ok = (all(v["equal_A_B"] and v["equal_plain"] for v in out["k2"].values())
-          and all(v["equal_A_B"] for v in out["beams"].values())
+          and all(_beam_ok(v) for v in out["beams"].values())
           and out.get("search_768", {}).get("same_ids_A_B", True)
           and all(v["equal_A_B"] for v in part4.get("probes", {}).values())
           and all(v["equal_A_B"] and all(f.get("equal_routed", True)

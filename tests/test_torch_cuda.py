@@ -1790,11 +1790,10 @@ def test_serve_beam_wide_form_matches_plain(cuda):
     seed_d = torch.arange(16, device=cuda, dtype=torch.float32).expand(32, 16).contiguous()
     allowed = torch.rand(6000, device=cuda, generator=g) < 0.6
     atol = 1e-5 * float(qn.max() + norms.max())
-    lib = kernels.build.library()
     # the widest ef whose state (with the rerank of all ef) fits shared
-    # memory, and the next, in the global scratch
+    # memory beside the stage, and the next, in the global scratch
     ef_lo = next(ef for ef in range(2500, 8000, 4)
-                 if lib.hnsw_beam_wide_bytes(32, ef + 4, (ef + 4) * 3 // 2, 4, 0, ef + 4) > 0)
+                 if kernels.serve_wide_stage(32, ef + 4, (ef + 4) * 3 // 2, 4, ef + 4, 64)[0])
     # and 96 seeds in falling distance order, whose ranks cross warps
     many = torch.rand(32, 6000, device=cuda, generator=g).topk(96).indices.to(torch.int32)
     many_d = torch.arange(95, -1, -1, device=cuda, dtype=torch.float32).expand(32, 96).contiguous()
@@ -1814,10 +1813,85 @@ def test_serve_beam_wide_form_matches_plain(cuda):
         assert (ik == ip).float().mean() >= 0.999
 
 
+@pytest.mark.parametrize("route, d, ef", [("nodes", 2048, 1100), ("global", 384, 3500),
+                                         ("rows", 8192, 1100), ("words", 36, 1500)])
+def test_serve_beam_wide_stage_routes_match_plain(cuda, route, d, ef):
+    """K6 wide's stage where a step's blocks do not all fit: two of its four
+    nodes a batch (2,048-d), the state in the global scratch beside a whole
+    step's stage (ef 3,500), and rows of one node a batch with the state in
+    the global scratch (8,192-d, a node's block past shared memory); and
+    rows of 36 bytes, copied by 4-byte cp.async and scored a 4-byte word a
+    lane: one counted launch, the plain version's beam work, distances
+    within DOT_RTOL, ids equal but at near ties."""
+    from turdb_tpu_torch.models.hnsw_serve import pack_serving
+    from turdb_tpu_torch.ops.distance import Metric
+    from turdb_tpu_torch.ops.quantize import quantize_queries
+
+    g = torch.Generator(device=cuda).manual_seed(36)
+    n = 1500 if d > 1024 else 6000
+    x, norms, adj = _graph(g, n, d, 32, cuda)
+    glob, rows = kernels.serve_wide_stage(32, ef, ef * 3 // 2, 4, ef, d)
+    assert (glob, rows) == {"nodes": (False, 64), "global": (True, 128),
+                            "rows": (True, 27), "words": (False, 128)}[route]
+    pack = pack_serving(x, norms, adj, n, Metric.L2)
+    q = (x[:4] + 0.5 * torch.randn(4, d, device=cuda, generator=g)).contiguous()
+    qn = (q * q).sum(1)
+    qc, qs, qsum = quantize_queries(q)
+    seeds = torch.rand(4, n, device=cuda, generator=g).topk(16).indices.to(torch.int32)
+    seed_d = torch.arange(16, device=cuda, dtype=torch.float32).expand(4, 16).contiguous()
+    args = (pack.nbr_codes, pack.nbr_meta, x, norms, q, qn, qc, qs, qsum, seeds, seed_d, None)
+    opts = dict(ef=ef, iters=ef * 3 // 2, expand=4, rerank=0, k=200, metric=0)
+    before = kernels.launches["hnsw_serve_beam_wide"]
+    dk, ik, sk = kernels.hnsw_serve_beam(*args, **opts)
+    assert kernels.launches["hnsw_serve_beam_wide"] == before + 1
+    dp, ip, sp = kernels.hnsw_serve_beam_plain(*args, **opts)
+    assert torch.equal(sk, sp)
+    _assert_near(dk, ik, dp, ip, 1e-5 * float(qn.max() + norms.max()), 0.99)
+
+
+@pytest.mark.parametrize("b", [1, 256, 513])
+def test_greedy_wide_batches_and_levels_match_plain(cuda, b):
+    """K9 wide at 4,608-d, a block a query: B = 1, 256 and 513 queries over
+    the f32 rows and the SQ8 / SQ16 store, three levels in one launch, each
+    query down to its own lowest level (some walk none): one counted launch,
+    the plain chain's ends (distances within DOT_RTOL of their scale, ids
+    apart only at near ties) and its work where the ends agree."""
+    g = torch.Generator(device=cuda).manual_seed(37 + b)
+    n, d = 3000, 4608
+    centers = torch.randn(24, d, device=cuda, generator=g)
+    x = (centers[torch.randint(0, 24, (n,), device=cuda, generator=g)]
+         + 0.6 * torch.randn(n, d, device=cuda, generator=g)).contiguous()
+    norms = (x * x).sum(1)
+    adjs = [torch.randint(0, n, (n, 16), device=cuda, generator=g, dtype=torch.int32)
+            for _ in range(3)]
+    for a in adjs:
+        a[torch.rand(n, 16, device=cuda, generator=g) < 0.05] = -1
+    q = (x[torch.randint(0, n, (b,), device=cuda, generator=g)]
+         + 0.6 * torch.randn(b, d, device=cuda, generator=g)).contiguous()
+    qn = (q * q).sum(1)
+    cur = torch.randint(0, n, (b,), device=cuda, generator=g, dtype=torch.int32)
+    lowest = torch.randint(0, 4, (b,), device=cuda, generator=g, dtype=torch.int32)
+    lowest[0] = 0
+    for name, rows in _sq_stores(x):
+        cd = kernels._gathered_epilogue((q * rows[cur.long()]).sum(1), 0, qn,
+                                        norms[cur.long()]).contiguous()
+        args = (adjs, rows, norms, q, qn, cur, cd)
+        before = kernels.launches["hnsw_greedy_wide"]
+        ki, kd, ks = kernels.hnsw_greedy(*args, metric=0, lowest=lowest)
+        assert kernels.launches["hnsw_greedy_wide"] == before + 1
+        pi, pd, ps = kernels.hnsw_greedy_plain(*args, metric=0, lowest=lowest)
+        _assert_near(kd[:, None], ki[:, None], pd[:, None], pi[:, None],
+                     1e-5 * float(pd.abs().max()), 0.99)
+        same = ki == pi
+        assert torch.equal(ks[same], ps[same]), name
+        assert int(ps[:, 0].max()) > 1, name
+
+
 def test_greedy_wide_form_matches_plain(cuda):
     """K9 on rows past DIM_MAX (d = 4,100) over the f32 rows and the SQ8 /
     SQ16 store, three levels in one launch: one counted launch a call, each
-    neighbour's sum in the fast form's order, so the plain version's ends
+    neighbour's sum in warp_dot's order (4-byte code words where an SQ8 row
+    of 4,100 codes is no whole 16-byte words), so the plain version's ends
     (distances within 1e-5 of their scale, ids equal on 99 %)."""
     g = torch.Generator(device=cuda).manual_seed(35)
     n, d = 3000, 4100

@@ -1221,11 +1221,11 @@ def hnsw_greedy(adj, vectors, norms, q, qn, cur_i, cur_d, *, metric: int, lowest
     level, each level from where the last one ended, so the result is the
     chain of one-level walks. Returns (cur_i [B] int32, cur_d [B] f32,
     stats [B, 2] int32: the lists each query read and the neighbours it
-    scored, over its levels). On CUDA d > DIM_MAX runs the wide form (each
-    neighbour scored by a lane from device memory, the same sums; counted
-    as `hnsw_greedy_wide`); more levels than GREEDY_LEVELS_MAX raise
-    everywhere (a caller walks them in launches of at most that many, top
-    first: the walk is a chain)."""
+    scored, over its levels). On CUDA d > DIM_MAX runs the wide form (a
+    block a query, each neighbour row read by a warp on 16-byte words,
+    warp_dot's sum order; counted as `hnsw_greedy_wide`); more levels than
+    GREEDY_LEVELS_MAX raise everywhere (a caller walks them in launches of
+    at most that many, top first: the walk is a chain)."""
     adjs = _greedy_adjs(adj)
     b = cur_i.shape[0]
     cap, deg = adjs[0].shape
@@ -1323,7 +1323,9 @@ def hnsw_serve_beam(nbr_codes, nbr_meta, vectors, norms, q, qn, qc, qs, qsum, se
     +inf outside `allowed` [cap], and the k smallest are returned:
     ([B, k] f32 ascending, [B, k] int32 ids, -1 where +inf, and the
     [B, 2] int32 stats of `BeamResult`). On CUDA widths past `beam_fast`
-    run the wide form, counted as `hnsw_serve_beam_wide`."""
+    run the wide form, counted as `hnsw_serve_beam_wide` (the expanded
+    nodes' blocks staged in shared memory, `serve_wide_stage`; the rerank's
+    dots a warp a row)."""
     b, s = seed_i.shape
     cap, deg, d = nbr_codes.shape
     _beam_checks("hnsw_serve_beam", b, s, ef, iters, expand, deg, d, seed_i, seed_d)
@@ -1364,10 +1366,27 @@ def hnsw_serve_beam(nbr_codes, nbr_meta, vectors, norms, q, qn, qc, qs, qsum, se
     if b and fast:
         _launch("hnsw_serve_beam", nbr_codes.device, *args)
     elif b:
-        scratch, grid = _wide_scratch(
-            build.library().hnsw_beam_wide_bytes(deg, ef, iters, expand, 0, r), b, q.device)
+        scratch, grid = _wide_scratch(_serve_wide_bytes(deg, ef, iters, expand, r, d), b,
+                                      q.device)
         _launch("hnsw_serve_beam_wide", nbr_codes.device, *args, scratch.data_ptr(), grid)
     return out_d, out_i, stats
+
+
+def _serve_wide_bytes(deg, ef, iters, expand, rerank, d):
+    """K6 wide's global scratch a block: 0 where its state lies in shared
+    memory beside its stage (csrc/graph_wide.cu `serve_stage` holds the
+    rule; d a multiple of 4)."""
+    return int(build.library().hnsw_serve_beam_wide_bytes(deg, ef, iters, expand, rerank, d))
+
+
+def serve_wide_stage(deg, ef, iters, expand, rerank, d):
+    """K6 wide's stage at these widths on the current CUDA device: (state
+    in the global scratch, code rows a batch: a step's expand·deg slots,
+    whole nodes, or rows of one node). `rerank` is the rerank's width, d a
+    multiple of 4. A query of the library, not a launch."""
+    lib = build.library()
+    return (_serve_wide_bytes(deg, ef, iters, expand, rerank, d) > 0,
+            int(lib.hnsw_serve_beam_wide_rows(deg, ef, iters, expand, rerank, d)))
 
 
 def serve_beam_stage(b, s, d, deg, *, ef, iters, expand, rerank, device=None):

@@ -164,9 +164,11 @@ SIGNATURES = {
 # shared memory), K2's and K7's wide forms' CTAs a row or target (n, k; W,
 # d, presorted; 0: the global form) and the wide tail's table words a row
 # (m, replicated, mode; 0: in shared memory), K5 wide's global claim table
-# words a query (r, replicated; 0: each CTA's shared memory) and K8-SQ
+# words a query (r, replicated; 0: each CTA's shared memory), K8-SQ
 # wide's state bytes a block (deg, ef, iters, expand, k_res, d, bits; 0:
-# shared memory beside its query row and staged rows)
+# shared memory beside its query row and staged rows), and K6 wide's state
+# bytes a block and code rows a batch of its stage (deg, ef, iters, expand,
+# rerank, d; bytes 0: shared memory beside the stage)
 SIZES = {
     "hnsw_select_wide_bytes": [_I],
     "hnsw_beam_wide_bytes": [_I, _I, _I, _I, _I, _I],
@@ -175,6 +177,8 @@ SIZES = {
     "ivf_probe_tail_wide_words": [_I, _I, _I],
     "ivf_rerank_dist_table_words": [_I, _I],
     "hnsw_beam_sq_wide_bytes": [_I, _I, _I, _I, _I, _I, _I],
+    "hnsw_serve_beam_wide_bytes": [_I, _I, _I, _I, _I, _I],
+    "hnsw_serve_beam_wide_rows": [_I, _I, _I, _I, _I, _I],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,6 +1,7 @@
 // Asynchronous copies from device memory into shared memory, shared by the
 // kernels that stage rows: K5 ivf_rerank (ivf_rerank.cu), K6 / K8-SQ
-// (hnsw_beam.cu) and K9 (hnsw_greedy.cu, through graph_scorer.cuh).
+// (hnsw_beam.cu), K9 (hnsw_greedy.cu, through graph_scorer.cuh), and the
+// wide forms of K6 / K8-SQ (graph_wide.cu) and K7 (hnsw_select_wide.cu).
 //
 // - `stage_copy16` / `stage_copy8` / `stage_copy4`: one thread's `cp.async`
 //   of 16, 8 or 4 bytes (global address and shared destination aligned to

@@ -1,5 +1,6 @@
 // The sums of several rows' partial dots across a warp, shared by K1's
-// fast form (ivf_probe.cu) and K1's wide distance pass (probe_wide.cu):
+// fast form (ivf_probe.cu), K1's and K5's wide distance passes
+// (probe_wide.cu), and K6 wide's rerank and K9 wide (graph_wide.cu):
 // a lane holds a partial sum of every row, and a transposing butterfly
 // leaves each lane one row's sum, bit for bit the plain butterfly's.
 #pragma once
