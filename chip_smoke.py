@@ -102,10 +102,22 @@
      each store against the plain versions on the card's tensors; 768-d
      rows (65,536 bulk-built, K7 wide at level 0; a 1,024-row wave, K7's
      presorted mode wide; the SQ8 store at ef 1,600, K8-SQ wide) and 4,096
-     rows of 4,608 dims through the waves (K9 wide);
+     rows of 4,608 dims through the waves (K9 wide); the deep LIMITs run
+     16 statements a store, LIMIT 10 64;
+   - emb_3072 (OpenAI text-embedding-3-large's width): 65,536 `emb_pool`
+     rows of 3,072 dims as docs(id, emb VECTOR(3072)), USING IVF WITH
+     (sq8 = true, rerank = 2400); 32 held-out statements at LIMIT 50 and
+     16 at LIMIT 600 (K4's query-major wide pass: a 3,072-d cell passes a
+     cell-major block), recall@LIMIT against the cosine oracle (gated at
+     0.95 at LIMIT 600), two of each against the plain versions;
+   - graft: turdb_tpu_torch/graft_entry.py's `entry()` search step
+     against the plain versions, `dryrun_multichip(4)` over four copies of
+     the card (recall floor 0.8), a `profile_trace` of the search step
+     that must hold device spans;
 5. checks that each path launched each of its kernels; then, outside the
-   counted runs, replays each wide form's first call on the emb path
-   against the plain versions on the same CUDA tensors (`wide_check`),
+   counted runs, replays each wide form's first call on the emb and
+   emb_3072 paths against the plain versions on the same CUDA tensors
+   (`wide_check`),
    traces the searches (device time per kernel, idle share),
    and holds K6, K7 and K8 against their plain versions on the built HNSW
    index at the path's shapes, and K9 (a wave of 512 at every level, a
@@ -2955,7 +2967,8 @@ EMB_DIM = 384                 # emb_pool's width (all-MiniLM-L6-v2's)
 EMB_PROBES = (4, 6, 8, 12, 16, 24, 32, 64)   # bench.py:817
 EMB_RERANK = 200              # bench.py:818
 N_EMB_WAVE = 4_096            # rows of the wave add into the 384-d bulk graph
-N_EMB_SQL = 64                # statements a store and LIMIT
+N_EMB_SQL = 64                # statements a store at LIMIT 10
+N_EMB_SQL_DEEP = 16           # statements a store at the deep LIMITs
 EMB_DEEP_HNSW, EMB_DEEP_IVF = 200, 600   # fetch 800 at ef 1600; fetch 2400
 N_EMB_PLAIN = 2               # deep statements a store held against the plain versions
 N_768, N_768_WAVE = 65_536, 1_024        # BERT-base / mpnet width: bulk graph, wave add
@@ -3113,6 +3126,34 @@ def _emb_hnsw(dev, xe, qe, truth):
     return out
 
 
+def _deep_run(out, name, db, lits, truth, limit, gate=False):
+    """One statement a literal at LIMIT `limit`: every answer holds LIMIT
+    rows; p50 / p99 ms and recall@LIMIT against `truth` go to out[name],
+    the recall gated at RECALL_GATE where `gate`. Returns the rows."""
+    rows, ms = _sql_timed(db, [_sql_ann(s, limit) for s in lits])
+    check(all(len(r) == limit for r in rows), f"emb sql {name}: short answers")
+    rec = float(np.mean([len({r[0] for r in rr} & set(t[:limit].tolist())) / limit
+                         for rr, t in zip(rows, truth)]))
+    out[name] = {"limit": limit, f"recall@{limit}": rec, **_pcts(ms)}
+    log(f"emb sql {name}: {json.dumps(out[name])}")
+    if gate:
+        check(rec >= RECALL_GATE, f"emb sql {name}: recall@{limit} {rec} < {RECALL_GATE}")
+    return rows
+
+
+def _deep_against_plain(out, name, db, rows, lits, x, limit):
+    """The first N_EMB_PLAIN statements again through the plain versions
+    on the card's tensors: the same ids up to exact-tie order (x: the
+    table's rows by id)."""
+    for i in range(N_EMB_PLAIN):
+        with _PlainVersions():
+            want = db.query(_sql_ann(lits[i], limit))
+        _same_ranking([r[0] for r in rows[i]], [r[0] for r in want],
+                      lambda ids: x[np.asarray(ids)], lits[i],
+                      f"emb sql {name} statement {i} against the plain versions")
+    out[name]["plain_equal"] = N_EMB_PLAIN
+
+
 def _emb_sql(dev, xe, qe):
     """The emb rows as docs(id BIGINT PRIMARY KEY, emb VECTOR(384)): USING
     HNSW at LIMIT 10 and 200 on the graph path and, after PRAGMA ann_pack,
@@ -3131,29 +3172,14 @@ def _emb_sql(dev, xe, qe):
     lits = [_sql_vec(v) for v in qv]
     truth = _cos_oracle(dev, xe, qv, EMB_DEEP_IVF)
 
-    def vec_of(ids):
-        return xe[np.asarray(ids)]
-
     out = {}
 
     def run(name, db, limit, gate=False):
-        rows, ms = _sql_timed(db, [_sql_ann(s, limit) for s in lits])
-        check(all(len(r) == limit for r in rows), f"emb sql {name}: short answers")
-        rec = float(np.mean([len({r[0] for r in rr} & set(t[:limit].tolist())) / limit
-                             for rr, t in zip(rows, truth)]))
-        out[name] = {"limit": limit, f"recall@{limit}": rec, **_pcts(ms)}
-        log(f"emb sql {name}: {json.dumps(out[name])}")
-        if gate:
-            check(rec >= RECALL_GATE, f"emb sql {name}: recall@{limit} {rec} < {RECALL_GATE}")
-        return rows
+        n = N_EMB_SQL if limit == K else N_EMB_SQL_DEEP
+        return _deep_run(out, name, db, lits[:n], truth[:n], limit, gate)
 
     def against_plain(name, db, rows, limit):
-        for i in range(N_EMB_PLAIN):
-            with _PlainVersions():
-                want = db.query(_sql_ann(lits[i], limit))
-            _same_ranking([r[0] for r in rows[i]], [r[0] for r in want], vec_of, lits[i],
-                          f"emb sql {name} statement {i} against the plain versions")
-        out[name]["plain_equal"] = N_EMB_PLAIN
+        _deep_against_plain(out, name, db, rows, lits, xe, limit)
 
     tmp = tempfile.mkdtemp(prefix="turdb_emb_sql_")
     try:
@@ -3291,6 +3317,116 @@ def emb_phase(dev):
     return out, wide.calls
 
 
+N_3072, DIM_3072 = 65_536, 3_072   # OpenAI text-embedding-3-large's width; 1M rows cut
+EMB_3072_LIMITS = (50, 600)        # nprobe 50 and 600 at rerank 2,400
+# held-out statements a LIMIT: a LIMIT 600 statement is 2.5-3.4 s of host
+# work at 3,072-d, so it runs 16 to keep the script in its time
+N_3072_SQL = (32, 16)
+EMB_3072_RERANK = 2_400
+
+
+def emb_3072_store(dev, path, n_queries=max(N_3072_SQL)):
+    """N_3072 `emb_pool` rows of DIM_3072 (unit, cosine-ready) as docs(id
+    BIGINT PRIMARY KEY, emb VECTOR(3072)), bulk-loaded, with `CREATE INDEX iv ...
+    USING IVF (emb) WITH (sq8 = true, rerank = 2400)`. At 3,072 dims one
+    cell of 128 lanes passes a block's shared memory, so every probe of
+    this store runs K4's query-major order, and a statement's r = 2,400
+    puts it past SEL_MAX: the query-major wide pass. Returns (db, rows,
+    queries, {"load_s", "create_s"})."""
+    from turdb_tpu_torch import Database
+    from turdb_tpu_torch.utils.datasets import emb_pool
+
+    x, q = emb_pool(np.random.default_rng(3), N_3072, n_queries=n_queries, dim=DIM_3072)
+    t = time.perf_counter()
+    db = Database.create(path, device=dev)
+    db.execute(f"CREATE TABLE docs (id BIGINT PRIMARY KEY, emb VECTOR({DIM_3072}))")
+    db.bulk_insert("docs", {"id": np.arange(len(x)), "emb": x})
+    secs = {"load_s": time.perf_counter() - t}
+    t = time.perf_counter()
+    db.execute("CREATE INDEX iv ON docs USING IVF (emb) "
+               f"WITH (sq8 = true, rerank = {EMB_3072_RERANK})")
+    secs["create_s"] = time.perf_counter() - t
+    return db, x, q, secs
+
+
+def emb_3072_phase(dev):
+    """The 3,072-d SQL store (`emb_3072_store`): N_3072_SQL held-out
+    statements at LIMIT 50 and at LIMIT 600 (32 and 16; nprobe 50 and 600,
+    r = 2,400), p50 / p99 ms, LIMIT rows in every answer, recall@LIMIT against
+    the exact cosine oracle (gated at RECALL_GATE at LIMIT 600), and two
+    deep statements of each LIMIT against the plain versions on the
+    card's tensors. Returns the report and the first call of each wide
+    form (K4's query-major pass among them)."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="turdb_emb3072_")
+    try:
+        db, x, q, out = emb_3072_store(dev, f"{tmp}/db")
+        qv = _parsed(q)
+        lits = [_sql_vec(v) for v in qv]
+        truth = _cos_oracle(dev, x, qv, max(EMB_3072_LIMITS))
+        info = db.catalog["main"]["docs"].hnsw["iv"].index
+        out.update(C=info.cfg.n_clusters, L=info.cfg.cluster_cap)
+        with _WideCalls() as wide:
+            for limit, n in zip(EMB_3072_LIMITS, N_3072_SQL):
+                name = f"ivf_sq8_limit{limit}"
+                rows = _deep_run(out, name, db, lits[:n], truth[:n], limit,
+                                 gate=limit == max(EMB_3072_LIMITS))
+                _deep_against_plain(out, name, db, rows, lits, x, limit)
+        db.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check("ivf_probe_sq8_wide_query" in wide.calls,
+          "the 3,072-d statements never reached K4's query-major wide pass")
+    log(f"emb 3072: {json.dumps(out)}")
+    return out, wide.calls
+
+
+GRAFT_TRACE_TRIES = 3
+
+
+def graft_phase(dev):
+    """The port's graft entry points (turdb_tpu_torch/graft_entry.py) on the
+    card: `entry()`'s search step (finite distances of its shape; the
+    plain versions' answers on the same tensors within DOT_RTOL, ids apart
+    only at ties, on <= 1 %), `dryrun_multichip(4)` over four copies of
+    the card (the reference's recall floor of 0.8, checked inside), and
+    one `profile_trace` around the search step, whose trace must hold
+    device spans (a trace that kept none is taken again, as `_traced`
+    takes its traces)."""
+    from turdb_tpu_torch import graft_entry
+    from turdb_tpu_torch.utils.timing import NoDeviceSpans, profile_trace
+
+    fn, args = graft_entry.entry(dev)
+    d, i = fn(*args)
+    torch.cuda.synchronize()
+    check(tuple(d.shape) == (64, 10) and bool(torch.isfinite(d).all()),
+          f"graft entry: distances {tuple(d.shape)}, finite {bool(torch.isfinite(d).all())}")
+    with _PlainVersions():
+        want = fn(*args)
+    err, id_diff = _near_equal(d, i, *want, DOT_RTOL, "graft entry against the plain versions")
+    check(id_diff <= 0.01, f"graft entry: {id_diff} of the ids differ")
+    out = {"entry": {"max_abs_err": err, "id_diff": id_diff},
+           "dryrun": graft_entry.dryrun_multichip(4, dev)}
+    # the profiler now and then keeps no device span of a trace (as
+    # `_traced` meets it): such a trace raises and is taken again, up to
+    # GRAFT_TRACE_TRIES times
+    for tries in range(1, GRAFT_TRACE_TRIES + 1):
+        try:
+            with profile_trace(OUT / "graft_trace") as info:
+                fn(*args)
+            break
+        except NoDeviceSpans:
+            log("the graft trace kept no device span; tracing again")
+    else:
+        check(False, f"graft: {GRAFT_TRACE_TRIES} traces kept no device span")
+    out["trace"] = {**info, "tries": tries}
+    check(info["device_spans"] > 0, "graft: the trace holds no device span")
+    log(f"graft: {json.dumps(out)}")
+    return out
+
+
 def _wide_outputs(name, got):
     """(distances, ids) of a wide form's output, for `_near_equal`."""
     if name.startswith("hnsw_graph_beam"):
@@ -3311,7 +3447,7 @@ def _wide_bound(name, fn, a, kw, got):
         side = sum(t.numel() * t.element_size() for t in (kw.get("rown"), kw.get("coln"),
                                                           kw.get("colvalid")) if t is not None)
         return _bound(4 * b * n + side + 8 * b * k, 3 * b * n, FP32_OPS)
-    if name in ("ivf_probe_f32_wide", "ivf_probe_sq8_wide"):
+    if name.startswith("ivf_probe"):
         f32 = name == "ivf_probe_f32_wide"
         # the places of cells, members, alive, allowed and the store
         at = (2, 5, 6, 7, 3) if f32 else (4, 9, 10, 11, 5)
@@ -3384,7 +3520,7 @@ def _wide_library_ms(name, a, kw):
         vals = _row_values(x, kw.get("rown"), kw.get("coln"), kw.get("colvalid"),
                            kw.get("epilogue", EPI_NONE), kw.get("clamp", False))
         return _median_ms(lambda: torch.topk(vals, k, dim=1, largest=False, sorted=True))
-    if name in ("ivf_probe_f32_wide", "ivf_probe_sq8_wide"):
+    if name.startswith("ivf_probe"):
         cells = a[2] if name == "ivf_probe_f32_wide" else a[4]
         members = a[5] if name == "ivf_probe_f32_wide" else a[9]
         shape, k = (cells.shape[0], cells.shape[1] * members.shape[1]), kw["m"]
@@ -3505,7 +3641,7 @@ def wide_check(calls):
         # the plain versions (tens of seconds for a deep beam) are timed once
         row = {"launches_a_call": kernels.launches[name] - before,
                "plain_ms": start.elapsed_time(end)}
-        if name in ("ivf_probe_sq8_wide", "topk_rows_wide"):
+        if name in ("ivf_probe_sq8_wide", "ivf_probe_sq8_wide_query", "topk_rows_wide"):
             check(all(torch.equal(x, y) for x, y in zip(got, want)),
                   f"{name}: not bit-equal to the plain version")
             row["max_abs_err"], row["id_diff"] = 0.0, 0.0
@@ -3577,6 +3713,8 @@ KERNELS = {
                            "turdb_tpu/models/ivf.py:286"),
     "ivf_probe_sq8_wide": ("turdb_tpu_torch/kernels/csrc/probe_wide.cu",
                            "turdb_tpu/models/ivf.py:291"),
+    "ivf_probe_sq8_wide_query": ("turdb_tpu_torch/kernels/csrc/probe_wide.cu",
+                                 "turdb_tpu/models/ivf.py:291"),
     "ivf_rerank_wide": ("turdb_tpu_torch/kernels/csrc/probe_wide.cu",
                         "turdb_tpu/models/ivf.py:333"),
     "hnsw_serve_beam_wide": ("turdb_tpu_torch/kernels/csrc/graph_wide.cu",
@@ -3619,6 +3757,10 @@ PATH_KERNELS = {
             "topk_rows_wide", "ivf_probe_f32_wide", "ivf_probe_sq8_wide", "ivf_rerank_wide",
             "hnsw_serve_beam_wide", "hnsw_select_wide", "hnsw_graph_beam_wide",
             "hnsw_select_sorted_wide", "hnsw_graph_beam_sq_wide", "hnsw_greedy_wide"),
+    "emb_3072": ("topk_rows", "kmeans_assign", "topk_rows_wide", "ivf_probe_sq8_wide_query",
+                 "ivf_rerank_wide"),
+    "graft": ("hnsw_greedy", "hnsw_graph_beam", "topk_rows", "kmeans_assign", "ivf_probe_f32",
+              "hnsw_select", "hnsw_select_sorted"),
 }
 
 
@@ -3669,7 +3811,8 @@ def run_paths(dev, launches):
         result = fn()
         launches[name] = dict(kernels.launches)
         REPORT.setdefault("path_s", {})[name] = time.perf_counter() - t
-        log(f"launches on the {name} path: {json.dumps(launches[name])}")
+        log(f"launches on the {name} path ({REPORT['path_s'][name]:.1f} s): "
+            f"{json.dumps(launches[name])}")
         for k in PATH_KERNELS[name]:
             check(launches[name][k] > 0, f"{k} never launched on the {name} path")
         return result
@@ -3822,11 +3965,20 @@ def run_paths(dev, launches):
         return calls
 
     calls = counted("emb", emb)
+    torch.cuda.empty_cache()
+
+    def emb_3072():
+        REPORT["emb_3072"], wide = emb_3072_phase(dev)
+        return wide
+
+    for name, call in counted("emb_3072", emb_3072).items():
+        calls.setdefault(name, call)
     REPORT["wide"] = wide_check(calls)
     del calls
     torch.cuda.empty_cache()
     REPORT["widths"] = width_check(dev)
     torch.cuda.empty_cache()
+    REPORT["graft"] = counted("graft", lambda: graft_phase(dev))
 
 
 def main() -> int:
@@ -3870,17 +4022,21 @@ def main() -> int:
         torch.cuda.empty_cache()
         REPORT["kernel_phase_s"] = time.perf_counter() - t0
         run_paths(dev, launches)
-    except SmokeFailure as e:
-        REPORT["failure"] = str(e)
+    except Exception as e:
+        # the report of what ran is written whatever stopped the run
+        REPORT["failure"] = f"{type(e).__name__}: {e}"
         REPORT["launches"] = launches
-        (OUT / "chip_smoke_report.json").write_text(json.dumps(REPORT, indent=1))
+        (OUT / "chip_smoke_report.json").write_text(json.dumps(REPORT, indent=1, default=str))
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
+        if not isinstance(e, SmokeFailure):
+            raise
         return 1
     REPORT["launches"] = launches
     REPORT["total_s"] = time.perf_counter() - t0
     (OUT / "chip_smoke_report.json").write_text(json.dumps(REPORT, indent=1))
     for name in ("headline", "sq8", "compact", "hard", "probe_only", "hnsw", "hnsw_insert",
-                 "hnsw_wave", "mesh_ivf", "mesh_hnsw", "dense_ivf", "sq8_search", "sql", "emb"):
+                 "hnsw_wave", "mesh_ivf", "mesh_hnsw", "dense_ivf", "sq8_search", "sql", "emb",
+                 "emb_3072", "graft"):
         log(f"{name}: {json.dumps({k: v for k, v in REPORT[name].items() if k != 'build_profile'})}")
 
     rows = kernel_rows(launches)

@@ -60,16 +60,27 @@ K6 wide's beam work (expansions, scored neighbours) must equal A's.
    K5 wide at the WITH (sq8, rerank = 2400) LIMIT 600 statement's own
    call (B = 1, r = 2,400, d = 384, f32 rows) with its launches' device
    times apart (the distance pass with its dedup, K2, the id gather);
-   and the 384-d bulk build's seconds with A and B in turns.
+   and the 384-d bulk build's seconds with A and B in turns;
+5. only with `--k4-query`: K4 wide's query-major pass on chip_smoke's
+   3,072-d SQL store (`emb_3072_store`: 65,536 emb_pool rows, USING IVF
+   WITH (sq8 = true, rerank = 2400)) at its own calls: the LIMIT 50 and
+   LIMIT 600 statements' (B = 1, P = 50 / 600, L = 128, m = 2,400,
+   candidates, replicas, `allowed`), an `IvfIndex.search` of 256 queries
+   at nprobe 50 on the same index, and a 100-d store's (GloVe-100's
+   width: rows that are no 16-byte words) at B = 1, nprobe 50, each with
+   its launches' device times apart (the pass, K2, the tail), its bound
+   and the bytes the query-major order streams (`stream_ms`); then
+   N_SQL statements of each LIMIT with A and B in turns (p50 / p99 ms).
 
 Run on a CUDA card (about seven minutes on an H100):
 
     python3 scripts/exp_torch_wide_kernels.py OTHER_CHECKOUT [--no-sql | --k2-only |
-        --beams-only | --probe-select-only]
+        --beams-only | --probe-select-only | --k4-query]
 
 `--k2-only` runs part 1 (about a minute), `--beams-only` part 2 (about
-three minutes), `--probe-select-only` part 4 (about three minutes); given
-together, the parts they name. It prints one JSON object and writes it to
+three minutes), `--probe-select-only` part 4 (about three minutes),
+`--k4-query` part 5 (about two minutes); given together, the parts they
+name. It prints one JSON object and writes it to
 chiprun_out/exp_torch_wide_kernels.json; ptxas reports land in
 chiprun_out/ptxas_A.txt / ptxas_B.txt. Exits 1 unless every output of B
 equals A's or (`ORDER_CHANGED`) holds to the plain version (K7's cluster
@@ -452,6 +463,20 @@ def _beam_ok(row):
     return row.get("plain", {}).get("ok", False) and row.get("work_equal_A_B", True)
 
 
+def _sql_turns(libs, db, sqls):
+    """The statements with A and B in turns: p50 / p99 ms a turn, and
+    whether A's rows equal B's."""
+    res = {}
+    for name in TURNS:
+        libs.use(name)
+        db.query(sqls[0])
+        rows, ms = cs._sql_timed(db, sqls)
+        res.setdefault(name, []).append(cs._pcts(ms))
+        res.setdefault("rows", {})[name] = [[r[0] for r in rr] for rr in rows]
+    libs.use("B")
+    return {"A": res["A"], "B": res["B"], "same_rows_A_B": res["rows"]["A"] == res["rows"]["B"]}
+
+
 def sql_run(libs, dev):
     """The deep statements with A and B in turns."""
     import shutil
@@ -475,17 +500,7 @@ def sql_run(libs, dev):
                    f"(sq8 = true, rerank = {4 * cs.EMB_DEEP_IVF})", cs.EMB_DEEP_IVF))
         for store, create, limit in stores:
             db.execute(create)
-            sqls = [cs._sql_ann(s, limit) for s in lits]
-            res = {}
-            for name in TURNS:
-                libs.use(name)
-                db.query(sqls[0])
-                rows, ms = cs._sql_timed(db, sqls)
-                res.setdefault(name, []).append(cs._pcts(ms))
-                res.setdefault("rows", {})[name] = [[r[0] for r in rr] for rr in rows]
-            libs.use("B")
-            out[store] = {"A": res["A"], "B": res["B"],
-                          "same_rows_A_B": res["rows"]["A"] == res["rows"]["B"]}
+            out[store] = _sql_turns(libs, db, [cs._sql_ann(s, limit) for s in lits])
             cs.log(f"sql {store}: {json.dumps(out[store])}")
             db.execute("DROP INDEX ix")
             torch.cuda.empty_cache()
@@ -635,6 +650,73 @@ def _probe_ab(libs, name, fn, a, kw):
     return row
 
 
+K4Q_B, K4Q_NPROBE = 256, 50   # the 3,072-d index searched by a batch
+K4Q_SMALL_DIM = 100           # GloVe-100's width
+
+
+def k4_query_calls(dev, db, idx, q):
+    """The query-major wide pass's calls, kept (wrapper, arguments) from
+    the 3,072-d store's own statements and search and from a 100-d store's
+    search."""
+    from turdb_tpu_torch.models.ivf import IvfIndex
+    from turdb_tpu_torch.utils.datasets import emb_pool
+
+    name = "ivf_probe_sq8_wide_query"
+    lit = cs._sql_vec(cs._parsed(q[:1])[0])
+    calls = {}
+
+    def capture(case, fn):
+        with cs._WideCalls() as wide:
+            fn()
+        cs.check(name in wide.calls, f"{case}: no query-major wide pass")
+        calls[case] = wide.calls[name]
+
+    for limit in cs.EMB_3072_LIMITS:
+        capture(f"LIMIT {limit}", lambda: db.query(cs._sql_ann(lit, limit)))
+    capture(f"B={K4Q_B} nprobe {K4Q_NPROBE}",
+            lambda: idx.search(q[:K4Q_B], cs.K, nprobe=K4Q_NPROBE))
+    x1, q1 = emb_pool(np.random.default_rng(4), cs.N_3072, n_queries=1, dim=K4Q_SMALL_DIM)
+    small = IvfIndex(dim=K4Q_SMALL_DIM, sq8=True, rerank=cs.EMB_3072_RERANK, device=dev)
+    small.add(x1)
+    capture(f"d={K4Q_SMALL_DIM} nprobe {K4Q_NPROBE}",
+            lambda: small.search(q1, 50, nprobe=K4Q_NPROBE))
+    return calls
+
+
+def k4_query_run(libs, dev, out):
+    """Part 5: the query-major wide pass at its four calls A B B A, then
+    the 3,072-d statements with A and B in turns, into `out` as they come."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="turdb_wide_k4q_")
+    try:
+        db, _, q, out["setup"] = cs.emb_3072_store(dev, f"{tmp}/db",
+                                                   n_queries=max(K4Q_B, N_SQL))
+        idx = db.catalog["main"]["docs"].hnsw["iv"].index
+        out["calls"] = {}
+        for case, (fn, a, kw) in k4_query_calls(dev, db, idx, q).items():
+            qc, cells, codes, members, alive = a[0], a[4], a[5], a[9], a[10]
+            allowed = a[11] if len(a) > 11 else kw.get("allowed")
+            d, m = codes.shape[-1], kw["m"]
+            row = _probe_ab(libs, "ivf_probe_sq8_wide_query", fn, a, kw)
+            row["shape"] = {"B": qc.shape[0], "P": cells.shape[1], "L": codes.shape[1], "d": d,
+                            "m": m, "allowed": allowed is not None}
+            row["stream_ms"] = cs._stream_ms("query", cells, members, alive, allowed, d, 16,
+                                             d + 12, 12 * m)
+            out["calls"][case] = row
+            torch.cuda.empty_cache()
+        lits = [cs._sql_vec(v) for v in cs._parsed(q[:N_SQL])]
+        out["sql"] = {}
+        for limit in cs.EMB_3072_LIMITS:
+            key = f"LIMIT {limit}"
+            out["sql"][key] = _sql_turns(libs, db, [cs._sql_ann(s, limit) for s in lits])
+            cs.log(f"3072-d sql {key}: {json.dumps(out['sql'][key])}")
+        db.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 SELECT_CASES = {"K7 wide U=16384 W=128 d=384": ("K7 wide", 16_384, 128, 384),
                 "K7 wide W=64 d=768": ("K7 wide", None, 64, 768),
                 "K7s wide U=512 W=100 d=768": ("K7s wide", 512, 100, 768)}
@@ -700,12 +782,12 @@ def main() -> int:
     (cs.OUT / "ptxas_A.txt").write_text(libs.other_build.build_log)
     out = {"card": card, "other": str(other)}
     flags = set(sys.argv[2:])
-    only = {"--k2-only", "--beams-only", "--probe-select-only"} & flags
+    only = {"--k2-only", "--beams-only", "--probe-select-only", "--k4-query"} & flags
 
     def part(flag):
         return not only or flag in only
 
-    out.update(k2={}, beams={}, probe_select={})
+    out.update(k2={}, beams={}, probe_select={}, k4_query={})
     try:   # the parts done so far are written out whatever stops a later one
         if part("--k2-only"):
             out["k2"] = k2_run(libs, k2_cases(dev))
@@ -721,6 +803,8 @@ def main() -> int:
             out["sql"] = sql_run(libs, dev)
         if part("--probe-select-only"):
             probe_select_run(libs, dev, out["probe_select"])
+        if "--k4-query" in flags:
+            k4_query_run(libs, dev, out["k4_query"])
     finally:
         print(json.dumps(out))
         (cs.OUT / "exp_torch_wide_kernels.json").write_text(json.dumps(out, indent=1))
@@ -729,6 +813,8 @@ def main() -> int:
           and all(_beam_ok(v) for v in out["beams"].values())
           and out.get("search_768", {}).get("same_ids_A_B", True)
           and all(v["equal_A_B"] for v in part4.get("probes", {}).values())
+          and all(v["equal_A_B"] for v in out["k4_query"].get("calls", {}).values())
+          and all(v["same_rows_A_B"] for v in out["k4_query"].get("sql", {}).values())
           and all(v["equal_A_B"] and all(f.get("equal_routed", True)
                                          for f in v["forced"].values())
                   for v in part4.get("select", {}).values()))

@@ -1541,7 +1541,8 @@ def test_probe_wide_forms_match_plain(cuda, route):
     q = torch.randn(12, 64, device=cuda, generator=g)
     qn = (q * q).sum(1)
     cells = torch.rand(12, 300, device=cuda, generator=g).topk(p).indices.to(torch.int32)
-    name = "ivf_probe_f32_wide" if route == "f32" else "ivf_probe_sq8_wide"
+    name = {"f32": "ivf_probe_f32_wide", "sq8_query": "ivf_probe_sq8_wide_query",
+            "sq8_cell": "ivf_probe_sq8_wide"}[route]
     if route != "f32":
         codes, mins, scales, _ = _sq8_store(pvecs)
         qc, qs, qsum = quantize_queries(q)
@@ -1568,6 +1569,54 @@ def test_probe_wide_forms_match_plain(cuda, route):
             else:
                 for a, b in zip(got, want):
                     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d", [100, 3072, 4608])
+def test_probe_sq8_query_major_wide_pass_matches_plain(cuda, d):
+    """K4's query-major wide pass (rows of 4-byte words at d = 100, of
+    16-byte words at 3,072 and past DIM_MAX at 4,608) at B = 1 with P = 20
+    and 600 (one (query, probe) spread over CTAs, then whole cells) and at
+    B = 256, P = 50: both modes, replicas, `allowed`; bit-equal to the
+    plain version, one `ivf_probe_sq8_wide_query` launch a call."""
+    from turdb_tpu_torch.ops.quantize import quantize_queries
+
+    g = torch.Generator(device=cuda).manual_seed(33 + d)
+    lcap, c = 128, 620
+    pvecs, pnorms, members, alive, allowed = _store(g, c, lcap, d, 6000, cuda)
+    codes, mins, scales, _ = _sq8_store(pvecs)
+    del pvecs
+    for b, p in ((1, 20), (1, 600), (256, 50)):
+        q = torch.randn(b, d, device=cuda, generator=g)
+        qc, qs, qsum = quantize_queries(q)
+        qn = (q * q).sum(1)
+        cells = torch.rand(b, c, device=cuda, generator=g).topk(p).indices.to(torch.int32)
+        assert kernels.probe_route(p, lcap, d, cuda) == "query"
+        args = (qc, qs, qsum, qn, cells, codes, mins, scales, pnorms, members, alive, allowed)
+        for mode, k in ((kernels.MODE_TOPK, 2100), (kernels.MODE_CAND, 2400)):
+            kw = dict(k=k, m=2400, replicated=True, mode=mode)
+            before = kernels.launches["ivf_probe_sq8_wide_query"]
+            got = kernels.ivf_probe_sq8(*args, **kw)
+            assert kernels.launches["ivf_probe_sq8_wide_query"] == before + 1
+            want = kernels.ivf_probe_sq8_plain(*args, **kw)
+            for x, y in zip(got, want):
+                assert torch.equal(x, y)
+
+
+def test_profile_trace_holds_device_spans(cuda, tmp_path):
+    """`profile_trace` around a search writes a Chrome trace with the
+    search's device spans in it."""
+    import json
+
+    from turdb_tpu_torch.utils.timing import profile_trace
+
+    x = make_pool(np.random.default_rng(9), 4000, 32, n_clusters=32)
+    idx = IvfIndex(dim=32, device=cuda)
+    idx.add(x[:3900])
+    with profile_trace(tmp_path / "trace") as info:
+        idx.search(x[3900:], 10, nprobe=4)
+    assert info["device_spans"] > 0
+    events = json.loads(open(info["path"]).read())["traceEvents"]
+    assert any(e.get("cat") == "kernel" for e in events)
 
 
 def test_rerank_wide_form_matches_plain(cuda):

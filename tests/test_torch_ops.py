@@ -214,7 +214,7 @@ def test_cpu_wrappers_leave_launch_counters_at_zero():
                                      "hnsw_select", "hnsw_graph_beam", "hnsw_select_sorted",
                                      "hnsw_graph_beam_sq", "hnsw_greedy", "dense_blocks",
                                      "sq8_scan", "topk_rows_wide", "ivf_probe_f32_wide",
-                                     "ivf_probe_sq8_wide",
+                                     "ivf_probe_sq8_wide", "ivf_probe_sq8_wide_query",
                                      "ivf_rerank_wide", "hnsw_serve_beam_wide",
                                      "hnsw_select_wide", "hnsw_graph_beam_wide",
                                      "hnsw_select_sorted_wide", "hnsw_graph_beam_sq_wide",

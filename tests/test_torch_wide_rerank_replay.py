@@ -2,7 +2,7 @@
 
 K5 past r = SEL_MAX (`kernels/csrc/probe_wide.cu` rerank_dist_chunk_kernel)
 runs a grid of (query, chunk of candidates) sized from the SM count
-(`rerank_chunk`: about two CTAs an SM over the batch, runs of 32). Under
+(`run_chunk`: about two CTAs an SM over the batch, runs of 32). Under
 replicas each CTA claims the ids of its query's candidates [0, end of its
 chunk) in a table in its shared memory, or, past what a CTA holds (r >
 8,192 on an H100), one claim pass fills a global table a query; a
@@ -50,7 +50,7 @@ CODE_BYTES = {"sq8": 1, "sq16": 2}
 # K5 wide
 
 def _rerank_chunk(b, r, sms=H100_SMS):
-    """probe_wide.cu rerank_chunk: candidates a CTA, runs of 32, as few a
+    """probe_wide.cu run_chunk: candidates a CTA, runs of 32, as few a
     CTA as spread the batch over about two CTAs an SM."""
     runs = -(-r // 32)
     per = max(1, min(runs, -(-2 * sms // b)))

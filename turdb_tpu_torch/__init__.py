@@ -23,6 +23,10 @@ imports). It mirrors the reference layout:
     parallel/         the mesh: ShardedIvfIndex, ShardedHnswIndex
     kernels/          hand-written CUDA C++ kernels for sm_90a + wrappers
     convert.py        reference state (as numpy) -> port state
+    graft_entry.py    entry() / dryrun_multichip(n): the counterparts of
+                      the repository's __graft_entry__.py
+    utils/            datasets (make_pool, emb_pool, loaders), timing
+                      (phase counters, CUDA events, profile_trace)
 
 Every index, and every Database, runs on the card unless its `device`
 says otherwise. On a CPU tensor each kernel wrapper runs its plain PyTorch

@@ -30,7 +30,8 @@ the kernel's wide form (csrc/hnsw_select_wide.cu, graph_wide.cu,
 probe_wide.cu: state in a global scratch, or in shared memory where a
 beam's or a probe tail's fits, rows read from device memory; K7's window
 of rows in a thread block cluster's shared memory, `select_wide_ctas`),
-counted under its own name (`<kernel>_wide`). K2 takes any k (past
+counted under its own name (`<kernel>_wide`; K4's query-major pass as
+`ivf_probe_sq8_wide_query`). K2 takes any k (past
 SEL_MAX its wide form, counted as
 `topk_rows_wide` too: a row's keys in a thread block cluster's shared
 memory, `topk_wide_ctas`), K11 any k and any d (d-slices), and a caller
@@ -72,9 +73,10 @@ CELL_DIST_BYTES = 1 << 29
 MODE_TOPK, MODE_CAND = 0, 1
 
 # the wide forms, each counted under its own name
-WIDE = ("topk_rows_wide", "ivf_probe_f32_wide", "ivf_probe_sq8_wide", "ivf_rerank_wide",
-        "hnsw_serve_beam_wide", "hnsw_select_wide", "hnsw_graph_beam_wide",
-        "hnsw_select_sorted_wide", "hnsw_graph_beam_sq_wide", "hnsw_greedy_wide")
+WIDE = ("topk_rows_wide", "ivf_probe_f32_wide", "ivf_probe_sq8_wide",
+        "ivf_probe_sq8_wide_query", "ivf_rerank_wide", "hnsw_serve_beam_wide",
+        "hnsw_select_wide", "hnsw_graph_beam_wide", "hnsw_select_sorted_wide",
+        "hnsw_graph_beam_sq_wide", "hnsw_greedy_wide")
 launches = {"ivf_probe_f32": 0, "topk_rows": 0, "kmeans_assign": 0,
             "ivf_probe_sq8": 0, "ivf_rerank": 0, "hnsw_serve_beam": 0,
             "hnsw_select": 0, "hnsw_graph_beam": 0, "hnsw_select_sorted": 0,
@@ -487,14 +489,14 @@ def _probe_tail(cells, members, sel_d, sel_pos, k, m, replicated, mode, out, scr
                 out_i.data_ptr(), _ptr(out_pos), counter=counter)
 
 
-def _probe_wide(name, dist_args, cells, members, k, m, replicated, mode):
+def _probe_wide(name, dist_args, cells, members, k, m, replicated, mode, counter=None):
     """A probe past SEL_MAX winners or past DIM_MAX (K1, K4 query-major):
     for each slice of queries whose [rows, P*L] f32 distances fit
     CELL_DIST_BYTES, one launch writes every lane's distance
-    (`<name>_dist`, counted as `<name>_wide`; `dist_args(s, e, dist)` gives
-    its arguments for queries s:e), K2 selects each row's m best by
-    (distance, position), and the tail drops later copies of an id and
-    writes the outputs."""
+    (`<name>_dist`, counted as `counter`, by default `<name>_wide`;
+    `dist_args(s, e, dist)` gives its arguments for queries s:e), K2
+    selects each row's m best by (distance, position), and the tail drops
+    later copies of an id and writes the outputs."""
     b, p = cells.shape
     lcap = members.shape[1]
     dev = cells.device
@@ -504,7 +506,7 @@ def _probe_wide(name, dist_args, cells, members, k, m, replicated, mode):
     out = _probe_outputs(b, k, m, mode, dev)
     for s in range(0, b, rows):
         e = min(b, s + rows)
-        _launch(f"{name}_dist", dev, *dist_args(s, e, dist), counter=f"{name}_wide")
+        _launch(f"{name}_dist", dev, *dist_args(s, e, dist), counter=counter or f"{name}_wide")
         sel_d, sel_pos = topk_rows(dist[:e - s], m)
         _probe_tail(cells[s:e], members, sel_d, sel_pos, k, m, replicated, mode,
                     [None if t is None else t[s:] for t in out], scratch, counter=None)
@@ -619,8 +621,8 @@ def ivf_probe_sq8(qc, qs, qsum, qn, cells, codes, mins, scales, pnorms, members,
     cell-major (`probe_route`), and its selection is a K2 launch. Past
     m = SEL_MAX the tail is the wide one (counted as `ivf_probe_sq8_wide`),
     and the query-major route writes every lane's distance for K2 to select
-    from (`_probe_wide`) in place of its in-block selection, as it does past
-    d = DIM_MAX."""
+    from (`_probe_wide`, counted as `ivf_probe_sq8_wide_query`) in place of
+    its in-block selection, as it does past d = DIM_MAX."""
     b, p = cells.shape
     nb, lcap, d = codes.shape
     _probe_checks("ivf_probe_sq8", cells, members, alive, allowed, k, m, replicated, mode)
@@ -650,7 +652,7 @@ def ivf_probe_sq8(qc, qs, qsum, qn, cells, codes, mins, scales, pnorms, members,
             cells[s:].data_ptr(), e - s, p, codes.data_ptr(), mins.data_ptr(), scales.data_ptr(),
             pnorms.data_ptr(), members.data_ptr(), _ptr(_as_u8(alive)), _ptr(_as_u8(allowed)),
             lcap, d, metric, dist.data_ptr()),
-                           cells, members, k, m, replicated, mode)
+                           cells, members, k, m, replicated, mode, "ivf_probe_sq8_wide_query")
     out_d, out_i, out_pos = _probe_outputs(b, k, m, mode, qc.device)
     scratch = _probe_scratch(b, p, lcap, m, qc.device)
     if b:

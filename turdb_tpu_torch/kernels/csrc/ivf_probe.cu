@@ -64,6 +64,7 @@
 // winners with their flat store positions cell*L + lane.
 #include "row_sums.cuh"
 #include "select.cuh"
+#include "sq8_rows.cuh"
 
 #include <climits>
 
@@ -139,32 +140,6 @@ struct ProbeArgs {
     int* out_i;
     int* out_pos;              // [B, m] flat positions (candidates)
 };
-
-// A scorer reads a batch of R rows with the lanes of a warp in groups of W:
-// a lane takes SLOTS = R * W / 32 of them (slot i: batch row slot_row(i)),
-// and after reduce_rows it holds the sum of batch row held_row(lane).
-template <int R_, int W_>
-struct RowLayout {
-    static constexpr int R = R_, W = W_, SLOTS = R_ * W_ / 32;
-    static_assert(SLOTS >= 1 && SLOTS <= W_, "a lane group holds 1..W rows");
-    __device__ static int slot_row(int i, int lane) { return i * (32 / W) + lane / W; }
-    __device__ static int held_row(int lane) {
-        return slot_row((lane % W) >> (Log2<W>::value - Log2<SLOTS>::value), lane);
-    }
-    // one lane of those holding a row writes its key
-    __device__ static bool writer(int lane) { return (lane & (W / SLOTS - 1)) == 0; }
-};
-
-// K4's distance from an exact int8 dot: mins*q_sum + scales*(qs*dot), then
-// L2 (qn - 2*that) + pnorms, COSINE 1 - that, IP -that
-__device__ __forceinline__ float sq8_distance(int dot, float mins, float scales, float pnorm,
-                                              float qs, float qsum, float qn, int metric) {
-    const float qdx = __fadd_rn(__fmul_rn(mins, qsum),
-                                __fmul_rn(scales, __fmul_rn(qs, __int2float_rn(dot))));
-    if (metric == 1) return __fsub_rn(1.0f, qdx);
-    if (metric == 2) return -qdx;
-    return __fadd_rn(__fsub_rn(qn, __fmul_rn(2.0f, qdx)), pnorm);
-}
 
 // K1's row scorer: fp32 rows, metric L2 / cosine / IP.
 struct F32Scorer : RowLayout<PROBE_R_F32, 32> {
@@ -253,20 +228,7 @@ struct Sq8Words : Sq8Data, RowLayout<8, 32> {
     static constexpr int MIN_BLOCKS = PROBE_MIN_BLOCKS_F32;
     __device__ void partial(const unsigned char* s, const int (&rows)[SLOTS], int lane, int d,
                             int (&v)[SLOTS]) const {
-        const int* sw = reinterpret_cast<const int*>(s);
-#pragma unroll
-        for (int r = 0; r < SLOTS; ++r) v[r] = 0;
-        for (int j = lane; j < (d >> 2); j += 32) {
-            int w[SLOTS];
-#pragma unroll
-            for (int r = 0; r < SLOTS; ++r)
-                w[r] = rows[r] >= 0
-                           ? __ldg(reinterpret_cast<const int*>(codes + (size_t)rows[r] * d) + j)
-                           : 0;
-            const int qw = sw[j];
-#pragma unroll
-            for (int r = 0; r < SLOTS; ++r) v[r] = __dp4a(w[r], qw, v[r]);
-        }
+        sq8_words_partial<SLOTS, 1>(codes, reinterpret_cast<const int*>(s), rows, lane, d, v);
     }
 };
 
@@ -277,25 +239,7 @@ struct Sq8Groups : Sq8Data, RowLayout<PROBE_R_SQ8, 8> {
     static constexpr int MIN_BLOCKS = PROBE_MIN_BLOCKS_SQ8;
     __device__ void partial(const unsigned char* s, const int (&rows)[SLOTS], int lane, int d,
                             int (&v)[SLOTS]) const {
-        const int4* sq = reinterpret_cast<const int4*>(s);
-#pragma unroll
-        for (int r = 0; r < SLOTS; ++r) v[r] = 0;
-        for (int j = lane & 7; j < (d >> 4); j += 8) {
-            int4 w[SLOTS];
-#pragma unroll
-            for (int r = 0; r < SLOTS; ++r)
-                w[r] = rows[r] >= 0
-                           ? __ldg(reinterpret_cast<const int4*>(codes + (size_t)rows[r] * d) + j)
-                           : make_int4(0, 0, 0, 0);
-            const int4 q = sq[j];
-#pragma unroll
-            for (int r = 0; r < SLOTS; ++r) {
-                v[r] = __dp4a(w[r].x, q.x, v[r]);
-                v[r] = __dp4a(w[r].y, q.y, v[r]);
-                v[r] = __dp4a(w[r].z, q.z, v[r]);
-                v[r] = __dp4a(w[r].w, q.w, v[r]);
-            }
-        }
+        sq8_groups_partial<SLOTS, 1>(codes, reinterpret_cast<const int4*>(s), rows, lane, d, v);
     }
 };
 

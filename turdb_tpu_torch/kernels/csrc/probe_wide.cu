@@ -24,8 +24,17 @@
 //    fast form does: lane j sums float4 j, j + 32, ... of each row in one
 //    fmaf chain and the rows' sums meet in reduce_rows (row_sums.cuh), so
 //    every distance is the one warp_dot (wide_util.cuh) gave, bit for bit.
-//  - probe_dist_sq8_kernel: one block a (query, probe), a warp a lane: K4's
-//    exact int8 dot and epilogue.
+//  - probe_dist_sq8_run_kernel (K4's query-major route; the cell-major one
+//    is ivf_probe.cu's): K1's pass in shape, on K4's fast-form scorers
+//    (sq8_rows.cuh): a 128-thread block a (query, probe, chunk of lanes),
+//    the chunks sized from the SM count so that one query spreads over the
+//    card (B = 1, P = 50, L = 128: 200 CTAs of one run each); every warp
+//    reads a run of 32 lanes' ids, flags and metadata in one step, the
+//    dead lanes +inf and unread, the live ones in groups of PQ_R rows, the
+//    block's warps taking the groups in turn, eight lanes a row in 16-byte
+//    words (else a warp a row), each row's first words all in flight; the
+//    query row in shared memory. Exact int32 dots: the plain version's
+//    distances bit for bit.
 //  - K2 (topk_rows.cu) selects each row's m best by (value, position).
 //  - probe_tail_wide_kernel: one 1024-thread block a row. Every winner's id
 //    is looked up at once; under replicas every winner claims its id in a
@@ -61,10 +70,8 @@
 
 #include "launch_util.cuh"
 #include "row_sums.cuh"
+#include "sq8_rows.cuh"
 #include "wide_util.cuh"
-
-#define PW_THREADS 256
-#define PW_WARPS (PW_THREADS / 32)
 
 enum { PW_TOPK = 0, PW_CAND = 1 };
 
@@ -75,10 +82,6 @@ struct ProbeCells {
     const uint8_t* alive;      // [NB, L]
     const uint8_t* allowed;    // [NB, L] or null
 };
-
-__device__ __forceinline__ bool lane_live(const ProbeCells& c, size_t row) {
-    return c.members[row] >= 0 && c.alive[row] != 0 && (c.allowed == nullptr || c.allowed[row] != 0);
-}
 
 #define PD_THREADS 128   // K1's distance pass: four warps a (query, probe) block
 #define PD_R 4           // live rows in flight a warp
@@ -169,36 +172,97 @@ probe_dist_f32_kernel(ProbeCells c, const float* __restrict__ q, const float* __
     }
 }
 
-// K4's distances: the exact int8 dot (lane j over words j, j + 32, ...) and
-// the dequantize epilogue, rounded as ivf_probe.cu sq8_distance
-__global__ void __launch_bounds__(PW_THREADS)
-probe_dist_sq8_kernel(ProbeCells c, const int8_t* __restrict__ qc, const float* __restrict__ qs,
-                      const float* __restrict__ qsum, const float* __restrict__ qn,
-                      const int8_t* __restrict__ codes, const float* __restrict__ mins,
-                      const float* __restrict__ scales, const float* __restrict__ pnorms, int d,
-                      int metric, float* __restrict__ dist) {
-    const size_t b = blockIdx.x / c.P;
-    const int p = blockIdx.x - (int)(b * c.P);
+#define PQ_THREADS 128   // K4's query-major pass: four warps a (query, probe, lane chunk) block
+#define PQ_WARPS (PQ_THREADS / 32)
+#define PQ_R 8           // live rows a warp scores at once (a group)
+#define PQ_JG 8          // 16-byte words of each row a lane loads before any is summed
+#define PQ_JW 2          // 4-byte words likewise, where rows are no 16-byte words
+
+// K4's distances: block (query, probe, chunk s of `chunk` lanes). Every
+// warp reads a run of 32 lanes' member, flags and metadata in one step
+// (warp 0 writes +inf for the dead ones, whose rows are never read); the
+// live lanes go in groups of PQ_R, the block's warps taking the groups in
+// turn, with K4's fast-form scorer (sq8_rows.cuh): GROUPS eight lanes a row
+// in 16-byte words, else a warp a row in 4-byte words, every row's first
+// PQ_JG / PQ_JW words loaded before any is summed. The exact int32 dot and
+// the epilogue's scalars (shuffled from the run lane that read them) give
+// sq8_distance, so every distance is the plain version's bit for bit.
+template <bool GROUPS>
+__global__ void __launch_bounds__(PQ_THREADS, 4)
+probe_dist_sq8_run_kernel(ProbeCells c, int split, int chunk, const int8_t* __restrict__ qc,
+                          const float* __restrict__ qs, const float* __restrict__ qsum,
+                          const float* __restrict__ qn, const int8_t* __restrict__ codes,
+                          const float* __restrict__ mins, const float* __restrict__ scales,
+                          const float* __restrict__ pnorms, int d, int metric, int q_in_smem,
+                          float* __restrict__ dist) {
+    using Lay = RowLayout<PQ_R, GROUPS ? 8 : 32>;
+    constexpr int SLOTS = Lay::SLOTS;
+    extern __shared__ __align__(16) unsigned char smem[];
+    __shared__ int s_src[PQ_WARPS][32];   // a warp's live run lanes, in order
+    const size_t bp = blockIdx.x / split;
+    const int s = (int)(blockIdx.x - bp * split);
+    const size_t b = bp / c.P;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const size_t cell = (size_t)c.cells[b * c.P + p];
+    const size_t cell = (size_t)c.cells[bp];
     const float qnb = qn[b], qsb = qs[b], qsumb = qsum[b];
-    const int* qw = reinterpret_cast<const int*>(qc + b * d);
-    float* out = dist + (b * c.P + p) * (size_t)c.L;
-    for (int l = warp; l < c.L; l += PW_WARPS) {
-        const size_t row = cell * c.L + l;
-        float v = WIDE_INF;
-        if (lane_live(c, row)) {
-            const int* xw = reinterpret_cast<const int*>(codes + row * d);
-            int dot = 0;
-            for (int j = lane; j < (d >> 2); j += 32) dot = __dp4a(__ldg(xw + j), __ldg(qw + j), dot);
-            for (int o = 16; o > 0; o >>= 1) dot += __shfl_xor_sync(WIDE_FULL, dot, o);
-            const float qdx = __fadd_rn(__fmul_rn(mins[row], qsumb),
-                                        __fmul_rn(scales[row], __fmul_rn(qsb, __int2float_rn(dot))));
-            if (metric == 1) v = __fsub_rn(1.0f, qdx);
-            else if (metric == 2) v = -qdx;
-            else v = __fadd_rn(__fsub_rn(qnb, __fmul_rn(2.0f, qdx)), pnorms[row]);
+    // the query's int8 row in shared memory where it fits
+    const int8_t* qrow = qc + b * d;
+    if (q_in_smem) {
+        if constexpr (GROUPS) {
+            for (int i = threadIdx.x; i < (d >> 4); i += PQ_THREADS)
+                reinterpret_cast<int4*>(smem)[i] = reinterpret_cast<const int4*>(qrow)[i];
+        } else {
+            for (int i = threadIdx.x; i < (d >> 2); i += PQ_THREADS)
+                reinterpret_cast<int*>(smem)[i] = reinterpret_cast<const int*>(qrow)[i];
         }
-        if (lane == 0) out[l] = v;
+        qrow = reinterpret_cast<const int8_t*>(smem);
+    }
+    __syncthreads();
+    float* out = dist + bp * (size_t)c.L;
+    const int l1 = min(c.L, (s + 1) * chunk);
+    for (int base = s * chunk; base < l1; base += 32) {
+        const int l = base + lane;
+        const size_t row = cell * c.L + l;
+        bool live = false;
+        float mn = 0.0f, sc = 0.0f, pn = 0.0f;
+        if (l < l1) {
+            const int mem = c.members[row];
+            const uint8_t al = c.alive[row];
+            const uint8_t ok = c.allowed == nullptr ? (uint8_t)1 : c.allowed[row];
+            mn = mins[row];
+            sc = scales[row];
+            if (metric == 0) pn = pnorms[row];
+            live = mem >= 0 && al != 0 && ok != 0;
+            if (!live && warp == 0) out[l] = WIDE_INF;
+        }
+        const unsigned bal = __ballot_sync(WIDE_FULL, live);
+        if (live) s_src[warp][__popc(bal & ((1u << lane) - 1u))] = lane;
+        __syncwarp();
+        const int nlive = __popc(bal);
+        for (int g0 = warp * PQ_R; g0 < nlive; g0 += PQ_R * PQ_WARPS) {
+            int rows[SLOTS];
+#pragma unroll
+            for (int j = 0; j < SLOTS; ++j) {
+                const int r = g0 + Lay::slot_row(j, lane);
+                rows[j] = r < nlive ? (int)(cell * c.L) + base + s_src[warp][r] : -1;
+            }
+            int v[SLOTS];
+            if constexpr (GROUPS)
+                sq8_groups_partial<SLOTS, PQ_JG>(codes, reinterpret_cast<const int4*>(qrow), rows,
+                                                 lane, d, v);
+            else
+                sq8_words_partial<SLOTS, PQ_JW>(codes, reinterpret_cast<const int*>(qrow), rows,
+                                                lane, d, v);
+            const int dot = reduce_rows<SLOTS, Lay::W>(v, lane);
+            const int h = g0 + Lay::held_row(lane);
+            const int src = h < nlive ? s_src[warp][h] : 0;
+            const float mh = __shfl_sync(WIDE_FULL, mn, src);
+            const float sh = __shfl_sync(WIDE_FULL, sc, src);
+            const float ph = __shfl_sync(WIDE_FULL, pn, src);
+            if (Lay::writer(lane) && h < nlive)
+                out[base + src] = sq8_distance(dot, mh, sh, ph, qsb, qsumb, qnb, metric);
+        }
+        __syncwarp();   // s_src is the next run's
     }
 }
 
@@ -465,6 +529,17 @@ rerank_dist_chunk_kernel(const float* __restrict__ q, const float* __restrict__ 
     }
 }
 
+// Of `rows` rows of n entries, the entries a CTA takes: runs of 32, as few
+// a CTA as spread the rows over about two CTAs an SM (K5 wide's candidates
+// of a query, K4 wide's lanes of a (query, probe))
+static int run_chunk(long long rows, int n) {
+    const long long runs = (n + 31) / 32;
+    const long long want = 2LL * launch_util::sm_count();
+    long long per = (want + rows - 1) / rows;    // chunks a row
+    per = per < 1 ? 1 : per > runs ? runs : per;
+    return (int)((runs + per - 1) / per) * 32;
+}
+
 struct ProbeWideCheck {
     static bool ok(int B, int P, int L, int d, int metric) {
         return B >= 1 && P >= 1 && L >= 1 && d >= 4 && d % 4 == 0 && metric >= 0 && metric <= 2 &&
@@ -493,9 +568,30 @@ extern "C" int ivf_probe_sq8_dist(const int8_t* qc, const float* qs, const float
                                   void* stream) {
     if (!ProbeWideCheck::ok(B, P, L, d, metric) || (size_t)codes % 4 || (size_t)qc % 4)
         return (int)cudaErrorInvalidValue;
-    probe_dist_sq8_kernel<<<B * P, PW_THREADS, 0, (cudaStream_t)stream>>>(
-        ProbeCells{cells, P, L, members, alive, allowed}, qc, qs, qsum, qn, codes, mins, scales,
-        pnorms, d, metric, dist);
+    const long long pairs = (long long)B * P;
+    const int chunk = run_chunk(pairs, L);
+    const int split = (L + chunk - 1) / chunk;
+    if (pairs * split > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    const bool groups = d % 16 == 0 && (size_t)codes % 16 == 0 && (size_t)qc % 16 == 0;
+    const size_t qbytes = wide_align16((size_t)d);
+    const int q_in_smem = qbytes + (size_t)4 * 32 * PQ_WARPS <= launch_util::smem_optin();
+    const size_t smem = q_in_smem ? qbytes : 0;
+    const ProbeCells c{cells, P, L, members, alive, allowed};
+    const unsigned grid = (unsigned)(pairs * split);
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (groups) {
+        const int err = raise_smem(probe_dist_sq8_run_kernel<true>, smem);
+        if (err) return err;
+        probe_dist_sq8_run_kernel<true><<<grid, PQ_THREADS, smem, st>>>(
+            c, split, chunk, qc, qs, qsum, qn, codes, mins, scales, pnorms, d, metric, q_in_smem,
+            dist);
+    } else {
+        const int err = raise_smem(probe_dist_sq8_run_kernel<false>, smem);
+        if (err) return err;
+        probe_dist_sq8_run_kernel<false><<<grid, PQ_THREADS, smem, st>>>(
+            c, split, chunk, qc, qs, qsum, qn, codes, mins, scales, pnorms, d, metric, q_in_smem,
+            dist);
+    }
     return (int)cudaGetLastError();
 }
 
@@ -542,15 +638,6 @@ extern "C" long long ivf_rerank_dist_table_words(int r, int replicated) {
     return r < 1 || !replicated || rerank_table_in_smem(r) ? 0 : (long long)2 << table_bits(r);
 }
 
-// Candidates a CTA of the distance pass takes: runs of 32, as few a CTA as
-// spread the batch's candidates over about two CTAs an SM
-static int rerank_chunk(int B, int r) {
-    const long long runs = (r + 31) / 32;
-    const long long want = 2LL * launch_util::sm_count();
-    long long per = (want + B - 1) / B;    // chunks a query
-    per = per < 1 ? 1 : per > runs ? runs : per;
-    return (int)((runs + per - 1) / per) * 32;
-}
 
 // K5's exact distances ex [B, r] (any r); K2 selects from them. Under
 // replicas past what a CTA's table holds, `table` [B, words] (words =
@@ -580,7 +667,7 @@ extern "C" int ivf_rerank_dist(const float* q, const float* qn, const float* can
         e = cudaGetLastError();
         if (e != cudaSuccess) return (int)e;
     }
-    const int chunk = rerank_chunk(B, r);
+    const int chunk = run_chunk(B, r);
     const int chunks = (r + chunk - 1) / chunk;
     const long long grid = (long long)B * chunks;
     if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;

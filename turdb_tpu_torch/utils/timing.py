@@ -1,8 +1,11 @@
 """Host phase counters, and device timing with CUDA events.
 
 The host half is the reference's (turdb_tpu/utils/timing.py): a dict of
-nanosecond accumulators per phase with a context manager, read by PRAGMA
-timing_stats (the database's parse and execute phases).
+nanosecond accumulators per phase with a context manager (switched off and
+on by `enable`), read by PRAGMA timing_stats (the database's parse and
+execute phases). `profile_trace` is the device-side counterpart: a
+`torch.profiler` trace of a block, exported for Perfetto or
+chrome://tracing.
 
 PyTorch returns before the card finishes, so a host clock without a
 synchronise measures the enqueue; events recorded on the stream measure
@@ -13,13 +16,22 @@ metric's name would be wrong.
 from __future__ import annotations
 
 import contextlib
+import os
 import statistics
 import time
 from collections import defaultdict
+from pathlib import Path
 
 import torch
 
 TIMERS: dict[str, dict] = defaultdict(lambda: {"ns": 0, "count": 0})
+_ENABLED = True
+
+
+def enable(on: bool = True):
+    """Switch the phase counters of `timed` on or off."""
+    global _ENABLED
+    _ENABLED = on
 
 
 def reset():
@@ -28,6 +40,9 @@ def reset():
 
 @contextlib.contextmanager
 def timed(name: str):
+    if not _ENABLED:
+        yield
+        return
     t0 = time.perf_counter_ns()
     try:
         yield
@@ -111,3 +126,33 @@ def device_profile(fn, *, top: int = 8) -> dict:
         "idle_share": 1.0 - busy / window if window > 0 else 0.0,
         "top": [{"name": n[:80], "ms": t / 1e3, "calls": c} for n, (t, c) in kernels],
     }
+
+
+class NoDeviceSpans(RuntimeError):
+    """A `profile_trace` whose trace kept no device span."""
+
+
+@contextlib.contextmanager
+def profile_trace(logdir):
+    """Trace the block with `torch.profiler` (host and CUDA activity) and
+    export it as a Chrome trace under `logdir`. Yields a dict that holds,
+    after the block, the trace's "path" and its "device_spans". A trace
+    without a device span (the profiler on the H100 now and then keeps
+    none of a trace) raises NoDeviceSpans instead of being written."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_trace needs a CUDA device")
+    info: dict = {}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        yield info
+        torch.cuda.synchronize()
+    spans = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        raise NoDeviceSpans("profile_trace: the trace holds no device span; nothing was written")
+    out = Path(logdir)
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / f"trace_{os.getpid()}_{time.time_ns()}.json"
+    prof.export_chrome_trace(str(path))
+    info.update(path=str(path), device_spans=spans)
