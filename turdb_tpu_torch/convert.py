@@ -15,7 +15,7 @@ import torch
 from turdb_tpu_torch.models.flat import FlatIndex
 from turdb_tpu_torch.models.hnsw import HnswIndex, HnswState
 from turdb_tpu_torch.models.hnsw_serve import HnswServeState
-from turdb_tpu_torch.models.ivf import IvfConfig, IvfState, sq8_placeholders
+from turdb_tpu_torch.models.ivf import IvfConfig, IvfState, cell_lanes, sq8_placeholders
 from turdb_tpu_torch.ops.distance import Metric
 from turdb_tpu_torch.ops.quantize import Sq8Rows
 
@@ -66,7 +66,7 @@ def ivf_state_from_numpy(arrays: dict, cfg: dict,
     if config.dense:
         tensors["cell_block"] = torch.as_tensor(np.array(arrays["cell_block"], np.int32),
                                                 device=device)
-    state = IvfState(**tensors)
+    state = IvfState(**tensors, lanes=cell_lanes(tensors["alive"]))
     c, cap = state.members.shape
     block = (c, cap, config.dim)
     probe_only = config.sq8 and not config.rerank

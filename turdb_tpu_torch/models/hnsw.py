@@ -60,6 +60,7 @@ from turdb_tpu_torch.kernels import (
 from turdb_tpu_torch.ops.distance import Metric, gathered_distances, normalize_rows, prep_norms
 from turdb_tpu_torch.ops.quantize import Sq8Rows, sq_rows_encode
 from turdb_tpu_torch.ops.topk import topk_smallest
+from turdb_tpu_torch.utils.timing import count, span, tracing
 
 # the reference's graph constants (turdb_tpu/config.py HNSW_*)
 HNSW_M0 = 32
@@ -161,14 +162,30 @@ def _greedy_level(adj, vectors, norms, q, qn, cur_i, cur_d, metric: Metric, lowe
     return cur_i, cur_d
 
 
+def count_beam(prefix: str, stats: torch.Tensor, deg: int, seeds: int) -> None:
+    """The work counters of one beam launch while tracing (`utils.timing`):
+    `<prefix>.queries` and `.seeds` (B, B × S), and from the launch's
+    `stats` [B, 2] (nodes expanded, neighbours scored), summed on the
+    device by one reduction: `.scored` and `.list_entries` (expanded × the
+    level's degree)."""
+    if not tracing():
+        return
+    b = stats.shape[0]
+    tot = stats.sum(0, dtype=torch.int64)
+    count(prefix + ".queries", b)
+    count(prefix + ".seeds", b * seeds)
+    count(prefix + ".scored", lambda: tot[1])
+    count(prefix + ".list_entries", lambda: tot[0] * deg)
+
+
 def _beam_level(adj, vectors, norms, q, qn, seed_i, seed_d, ef: int, iters: int,
                 metric: Metric, active=None, allowed=None, k_res: int | None = None,
-                expand: int = 4, return_expanded: bool = False):
+                expand: int = 4, return_expanded: bool = False, count_as: str | None = None):
     """The ef-beam over one adjacency level (K8, over the f32 rows or an
     Sq8Rows store), with the reference's returns: (cand_d, cand_i), plus (res_d,
     res_i) under `allowed`, or plus the expanded ids under
     `return_expanded`. Seeds are [B] or [B, S]; the first min(S, ef) are
-    used."""
+    used. `count_as` names the launch's work counters (`count_beam`)."""
     if seed_i.dim() == 1:
         seed_i, seed_d = seed_i[:, None], seed_d[:, None]
     s = min(seed_i.shape[1], ef)
@@ -176,6 +193,8 @@ def _beam_level(adj, vectors, norms, q, qn, seed_i, seed_d, ef: int, iters: int,
                           seed_d[:, :s].contiguous(), allowed, ef=ef, iters=iters,
                           metric=metric.value, expand=expand, k_res=k_res, active=active,
                           return_expanded=return_expanded)
+    if count_as is not None:
+        count_beam(count_as, out.stats, adj.shape[1], s)
     if allowed is not None:
         return out.cand_d, out.cand_i, out.res_d, out.res_i
     if return_expanded:
@@ -200,27 +219,34 @@ def hnsw_search_impl(state: HnswState, queries: torch.Tensor, allowed, *, cfg: H
     ef-beam at level 0 (see the module docstring). `allowed` is a [cap]
     bool mask (with `filtered`) or None. Returns ([B, k] distances
     ascending, [B, k] int32 slots, -1 padded)."""
-    q = queries.float().contiguous()
-    qn = prep_norms(q)
-    cur_i, cur_d = _seed_from_entry(state.vectors, state.norms, q, qn, state.entry, cfg.metric)
-    if descent_ef <= 1 and state.adj_hi:
-        # levels max_levels - 1 .. 1 in one launch
-        cur_i, cur_d = _greedy_level(state.adj_hi[::-1], state.vectors, state.norms, q, qn,
-                                     cur_i, cur_d, cfg.metric)
-    seeds_i, seeds_d = cur_i[:, None], cur_d[:, None]
-    for lvl in range(cfg.max_levels - 1, 0, -1) if descent_ef > 1 else ():
-        # the whole sorted beam seeds the next level
-        seeds_d, seeds_i = _beam_level(state.adj_hi[lvl - 1], state.vectors, state.norms, q, qn,
-                                       seeds_i, seeds_d, descent_ef, 2 * descent_ef, cfg.metric,
-                                       expand=2)
+    with span("turdb.hnsw.descent"):
+        q = queries.float().contiguous()
+        qn = prep_norms(q)
+        cur_i, cur_d = _seed_from_entry(state.vectors, state.norms, q, qn, state.entry,
+                                        cfg.metric)
+        if descent_ef <= 1 and state.adj_hi:
+            # levels max_levels - 1 .. 1 in one launch
+            cur_i, cur_d = _greedy_level(state.adj_hi[::-1], state.vectors, state.norms, q, qn,
+                                         cur_i, cur_d, cfg.metric)
+        seeds_i, seeds_d = cur_i[:, None], cur_d[:, None]
+        for lvl in range(cfg.max_levels - 1, 0, -1) if descent_ef > 1 else ():
+            # the whole sorted beam seeds the next level
+            seeds_d, seeds_i = _beam_level(state.adj_hi[lvl - 1], state.vectors, state.norms,
+                                           q, qn, seeds_i, seeds_d, descent_ef, 2 * descent_ef,
+                                           cfg.metric, expand=2, count_as="turdb.hnsw.descent")
     if filtered:
-        _, _, res_d, res_i = _beam_level(state.adj0, state.vectors, state.norms, q, qn,
-                                         seeds_i, seeds_d, ef, iters, cfg.metric,
-                                         allowed=allowed, k_res=max(k, 16), expand=expand)
+        with span("turdb.hnsw.beam"):
+            _, _, res_d, res_i = _beam_level(state.adj0, state.vectors, state.norms, q, qn,
+                                             seeds_i, seeds_d, ef, iters, cfg.metric,
+                                             allowed=allowed, k_res=max(k, 16), expand=expand,
+                                             count_as="turdb.hnsw.beam")
         return res_d[:, :k], res_i[:, :k]
-    cand_d, cand_i = _beam_level(state.adj0, state.vectors, state.norms, q, qn, seeds_i,
-                                 seeds_d, ef, iters, cfg.metric, expand=expand)
-    return topk_smallest(cand_d, cand_i, k)
+    with span("turdb.hnsw.beam"):
+        cand_d, cand_i = _beam_level(state.adj0, state.vectors, state.norms, q, qn, seeds_i,
+                                     seeds_d, ef, iters, cfg.metric, expand=expand,
+                                     count_as="turdb.hnsw.beam")
+    with span("turdb.hnsw.merge"):
+        return topk_smallest(cand_d, cand_i, k)
 
 
 # ---------------------------------------------------------------------------
@@ -760,12 +786,19 @@ class HnswIndex:
     # -- query ------------------------------------------------------------
 
     def _queries(self, queries) -> torch.Tensor:
-        if isinstance(queries, torch.Tensor):
-            q = queries.to(self.device, torch.float32)
-        else:
-            q = torch.as_tensor(np.atleast_2d(np.asarray(queries, np.float32)),
-                                device=self.device)
+        with span("turdb.stage_in"):
+            if isinstance(queries, torch.Tensor):
+                q = queries.to(self.device, torch.float32)
+            else:
+                q = torch.as_tensor(np.atleast_2d(np.asarray(queries, np.float32)),
+                                    device=self.device)
         return normalize_rows(q) if self.cfg.metric is Metric.COSINE else q
+
+    def _out(self, d, i, out):
+        if out == "torch":
+            return d, i
+        with span("turdb.stage_out"):
+            return d.cpu().numpy(), i.cpu().numpy()
 
     def _mask(self, allowed):
         """The [cap] visibility mask (alive, and `allowed` where given), or
@@ -781,22 +814,23 @@ class HnswIndex:
     def _empty(self, b, k, out):
         d = torch.full((b, k), INF, device=self.device)
         i = torch.full((b, k), NIL, dtype=torch.int32, device=self.device)
-        return (d, i) if out == "torch" else (d.cpu().numpy(), i.cpu().numpy())
+        return self._out(d, i, out)
 
     def search(self, queries, k: int, ef: int | None = None, allowed=None, out: str = "np"):
         """Batched k-NN over the graph. `allowed`: bool[size] visibility
         mask; hidden and deleted nodes are traversed but never returned.
         Returns (dists [B, k], slots [B, k]), -1 padded; `out="torch"`
         keeps them on the device."""
-        q = self._queries(queries)
-        if self.size == 0:
-            return self._empty(q.shape[0], k, out)
-        ef = max(ef or max(self.cfg.ef_search, k), k)
-        mask = self._mask(allowed)
-        d, i = hnsw_search_impl(self.state, q, mask, cfg=self.cfg, k=k, ef=ef,
-                                iters=ef + ef // 2, filtered=mask is not None,
-                                descent_ef=self._descent_ef)
-        return (d, i) if out == "torch" else (d.cpu().numpy(), i.cpu().numpy())
+        with span("turdb.hnsw.search"):
+            q = self._queries(queries)
+            if self.size == 0:
+                return self._empty(q.shape[0], k, out)
+            ef = max(ef or max(self.cfg.ef_search, k), k)
+            mask = self._mask(allowed)
+            d, i = hnsw_search_impl(self.state, q, mask, cfg=self.cfg, k=k, ef=ef,
+                                    iters=ef + ef // 2, filtered=mask is not None,
+                                    descent_ef=self._descent_ef)
+            return self._out(d, i, out)
 
     def delete(self, slots) -> None:
         """Tombstone delete: the node stays as a stepping stone."""
@@ -849,16 +883,17 @@ class HnswIndex:
         semantics as `search`; the distances returned are exact."""
         from turdb_tpu_torch.models.hnsw_serve import serve_search_impl
 
-        if self.serve is None:
-            self.pack_serving()
-        q = self._queries(queries)
-        if self.serve is None:   # empty index
-            return self._empty(q.shape[0], k, out)
-        ef = max(ef or max(self.cfg.ef_search, k), k)
-        d, i = serve_search_impl(self.serve, q, self._mask(allowed), metric=self.cfg.metric,
-                                 k=k, ef=ef, iters=iters or (ef + ef // 2), expand=expand,
-                                 nprobe=nprobe, nseed=nseed, rerank=rerank)
-        return (d, i) if out == "torch" else (d.cpu().numpy(), i.cpu().numpy())
+        with span("turdb.hnsw.search_serve"):
+            if self.serve is None:
+                self.pack_serving()
+            q = self._queries(queries)
+            if self.serve is None:   # empty index
+                return self._empty(q.shape[0], k, out)
+            ef = max(ef or max(self.cfg.ef_search, k), k)
+            d, i = serve_search_impl(self.serve, q, self._mask(allowed), metric=self.cfg.metric,
+                                     k=k, ef=ef, iters=iters or (ef + ef // 2), expand=expand,
+                                     nprobe=nprobe, nseed=nseed, rerank=rerank)
+            return self._out(d, i, out)
 
     # -- quantization of the graph's vector store --------------------------
 

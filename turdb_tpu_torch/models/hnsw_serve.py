@@ -26,8 +26,10 @@ import numpy as np
 import torch
 
 from turdb_tpu_torch.kernels import EPI_L2, hnsw_serve_beam, ivf_probe_sq8, topk_rows
+from turdb_tpu_torch.models.hnsw import count_beam
 from turdb_tpu_torch.ops.distance import Metric, prep_norms
 from turdb_tpu_torch.ops.quantize import quantize_queries
+from turdb_tpu_torch.utils.timing import count, span
 
 INF = float("inf")
 _INV_255 = float(np.float32(1.0 / 255.0))
@@ -59,14 +61,20 @@ def serve_search_impl(state: HnswServeState, queries: torch.Tensor, allowed, *,
     `allowed` [cap] bool or None applied at the rerank (hidden nodes are
     traversed). Returns ([B, k] exact distances ascending, [B, k] int32
     slots, -1 padded)."""
-    q = queries.float().contiguous()
-    qn = prep_norms(q)
-    qc, qs, qsum = quantize_queries(q)
-    seed_d, seed_i = serve_seeds(state, q, qn, qc, qs, qsum, metric=metric, ef=ef,
-                                 nprobe=nprobe, nseed=nseed)
-    d, i, _ = hnsw_serve_beam(state.nbr_codes, state.nbr_meta, state.vectors, state.norms, q,
-                              qn, qc, qs, qsum, seed_i, seed_d, allowed, ef=ef, iters=iters,
-                              expand=expand, rerank=rerank, k=k, metric=metric.value)
+    with span("turdb.serve.seed"):
+        q = queries.float().contiguous()
+        qn = prep_norms(q)
+        qc, qs, qsum = quantize_queries(q)
+        seed_d, seed_i = serve_seeds(state, q, qn, qc, qs, qsum, metric=metric, ef=ef,
+                                     nprobe=nprobe, nseed=nseed)
+    with span("turdb.serve.beam"):
+        d, i, stats = hnsw_serve_beam(state.nbr_codes, state.nbr_meta, state.vectors,
+                                      state.norms, q, qn, qc, qs, qsum, seed_i, seed_d, allowed,
+                                      ef=ef, iters=iters, expand=expand, rerank=rerank, k=k,
+                                      metric=metric.value)
+        count_beam("turdb.serve.beam", stats, state.nbr_codes.shape[1], seed_i.shape[1])
+        # the exact rows the rerank reads: min(rerank or ef, ef) a query
+        count("turdb.serve.beam.reranked", q.shape[0] * min(rerank or ef, ef))
     return d, i
 
 

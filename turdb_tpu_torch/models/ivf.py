@@ -50,6 +50,7 @@ from turdb_tpu_torch.kernels import (
 from turdb_tpu_torch.ops.distance import Metric, chain_norms, normalize_rows, prep_norms
 from turdb_tpu_torch.ops.quantize import quantize_queries, sq8_store, sq16_decode, sq16_encode
 from turdb_tpu_torch.ops.topk import topk_smallest_wide
+from turdb_tpu_torch.utils.timing import count, span, tracing
 
 INF = float("inf")
 
@@ -81,6 +82,23 @@ class IvfState(NamedTuple):
     mins: torch.Tensor        # [C, L] m′ | (1, 1)
     scales: torch.Tensor      # [C, L] | (1, 1)
     cell_block: torch.Tensor | None = None   # [C] int32 (dense only)
+    lanes: torch.Tensor | None = None        # [C] int64 live lanes a cell (`probe_lanes`)
+
+
+def probe_lanes(lanes: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """The live lanes of the cells (blocks) `src` names, replicas included,
+    summed on the device: a 0-d int64 tensor (no synchronize)."""
+    return lanes.index_select(0, src.reshape(-1)).sum()
+
+
+def cell_lanes(alive: torch.Tensor) -> torch.Tensor:
+    """[C] int64 live lanes a cell, the traced probe's counter. The
+    counter's gather and sum run once here, over C cells (a gather of 16
+    or fewer takes another kernel): CUDA loads a kernel's module at its
+    first launch, which would otherwise fall in the first traced search."""
+    lanes = alive.sum(1)
+    probe_lanes(lanes, torch.zeros(len(lanes), dtype=torch.int32, device=alive.device))
+    return lanes
 
 
 def sq8_placeholders(device):
@@ -159,15 +177,16 @@ def ivf_search_impl(state: IvfState, queries: torch.Tensor, allowed, *,
     indexes drop later copies. The sq8 probe and the rerank are L2
     whatever `cfg.metric` is, as in the reference. Returns ([B, k] dists
     ascending, [B, k] int32 slot ids, -1 where +inf)."""
-    q = queries.float().contiguous()
-    qn = prep_norms(q)
-    # cell scoring is L2 for every metric and, like the reference, unclamped
-    dots = q @ state.centroids.T
-    if cfg.dense:
-        *_, src = topk_rows(dots, nprobe, rown=qn, coln=state.cnorms, epilogue=EPI_L2,
-                            cell_block=state.cell_block, u=nblocks or nprobe)
-    else:
-        _, src = topk_rows(dots, nprobe, rown=qn, coln=state.cnorms, epilogue=EPI_L2)
+    with span("turdb.ivf.select"):
+        q = queries.float().contiguous()
+        qn = prep_norms(q)
+        # cell scoring is L2 for every metric and, like the reference, unclamped
+        dots = q @ state.centroids.T
+        if cfg.dense:
+            *_, src = topk_rows(dots, nprobe, rown=qn, coln=state.cnorms, epilogue=EPI_L2,
+                                cell_block=state.cell_block, u=nblocks or nprobe)
+        else:
+            _, src = topk_rows(dots, nprobe, rown=qn, coln=state.cnorms, epilogue=EPI_L2)
     dedup = cfg.replicated or cfg.dense
     lanes = src.shape[1] * cfg.cluster_cap
     if cfg.rerank:
@@ -177,18 +196,23 @@ def ivf_search_impl(state: IvfState, queries: torch.Tensor, allowed, *,
     else:
         m = min(max(2, cfg.copies) * k, lanes) if dedup else k
         sel = dict(k=k, m=m, replicated=dedup)
-    if cfg.sq8:
-        qc, qs, qsum = quantize_queries(q)
-        out = ivf_probe_sq8(qc, qs, qsum, qn, src, state.codes, state.mins, state.scales,
-                            state.pnorms, state.members, state.alive, allowed, **sel)
-    else:
-        out = ivf_probe_f32(q, qn, src, state.pvecs, state.pnorms, state.members,
-                            state.alive, allowed, metric=cfg.metric.value, **sel)
+    with span("turdb.ivf.probe"):
+        if tracing() and state.lanes is not None:
+            count("turdb.ivf.probe.queries", src.shape[0])
+            count("turdb.ivf.probe.lanes", probe_lanes(state.lanes, src))
+        if cfg.sq8:
+            qc, qs, qsum = quantize_queries(q)
+            out = ivf_probe_sq8(qc, qs, qsum, qn, src, state.codes, state.mins, state.scales,
+                                state.pnorms, state.members, state.alive, allowed, **sel)
+        else:
+            out = ivf_probe_f32(q, qn, src, state.pvecs, state.pnorms, state.members,
+                                state.alive, allowed, metric=cfg.metric.value, **sel)
     if not cfg.rerank:
         return out
     cd, ci, cpos = out
-    return ivf_rerank(q, qn, cd, ci, cpos, state.pvecs, state.pnorms, state.mins,
-                      state.scales, k=k, replicated=dedup)
+    with span("turdb.ivf.rerank"):
+        return ivf_rerank(q, qn, cd, ci, cpos, state.pvecs, state.pnorms, state.mins,
+                          state.scales, k=k, replicated=dedup)
 
 
 # ---------------------------------------------------------------------------
@@ -480,6 +504,7 @@ class IvfIndex:
             self._write_rows(where, rows, pvecs, pnorms, codes, mins, scales)
         alive = np.zeros((c, cap), bool)
         alive[mc, ml] = self._alive_host[mslots]
+        alive = self._dev(alive)
         cents = self._dev(np.ascontiguousarray(cents_np, np.float32))
         return IvfState(
             centroids=cents,
@@ -487,11 +512,12 @@ class IvfIndex:
             members=self._dev(members.astype(np.int32)),
             pvecs=pvecs,
             pnorms=pnorms,
-            alive=self._dev(alive),
+            alive=alive,
             codes=codes,
             mins=mins,
             scales=scales,
             cell_block=None if cell_block is None else self._dev(cell_block),
+            lanes=cell_lanes(alive),
         )
 
     def _write_rows(self, where, rows, pvecs, pnorms, codes, mins, scales):
@@ -650,6 +676,7 @@ class IvfIndex:
         where = (self._dev(cs), self._dev(lanes))
         st.members.index_put_(where, self._dev(slots.astype(np.int32)))
         st.alive.index_put_(where, torch.ones(len(cs), dtype=torch.bool, device=self.device))
+        torch.sum(st.alive, 1, out=st.lanes)
         self._write_rows(where, jv, st.pvecs, st.pnorms, st.codes, st.mins, st.scales)
         need = int(slots.max()) + 1
         if need > len(self._slot_cluster):
@@ -702,27 +729,30 @@ class IvfIndex:
 
         `queries` may be a tensor on the index's device (the serving path:
         no host staging); `out="torch"` keeps the results there."""
-        if isinstance(queries, torch.Tensor):
-            q = queries.to(self.device, torch.float32)
-        else:
-            q = self._dev(np.atleast_2d(np.asarray(queries, np.float32)))
-        if self.state is None:
-            self.train()
-        if self.state is None or self.size == 0:
-            d = torch.full((q.shape[0], k), INF, device=self.device)
-            i = torch.full((q.shape[0], k), -1, dtype=torch.int32, device=self.device)
-        else:
-            if self.metric is Metric.COSINE:
-                q = normalize_rows(q)
-            p = min(nprobe or self.nprobe, self.cfg.n_clusters)
-            amask = None if allowed is None else self.allowed_mask(allowed)
-            # the plain probe bounds its gather by the min(p, nblocks) blocks
-            # it reads, as the reference's batch cap does (p_eff)
-            d, i = ivf_search_impl(self.state, q, amask, cfg=self.cfg, k=k, nprobe=p,
-                                   nblocks=self.nblocks if self.cfg.dense else None)
-        if out == "torch":
-            return d, i
-        return d.cpu().numpy(), i.cpu().numpy()
+        with span("turdb.ivf.search"):
+            with span("turdb.stage_in"):
+                if isinstance(queries, torch.Tensor):
+                    q = queries.to(self.device, torch.float32)
+                else:
+                    q = self._dev(np.atleast_2d(np.asarray(queries, np.float32)))
+            if self.state is None:
+                self.train()
+            if self.state is None or self.size == 0:
+                d = torch.full((q.shape[0], k), INF, device=self.device)
+                i = torch.full((q.shape[0], k), -1, dtype=torch.int32, device=self.device)
+            else:
+                if self.metric is Metric.COSINE:
+                    q = normalize_rows(q)
+                p = min(nprobe or self.nprobe, self.cfg.n_clusters)
+                amask = None if allowed is None else self.allowed_mask(allowed)
+                # the plain probe bounds its gather by the min(p, nblocks) blocks
+                # it reads, as the reference's batch cap does (p_eff)
+                d, i = ivf_search_impl(self.state, q, amask, cfg=self.cfg, k=k, nprobe=p,
+                                       nblocks=self.nblocks if self.cfg.dense else None)
+            if out == "torch":
+                return d, i
+            with span("turdb.stage_out"):
+                return d.cpu().numpy(), i.cpu().numpy()
 
     def delete(self, slots):
         slots = np.atleast_1d(np.asarray(slots)).astype(np.int64)
@@ -740,6 +770,7 @@ class IvfIndex:
             r = m[sc[m] >= 0]
             if len(r):
                 alive[self._dev(sc[r]), self._dev(sl[r])] = False
+        torch.sum(alive, 1, out=self.state.lanes)
 
 
 def _two_means_batched(pts: torch.Tensor, valid: torch.Tensor, iters: int = 6):
