@@ -127,7 +127,12 @@
    into K2) on the dense index's cells (bit-equal to `dense_blocks_plain`),
    K11 at B = 1024 over the 1M store (its ids apart and every one at a
    near-tie, its recall beside its plain version's, which the fp32 kernel
-   before it equalled bit for bit); then the widths past the old limits,
+   before it equalled bit for bit), K12 (`cell_select`) on the f32
+   headline index's centroids at the benchmark's batch of 10,000 (nprobe
+   5) and at B = 1 (nprobe 8) and on the HNSW serving pack's at serve's
+   seeding (nprobe 2), each against its plain version, its device ms A B B
+   A against the GEMM + K2 pair it replaces and `torch.mm` + `torch.topk`
+   as the library; then the widths past the old limits,
    each in its kernel and against its plain version, with its bound and
    the library call: K2's wide form at k = 3000 (and with K10 fused;
    `torch.topk`), K11's distance mode at k = 100 and 2100 and its column
@@ -145,6 +150,7 @@ chiprun_out/chip_smoke_report.json.
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -468,6 +474,54 @@ def k2_phase(dev, gen, cells=CELLS, flat_chunk=FLAT_CHUNK):
 
 
 K1_PROBES = (K1_PROBE, 64, 128)
+
+# K12 (cell_select) against the GEMM + K2 pair: the benchmark's batch, its
+# r95 nprobe, serve's seeding nprobe, and a SQL statement's
+K12_BATCH, K12_SERVE_P, K12_SQL_P = 10_000, 2, 8
+
+
+def k12_case(cents, cnorms, q, p, what):
+    """K12 on one index's centroids at one batch: against its plain
+    version (the fp32 product by the library, K2's plain selection) on the
+    same CUDA tensors (distances within DOT_RTOL, ids apart only at
+    near-ties), and device ms A B B A against the GEMM + K2 pair (A) it
+    replaces (B: K12, launched at any batch); `ms` / `loop_ms` one call /
+    ten back to back; the bound 2·B·C·d FLOP at 67 TFLOP/s (or the bytes);
+    `library_ms`, `torch.mm` and `torch.topk` of the distances, a yardstick
+    only."""
+    from turdb_tpu_torch.kernels import (EPI_L2, _sm_count, cell_select_kernel,
+                                         cell_select_plain, cell_select_plan, topk_rows)
+
+    qn = (q * q).sum(1)
+    b, d = q.shape
+    c = cents.shape[0]
+    dk, ik = cell_select_kernel(q, qn, cents, cnorms, p)
+    dp, ip = cell_select_plain(q, qn, cents, cnorms, p)
+    err, apart = _near_equal(dk, ik, dp, ip, DOT_RTOL, what)
+    runs = {"A": lambda: topk_rows(q @ cents.T, p, rown=qn, coln=cnorms, epilogue=EPI_L2),
+            "B": lambda: cell_select_kernel(q, qn, cents, cnorms, p)}
+    device = {"A": [], "B": []}
+    for side in "ABBA":
+        device[side].append(_trace_ms(runs[side]))
+    fn = runs["B"]
+    return {"shape": [b, c, d], "p": p, "plan": cell_select_plan(b, c, d, p, _sm_count(q.device)),
+            "max_abs_err": err, "ids_apart": apart, "ms": _median_ms(fn), "loop_ms": _loop_ms(fn),
+            "device_ms": statistics.median(device["B"]), "device_ab": device,
+            "plain_ms": _median_ms(lambda: cell_select_plain(q, qn, cents, cnorms, p)),
+            "library_ms": _median_ms(lambda: torch.topk(
+                (qn[:, None] + cnorms[None, :]) - 2.0 * torch.mm(q, cents.T), p, largest=False)),
+            **_bound(4 * (b * d + c * d + b + c) + 8 * b * p, 2 * b * c * d, FP32_OPS)}
+
+
+def k12_check(state, queries, dev, serve=None):
+    """K12 on the 1M store's index: the r95 shape (the benchmark's batch at
+    nprobe K1_PROBE) and a SQL statement's single query; with `serve` (the
+    HNSW serving pack) serve's seeding shape."""
+    q = torch.as_tensor(queries[:K12_BATCH], device=dev)
+    if serve is not None:
+        return k12_case(serve.centroids, serve.cnorms, q, K12_SERVE_P, "K12 serve seeding")
+    return {"r95": k12_case(state.centroids, state.cnorms, q, K1_PROBE, "K12 r95"),
+            "b1": k12_case(state.centroids, state.cnorms, q[:1].contiguous(), K12_SQL_P, "K12 b1")}
 
 
 def synthetic_f32_store(dev, gen, cells=CELLS, lanes=LANES):
@@ -3706,6 +3760,8 @@ KERNELS = {
                      "turdb_tpu/models/ivf.py:225"),
     "sq8_scan": ("turdb_tpu_torch/kernels/csrc/sq8_scan.cu",
                  "turdb_tpu/ops/quantize.py:42"),
+    "cell_select": ("turdb_tpu_torch/kernels/csrc/cell_select.cu",
+                    "turdb_tpu/models/ivf.py:261"),
     # the wide forms, past the fast forms' widths
     "topk_rows_wide": ("turdb_tpu_torch/kernels/csrc/topk_rows.cu",
                        "turdb_tpu/ops/topk.py:45"),
@@ -3738,7 +3794,7 @@ PATH_KERNELS = {
     "hard": ("ivf_probe_sq8", "ivf_rerank", "topk_rows", "kmeans_assign"),
     "probe_only": ("ivf_probe_sq8", "topk_rows", "kmeans_assign"),
     "hnsw": ("topk_rows", "kmeans_assign", "ivf_probe_sq8", "hnsw_serve_beam", "hnsw_select",
-             "hnsw_graph_beam"),
+             "hnsw_graph_beam", "cell_select"),
     "hnsw_insert": ("topk_rows", "kmeans_assign", "ivf_probe_sq8", "hnsw_serve_beam",
                     "hnsw_select", "hnsw_graph_beam", "hnsw_greedy", "hnsw_select_sorted",
                     "hnsw_graph_beam_sq"),
@@ -3781,6 +3837,7 @@ def kernel_rows(launches):
         "hnsw_select_sorted": REPORT["k7s"],
         "dense_blocks": REPORT["k10"],
         "sq8_scan": REPORT["k11"],
+        "cell_select": REPORT["k12"]["r95"],
         **REPORT["wide"],
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3788,7 +3845,7 @@ def kernel_rows(launches):
     # K3's yardstick, the bf16 product of its operands alone, a trace's
     # device time, and K9's longest chain of steps and device time a step
     extra = ("loop_ms", "gemm_ms", "device_ms", "longest_chain", "steps_a_query", "step_ms",
-             "bound_fp32_ms")
+             "bound_fp32_ms", "device_ab")
     return [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(counts.get(name, 0) for counts in launches.values()),
@@ -3839,6 +3896,8 @@ def run_paths(dev, launches):
 
     idx, batches, gate = counted("f32", f32)
     profile("search", idx, batches, gate)
+    REPORT["k12"] = k12_check(idx.state, queries, dev)
+    log(f"k12: {json.dumps(REPORT['k12'])}")
     del idx
 
     def sq8():
@@ -3881,6 +3940,8 @@ def run_paths(dev, launches):
     log(f"hnsw graph profile: {json.dumps(REPORT['hnsw_graph_profile'])}")
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
+    REPORT["k12"]["serve_seed"] = k12_check(None, queries, dev, serve=idx.serve)
+    log(f"k12 serve seeding: {json.dumps(REPORT['k12']['serve_seed'])}")
     REPORT["k6"] = k6_check(idx, batches[0], gate)
     REPORT["k8"] = k8_check(idx, batches[0])
     REPORT["k7"] = k7_check(idx, gen)

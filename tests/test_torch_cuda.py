@@ -2190,3 +2190,126 @@ def test_select_wide_routes_by_shape(cuda, w, d, route):
         same = (got[0] == want[0]).all(1)
         torch.testing.assert_close(got[1][same], want[1][same], rtol=DOT_RTOL,
                                    atol=DOT_RTOL * float(2 * nm.max()))
+
+
+def _cell_select_plain64(q, qn, cents, cn):
+    """K12's yardstick: the fp64 product and K2's epilogue in fp64, sorted
+    stably: ([B, C] distances ascending, [B, C] positions)."""
+    dist = (qn.double()[:, None] + cn.double()[None, :]) - 2.0 * (q.double() @ cents.double().T)
+    return torch.sort(dist, dim=1, stable=True)
+
+
+def _assert_cells(dk, ik, q, qn, cents, cn, p):
+    """K12 against the fp64 plain version: the chosen cells equal where the
+    p-th and (p+1)-th plain distances are more than 1e-6 apart (relative);
+    each distance that of its cell within fp32 rounding (DOT_RTOL of the
+    norms' sum); ascending; +inf cells only after every finite one, and
+    those the lowest positions."""
+    sd, si = _cell_select_plain64(q, qn, cents, cn)
+    c = cents.shape[0]
+    assert dk.shape == ik.shape == (q.shape[0], p)
+    assert bool((ik >= 0).all()) and bool((ik < c).all())
+    assert bool((dk[:, 1:] >= dk[:, :-1]).all())
+    exact = torch.gather((qn.double()[:, None] + cn.double()[None, :])
+                         - 2.0 * (q.double() @ cents.double().T), 1, ik.long())
+    scale = qn.double()[:, None] + torch.where(torch.isinf(cn), 0.0, cn.double())[ik.long()]
+    fin = torch.isfinite(exact)
+    assert torch.equal(fin, torch.isfinite(dk))
+    assert bool(((dk.double() - exact).abs() <= DOT_RTOL * scale)[fin].all())
+    if p < c:
+        kth, nxt = sd[:, p - 1], sd[:, p]
+        clear = (nxt - kth).abs() > 1e-6 * kth.abs().clamp_min(1e-30)
+        clear &= torch.isfinite(kth)
+        same = torch.sort(ik.long(), 1).values == torch.sort(si[:, :p], 1).values
+        assert bool(same.all(1)[clear].all()), int((~same.all(1) & clear).sum())
+    # +inf cells: after the finite ones, by position, as K2 ranks them
+    n_fin = int(torch.isfinite(cn).sum())
+    if n_fin < p:
+        assert torch.equal(ik[:, n_fin:], si[:, n_fin:p].to(torch.int32))
+
+
+@pytest.mark.parametrize("b", [1, 7, 129, 4096])
+@pytest.mark.parametrize("c", [64, 3906, 20_000])
+def test_cell_select_matches_plain(cuda, b, c):
+    """K12 at every d and P the main paths use (P up to the kernel's
+    limit), at any batch (below CELLSEL_B_MIN `cell_select` keeps the
+    pair; `cell_select_kernel` launches K12 there too): one launch a call,
+    the segments merged inside it."""
+    g = torch.Generator(device=cuda).manual_seed(b * 7 + c)
+    for d in (128, 96, 36):     # 36: a last chunk of 4 dims
+        q = torch.randn(b, d, device=cuda, generator=g) * 4
+        cents = torch.randn(c, d, device=cuda, generator=g) * 4
+        qn, cn = (q * q).sum(1), (cents * cents).sum(1)
+        for p in (1, 2, 5, 8, kernels.CELLSEL_P_MAX):
+            if p > c:
+                continue
+            plan = kernels.cell_select_plan(b, c, d, p, kernels._sm_count(q.device))
+            assert plan is not None
+            before = kernels.launches["cell_select"]
+            dk, ik = kernels.cell_select_kernel(q, qn, cents, cn, p)
+            assert kernels.launches["cell_select"] == before + 1
+            _assert_cells(dk, ik, q, qn, cents, cn, p)
+            assert b > 16 or plan[1] > 1 or c <= kernels.CELLSEL_TC   # small batches split
+
+
+@pytest.mark.parametrize("b, c, p", [(1, 20_000, 8), (129, 3906, 5), (4096, 20_000, 32)])
+def test_cell_select_ties_and_infinite_cells(cuda, b, c, p):
+    """Duplicate centroids give bit-equal distances: the lower position is
+    taken first, within a tile, across tiles and across segments; +inf
+    cnorms (pad or empty cells) rank after every finite cell, and where
+    fewer than P are finite, by position."""
+    g = torch.Generator(device=cuda).manual_seed(c + p)
+    half = c // 2
+    q = torch.randn(b, 128, device=cuda, generator=g) * 4
+    base = torch.randn(half, 128, device=cuda, generator=g) * 4
+    cents = torch.cat([base, base])                  # column j + half copies column j
+    qn, cn = (q * q).sum(1), (cents * cents).sum(1)
+    dk, ik = kernels.cell_select_kernel(q, qn, cents, cn, p)
+    _assert_cells(dk, ik, q, qn, cents, cn, p)
+    ids = ik.long()
+    hi = ids >= half
+    rank = torch.arange(p, device=cuda).expand_as(ids)
+    for r in range(b):
+        pos = {int(v): int(k) for v, k in zip(ids[r], rank[r])}
+        for v in ids[r][hi[r]].tolist():
+            assert pos.get(v - half, p) < pos[v], (r, v)
+    # +inf cells: most of them; where fewer than P are finite, the lowest
+    # positions of the +inf cells fill the row
+    cn_inf = cn.clone()
+    cn_inf[p // 2:] = float("inf")
+    dk, ik = kernels.cell_select_kernel(q, qn, cents, cn_inf, p)
+    _assert_cells(dk, ik, q, qn, cents, cn_inf, p)
+    assert torch.equal(ik[:, p // 2:], torch.arange(p // 2, p, device=cuda,
+                                                      dtype=torch.int32).expand(b, -1))
+
+
+def test_cell_select_routes_and_sizes(cuda):
+    """The plan's shared memory is the library's; wide P, d past the
+    kernel's or no multiple of 4, and a batch under CELLSEL_B_MIN keep the
+    GEMM + K2 pair (no K12 launch), and agree with it; the IVF search at a
+    batch of CELLSEL_B_MIN takes K12, the SQL path's single query the
+    pair."""
+    lib = kernels.build.library()
+    for mi in (1, 2, 4, 8):
+        for d in (96, 128, 256):
+            assert kernels.cell_select_smem(mi, d) == lib.cell_select_smem(mi, d)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for b, d, p in ((2048, 128, 64), (2048, 384, 8), (2048, 130, 8), (33, 128, 8)):
+        q = torch.randn(b, d, device=cuda, generator=g)
+        cents = torch.randn(500, d, device=cuda, generator=g)
+        qn, cn = (q * q).sum(1), (cents * cents).sum(1)
+        assert not kernels.cell_select_fused(cuda, b, 500, d, p)
+        before = kernels.launches["cell_select"]
+        got = kernels.cell_select(q, qn, cents, cn, p)
+        assert kernels.launches["cell_select"] == before
+        want = kernels.topk_rows(q @ cents.T, p, rown=qn, coln=cn, epilogue=kernels.EPI_L2)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    pool = make_pool(np.random.default_rng(1), 20_000 + kernels.CELLSEL_B_MIN, 32,
+                     n_clusters=64)
+    idx = IvfIndex(dim=32, device=cuda)
+    idx.add(pool[:20_000])
+    before = kernels.launches["cell_select"]
+    idx.search(pool[20_000:], k=10, nprobe=8)
+    assert kernels.launches["cell_select"] == before + 1
+    idx.search(pool[20_000:20_001], k=10, nprobe=8)
+    assert kernels.launches["cell_select"] == before + 1

@@ -209,11 +209,13 @@ def test_cpu_wrappers_leave_launch_counters_at_zero():
     u8, m8, s8 = tq.sq8_encode(xt[:32])
     kernels.sq8_scan(qt, td.prep_norms(qt), qsum, u8, m8, s8,
                      torch.ones(32, dtype=torch.bool), 3)
+    kernels.cell_select(qt, td.prep_norms(qt), xt, td.prep_norms(xt), 3)
     assert set(kernels.launches) == {"ivf_probe_f32", "topk_rows", "kmeans_assign",
                                      "ivf_probe_sq8", "ivf_rerank", "hnsw_serve_beam",
                                      "hnsw_select", "hnsw_graph_beam", "hnsw_select_sorted",
                                      "hnsw_graph_beam_sq", "hnsw_greedy", "dense_blocks",
-                                     "sq8_scan", "topk_rows_wide", "ivf_probe_f32_wide",
+                                     "sq8_scan", "cell_select", "topk_rows_wide",
+                                     "ivf_probe_f32_wide",
                                      "ivf_probe_sq8_wide", "ivf_probe_sq8_wide_query",
                                      "ivf_rerank_wide", "hnsw_serve_beam_wide",
                                      "hnsw_select_wide", "hnsw_graph_beam_wide",
@@ -237,6 +239,9 @@ def test_wrappers_never_fall_back():
         kernels.topk_rows(x, 3)
     with pytest.raises(ValueError):
         kernels.kmeans_assign(x, torch.empty((8, 64)), torch.empty(4), torch.empty(8))
+    with pytest.raises(ValueError):
+        kernels.cell_select(x, torch.empty(4, device="meta"), torch.empty((8, 64), device="meta"),
+                            torch.empty(8, device="meta"), 3)
     with pytest.raises(ValueError):
         kernels.topk_rows(torch.zeros((2, 8)), 9)   # k > N
 

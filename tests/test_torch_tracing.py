@@ -7,6 +7,7 @@
   and the probe's lanes the live lanes of the cells the plain selection
   picks;
 - the probe's per-cell live lanes follow deletes and inserts;
+- the cell selection counts its queries and those K12 takes;
 - `counters` resolves ints, tensors and callables once; `profile_trace`
   hands back its block's counters; `device_summary` takes its window from
   the host's range, not from the device's first and last spans.
@@ -23,6 +24,7 @@ from turdb_tpu_torch import kernels
 from turdb_tpu_torch.models import HnswIndex, IvfIndex
 from turdb_tpu_torch.models import hnsw as th
 from turdb_tpu_torch.models import hnsw_serve as ths
+from turdb_tpu_torch.models import ivf as tivf
 from turdb_tpu_torch.utils import timing
 
 torch.set_num_threads(1)
@@ -193,6 +195,37 @@ def test_probe_lanes_are_the_live_lanes_of_the_selected_cells(ivf, data):
     got = timing.counters()
     assert got["turdb.ivf.probe.queries"] == len(data[1])
     assert got["turdb.ivf.probe.lanes"] == want > 0
+
+
+@pytest.fixture(scope="module")
+def dense(data):
+    idx = IvfIndex(dim=DIM, dense_pack=True, nblocks=2, device="cpu")
+    idx.add(data[0])
+    return idx
+
+
+@pytest.mark.parametrize("entry, fused", [("ivf", False), ("ivf", True), ("serve", False),
+                                          ("serve", True), ("dense", True), ("graph", True)])
+def test_select_counters_count_the_queries_and_the_fused_ones(indexes, dense, data, entry,
+                                                              fused, monkeypatch):
+    """`turdb.ivf.select.{queries, fused}`: every query of a cell selection
+    (IVF search, serve's seeding), and those K12 takes (on the CPU none: the
+    route is patched to say it would); never the dense path's (K10 inside
+    K2); the graph search selects no cells."""
+    if fused:
+        monkeypatch.setattr(tivf, "cell_select_fused", lambda *a: True)
+    search = (lambda q: dense.search(q, K, nprobe=4)) if entry == "dense" else \
+        (lambda q: ENTRIES[entry](indexes, q))
+    with profile(activities=[ProfilerActivity.CPU]):
+        search(data[1])
+        search(data[1][:7])
+    got = timing.counters()
+    if entry == "graph":
+        assert not any(name.startswith("turdb.ivf.select") for name in got)
+        return
+    n = len(data[1]) + 7
+    assert got["turdb.ivf.select.queries"] == n
+    assert got["turdb.ivf.select.fused"] == (n if fused and entry != "dense" else 0)
 
 
 def test_probe_lanes_follow_deletes_and_inserts(data):

@@ -18,6 +18,9 @@ and the launch counters.
                                              (fused into K2: `topk_rows(..., cell_block=, u=)`)
     K11 sq8_scan        csrc/sq8_scan.cu     asymmetric L2 k-NN over a u8 store on the int8
                                              tensor cores (+ a K2 merge)
+    K12 cell_select     csrc/cell_select.cu  IVF cell selection: q·Cᵀ and each query's P
+                                             nearest cells in one launch (fp32 FFMA); the
+                                             GEMM + K2 pair where its rule says
 
 A wrapper given CPU tensors runs the plain version below, at any width;
 given CUDA tensors it launches its kernel (built at first use) or raises.
@@ -48,6 +51,7 @@ zero query lane.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -81,7 +85,7 @@ launches = {"ivf_probe_f32": 0, "topk_rows": 0, "kmeans_assign": 0,
             "ivf_probe_sq8": 0, "ivf_rerank": 0, "hnsw_serve_beam": 0,
             "hnsw_select": 0, "hnsw_graph_beam": 0, "hnsw_select_sorted": 0,
             "hnsw_graph_beam_sq": 0, "hnsw_greedy": 0, "dense_blocks": 0,
-            "sq8_scan": 0, **{name: 0 for name in WIDE}}
+            "sq8_scan": 0, "cell_select": 0, **{name: 0 for name in WIDE}}
 # blocks of a wide beam or selection launch at most (each walks its share of
 # the queries over its own scratch slice)
 WIDE_BLOCKS = 512
@@ -226,6 +230,16 @@ def topk_wide_ctas(n: int, k: int) -> int:
     return int(build.library().topk_rows_wide_ctas(n, k))
 
 
+def _counters(device, n):
+    """At least n of the device's zeroed ints (K2's rows, K12's query
+    tiles; each launch leaves what it counted at zero)."""
+    counters = _row_counters.get(device)
+    if counters is None or counters.numel() < n:
+        counters = _row_counters[device] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                                       device=device)
+    return counters
+
+
 def _topk_scratch(b, n, k, device):
     """(candidate keys, candidate positions, row counters) of a segmented
     launch; for the global wide form (k > SEL_MAX, `topk_wide_ctas` 0) the
@@ -238,11 +252,7 @@ def _topk_scratch(b, n, k, device):
     if nseg == 1:
         return None, None, None
     cand = torch.empty((2, b * nseg * k), dtype=torch.int32, device=device)
-    counters = _row_counters.get(device)
-    if counters is None or counters.numel() < b:
-        counters = _row_counters[device] = torch.zeros(max(b, 1024), dtype=torch.int32,
-                                                       device=device)
-    return cand[0], cand[1], counters
+    return cand[0], cand[1], _counters(device, b)
 
 
 def topk_rows(x: torch.Tensor, k: int, *, rown=None, coln=None, colvalid=None,
@@ -1763,4 +1773,143 @@ def sq8_scan(q, qn, qsum, codes, mins, scales, valid, k: int):
         dk, pos = topk_rows(dist[:e - s], k)
         out_d[s:e] = dk
         out_i[s:e] = torch.where(torch.isinf(dk), -1, pos)
+    return out_d, out_i
+
+
+# ---------------------------------------------------------------------------
+# K12: IVF cell selection, q·Cᵀ and the P nearest cells in one launch
+# ---------------------------------------------------------------------------
+
+# K12's sizes (csrc/cell_select.cu): the widest P and d it takes, the
+# centroids of a tile, a query's candidate buffer, the floats of a staged
+# centroid row and the stages of its ring
+CELLSEL_P_MAX, CELLSEL_D_MAX, CELLSEL_TC = 32, 256, 128
+_CELLSEL_CAP, _CELLSEL_KS, _CELLSEL_STAGES = 48, 36, 3
+# the fewest queries a call that takes K12: below it (a SQL statement, a
+# small batch) the GEMM + K2 pair is faster on an H100 (PERF.md)
+CELLSEL_B_MIN = 2048
+# an H100's shared memory an SM (each block also holds 1 KB the runtime
+# reserves)
+_SMEM_SM = 233_472
+# a block's own cost in tiles (its queries' copy, the ring's fill, the
+# final sorts), as the plan weighs one more segment
+_CELLSEL_BLOCK_TILES = 0.25
+
+
+def cell_select_plain(q, qn, centroids, cnorms, p):
+    """K12's plain version: the q·Cᵀ product, then K2's plain version with
+    the unclamped L2 epilogue. Returns ([B, p] distances ascending, [B, p]
+    int32 cell positions), ties to the lower position."""
+    return topk_rows_plain(q @ centroids.T, p, qn, cnorms, epilogue=EPI_L2)
+
+
+def cell_select_smem(mi: int, d: int) -> int:
+    """Bytes of dynamic shared memory a K12 block of 16·mi queries takes at
+    d (the library's `cell_select_smem`): the candidate buffers, the ring,
+    the centroid norms a stage, the query rows and a count a query."""
+    tq = 16 * mi
+    return (tq * _CELLSEL_CAP * 8 + _CELLSEL_STAGES * CELLSEL_TC * (_CELLSEL_KS + 1) * 4
+            + tq * (d + 4) * 4 + tq * 4 + 16)
+
+
+@functools.lru_cache(maxsize=4096)
+def cell_select_plan(b: int, c: int, d: int, p: int, sms: int):
+    """K12's launch for b >= 1 queries over c centroids of d dims at p
+    cells on a card of `sms` SMs: (mi, S), a query tile of 16·mi (the
+    smallest power of two up to 4 that holds the batch) and S segments of
+    the centroid tiles, each
+    a block, S the count that fills the card in the fewest tile-steps (the
+    blocks' waves times each block's tiles, plus its own cost), the smaller
+    on a tie; or None past the kernel's widths: p past CELLSEL_P_MAX or c,
+    d past CELLSEL_D_MAX or no multiple of 4."""
+    if not (b >= 1 and 0 < p <= min(c, CELLSEL_P_MAX)
+            and 0 < d <= CELLSEL_D_MAX and d % 4 == 0):
+        return None
+    mi = 1
+    while mi < 4 and 16 * mi < b:
+        mi *= 2
+    # two blocks an SM where their shared memory fits (each holds at most 128
+    # registers a thread)
+    slots = sms * min(2, _SMEM_SM // (cell_select_smem(mi, d) + 1024))
+    qt, nt = -(-b // (16 * mi)), -(-c // CELLSEL_TC)
+    best = None
+    for s in range(1, nt + 1):
+        tps = -(-nt // s)
+        if (s - 1) * tps >= nt:      # a segment would be empty: the fewer S does it
+            continue
+        cost = -(-qt * s // slots) * (tps + _CELLSEL_BLOCK_TILES)
+        if best is None or cost < best[0]:
+            best = (cost, s)
+    return mi, best[1]
+
+
+_sms: dict = {}
+
+
+def _sm_count(device) -> int:
+    n = _sms.get(device)
+    if n is None:
+        n = _sms[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return n
+
+
+def cell_select_fused(device, b: int, c: int, d: int, p: int) -> bool:
+    """Whether `cell_select` of b queries over c centroids of d dims at p
+    cells takes K12 on `device`: a CUDA device, at least CELLSEL_B_MIN
+    queries, and widths `cell_select_plan` takes; else the GEMM + K2 pair
+    or, on the CPU, the plain version."""
+    device = torch.device(device)
+    return (device.type == "cuda" and b >= CELLSEL_B_MIN
+            and cell_select_plan(b, c, d, p, _sm_count(device)) is not None)
+
+
+def cell_select(q, qn, centroids, cnorms, p: int):
+    """The p nearest cells of each query by `(qn[b] + cnorms[c]) − 2·q·C`,
+    unclamped (+inf cnorms rank last): `topk_rows(q @ centroids.T, p,
+    rown=qn, coln=cnorms, epilogue=EPI_L2)`. q [B, d], qn [B], centroids
+    [C, d], cnorms [C] f32. Returns ([B, p] distances ascending, [B, p]
+    int32 cell positions), ties to the lower position.
+
+    On CUDA, where `cell_select_fused` says so, one K12 launch
+    (`cell_select_kernel`); else the library's fp32 GEMM and K2. On the CPU
+    the plain version."""
+    b, d = q.shape
+    c = centroids.shape[0]
+    if not 0 < p <= c:
+        raise ValueError(f"cell_select: need 0 < p <= C, got p={p}, C={c}")
+    if not _on_cuda(q, qn, centroids, cnorms):
+        return cell_select_plain(q, qn, centroids, cnorms, p)
+    if not cell_select_fused(q.device, b, c, d, p):
+        return topk_rows(q @ centroids.T, p, rown=qn, coln=cnorms, epilogue=EPI_L2)
+    return cell_select_kernel(q, qn, centroids, cnorms, p)
+
+
+def cell_select_kernel(q, qn, centroids, cnorms, p: int):
+    """`cell_select` by K12 at any batch (CUDA tensors, widths that
+    `cell_select_plan` takes, else ValueError): one launch computes the
+    distances tile by tile in fp32 FFMA and keeps each query's best p on
+    chip; the [B, C] matrix is never written, and the segments of the
+    centroids merge in the same launch."""
+    b, d = q.shape
+    c = centroids.shape[0]
+    plan = cell_select_plan(b, c, d, p, _sm_count(q.device))
+    if plan is None:
+        raise ValueError(f"cell_select_kernel: no launch for B={b}, C={c}, d={d}, p={p}")
+    _check(q, "q", torch.float32, (b, d))
+    _check(qn, "qn", torch.float32, (b,))
+    _check(centroids, "centroids", torch.float32, (c, d))
+    _check(cnorms, "cnorms", torch.float32, (c,))
+    if q.data_ptr() % 16:          # the kernel copies rows in 16-byte words
+        q = q.clone()
+    if centroids.data_ptr() % 16:
+        centroids = centroids.clone()
+    mi, s = plan
+    dev = q.device
+    out_d = torch.empty((b, p), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, p), dtype=torch.int32, device=dev)
+    part = torch.empty((b, s, p), dtype=torch.int64, device=dev) if s > 1 else None
+    counters = _counters(dev, -(-b // (16 * mi))) if s > 1 else None
+    _launch("cell_select", dev, q.data_ptr(), qn.data_ptr(), centroids.data_ptr(),
+            cnorms.data_ptr(), b, c, d, p, mi, s, out_d.data_ptr(), out_i.data_ptr(),
+            _ptr(part), _ptr(counters))
     return out_d, out_i

@@ -157,6 +157,9 @@ SIGNATURES = {
     # out_d, out_i, dist, ld_dist, rec, rec_ready, part, stream
     "sq8_scan": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                  _P, _P, _P, ctypes.c_longlong, _P, _I, _I, _P],
+    # q, qn, cents, cnorms, B, C, d, P, mi, S, out_d, out_i, part, counters,
+    # stream
+    "cell_select": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
 }
 
 # queries of the library that return a size: a wide form's scratch a block
@@ -168,7 +171,8 @@ SIGNATURES = {
 # wide's state bytes a block (deg, ef, iters, expand, k_res, d, bits; 0:
 # shared memory beside its query row and staged rows), and K6 wide's state
 # bytes a block and code rows a batch of its stage (deg, ef, iters, expand,
-# rerank, d; bytes 0: shared memory beside the stage)
+# rerank, d; bytes 0: shared memory beside the stage), and K12's shared
+# memory a block (mi, d)
 SIZES = {
     "hnsw_select_wide_bytes": [_I],
     "hnsw_beam_wide_bytes": [_I, _I, _I, _I, _I, _I],
@@ -179,6 +183,7 @@ SIZES = {
     "hnsw_beam_sq_wide_bytes": [_I, _I, _I, _I, _I, _I, _I],
     "hnsw_serve_beam_wide_bytes": [_I, _I, _I, _I, _I, _I],
     "hnsw_serve_beam_wide_rows": [_I, _I, _I, _I, _I, _I],
+    "cell_select_smem": [_I, _I],
 }
 
 _lib: ctypes.CDLL | None = None

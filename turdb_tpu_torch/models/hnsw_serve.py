@@ -12,8 +12,9 @@ The pack is derived from a built graph's level 0 and its rows
     cell_*       [C, L]: each cell's members, packed as the IVF store K4
                  reads (codes [C, L, d], base, scale, norms, ids, alive)
     vectors, norms: the exact rerank store
-Search (`serve_search_impl`): q·Cᵀ (`torch.matmul`) and K2 pick the
-`nprobe` nearest cells, K4 scores their members (with the pack's metric)
+Search (`serve_search_impl`): q·Cᵀ and the selection in one launch (K12,
+`kernels.cell_select`) pick the `nprobe` nearest cells, K4 scores their
+members (with the pack's metric)
 and its top min(nseed, ef, P·L) seed the beam; K6 runs the int8 beam over
 the packed blocks and the exact rerank with the visibility mask.
 """
@@ -25,8 +26,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from turdb_tpu_torch.kernels import EPI_L2, hnsw_serve_beam, ivf_probe_sq8, topk_rows
+from turdb_tpu_torch.kernels import cell_select, hnsw_serve_beam, ivf_probe_sq8
 from turdb_tpu_torch.models.hnsw import count_beam
+from turdb_tpu_torch.models.ivf import count_select
 from turdb_tpu_torch.ops.distance import Metric, prep_norms
 from turdb_tpu_torch.ops.quantize import quantize_queries
 from turdb_tpu_torch.utils.timing import count, span
@@ -80,13 +82,13 @@ def serve_search_impl(state: HnswServeState, queries: torch.Tensor, allowed, *,
 
 def serve_seeds(state: HnswServeState, q, qn, qc, qs, qsum, *, metric: Metric, ef: int,
                 nprobe: int, nseed: int):
-    """The beam's seeds: the `nprobe` nearest cells (q·Cᵀ and K2, L2 for
-    every metric, unclamped), then K4 over their members with the metric's
+    """The beam's seeds: the `nprobe` nearest cells (K12, L2 for every
+    metric, unclamped), then K4 over their members with the metric's
     epilogue, top min(nseed, ef, P·L). Returns ([B, s] distances, [B, s]
     int32 ids, -1 where +inf)."""
-    dots = q @ state.centroids.T
     p = min(nprobe, state.centroids.shape[0])
-    _, top = topk_rows(dots, p, rown=qn, coln=state.cnorms, epilogue=EPI_L2)
+    count_select(q, state.centroids, p)
+    _, top = cell_select(q, qn, state.centroids, state.cnorms, p)
     s = min(nseed, ef, p * state.cell_members.shape[1])
     return ivf_probe_sq8(qc, qs, qsum, qn, top, state.cell_codes, state.cell_mins,
                          state.cell_scales, state.cell_norms, state.cell_members,

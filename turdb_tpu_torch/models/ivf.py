@@ -17,9 +17,10 @@ block that holds its rows):
     mins        [C, L] f32 m′ = min + 128·scale (sq8), else (1, 1)
     scales      [C, L] f32 (sq8), else (1, 1)
 
-Search: one fp32 q·Cᵀ matmul -> K2 with the `qn + cnorms − 2·dot` epilogue
-selects the top-nprobe cells (dense: K10, in the same launch, maps them to
-the first `nblocks` distinct blocks) -> the probe scores those blocks' rows: K1
+Search: the `qn + cnorms − 2·q·Cᵀ` distances and the top-nprobe cells in
+one K12 launch (`kernels.cell_select`; dense: one fp32 matmul and K2, with
+K10 in the same launch mapping the cells to the first `nblocks` distinct
+blocks) -> the probe scores those blocks' rows: K1
 over f32 rows, K4 over int8 codes. Without rerank the probe returns the k
 nearest (deduplicating boundary replicas); with it, the probe returns the
 r best lanes and K5 reranks them exactly from the row store.
@@ -41,6 +42,8 @@ import torch
 from turdb_tpu_torch.kernels import (
     EPI_L2,
     MODE_CAND,
+    cell_select,
+    cell_select_fused,
     ivf_probe_f32,
     ivf_probe_sq8,
     ivf_rerank,
@@ -166,9 +169,22 @@ def _assign_topk_all(x: torch.Tensor, centroids: torch.Tensor,
 # search
 # ---------------------------------------------------------------------------
 
+def count_select(q, centroids, p: int, dense: bool = False) -> None:
+    """The cell selection's counters, under the profiler:
+    `turdb.ivf.select.queries`, and `turdb.ivf.select.fused`, the queries
+    whose cells K12 selects (none on the dense path, whose K10 runs inside
+    K2's launch)."""
+    if tracing():
+        b = q.shape[0]
+        count("turdb.ivf.select.queries", b)
+        fused = not dense and cell_select_fused(q.device, b, centroids.shape[0], q.shape[1], p)
+        count("turdb.ivf.select.fused", b if fused else 0)
+
+
 def ivf_search_impl(state: IvfState, queries: torch.Tensor, allowed, *,
                     cfg: IvfConfig, k: int, nprobe: int, nblocks: int | None = None):
-    """Centroid matmul -> top-nprobe cells (K2) -> under `cfg.dense` the
+    """Top-nprobe cells (K12: the centroid product and the selection in one
+    launch) -> under `cfg.dense`, after a centroid matmul and K2, the
     physical blocks of those cells, cut to the first `nblocks` distinct
     ones (K10, inside the same K2 launch) -> fused probe (K1 over f32 rows, K4 over int8 codes) ->
     optional exact rerank (K5). `allowed` is a bool visibility mask over
@@ -181,12 +197,13 @@ def ivf_search_impl(state: IvfState, queries: torch.Tensor, allowed, *,
         q = queries.float().contiguous()
         qn = prep_norms(q)
         # cell scoring is L2 for every metric and, like the reference, unclamped
-        dots = q @ state.centroids.T
+        count_select(q, state.centroids, nprobe, cfg.dense)
         if cfg.dense:
-            *_, src = topk_rows(dots, nprobe, rown=qn, coln=state.cnorms, epilogue=EPI_L2,
-                                cell_block=state.cell_block, u=nblocks or nprobe)
+            *_, src = topk_rows(q @ state.centroids.T, nprobe, rown=qn, coln=state.cnorms,
+                                epilogue=EPI_L2, cell_block=state.cell_block,
+                                u=nblocks or nprobe)
         else:
-            _, src = topk_rows(dots, nprobe, rown=qn, coln=state.cnorms, epilogue=EPI_L2)
+            _, src = cell_select(q, qn, state.centroids, state.cnorms, nprobe)
     dedup = cfg.replicated or cfg.dense
     lanes = src.shape[1] * cfg.cluster_cap
     if cfg.rerank:
