@@ -20,7 +20,9 @@ cell's `prepare` steps), then for each cell
   each call altered where it is produced.
 
 One JSON line a (seed, cell) goes to standard output and to `--out`. The
-benchmark's own runs do not run this.
+benchmark's own runs do not run this. It reads the closed-loop cells; an
+ingest cell's index changes under its calls, so its numbers are read from
+its runs' `checks`.
 """
 
 from __future__ import annotations
@@ -105,7 +107,7 @@ def calibrate_seed(cells: list, seed: int, device, emit) -> None:
     sync()
     t = time.perf_counter()
     steps = [s for c in cells for s in c.traffic.get("prepare", [])]
-    index = systems.build_index(cfg, {"prepare": steps}, base_np, device)
+    index, _ = systems.build_index(cfg, {"prepare": steps}, base_np, device)
     sync()
     build_s = time.perf_counter() - t
     sets_t = [torch.as_tensor(q, device=device) for q in sets_np]
@@ -167,6 +169,7 @@ def main(argv=None) -> int:
     bench = spec.load_benchmark()
     cells = [spec.find_cell(bench, w["name"]) for w in bench["workloads"]
              if w["config"] == args.config]
+    cells = [c for c in cells if c.traffic.get("loop", "closed") == "closed"]
     if not torch.cuda.is_available():
         print("calibrate: no CUDA device", file=sys.stderr)
         return 2

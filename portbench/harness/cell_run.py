@@ -2,7 +2,9 @@
 the port's entry points, the warm-up, the measured window (or, traced,
 `trace.TRACE_CALLS` calls under the profiler), then the check of the
 checked calls' answers against the plain reference once the program's
-state is freed."""
+state is freed. The mix's `loop` picks how calls are made and judged:
+`closed` (`loop.Closed`, queries alone) or `ingest` (`ingest.Ingest`, a
+wave inserted before each query and the acknowledged rows read back)."""
 
 from __future__ import annotations
 
@@ -13,10 +15,11 @@ from dataclasses import dataclass
 
 import torch
 
-from portbench.harness import judge, loop, spec, systems, trace
+from portbench.harness import ingest, judge, loop, spec, systems, trace
+from portbench.harness.loop import WARMUP_CALLS
 from portbench.reference.knn import require_metric
 
-WARMUP_CALLS = 3       # the cell's own call, before the window
+LOOPS = {"closed": loop.Closed, "ingest": ingest.Ingest}   # a mix's `loop`; `spec.find_cell` checks it
 
 
 @dataclass
@@ -52,13 +55,15 @@ def _read(metrics: list, ctx: RunContext, builtin: dict) -> dict:
 
 
 def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool, device, t0: float,
-             wrap_call=None) -> tuple[dict, dict]:
+             wrap_call=None, wrap_insert=None) -> tuple[dict, dict]:
     """The result line's fields for one run, and `judge.verdict`'s checks.
     `t0` is the process's start on `time.perf_counter`'s clock;
-    `wrap_call` (tests) wraps the entry."""
+    `wrap_call` and `wrap_insert` (tests) wrap the entry and an ingest
+    mix's insert."""
     device = torch.device(device)
     _log(f"{cell.name} seed {seed}: started {time.perf_counter() - t0:.3f} s after the process")
     cfg, mix = cell.config, cell.traffic
+    kind = LOOPS[mix.get("loop", "closed")]
     require_metric(cfg["metric"])
     k, batch = mix["k"], mix["batch"]
     data = cfg["data"]
@@ -67,6 +72,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool, device, t
     query_sets = [queries[s:s + batch].cpu().numpy()
                   for s in range(0, queries.shape[0] - batch + 1, batch)]
     base_np = base.cpu().numpy()
+    feed = kind(mix, base_np)
     del base, queries, gen
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -75,15 +81,17 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool, device, t
     _sync(device)
     t = time.perf_counter()
     _log(f"data drawn and staged {t - t0:.3f} s after the process")
-    index = systems.build_index(cfg, mix, base_np, device)
+    index, ids = systems.build_index(cfg, mix, feed.bulk, device)
     _sync(device)
     build_s = time.perf_counter() - t
     _log(f"index built in {build_s:.3f} s")
     call = systems.entry(index, mix)
     if wrap_call is not None:
         call = wrap_call(call)
+    feed.built(index, ids, wrap_insert)
+    warm = feed.steps(call)
     for w in range(WARMUP_CALLS):
-        call(query_sets[w % len(query_sets)])
+        warm(query_sets[w % len(query_sets)])
     _sync(device)
     setup_s = time.perf_counter() - t0
     _log(f"warmed up: set-up {setup_s:.3f} s")
@@ -92,10 +100,10 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool, device, t
     kept = loop.checked_calls(seed, len(query_sets))
     window = tr = None
     if traced:
-        tr = trace.traced_loop(call, query_sets, answers, kept)
+        tr = feed.traced(call, query_sets, answers, kept)
         sent = tr.queries
     else:
-        window = loop.closed_loop(call, query_sets, seconds, answers, kept)
+        window = feed.window(call, query_sets, seconds, answers, kept)
         sent = window.queries
         _log(f"window {window.seconds:.3f} s, {window.calls} calls, the client's bookkeeping "
              f"{window.client_s:.3f} s")
@@ -109,21 +117,25 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool, device, t
     ctx = RunContext(cell=cell, base=base_np, build_s=build_s, query_sets=query_sets,
                      window=window, trace=tr)
     per_layer = _read(cell.per_layer, ctx, {}) if traced else {}
+    readback = feed.readback(call, seed)
 
     # the program's state goes before the reference runs
-    index = call = None
+    index = call = warm = feed.insert = None
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t = time.perf_counter()
     base_t = torch.as_tensor(base_np, device=device)
     sets_t = [torch.as_tensor(q, device=device) for q in query_sets]
-    truth = judge.truth_of(base_t, sets_t, answers.by_set.keys(), k)
-    numbers = judge.judge(answers, base_t, sets_t, truth, k)
+    truth = feed.truth(base_t, sets_t, answers.by_set.keys(), k)
+    numbers = judge.judge(answers, base_t, sets_t, truth, k, feed.acked)
     _sync(device)
     _log(f"reference and judge {time.perf_counter() - t:.3f} s over {answers.calls} calls")
-    checks = judge.verdict(numbers, judge.Limits(mix["recall_floor"],
-                                                 cfg["checks"]["dist_rel_err"]))
+    if readback is not None:
+        numbers["readback"] = readback
+    checks = judge.verdict(numbers, judge.Limits(
+        mix["recall_floor"], cfg["checks"]["dist_rel_err"],
+        readback_floor=None if readback is None else mix["readback_floor"]))
     out = {"correct": answers.calls > 0 and all(c["holds"] for c in checks.values()),
            "attempted": sent, "failed": numbers["bad_rows"]}
     if traced:

@@ -3,11 +3,12 @@
 A call hands one query set (a numpy array) to the cell's entry and gets
 its answers back in numpy, as a user of the index does. The loop cycles
 through the query sets from set 0, so no call repeats the one before, and
-runs until the first call that ends past `seconds`; the window is from the
-first call's start to the last one's end. Every call's latency is kept;
-the answers of the calls that `kept` names go to the check (comparing
-800 KB of answers with those kept before costs the client ~0.2 ms, which
-every call would add to the window)."""
+runs until the first call that ends past `seconds` (or, in an ingest run,
+the call that inserts the stream's last wave: `done`); the window is from
+the first call's start to the last one's end. Every call's latency is
+kept; the answers of the calls that `kept` names go to the check, under
+`key(set)` (comparing 800 KB of answers with those kept before costs the
+client ~0.2 ms, which every call would add to the window)."""
 
 from __future__ import annotations
 
@@ -16,9 +17,11 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from portbench.harness import judge, trace
 from portbench.harness.judge import Answers
 
 CHECK_SHARE = 1 / 16   # of the calls after the first pass whose answers are checked
+WARMUP_CALLS = 3       # the cell's own call, before the window
 
 
 @dataclass
@@ -49,7 +52,7 @@ def checked_calls(seed: int, n_sets: int, n: int = 1 << 20) -> np.ndarray:
 
 
 def closed_loop(call, query_sets: list, seconds: float, answers: Answers,
-                kept: np.ndarray) -> Window:
+                kept: np.ndarray, key=None, done=None) -> Window:
     n = len(query_sets)
     lat = []
     queries = 0
@@ -64,9 +67,38 @@ def closed_loop(call, query_sets: list, seconds: float, answers: Answers,
         lat.append(t1 - t0)
         queries += len(query_sets[j])
         if kept[len(lat) - 1]:
-            answers.add(j, ids, dists)
+            answers.add(j if key is None else key(j), ids, dists)
         client += time.perf_counter() - t1
-        if t1 >= end:
+        if t1 >= end or (done is not None and done()):
             break
     return Window(calls=len(lat), queries=queries, seconds=t1 - start, latencies=lat,
                   client_s=client)
+
+
+class Closed:
+    """A closed-loop run: queries alone, over the store the build made of
+    the whole base (`harness/ingest.py` `Ingest` is the other kind, with
+    the same methods)."""
+
+    acked = None          # ids are base rows
+    insert = None         # no writes
+
+    def __init__(self, mix: dict, base: np.ndarray):
+        self.bulk = base
+
+    def built(self, index, ids, wrap_insert=None) -> None:
+        pass
+
+    def steps(self, call):
+        return call
+
+    def window(self, call, query_sets, seconds, answers, kept) -> Window:
+        return closed_loop(call, query_sets, seconds, answers, kept)
+
+    def traced(self, call, query_sets, answers, kept) -> trace.Trace:
+        return trace.traced_loop(call, query_sets, answers, kept)
+
+    def readback(self, call, seed: int) -> None:
+        return None
+
+    truth = staticmethod(judge.truth_of)

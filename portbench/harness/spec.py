@@ -9,6 +9,13 @@ A data generator is `portbench/generators/<name>.py`, whose
 `generate(gen, device, **params)` returns (base, queries). So a new cell,
 configuration, mix, metric or generator is a new file and a new entry, and
 no file here changes.
+
+A mix's `loop` is the kind of traffic: `closed` (queries alone, the
+default) or `ingest` (each call inserts the next wave of the base's last
+`stream` rows, then queries: `harness/ingest.py`). `find_cell` refuses
+any other kind (`cell_run.LOOPS` holds them), and an ingest mix whose
+stream cannot feed the warm-up and every try of a traced run, or leaves
+nothing to build from, before a run does any work.
 """
 
 from __future__ import annotations
@@ -55,12 +62,42 @@ def find_cell(bench: dict, name: str, root: Path = ROOT) -> Cell:
     configs = {c["name"]: c for c in bench["configs"]}
     config = json.loads((Path(root) / configs[w["config"]]["file"]).read_text())
     traffic = load_traffic(w["traffic"], root)
+    check_traffic(traffic, config)
     e2e = [m for m in bench["end_to_end"] if _reports(m, name, set())]
     names = {m["name"] for m in e2e}
     per_layer = [m for m in bench["per_layer"] if _reports(m, name, names)]
     return Cell(name=name, chips=int(w["chips"]), config_name=w["config"], config=config,
                 traffic_name=w["traffic"], traffic=traffic, end_to_end=e2e,
                 per_layer=per_layer)
+
+
+def check_traffic(mix: dict, config: dict) -> None:
+    """Raise unless the harness can run `mix` on `config`: a known `loop`;
+    for `ingest`, a `wave` of at least one row, a `readback_floor`, and a
+    `stream` that holds the warm-up's waves and those of every try of a
+    traced run (`trace.TRACE_TRIES`), and is shorter than the
+    configuration's base."""
+    from portbench.harness.cell_run import LOOPS
+    from portbench.harness.loop import WARMUP_CALLS
+    from portbench.harness.trace import TRACE_CALLS, TRACE_TRIES
+
+    kind = mix.get("loop", "closed")
+    if kind not in LOOPS:
+        raise ValueError(f"traffic loop {kind!r}: the harness runs {sorted(LOOPS)}")
+    if kind != "ingest":
+        return
+    for key in ("stream", "wave", "readback_floor"):
+        if key not in mix:
+            raise ValueError(f"an ingest mix needs {key!r}")
+    stream, wave = int(mix["stream"]), int(mix["wave"])
+    need = (WARMUP_CALLS + TRACE_TRIES * TRACE_CALLS) * wave
+    n_base = config["data"]["params"]["n_base"]
+    if wave < 1 or stream < need:
+        raise ValueError(f"an ingest stream of {stream} rows in waves of {wave}: the warm-up "
+                         f"and every try of a traced run take {need}")
+    if stream >= n_base:
+        raise ValueError(f"an ingest stream of {stream} rows leaves none of the base's "
+                         f"{n_base} to build from")
 
 
 def load_traffic(name: str, root: Path = ROOT) -> dict:

@@ -2,9 +2,10 @@
 
 A configuration's `index` names a class of `turdb_tpu_torch.models` and
 its constructor's keyword arguments; the rows go in by its `add` (numpy,
-as a user hands them). A traffic mix's `prepare` lists methods called on
-the built index before any query (a serving pack), its `entry` the method
-each call goes through and `kwargs` the operating point. Nothing here
+as a user hands them), which returns their ids. A traffic mix's `prepare`
+lists methods called on the built index before any query (a serving
+pack), its `entry` the method each call goes through and `kwargs` the
+operating point; an ingest mix's waves go in by `add` too. Nothing here
 knows an index by name."""
 
 from __future__ import annotations
@@ -13,14 +14,15 @@ import importlib
 
 
 def build_index(config: dict, mix: dict, base, device):
+    """(the index, the ids its `add` of `base` returned)."""
     models = importlib.import_module("turdb_tpu_torch.models")
     spec = config["index"]
     index = getattr(models, spec["class"])(dim=config["data"]["params"]["dim"], device=device,
                                            **spec.get("kwargs", {}))
-    index.add(base)
+    ids = index.add(base)
     for step in mix.get("prepare", []):
         getattr(index, step["method"])(**step.get("kwargs", {}))
-    return index
+    return index, ids
 
 
 def entry(index, mix: dict):

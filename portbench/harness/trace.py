@@ -1,13 +1,14 @@
 """The traced run: the same calls as the window, under `torch.profiler`.
 
 `traced_loop` runs `TRACE_CALLS` calls inside a `portbench.window`
-annotation (each call inside `portbench.call`, the client's bookkeeping
-inside `portbench.client`) and keeps the trace's device spans (kernels,
-copies, sets) and host spans. The idle share is taken over the host's
+annotation (each call inside `portbench.call`, an ingest call's wave inside
+`portbench.insert` within it, the client's bookkeeping inside
+`portbench.client`) and keeps the trace's device spans (kernels, copies,
+sets) and host spans. The idle share is taken over the host's
 window, from the first call's start to the last call's end, not from the
 device's first span to its last. A trace that keeps no device span in the
 window (the profiler on the H100 now and then keeps none) is taken again,
-up to `tries` times, and then fails: no idle share or kernel time is ever
+up to `TRACE_TRIES` times, and then fails: no idle share or kernel time is ever
 reported that the trace did not see.
 """
 
@@ -18,7 +19,9 @@ from collections import defaultdict
 from dataclasses import dataclass
 
 WINDOW, CALL, CLIENT = "portbench.window", "portbench.call", "portbench.client"
+INSERT = "portbench.insert"   # an ingest call's wave: its idle is named so, whatever runs in it
 TRACE_CALLS = 100      # calls in a traced window
+TRACE_TRIES = 3        # traces taken before a run without device spans fails
 
 
 class NoDeviceSpans(RuntimeError):
@@ -74,7 +77,8 @@ class Trace:
         """(seconds, what the host was doing) for each part of the window
         in which no device activity ran: each gap is cut into `samples`
         equal parts, each named by the innermost host span over its
-        midpoint (`host: outside any traced op` where none is)."""
+        midpoint (`host: outside any traced op` where none is), or
+        `portbench.insert` where that span is among them."""
         lo, hi = self.window
         edges, prev = [], lo
         for s, e in self.busy_intervals():
@@ -98,6 +102,8 @@ class Trace:
                     i -= 1
                 name = (min(cover, key=lambda h: h[1] - h[0])[2] if cover
                         else "host: outside any traced op")
+                if any(h[2] == INSERT for h in cover):
+                    name = INSERT
                 out.append((part / 1e6, name))
         return out
 
@@ -141,16 +147,18 @@ def from_events(events, calls: int, queries: int, sets: list) -> Trace:
                  sets=sets)
 
 
-def traced_loop(call, query_sets: list, answers, kept, tries: int = 3) -> Trace:
+def traced_loop(call, query_sets: list, answers, kept, key=None) -> Trace:
     """`TRACE_CALLS` calls of the entry under the profiler, cycling through
     the query sets from set 0; the answers of the calls `kept` names go
-    into `answers`, as in the window."""
+    into `answers` under `key(set)` (default the set), as in the window.
+    An ingest run's `call` opens `INSERT` around its wave itself, so each
+    try inserts `TRACE_CALLS` more waves."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
     sets = [c % len(query_sets) for c in range(TRACE_CALLS)]
     queries = sum(len(query_sets[j]) for j in sets)
-    for _ in range(tries):
+    for _ in range(TRACE_TRIES):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             with record_function(WINDOW):
@@ -159,9 +167,9 @@ def traced_loop(call, query_sets: list, answers, kept, tries: int = 3) -> Trace:
                         dists, ids = call(query_sets[j])
                     if kept[c]:
                         with record_function(CLIENT):
-                            answers.add(j, ids, dists)
+                            answers.add(j if key is None else key(j), ids, dists)
             torch.cuda.synchronize()
         trace = from_events(prof.events(), TRACE_CALLS, queries, sets)
         if trace.device:
             return trace
-    raise NoDeviceSpans(f"{tries} traces of {TRACE_CALLS} calls kept no device span in the window")
+    raise NoDeviceSpans(f"{TRACE_TRIES} traces of {TRACE_CALLS} calls kept no device span in the window")

@@ -1,9 +1,12 @@
-"""Shared by the benchmark's CPU tests: the repository root on the path, and
-cells of BENCHMARK.json cut to a size the CPU runs in seconds."""
+"""Shared by the benchmark's tests: the repository root on the path, cells
+of BENCHMARK.json cut to a size the CPU runs in seconds, and a checkout
+whose benchmark grew by new files and entries alone."""
 
 from __future__ import annotations
 
 import copy
+import json
+import shutil
 import sys
 from pathlib import Path
 
@@ -31,3 +34,42 @@ def tiny_cell(name: str, batch: int = 500, **data) -> spec.Cell:
         cell.config["yardstick"]["partition_cells"] = params["n_base"] // 128
     cell.traffic["batch"] = batch
     return cell
+
+
+def ingest_mix(kwargs: dict, **over) -> dict:
+    """An ingest traffic mix through `search` at `kwargs`."""
+    return {"why": "a test", "loop": "ingest", "clients": 1, "batch": 250, "k": 10,
+            "entry": "search", "kwargs": kwargs, "prepare": [], "recall_floor": 0.95,
+            "stream": 1216, "wave": 4, "readback_floor": 0.99, **over}
+
+
+def grow(root: Path, configs: dict, mixes: dict, cells: dict, per_layer=()) -> Path:
+    """A checkout at `root` whose BENCHMARK.json a later change grew by
+    configurations ({name: file body}), mixes ({name: body}), cells
+    ({name: (config, mix)}) and per-layer entries: new files and entries
+    alone, the harness as it is."""
+    shutil.copytree(ROOT / "portbench", root / "portbench")
+    bench = spec.load_benchmark()
+    for name, body in configs.items():
+        body = {"name": name, **body}
+        (root / f"portbench/configs/{name}.json").write_text(json.dumps(body))
+        bench["configs"].append({"name": name, "source": body["source"],
+                                 "file": f"portbench/configs/{name}.json", "reduced": [],
+                                 "why": "a test"})
+    for name, body in mixes.items():
+        (root / f"portbench/traffic/{name}.json").write_text(json.dumps(body))
+    for name, (config, mix) in cells.items():
+        bench["workloads"].append({"name": name, "config": config, "traffic": mix, "chips": 1,
+                                   "why": "a test"})
+    bench["per_layer"].extend(per_layer)
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    return root
+
+
+def store(index: dict, **params) -> dict:
+    """A configuration of the clustered pool under `index` ({class, kwargs})."""
+    data = {"generator": "make_pool",
+            "params": {"n_base": 3000, "n_queries": 1000, "dim": 16, "n_clusters": 16,
+                       "store_seed": 10 ** 12, **params}}
+    return {"source": "a test", "metric": "l2", "data": data, "index": index,
+            "checks": {"dist_rel_err": 1e-3}, "reduced": []}

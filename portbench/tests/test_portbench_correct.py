@@ -106,7 +106,7 @@ def test_the_control_fails_and_the_program_holds():
     limit = cell.config["checks"]["dist_rel_err"]
     ctl = judge.judge(control_answers(base, sets, 10), base, sets, truth, 10)
     assert ctl["dist_rel_err"] > limit
-    index = systems.build_index(cell.config, cell.traffic, base.numpy(), "cpu")
+    index, _ = systems.build_index(cell.config, cell.traffic, base.numpy(), "cpu")
     prog = judge.judge(one_pass(systems.entry(index, cell.traffic), [s.numpy() for s in sets]),
                        base, sets, truth, 10)
     assert prog["dist_rel_err"] <= limit and prog["bad_rows"] == 0
