@@ -193,12 +193,13 @@ N_SINGLE = 256               # of them, one `add` each
 N_WAVE = 65_536              # the wave path's index (bench.py:498, cpu_hnsw_baseline)
 SQ_RECALL_TOL = 0.005        # the SQ16 store's recall against the f32 store's
 SELF_HIT_GATE = 0.95         # rows that find themselves first among their own queries
-# The inserted rows of the insert path: the reference's waves descend the
-# upper levels greedily, which on a bulk graph sticks (why its search
-# takes descent_ef 32), so their level-0 beam starts in the wrong region
-# for half of them: 0.4985 found themselves (41.6 % of their edges among
-# their 32 nearest) where a beam descent gives 0.9836 (87.6 %) (NVIDIA
-# H100 80GB HBM3, 700 W; PERF.md, PR 4). The gate holds that behaviour.
+# The inserted rows of the insert path: a bulk graph's waves descend the
+# upper levels by its search's beam (descent_ef 32), so 0.9836 of 65,536
+# rows find themselves first (87.6 % of their edges among their 32
+# nearest), where the reference's greedy descent, which sticks on a bulk
+# graph, left 0.4986 (41.7 %) (NVIDIA H100 80GB HBM3, 700 W;
+# scripts/exp_torch_insert_descent.py, PERF.md). The gate was set under
+# the greedy readings and is a floor.
 INSERT_SELF_HIT_GATE = 0.45
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): HBM bytes/s, fp32
 # FMA pipes, bf16 and int8 tensor cores
@@ -2767,11 +2768,12 @@ SQL_TRACED = 8               # statements in a store's device trace
 SQL_REOPEN = 32              # statements a path repeats after the reopen
 # The 256 INSERTed rows join the 1M bulk graph as one wave at the next
 # statement's flush. They find themselves as the insert path's rows do
-# (the waves' greedy descent, ROADMAP queue 3; 0.4986 of 65,536 rows there,
-# 0.5039 of a 256-row add), but 256 rows give a standard error of 0.031:
-# 0.4258 of them did (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6), every
-# one as the index's own search on the same state answers. The gate sits
-# 1.6 standard errors under INSERT_SELF_HIT_GATE.
+# (0.9727 of a 256-row add through the bulk graph's beam descent; the
+# reference's greedy descent left 0.4453 of it, and 0.4258 of these rows,
+# NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6), every one as the index's
+# own search on the same state answers. The gate was set 1.6 standard
+# errors (256 rows) under INSERT_SELF_HIT_GATE at the greedy readings and
+# is a floor.
 SQL_INSERT_SELF_HIT_GATE = 0.40
 
 

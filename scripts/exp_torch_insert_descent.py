@@ -1,15 +1,20 @@
 """Where a wave of HNSW inserts lands in a bulk-built graph: the descent.
 
-The port's insert waves (turdb_tpu_torch/models/hnsw.py `build_wave_impl`,
-the reference's algorithm) walk the upper levels greedily before the
-level-0 beam. This experiment builds the bench's hnsw index over the first
-N - N_INSERT rows of make_pool (the bulk build, as chip_smoke.py does),
-then inserts the last N_INSERT rows twice into copies of that graph: once
-as `add` does, and once with each level's greedy walk replaced by a
-narrow beam (ef 32, expand 2: the descent the bulk graph's own search
-takes). For the inserted rows it reports the share found first by their
-own query at ef 64 and 256, the share of their level-0 edges among their
-32 exact nearest neighbours (1024 of them), and their level-0 in-degree.
+A bulk-built graph's level 0 is one island per blob, so its search
+descends the upper levels by a narrow beam (`HnswIndex._descent_ef`, 32)
+and not greedily. Its insert waves (turdb_tpu_torch/models/hnsw.py
+`build_wave_impl`) take the same descent. This experiment builds the
+bench's hnsw index over the first N - N_INSERT rows of make_pool (the bulk
+build, as chip_smoke.py does), then inserts the last N_INSERT rows twice
+into copies of that graph, through the index's own path: once with the
+waves' descent at 1 (the greedy walk, K9: the reference's, which a
+wave-built graph keeps), and once at the graph's descent_ef. Both copies
+are searched as the bulk graph is. For the inserted rows it reports the
+share found first by their own query at ef 64 and 256 (also for the first
+N_SINGLE, which go in as one `add`, the wave an SQL statement's flush
+makes of its INSERTs), the share of their level-0 edges among their 32
+exact nearest neighbours (1024 of them), their level-0 in-degree, and the
+seconds of the adds.
 
 Run on a CUDA card (about a minute on an H100):
 
@@ -55,23 +60,10 @@ def self_hit(idx, rows, slots, ef, chunk=16_384):
     return hits / len(rows)
 
 
-def beam_descent(adj, vectors, norms, q, qn, cur_i, cur_d, metric, lowest=None):
-    """th._greedy_level's contract (one level or several, top first, each
-    row down to its `lowest`) with a narrow beam in place of each walk."""
-    adjs = [adj] if isinstance(adj, torch.Tensor) else list(adj)
-    for j, a in enumerate(adjs):
-        cand_d, cand_i = th._beam_level(a, vectors, norms, q, qn, cur_i, cur_d, 32, 64, metric,
-                                        expand=2)
-        walks = (torch.ones_like(cur_i, dtype=torch.bool) if lowest is None
-                 else lowest <= len(adjs) - 1 - j)
-        cur_i = torch.where(walks, cand_i[:, 0], cur_i).contiguous()
-        cur_d = torch.where(walks, cand_d[:, 0], cur_d).contiguous()
-    return cur_i, cur_d
-
-
 def measure(idx, new, slots):
     dev = idx.device
     out = {f"self_hit_ef{ef}": self_hit(idx, new, slots, ef) for ef in (64, 256)}
+    out["self_hit_ef64_first_add"] = self_hit(idx, new[:N_SINGLE], slots[:N_SINGLE], 64)
     a0 = idx.state.adj0[:idx.size]
     indeg = torch.zeros(idx.size, dtype=torch.int64, device=dev)
     e = a0[a0 >= 0].long()
@@ -109,17 +101,16 @@ def main() -> int:
     report = {"card": smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "unknown",
               "bulk_rows": n0, "bulk_s": bulk_s}
     new, slots = x[n0:], np.arange(n0, N)
-    for name, descent in (("greedy_descent", None), ("beam_descent", beam_descent)):
+    for name, descent_ef in (("greedy_descent", 1), ("beam_descent", base._descent_ef)):
         idx = clone(base)
-        saved = th._greedy_level
-        if descent is not None:
-            th._greedy_level = descent
-        try:
-            idx.add(new[:N_SINGLE])     # the single-row INSERTs of chip_smoke's path
-            idx.add(new[N_SINGLE:])
-        finally:
-            th._greedy_level = saved
-        report[name] = measure(idx, new, slots)
+        idx._descent_ef = descent_ef     # the waves' descent
+        t = time.perf_counter()
+        idx.add(new[:N_SINGLE])
+        idx.add(new[N_SINGLE:])
+        torch.cuda.synchronize()
+        add_s = time.perf_counter() - t
+        idx._descent_ef = base._descent_ef   # searched as the bulk graph is
+        report[name] = {"descent_ef": descent_ef, "add_s": add_s, **measure(idx, new, slots)}
         del idx
         torch.cuda.empty_cache()
     line = json.dumps(report)

@@ -8,11 +8,15 @@
   picks;
 - the probe's per-cell live lanes follow deletes and inserts;
 - the cell selection counts its queries and those K12 takes;
+- an insert wave's spans nest as its phases, its rows and waves are
+  counted, and on a bulk graph the descent's beams count their work; no
+  profiler, nothing recorded;
 - `counters` resolves ints, tensors and callables once; `profile_trace`
   hands back its block's counters; `device_summary` takes its window from
   the host's range, not from the device's first and last spans.
 """
 
+import copy
 from types import SimpleNamespace
 
 import numpy as np
@@ -237,6 +241,55 @@ def test_probe_lanes_follow_deletes_and_inserts(data):
     assert torch.equal(st.lanes, st.alive.sum(1))
     idx.add(data[1])
     assert torch.equal(idx.state.lanes, idx.state.alive.sum(1))
+
+
+INSERT_NESTING = {("turdb.hnsw.insert", None),
+                  ("turdb.hnsw.insert.descent", "turdb.hnsw.insert"),
+                  ("turdb.hnsw.insert.connect", "turdb.hnsw.insert"),
+                  ("turdb.hnsw.insert.reverse", "turdb.hnsw.insert")}
+
+
+def _graph_to_grow(graph, data, kind):
+    """A copy of the bulk graph, or a small graph built by waves."""
+    if kind == "waves":
+        idx = HnswIndex(dim=DIM, bulk_threshold=10**9, device="cpu")
+        idx.add(data[0][:200])
+        return idx
+    idx = copy.copy(graph)
+    st = graph.state
+    idx.state = st._replace(vectors=st.vectors.clone(), norms=st.norms.clone(),
+                            adj0=st.adj0.clone(), adj_hi=tuple(a.clone() for a in st.adj_hi),
+                            levels=st.levels.clone())
+    idx._alive = graph._alive.copy()
+    return idx
+
+
+@pytest.mark.parametrize("kind", ("bulk", "waves"))
+def test_insert_spans_nest_and_count_the_rows(graph, data, kind):
+    idx = _graph_to_grow(graph, data, kind)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        idx.add(data[1])
+    assert _turdb_events(prof) == INSERT_NESTING
+    got = timing.counters()
+    assert got["turdb.hnsw.insert.rows"] == len(data[1])
+    assert got["turdb.hnsw.insert.waves"] == 1
+    assert got["turdb.hnsw.insert.connect.scored"] > 0
+    assert got["turdb.hnsw.insert.connect.list_entries"] > 0
+    if kind == "bulk":
+        assert idx._descent_ef > 1
+        assert got["turdb.hnsw.insert.descent.scored"] > 0
+        assert got["turdb.hnsw.insert.descent.list_entries"] > 0
+    else:   # the greedy walk (K9) counts nothing
+        assert not any(name.startswith("turdb.hnsw.insert.descent") for name in got)
+
+
+def test_an_insert_without_the_profiler_records_nothing(graph, data, monkeypatch):
+    idx = _graph_to_grow(graph, data, "bulk")
+    monkeypatch.setattr(torch.cuda, "Event", _refuse)
+    monkeypatch.setattr(timing, "_Range", _refuse)
+    np.testing.assert_array_equal(idx.add(data[1]), np.arange(3000, 3000 + len(data[1])))
+    assert timing.counters() == {}
+    assert dict(timing.TIMERS) == {}
 
 
 def test_counters_resolve_ints_tensors_and_callables_once():

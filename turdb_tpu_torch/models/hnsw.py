@@ -20,12 +20,20 @@ launch, top first); then the level-0 beam
 the k best (K2).
 
 Insert waves (`build_wave_impl`, every `add` but the bulk load): stage
-the rows; the greedy descent of every row through the levels above its
-own (K9, one launch); from the top level down, for the rows connecting
-there, the ef_construction beam (K8) and the diversity selection over its
-sorted buffer (K7's presorted mode), their forward rows written at once; then,
+the rows; the descent of every row through the levels above its own;
+from the top level down, for the rows connecting there, the
+ef_construction beam (K8) and the diversity selection over its sorted
+buffer (K7's presorted mode), their forward rows written at once; then,
 level by level, each neighbour's reverse edges grouped by a stable sort
-and its row re-selected (K7); then the entry point.
+and its row re-selected (K7); then the entry point. The descent is the
+one the graph's own search takes: the reference's greedy walk (K9, one
+launch) when descent_ef is 1 (a graph built by waves), else, on a bulk
+graph, a K8 beam of descent_ef a level (expand 2, `active` for the rows
+that still descend there), whose best seeds the next level and then the
+row's own connecting levels. This departs from the reference, whose
+waves walk greedily into a bulk graph too: a bulk graph's level 0 is one
+island per blob, so a greedy walk starts a row's level-0 beam in the
+wrong island and links the row where its own query never goes.
 
 Bulk build (`HnswIndex.add` on an empty index, n >= bulk_threshold): per
 level, top-r candidates for every node, from the numpy host route
@@ -535,7 +543,7 @@ def _stage_vectors_core(vectors, norms, levels, vecs, slots, lvls):
 
 
 def _wave_level_core(adj, vectors, norms, q, qn, cur_i, cur_d, connect, *, metric: Metric,
-                     efc: int, iters: int, deg_out: int):
+                     efc: int, iters: int, deg_out: int, count_as: str | None = None):
     """One level of an insert wave (the reference's insert connection
     phase): for the rows that connect here (`connect`, a host bool array)
     the ef_construction beam (K8 with `active`) from their seeds cur_i /
@@ -546,14 +554,15 @@ def _wave_level_core(adj, vectors, norms, q, qn, cur_i, cur_d, connect, *, metri
     selection are skipped when no row connects, as the reference's masks
     discard them. Returns the next level's seeds (the beam's best where a
     row connects, else cur) and the selection [B, deg_out] with its
-    distances, -1 / +inf where a row does not connect."""
+    distances, -1 / +inf where a row does not connect. `count_as` names
+    the beam's work counters (`count_beam`)."""
     b, dev = q.shape[0], q.device
     if not connect.any():
         return (cur_i, cur_d, torch.full((b, deg_out), NIL, dtype=torch.int32, device=dev),
                 torch.full((b, deg_out), INF, device=dev))
     conn = torch.as_tensor(connect, device=dev)
     cand_d, cand_i = _beam_level(adj, vectors, norms, q, qn, cur_i, cur_d, efc, iters, metric,
-                                 active=conn)
+                                 active=conn, count_as=count_as)
     sel_i, sel_d, _ = hnsw_select_sorted(vectors, cand_i, cand_d, deg=deg_out,
                                          metric=metric.value, alpha=1.0)
     keep = conn[:, None]
@@ -621,53 +630,94 @@ def _entry_update_core(entry: int, max_level: int, slots, lvls):
     return entry, max(max_level, top)
 
 
+def _beam_descent(state: HnswState, q, qn, cur_i, cur_d, levels: np.ndarray, *,
+                  cfg: HnswConfig, descent_ef: int):
+    """The descent of a wave's rows into a bulk graph, as its search takes
+    it: from the top level down to level 1, a K8 beam of descent_ef (expand
+    2) for the rows whose own level lies below (`active`), seeded by each
+    row's best so far; its best seeds the next level. Levels no row
+    descends through launch nothing."""
+    dev = q.device
+    for lvl in range(cfg.max_levels - 1, 0, -1):
+        walks = levels < lvl
+        if not walks.any():
+            continue
+        act = torch.as_tensor(walks, device=dev)
+        cand_d, cand_i = _beam_level(state.adj_hi[lvl - 1], state.vectors, state.norms, q, qn,
+                                     cur_i, cur_d, descent_ef, 2 * descent_ef, cfg.metric,
+                                     active=act, expand=2, count_as="turdb.hnsw.insert.descent")
+        cur_i = torch.where(act, cand_i[:, 0], cur_i)
+        cur_d = torch.where(act, cand_d[:, 0], cur_d)
+    return cur_i, cur_d
+
+
 def build_wave_impl(state: HnswState, new_vecs, new_slots, new_levels, *, cfg: HnswConfig,
-                    efc: int, iters: int) -> HnswState:
+                    efc: int, iters: int, descent_ef: int = 1) -> HnswState:
     """One insert wave (the reference's `build_wave_impl`): stage the rows,
-    search and select their forward edges from the top level down (each
-    level's rows written before the next level runs), apply the reverse
-    edges level by level from 0, then update the entry point.
+    descend each through the levels above its own, search and select their
+    forward edges from the top level down (each level's rows written before
+    the next level runs), apply the reverse edges level by level from 0,
+    then update the entry point. The descent is greedy (K9) when
+    `descent_ef` is 1, as in the reference, else the search's beam
+    (`_beam_descent`; see the module docstring).
     `new_vecs` [B, d] on the state's device, `new_slots` / `new_levels`
     [B] host ints. The state's tensors are updated in place; the returned
     state carries the new entry point and top level. Every lane is a row:
     the reference pads waves to one compiled shape with masked lanes,
     which are no-ops in every stage, so unpadded waves build the same
-    graph (tests/test_torch_hnsw_wave.py)."""
-    dev = state.vectors.device
-    slots = np.asarray(new_slots, np.int64)
-    levels = np.asarray(new_levels, np.int32)
-    sl, lv = torch.as_tensor(slots, device=dev), torch.as_tensor(levels, device=dev)
-    q, qn = _stage_vectors_core(state.vectors, state.norms, state.levels, new_vecs, sl, lv)
-    cur_i, cur_d = _seed_from_entry(state.vectors, state.norms, q, qn, state.entry, cfg.metric)
-    if state.entry >= 0 and (levels < len(state.adj_hi)).any():
-        # The greedy descent of every row through the levels above its own,
-        # in one K9 launch before the level loop (levels numbered from 0 at
-        # level 1, so a row's lowest is its own level; a row at the top
-        # does not descend). This is the reference's level-by-level order
-        # exactly: a row's greedy levels all lie strictly above the levels
-        # it connects at, the beams below write no adjacency, and
-        # _write_forward writes only the wave's own rows, which nothing
-        # links to until the reverse pass after the loop; so no walk can
-        # see a write made before it in the reference's order.
-        cur_i, cur_d = _greedy_level(state.adj_hi[::-1], state.vectors, state.norms, q, qn,
-                                     cur_i, cur_d, cfg.metric, lowest=lv)
-    fwd = {}
-    for lvl in range(cfg.max_levels - 1, -1, -1):
-        adj = _level_adj(state, lvl)
-        connect = (levels >= lvl) & (state.entry >= 0)
-        cur_i, cur_d, sel_i, sel_d = _wave_level_core(
-            adj, state.vectors, state.norms, q, qn, cur_i, cur_d, connect, metric=cfg.metric,
-            efc=efc, iters=iters, deg_out=cfg.m0 if lvl == 0 else cfg.m)
-        _write_forward(adj, sl, sel_i)
-        if connect.any():
-            fwd[lvl] = (sel_i, sel_d)
-    src = sl.to(torch.int32)
-    for lvl, (sel_i, sel_d) in sorted(fwd.items()):
-        _reverse_dense_core(_level_adj(state, lvl), state.vectors, state.norms, sel_i.reshape(-1),
-                            src[:, None].expand_as(sel_i).reshape(-1), sel_d.reshape(-1),
-                            cfg.metric)
-    entry, max_level = _entry_update_core(state.entry, state.max_level, slots, levels)
-    return state._replace(entry=entry, max_level=max_level)
+    graph (tests/test_torch_hnsw_wave.py). While tracing, the wave is the
+    span `turdb.hnsw.insert` (> `.descent`, `.connect`, `.reverse`), its
+    rows and waves are counted, and the descent's and the connecting
+    levels' beams count their work (`count_beam`)."""
+    with span("turdb.hnsw.insert"):
+        count("turdb.hnsw.insert.rows", len(new_slots))
+        count("turdb.hnsw.insert.waves", 1)
+        dev = state.vectors.device
+        slots = np.asarray(new_slots, np.int64)
+        levels = np.asarray(new_levels, np.int32)
+        sl, lv = torch.as_tensor(slots, device=dev), torch.as_tensor(levels, device=dev)
+        q, qn = _stage_vectors_core(state.vectors, state.norms, state.levels, new_vecs, sl, lv)
+        with span("turdb.hnsw.insert.descent"):
+            cur_i, cur_d = _seed_from_entry(state.vectors, state.norms, q, qn, state.entry,
+                                            cfg.metric)
+            if state.entry >= 0 and (levels < len(state.adj_hi)).any():
+                if descent_ef > 1:
+                    cur_i, cur_d = _beam_descent(state, q, qn, cur_i, cur_d, levels, cfg=cfg,
+                                                 descent_ef=descent_ef)
+                else:
+                    # The greedy descent of every row through the levels
+                    # above its own, in one K9 launch before the level loop
+                    # (levels numbered from 0 at level 1, so a row's lowest
+                    # is its own level; a row at the top does not descend).
+                    # This is the reference's level-by-level order exactly:
+                    # a row's greedy levels all lie strictly above the
+                    # levels it connects at, the beams below write no
+                    # adjacency, and _write_forward writes only the wave's
+                    # own rows, which nothing links to until the reverse
+                    # pass after the loop; so no walk can see a write made
+                    # before it in the reference's order.
+                    cur_i, cur_d = _greedy_level(state.adj_hi[::-1], state.vectors, state.norms,
+                                                 q, qn, cur_i, cur_d, cfg.metric, lowest=lv)
+        fwd = {}
+        with span("turdb.hnsw.insert.connect"):
+            for lvl in range(cfg.max_levels - 1, -1, -1):
+                adj = _level_adj(state, lvl)
+                connect = (levels >= lvl) & (state.entry >= 0)
+                cur_i, cur_d, sel_i, sel_d = _wave_level_core(
+                    adj, state.vectors, state.norms, q, qn, cur_i, cur_d, connect,
+                    metric=cfg.metric, efc=efc, iters=iters,
+                    deg_out=cfg.m0 if lvl == 0 else cfg.m, count_as="turdb.hnsw.insert.connect")
+                _write_forward(adj, sl, sel_i)
+                if connect.any():
+                    fwd[lvl] = (sel_i, sel_d)
+        with span("turdb.hnsw.insert.reverse"):
+            src = sl.to(torch.int32)
+            for lvl, (sel_i, sel_d) in sorted(fwd.items()):
+                _reverse_dense_core(_level_adj(state, lvl), state.vectors, state.norms,
+                                    sel_i.reshape(-1), src[:, None].expand_as(sel_i).reshape(-1),
+                                    sel_d.reshape(-1), cfg.metric)
+        entry, max_level = _entry_update_core(state.entry, state.max_level, slots, levels)
+        return state._replace(entry=entry, max_level=max_level)
 
 
 # ---------------------------------------------------------------------------
@@ -732,7 +782,8 @@ class HnswIndex:
             self._alive[slots] = True
             self.size += n
             # bulk graphs lack beam-path long edges: a narrow beam per upper
-            # level instead of the greedy walk
+            # level instead of the greedy walk, in the search and in the
+            # later insert waves
             self._descent_ef = 32
             return slots
         # Wave sizes grow 1, 2, 4, ... up to build_batch, so that every wave
@@ -751,8 +802,11 @@ class HnswIndex:
 
     def _insert_wave(self, vecs, slots, levels):
         efc = self.cfg.ef_construction
+        # a bulk graph's waves descend as its search does; a wave-built
+        # graph's call is the reference's, greedy descent and all
+        descent = {"descent_ef": self._descent_ef} if self._descent_ef > 1 else {}
         self.state = build_wave_impl(self.state, vecs, slots, levels, cfg=self.cfg, efc=efc,
-                                     iters=efc + efc // 2)
+                                     iters=efc + efc // 2, **descent)
 
     def _bulk_add(self, vecs, slots, levels):
         cfg = self.cfg
